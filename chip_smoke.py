@@ -15,7 +15,20 @@ Phases, each printing one line; any failure raises and exits non-zero:
                benchmark, n=512) through the CLI entry point; the kernel's
                launch count must be 24 layers x 16 chunks; the same tokens
                and weights scored through the plain attention must give the
-               same letter probabilities.
+               same letter probabilities;
+  5. kernel-bwd — the dK/dV and dQ kernels against the plain backward, and
+               gradients through the autograd Function against autograd of
+               the plain attention, at the shapes of phase 3; bad shapes
+               raise; median times at the train step's shape;
+  6. train   — ``python -m tst_torch diagnose-sft`` (Qwen2.5-0.5B at full
+               width, k=2 folds x 16 rows, 3 epochs, LoRA r16 on q/k/v/o,
+               bf16, synthetic:0.5, n=512) through the CLI entry point; the
+               three kernels' launch counts must be what the run's own step
+               and chunk counts imply; report.json and the s(x) table; then
+               the median train-step time after the first step;
+  7. train, kernel vs plain — one fold-parallel step's LoRA gradients and
+               losses through the kernels against ``model.use_pallas=false``
+               on the same weights, adapters and batch (4 rows per fold).
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of jax or of the JAX
@@ -43,6 +56,24 @@ KERNEL_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64
 O_TOL, LSE_TOL = 2e-2, 1e-3
 #: letter probabilities of the kernel path vs the plain path, bf16 model
 PROB_TOL, ARGMAX_AGREE = 0.05, 0.95
+#: the train step's attention call: 2 folds x 16 rows, Qwen2.5-0.5B heads
+TRAIN_SHAPE = (32, 512, 14, 2, 64)
+#: bf16 gradients against an f32 plain backward: P and dS are rounded to bf16
+#: as operands, and dk/dv sum over 7 heads x up to 512 rows, so each gradient
+#: is held to max|d - ref| <= 2e-2 * max|ref|
+GRAD_TOL = 2e-2
+TRAIN = ["diagnose-sft", "--bench", "synthetic:0.5", "--set", "data.n=512",
+         "--set", "data.k=2", "--set", "optim.batch_size=16", "--set", "optim.epochs=3",
+         "--set", "model.name=qwen2.5-0.5b", "--set", "rf.cross_check=false"]
+#: rows per fold of the kernel-vs-plain step: the plain attention keeps
+#: several f32 [rows, 14, 512, 512] tensors per layer for its backward
+PLAIN_ROWS = 4
+#: one bf16 step, kernel vs plain attention: per-leaf gradient cosine, and
+#: per-fold losses (f32 head, bf16 model of 24 layers)
+GRAD_COSINE, LOSS_TOL = 0.99, 1e-2
+#: scale of the drawn LoRA B for that step (nonzero, so A has gradients)
+B_SCALE = 0.005
+STEP_SAMPLES = 8
 
 
 def median_ms(fn, samples=30, reps=10, warmup=3):
@@ -126,6 +157,78 @@ def phase_kernel(device):
     return out
 
 
+def _randn(rng, shape, device):
+    return (torch.from_numpy(rng.normal(0.0, 0.5, shape).astype(np.float32))
+            .to(device, torch.bfloat16))
+
+
+def _rel_err(got, want):
+    """max |got - want| / max |want|, in f32."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def phase_kernel_bwd(device):
+    """The dK/dV and dQ kernels against the plain backward (f32, same o and
+    lse), and gradients through the autograd Function against autograd of
+    the plain attention, at the forward's three shapes."""
+    import tst_torch.kernels.flash_attention as tfa
+
+    out = {}
+    for b, s, h, kvh, d in KERNEL_SHAPES:
+        rng = np.random.default_rng(s + d + 1)
+        q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
+        k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
+        o, lse = tfa.flash_attention(q, k, v)
+        got = tfa.flash_attention_backward(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        want = tfa.flash_attention_backward_reference(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float())
+        errs = [_rel_err(g, w) for g, w in zip(got, want)]
+
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = (tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ)
+        tfa.flash_attention(*leaves)[0].backward(do)
+        if (tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ) != (before[0] + 1, before[1] + 1):
+            raise AssertionError("the autograd Function's backward did not launch both kernels")
+        plain = [t.detach().requires_grad_() for t in (q, k, v)]
+        tfa.masked_attention(*plain, torch.ones(s, s, dtype=torch.bool, device=device).tril()
+                             )[0].backward(do)
+        torch.cuda.synchronize()
+        auto_errs = [_rel_err(a.grad, p.grad) for a, p in zip(leaves, plain)]
+        finite = all(bool(torch.isfinite(g).all()) and g.abs().max().item() > 0 for g in got)
+        print(f"[kernel-bwd] B={b} S={s} H={h} KVH={kvh} D={d}: max|d-ref|/max|ref| "
+              f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}; through autograd vs "
+              f"plain attention dq {auto_errs[0]:.3e} dk {auto_errs[1]:.3e} "
+              f"dv {auto_errs[2]:.3e} (each <= {GRAD_TOL})")
+        if not finite or max(errs + auto_errs) > GRAD_TOL:
+            raise AssertionError(f"flash-attention backward disagrees with its plain "
+                                 f"version at {(b, s, h, kvh, d)}")
+        if (b, s, h, kvh, d) == TRAIN_SHAPE:
+            di = tfa.backward_row_stat(o, do)
+            plain_ms = median_ms(lambda: tfa.flash_attention_backward_reference(
+                q, k, v, o, lse, do))
+            out["dkv"] = {"max_abs_err": (got[1].float() - want[1]).abs().max().item(),
+                          "ms": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di)),
+                          "plain_ms": plain_ms}
+            out["dq"] = {"max_abs_err": (got[0].float() - want[0]).abs().max().item(),
+                         "ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di)),
+                         "plain_ms": plain_ms}
+            both_ms = median_ms(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do))
+    bad = torch.zeros(1, 100, 2, 64, device=device, dtype=torch.bfloat16)
+    lse_bad = torch.zeros(1, 2, 100, device=device)
+    try:
+        tfa.flash_attention_backward(bad, bad, bad, bad, lse_bad, bad)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("flash_attention_backward accepted S=100")
+    print(f"[kernel-bwd] S=100 rejected; train shape {TRAIN_SHAPE}: dkv "
+          f"{out['dkv']['ms']:.4f} ms + dq {out['dq']['ms']:.4f} ms; wrapper (di, checks, "
+          f"both kernels) {both_ms:.4f} ms; plain backward {plain_ms:.4f} ms "
+          f"(median of 30 x 10 calls)")
+    return out
+
+
 def phase_slice():
     import tst_torch.kernels.flash_attention as tfa
     from tst_torch import cli
@@ -177,16 +280,138 @@ def phase_slice():
     return launches
 
 
+def _launch_counts():
+    import tst_torch.kernels.flash_attention as tfa
+
+    return {"fwd": tfa.LAUNCHES, "dkv": tfa.LAUNCHES_BWD_DKV, "dq": tfa.LAUNCHES_BWD_DQ}
+
+
+def _zero_launch_counts():
+    import tst_torch.kernels.flash_attention as tfa
+
+    tfa.LAUNCHES = tfa.LAUNCHES_BWD_DKV = tfa.LAUNCHES_BWD_DQ = 0
+
+
+def _train_state(overrides=()):
+    """The diagnose-sft run's state (weights, adapters, batches) built as
+    the CLI builds it, with extra ``--set`` overrides."""
+    from tst_torch import cli
+    from tst_torch.train.pipeline import _build_sft_state
+
+    argv = TRAIN + [a for o in overrides for a in ("--set", o)]
+    cfg, device = cli._resolve(cli.build_parser().parse_args(argv))
+    return _build_sft_state(cli._load_dataset(cfg), cfg, device)
+
+
+def phase_train():
+    from tst_torch import cli
+
+    out_dir = tempfile.mkdtemp(prefix="tst_torch_train_")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(TRAIN + ["--out", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(out_dir, "report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(out_dir, "sx.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    folds = np.array([r["fold"] for r in rows])
+    k, steps = report["k"], report["train_steps"]
+    chunks = k * math.ceil(max(int((folds == f).sum()) for f in range(k)) / SCORER_BATCH)
+    want = {"fwd": N_LAYERS * (steps + chunks), "dkv": N_LAYERS * steps,
+            "dq": N_LAYERS * steps}
+    loss = report["final_loss"]
+    sx = np.array([r["s_x"] for r in rows], np.float64)
+    if (rc != 0 or counts != want or report["n_mcq"] != N_SAMPLES or len(rows) != N_SAMPLES
+            or not (loss is not None and math.isfinite(loss))
+            or not ((sx >= 0) & (sx <= 1)).all()):
+        raise AssertionError(f"diagnose-sft rc={rc}, launches {counts} (want {want}), "
+                             f"n_mcq {report['n_mcq']}, sx rows {len(rows)}, final_loss {loss}")
+    print(f"[train] diagnose-sft rc=0, {steps} steps x {k} folds, {chunks} scorer chunks; "
+          f"launches fwd {counts['fwd']} dkv {counts['dkv']} dq {counts['dq']} (as implied); "
+          f"final_loss {loss:.4f}, blind_accuracy {report['blind_accuracy']:.4f}, "
+          f"fold_accuracies {report['fold_accuracies']}; train {report['train_wall_seconds']} s "
+          f"({report['train_samples_per_sec']} samples/s incl. the first step "
+          f"{report['train_first_step_seconds']} s), scoring "
+          f"{report['score_mcq_wall_seconds']} s, CLI wall {wall:.2f} s; peak device memory "
+          f"{peak_gb:.2f} GB")
+
+    # steady step time: the same state, one synchronized step at a time
+    st = _train_state()
+    lora, opt = st.lora, st.opt_state
+    times = []
+    for t in range(STEP_SAMPLES + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lora, opt, _ = st.trainer.step(st.params, lora, opt, st.tokens, st.loss_mask,
+                                       st.answer_pos, st.batches[t])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times[1:]) * 1e3
+    rows_per_step = int(np.prod(st.batches.shape[1:]))
+    print(f"[train] step ({rows_per_step} rows of {st.tokens.shape[1]} tokens): median "
+          f"{step_ms:.2f} ms over {STEP_SAMPLES} steps after the first "
+          f"({rows_per_step / step_ms * 1e3:.1f} samples/s); first step {times[0] * 1e3:.1f} ms")
+    return counts
+
+
+def phase_train_vs_plain():
+    """One step's LoRA gradients through the kernels and through the plain
+    attention, from the same seed: same weights, adapters and batch. B is
+    drawn nonzero (it starts at 0, which leaves every A-gradient 0)."""
+    states = {}
+    for use_pallas in (True, False):
+        st = _train_state([f"optim.batch_size={PLAIN_ROWS}",
+                           f"model.use_pallas={str(use_pallas).lower()}"])
+        rng = torch.Generator(device=st.tokens.device).manual_seed(7)
+        for ab in st.lora.values():
+            ab["b"] = (B_SCALE * torch.randn(ab["b"].shape, generator=rng,
+                                          device=rng.device)).to(ab["b"].dtype)
+        idx = torch.as_tensor(st.batches[0], dtype=torch.long, device=st.tokens.device)
+        states[use_pallas] = st.trainer.loss_and_grads(
+            st.params, st.lora, st.tokens[idx], st.loss_mask[idx], st.answer_pos[idx])
+        del st
+    (loss_k, grads_k), (loss_p, grads_p) = states[True], states[False]
+    cos = {f"{p}.{n}": torch.nn.functional.cosine_similarity(
+               grads_k[p][n].float().flatten(), grads_p[p][n].float().flatten(), dim=0).item()
+           for p in grads_k for n in grads_k[p]}
+    dloss = (loss_k - loss_p).abs().max().item()
+    worst = min(cos, key=cos.get)
+    print(f"[train-vs-plain] {PLAIN_ROWS} rows per fold: fold losses kernel "
+          f"{loss_k.tolist()} plain {loss_p.tolist()} (max |d| {dloss:.3e} <= {LOSS_TOL}); "
+          f"LoRA gradient cosine min {cos[worst]:.5f} ({worst}) over {len(cos)} leaves "
+          f"(>= {GRAD_COSINE})")
+    if dloss > LOSS_TOL or cos[worst] < GRAD_COSINE:
+        raise AssertionError("the train step through the kernels disagrees with the plain path")
+
+
 def main():
     device = phase_device()
     phase_build()
     kern = phase_kernel(device)
-    launches = phase_slice()
-    record = {"name": "flash_attention_fwd", "route": "cuda",
-              "source": "tst_torch/csrc/flash_attention_fwd.cu",
-              "replaces": "tst/kernels/flash_attention.py:99",
-              "launches": launches, **kern}
-    print(json.dumps({"kernels": [record]}))
+    blind_launches = phase_slice()
+    bwd = phase_kernel_bwd(device)
+    counts = phase_train()
+    phase_train_vs_plain()
+    records = [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "tst_torch/csrc/flash_attention_fwd.cu",
+         "replaces": "tst/kernels/flash_attention.py:99",
+         "launches": counts["fwd"], "launches_eval_blind": blind_launches, **kern},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": "tst_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "tst/kernels/flash_attention.py:553",
+         "launches": counts["dkv"], **bwd["dkv"]},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": "tst_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "tst/kernels/flash_attention.py:518",
+         "launches": counts["dq"], **bwd["dq"]},
+    ]
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -164,8 +164,8 @@ def test_unported_subcommands_exit_nonzero(cmd, capsys):
 #: jax-free modules of tst that the port may share; every other tst module
 #: imports jax (directly or through another module)
 SHARED = {"tst", "tst.config", "tst.data.adapters", "tst.data.schema",
-          "tst.data.tokenize", "tst.data.blind", "tst.native", "tst.native.fast_pack",
-          "tst.io", "tst.io.outputs"}
+          "tst.data.tokenize", "tst.data.blind", "tst.data.folds", "tst.native",
+          "tst.native.fast_pack", "tst.io", "tst.io.outputs", "tst.aux.log"}
 
 
 def _imports(path: Path):

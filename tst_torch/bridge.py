@@ -2,7 +2,11 @@
 
 The JAX tree is nested dicts of arrays (``tst/models/decoder.py:196-219``:
 stacked ``[L, ...]`` layer leaves); the port keeps the same keys and shapes
-with torch tensors as leaves. bf16 leaves keep their bits: ``np.asarray`` of
+with torch tensors as leaves. LoRA adapter trees cross the same way, single
+(``{proj: {"a": [L, r, in], "b": [L, out, r]}}``) or fold-stacked as
+``FoldTrainer.init_state`` makes them (``[k, L, ...]`` leaves): that is how
+a test gives both packages the same adapters, since ``jax.random`` streams
+cannot be reproduced in torch. bf16 leaves keep their bits: ``np.asarray`` of
 a bf16 JAX array has the ``bfloat16`` dtype of ml_dtypes, which
 ``torch.from_numpy`` refuses, so its raw 16-bit words are reinterpreted.
 Neither jax nor ml_dtypes is imported here.

@@ -1,14 +1,15 @@
 """``tst_torch`` command-line interface (counterpart of ``tst/cli.py``).
 
-Ported subcommand:
+Ported subcommands:
 
-  * ``eval-blind`` — zero-shot blind evaluation (vision-blind-gap leg)
+  * ``eval-blind``   — zero-shot blind evaluation (vision-blind-gap leg)
+  * ``diagnose-sft`` — k-fold blind LoRA SFT diagnostic (the core method)
 
-It takes the flags of ``tst eval-blind`` and reads the same ``RunConfig``
-and presets; ``--platform`` is ``gpu`` (the default: the CUDA device, and an
-error without one) or ``cpu``. ``--set perf.*`` has no effect here: those
-are TPU kernel knobs. Every other subcommand of ``tst`` exits non-zero
-with the ROADMAP item that ports it.
+They take the flags of their ``tst`` counterparts and read the same
+``RunConfig`` and presets; ``--platform`` is ``gpu`` (the default: the CUDA
+device, and an error without one) or ``cpu``. ``--set perf.*`` has no
+effect here: those are TPU kernel knobs. Every other subcommand of ``tst``
+exits non-zero with the ROADMAP item that ports it.
 
 Run as ``python -m tst_torch <subcommand> ...``.
 """
@@ -27,7 +28,6 @@ from tst_torch.runtime.device import PLATFORMS, select_device
 #: subcommands of ``tst`` that the port does not have yet → ROADMAP item
 NOT_PORTED = {
     "diagnose-rf": 10,
-    "diagnose-sft": 8,
     "warmup": 15,
     "debias-ibp": 12,
     "train-transfer": 15,
@@ -86,6 +86,21 @@ def cmd_eval_blind(args) -> int:
     return 0
 
 
+def cmd_diagnose_sft(args) -> int:
+    from tst_torch.train.pipeline import run_sft_diagnostic
+
+    if args.profile_dir or args.debug_nans:
+        raise NotImplementedError("--profile-dir and --debug-nans are not ported to "
+                                  "tst_torch yet (ROADMAP item 17)")
+    cfg, device = _resolve(args)
+    if args.k is not None:
+        cfg.data.k = args.k
+    ds = _load_dataset(cfg)
+    report = run_sft_diagnostic(ds, cfg, device)
+    print(json.dumps(report, indent=2, default=float))
+    return 0
+
+
 def _cmd_not_ported(args) -> int:
     print(f"tst_torch {args.cmd}: not yet ported (ROADMAP item {NOT_PORTED[args.cmd]})",
           file=sys.stderr)
@@ -104,6 +119,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="externally measured WITH-vision accuracy; "
                          "adds the vision_blind_gap to the report")
     sp.set_defaults(fn=cmd_eval_blind)
+    sp = sub.add_parser("diagnose-sft")
+    _common_flags(sp)
+    sp.add_argument("--k", type=int, default=None, help="number of folds (shorthand)")
+    sp.add_argument("--profile-dir", default=None, help="not ported yet (ROADMAP item 17)")
+    sp.add_argument("--debug-nans", action="store_true",
+                    help="not ported yet (ROADMAP item 17)")
+    sp.set_defaults(fn=cmd_diagnose_sft)
     for name in NOT_PORTED:
         sp = sub.add_parser(name, help=f"not yet ported (ROADMAP item {NOT_PORTED[name]})")
         sp.set_defaults(fn=_cmd_not_ported)

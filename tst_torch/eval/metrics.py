@@ -1,9 +1,9 @@
 """Evaluation metrics for blind stress-testing (port of ``tst/eval/metrics.py``,
 which computes with jax.numpy).
 
-Blind accuracy vs chance (the shortcut signal), Mean Relative Accuracy for
-VSI-Bench numeric answers, the vision-blind gap report, and open-answer
-normalization. The array metrics are mask-aware torch functions that take
+Blind accuracy vs chance (the shortcut signal), per-category accuracy, Mean
+Relative Accuracy for VSI-Bench numeric answers, the vision-blind gap
+report, and open-answer normalization. The array metrics are mask-aware torch functions that take
 numpy arrays or tensors and return 0-d f32 tensors.
 """
 
@@ -52,6 +52,21 @@ def chance_accuracy(n_options, mask=None) -> torch.Tensor:
     per = torch.where(n_options > 0, 1.0 / n_options.clamp_min(1.0),
                       torch.zeros_like(n_options))
     return (per * m).sum() / m.sum().clamp_min(1.0)
+
+
+def per_category_accuracy(pred, gold, cat_id, n_cats: int, mask=None) -> torch.Tensor:
+    """[n_cats] masked accuracy per category id; NaN for an empty category."""
+    pred, gold = torch.as_tensor(pred), torch.as_tensor(gold)
+    cat_id = torch.as_tensor(cat_id)
+    ok = (pred == gold).float()
+    m = (gold >= 0).float()
+    if mask is not None:
+        m = m * torch.as_tensor(mask, dtype=torch.float32)
+    onehot = (cat_id[:, None] == torch.arange(n_cats)[None, :]).float() * m[:, None]
+    hits = (onehot * ok[:, None]).sum(0)
+    counts = onehot.sum(0)
+    return torch.where(counts > 0, hits / counts.clamp_min(1.0),
+                       torch.full_like(counts, float("nan")))
 
 
 #: Leading articles stripped by open-answer normalization (VQA-style match).

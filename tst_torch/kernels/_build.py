@@ -2,9 +2,11 @@
 
 The kernels have a plain ``extern "C"`` interface and are bound with ctypes,
 so the library is compiled by ``nvcc`` alone (no PyTorch headers): seconds,
-not minutes. It is built at first use into ``tst_torch/_build/`` under a
-name keyed by a hash of the sources, so a changed source rebuilds and a
-stale library is never loaded. Only the sources in the package are used.
+not minutes. Each ``.cu`` is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one library. It is built
+at first use into ``tst_torch/_build/`` under a name keyed by a hash of the
+sources, so a changed source rebuilds and a stale library is never loaded.
+Only the sources in the package are used.
 """
 
 from __future__ import annotations
@@ -61,8 +63,12 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built from tst_torch/csrc at first use")
 
 
-def nvcc_command(nvcc: str, srcs: List[Path], out: Path) -> List[str]:
-    return [nvcc, "-gencode", GENCODE, "-std=c++17", "-O3", "-shared",
+def nvcc_command(nvcc: str, srcs: List[Path], out: Path,
+                 compile_only: bool = False) -> List[str]:
+    """``nvcc`` linking ``srcs`` (sources or objects) into the shared library
+    ``out``, or, with ``compile_only``, compiling one source to an object."""
+    return [nvcc, "-gencode", GENCODE, "-std=c++17", "-O3",
+            "-c" if compile_only else "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v",
             "-o", str(out), *map(str, srcs)]
 
@@ -71,23 +77,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtst_kernels_{source_hash()}.so"
 
 
+def _run(cmds: List[List[str]]) -> str:
+    """Run the commands concurrently; raise on the first failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def build() -> BuildResult:
     """Compile the sources unless a library for this source hash exists."""
     out = library_path()
     if out.exists():
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = nvcc_command(find_nvcc(), sources(), tmp)
+    tag = f"{os.getpid()}.tmp"
+    tmp = out.with_suffix(f".{tag}")
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        log = _run([nvcc_command(nvcc, [src], obj, compile_only=True)
+                    for src, obj in zip(sources(), objs)])
+        log += _run([nvcc_command(nvcc, objs, tmp)])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stderr}{proc.stdout}")
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
     os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
-    return BuildResult(out, seconds, proc.stderr + proc.stdout)
+    return BuildResult(out, seconds, log)
 
 
 def library() -> ctypes.CDLL:

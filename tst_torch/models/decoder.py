@@ -1,16 +1,17 @@
-"""Decoder-only LM forward: RMSNorm + RoPE + GQA attention + SwiGLU.
+"""Decoder-only LM: RMSNorm + RoPE + GQA attention + SwiGLU, with LoRA.
 
-Counterpart of ``tst/models/decoder.py:155-582``, forward only. The
-parameter tree has the reference's keys and layout: nested dicts of
-tensors, per-layer weights stacked on a leading ``[n_layers, ...]`` axis,
-linear weights stored ``[in, out]``. The layer loop is a Python loop over
-that axis. Matmuls run in ``spec.dtype`` with f32 accumulation (the device
-module turns reduced-precision reductions off); norms, softmax statistics
-and the head's output are f32.
+Counterpart of ``tst/models/decoder.py:155-582``. The parameter tree has the
+reference's keys and layout: nested dicts of tensors, per-layer weights
+stacked on a leading ``[n_layers, ...]`` axis, linear weights stored
+``[in, out]``. The layer loop is a Python loop over that axis. Matmuls run
+in ``spec.dtype`` with f32 accumulation (the device module turns
+reduced-precision reductions off); norms, softmax statistics and the head's
+output are f32. The base weights are never trained; gradients flow to LoRA
+adapters (``lora=``, tst_torch.models.lora), single or fold-stacked.
 
 Attention: ``use_pallas=True`` goes through ``tst_torch.kernels.flash_attention``
-(the CUDA kernel for CUDA tensors, its plain version for CPU tensors);
-``use_pallas=False`` takes the dense path.
+(the CUDA kernels, forward and backward, for CUDA tensors, their plain
+versions for CPU tensors); ``use_pallas=False`` takes the dense path.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from tst_torch.kernels.flash_attention import flash_attention, masked_attention
+from tst_torch.models.lora import DROPOUT_ITEM, apply_lora_delta, fold_count, layer_slice
 from tst_torch.models.spec import ModelSpec
 
 Params = Dict[str, Any]
@@ -114,6 +116,10 @@ def _flash_attention(q, k, v):
     return flash_attention(q, k, v, causal=True)[0]
 
 
+#: projection name → its bias key (Qwen2-style QKV biases)
+_BIAS_KEYS = {"q": "bq", "k": "bk", "v": "bv"}
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported to tst_torch yet ({item})")
 
@@ -136,9 +142,18 @@ def apply_model(
 ) -> torch.Tensor:
     """Forward pass → logits f32 [B, S, V], or with ``return_hidden=True``
     the final-norm hidden states [B, S, D] in ``spec.dtype`` (callers that
-    need a few positions project them themselves)."""
-    if lora is not None or lora_rng is not None:
-        _not_ported("LoRA adapters (lora=)", "ROADMAP item 5")
+    need a few positions project them themselves).
+
+    ``lora``: an adapter tree (tst_torch.models.lora) added to its
+    projections before their biases. A fold-stacked tree (``[k, L, ...]``
+    leaves) takes fold-major tokens ``[k·B, S]``: row block f goes through
+    fold f's adapter, the base weights once for all rows."""
+    if lora_rng is not None:
+        _not_ported("LoRA dropout (lora_rng=)", DROPOUT_ITEM)
+    n_folds = fold_count(lora)
+    if n_folds is not None and tokens.shape[0] % n_folds:
+        raise ValueError(f"{tokens.shape[0]} rows do not split into {n_folds} fold blocks "
+                         "for a fold-stacked adapter")
     if seg_starts is not None:
         _not_ported("packed sequences (seg_starts=)", "ROADMAP item 13")
     if return_kv:
@@ -159,27 +174,31 @@ def apply_model(
 
     for i in range(spec.n_layers):
         lw = {key: w[i] for key, w in layers.items()}
+        la = layer_slice(lora, i) if lora else {}
 
-        def proj(y, w_key, bias_key=None):
+        def proj(name, y, w_key):
             out = y @ lw[w_key].to(dt)
-            if bias_key is not None and bias_key in lw:
+            if name in la:
+                out = out + apply_lora_delta(la[name], y, lora_spec)
+            bias_key = _BIAS_KEYS.get(name)
+            if bias_key in lw:
                 out = out + lw[bias_key].to(dt)
             return out
 
         h = rms_norm(x, lw["attn_norm"], spec.rms_eps)
-        q = proj(h, "wq", "bq").reshape(b, s, spec.n_heads, spec.d_head)
-        k = proj(h, "wk", "bk").reshape(b, s, spec.n_kv_heads, spec.d_head)
-        v = proj(h, "wv", "bv").reshape(b, s, spec.n_kv_heads, spec.d_head)
+        q = proj("q", h, "wq").reshape(b, s, spec.n_heads, spec.d_head)
+        k = proj("k", h, "wk").reshape(b, s, spec.n_kv_heads, spec.d_head)
+        v = proj("v", h, "wv").reshape(b, s, spec.n_kv_heads, spec.d_head)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if use_pallas:
             attn = _flash_attention(q, k, v)
         else:
             attn = _dense_attention(q, k, v, causal)
-        h_mid = x + proj(attn.reshape(b, s, spec.q_dim), "wo")
+        h_mid = x + proj("o", attn.reshape(b, s, spec.q_dim), "wo")
         h = rms_norm(h_mid, lw["mlp_norm"], spec.rms_eps)
-        act = F.silu(proj(h, "w_gate").float()).to(dt) * proj(h, "w_up")
-        x = h_mid + proj(act, "w_down")
+        act = F.silu(proj("gate", h, "w_gate").float()).to(dt) * proj("up", h, "w_up")
+        x = h_mid + proj("down", act, "w_down")
 
     x = rms_norm(x, params["final_norm"], spec.rms_eps)
     if return_hidden:

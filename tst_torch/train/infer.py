@@ -6,7 +6,9 @@ forward per sample gives every option's probability: gather the hidden row
 at ``answer_pos`` and project it onto the option-letter head columns only
 (a [b, D] @ [D, C] product; [b, S, V] logits are never built). Held-out
 rows are padded to a common [k, M] grid and scored in fixed chunks of
-``batch`` rows, so every chunk has the same shape. Probabilities are a
+``batch`` rows, so every chunk has the same shape; fold f's rows go through
+fold f's adapter when fold-stacked adapters ``lora_k`` are given, so each
+sample is scored by the model that never trained on it. Probabilities are a
 softmax over each sample's valid letters.
 """
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from tst_torch.models.decoder import apply_model, lm_head_weight
+from tst_torch.models.lora import LoraSpec
 from tst_torch.models.spec import ModelSpec
 
 
@@ -40,31 +43,27 @@ def heldout_index_grid(fold_id: np.ndarray, k: int,
 
 def make_mcq_scorer(
     spec: ModelSpec,
-    lora_spec=None,
+    lora_spec: Optional[LoraSpec] = None,
     use_pallas: bool = False,
     batch: int = 32,
 ):
     """Returns ``score(base, lora_k|None, tokens, answer_pos, option_ids,
     idx_kM)`` → letter logits f32 [k, M, C].
 
-    Each fold's held-out rows are padded (with row 0) to a multiple of
-    ``batch`` and scored chunk by chunk in a Python loop."""
-    if lora_spec is not None:
-        raise NotImplementedError("LoRA scoring is not ported to tst_torch yet "
-                                  "(ROADMAP item 5)")
+    ``lora_k``: fold-stacked adapters ([k, L, ...] leaves); fold f's rows are
+    scored with fold f's adapter. Each fold's held-out rows are padded (with
+    row 0) to a multiple of ``batch`` and scored chunk by chunk in a Python
+    loop."""
 
-    def forward_logits(base, tokens_bS, pos_b, option_ids):
-        h = apply_model(base, tokens_bS, spec, use_pallas=use_pallas,
-                        return_hidden=True)  # [b, S, D]
+    def forward_logits(base, lora, tokens_bS, pos_b, option_ids):
+        h = apply_model(base, tokens_bS, spec, lora=lora, lora_spec=lora_spec,
+                        use_pallas=use_pallas, return_hidden=True)  # [b, S, D]
         h_at = h[torch.arange(h.shape[0], device=h.device), pos_b]  # [b, D]
         head_cols = lm_head_weight(base, spec)[:, option_ids]  # [D, C]
         # bf16 operands, f32 products and sums (an f32-out product)
         return h_at.float() @ head_cols.to(h.dtype).float()
 
     def score(base, lora_k, tokens, answer_pos, option_ids, idx_kM):
-        if lora_k is not None:
-            raise NotImplementedError("LoRA scoring is not ported to tst_torch "
-                                      "yet (ROADMAP item 5)")
         device = tokens.device
         option_ids = torch.as_tensor(option_ids, dtype=torch.long, device=device)
         idx = torch.as_tensor(idx_kM, dtype=torch.long, device=device)
@@ -73,8 +72,10 @@ def make_mcq_scorer(
         out = []
         with torch.inference_mode():
             for f in range(k):
-                chunks = [forward_logits(base, tokens[idx_b], answer_pos[idx_b].long(),
-                                         option_ids)
+                lora = None if lora_k is None else {
+                    p: {n: t[f] for n, t in ab.items()} for p, ab in lora_k.items()}
+                chunks = [forward_logits(base, lora, tokens[idx_b],
+                                         answer_pos[idx_b].long(), option_ids)
                           for idx_b in idx[f].split(batch)]
                 out.append(torch.cat(chunks)[:m])
         return torch.stack(out)  # [k, M, C]
@@ -113,7 +114,7 @@ def score_heldout_mcq(
     base,
     lora_k,
     spec: ModelSpec,
-    lora_spec,
+    lora_spec: Optional[LoraSpec],
     tokens: torch.Tensor,
     answer_pos: torch.Tensor,
     option_ids: np.ndarray,

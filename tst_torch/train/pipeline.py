@@ -1,9 +1,17 @@
 """Run pipelines of the port (counterpart of ``tst/train/pipeline.py``).
 
-Ported so far: the zero-shot blind evaluation (``eval-blind``): load →
-blind-render → tokenize → model → single-forward MCQ scoring → metrics →
-``blind_eval.json``. What the port does not have yet raises
-NotImplementedError naming its ROADMAP item; nothing is silently skipped.
+Ported so far:
+
+  * the zero-shot blind evaluation (``eval-blind``): load → blind-render →
+    tokenize → model → single-forward MCQ scoring → metrics →
+    ``blind_eval.json``;
+  * the core diagnostic (``diagnose-sft``), its unpacked MCQ leg: tokenize →
+    stratified k folds → fold-parallel LoRA SFT → held-out scoring with each
+    fold's adapter → s(x) → metrics → ``report.json``, ``sx.jsonl``,
+    ``dataset.jsonl``, ``config.json``, ``events.jsonl``.
+
+What the port does not have yet raises NotImplementedError naming its
+ROADMAP item; nothing is silently skipped.
 """
 
 from __future__ import annotations
@@ -14,14 +22,20 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tst.aux.log import JsonlLogger
 from tst.config import RunConfig
+from tst.data.folds import kfold_assign
 from tst.data.schema import MCQ, BlindDataset
 from tst.data.tokenize import ByteTokenizer, HFTokenizer, tokenize_dataset
 from tst.io import outputs
+from tst_torch.diagnose.score import bias_scores
 from tst_torch.eval import metrics
+from tst_torch.eval.parity import spearman
 from tst_torch.models.decoder import Params, init_params
+from tst_torch.models.lora import LoraSpec
 from tst_torch.models.spec import ModelSpec, spec_by_name
-from tst_torch.train.infer import score_all_mcq
+from tst_torch.train.infer import score_all_mcq, score_heldout_mcq
+from tst_torch.train.sft import FoldTrainer, TrainLog, make_fold_batches
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -109,4 +123,205 @@ def run_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device,
                   adapter=None, adapter_fold=None,
                   wall_seconds=round(time.time() - t_start, 2))
     outputs.write_report(cfg.out_dir, report, name="blind_eval.json")
+    return report
+
+
+def lora_spec_from_cfg(cfg: RunConfig, dtype: torch.dtype) -> LoraSpec:
+    """The LoraSpec of the run (the reference's validation)."""
+    if not 0.0 <= float(cfg.lora.dropout) < 1.0:
+        raise ValueError(f"lora.dropout must be in [0, 1), got {cfg.lora.dropout}")
+    return LoraSpec(rank=cfg.lora.rank, alpha=cfg.lora.alpha,
+                    targets=tuple(cfg.lora.targets), dtype=dtype,
+                    dropout=float(cfg.lora.dropout))
+
+
+def _merge_logs(a: Optional[TrainLog], b: TrainLog) -> TrainLog:
+    """Concatenate per-epoch TrainLogs into one run-level log."""
+    if a is None:
+        return b
+    a.losses += b.losses
+    a.fold_losses += b.fold_losses
+    a.steps += b.steps
+    a.first_step_seconds += b.first_step_seconds
+    a.wall_seconds += b.wall_seconds
+    total_samples = (a.samples_per_sec * (a.wall_seconds - b.wall_seconds)
+                     + b.samples_per_sec * b.wall_seconds)
+    a.samples_per_sec = total_samples / max(a.wall_seconds, 1e-9)
+    return a
+
+
+def _check_sft_config(ds: BlindDataset, cfg: RunConfig) -> None:
+    """Raise, before any work, on what the port's diagnose-sft does not have."""
+    if cfg.mesh.fold * cfg.mesh.data * cfg.mesh.seq * cfg.mesh.tensor > 1:
+        _not_ported("mesh sizes above 1", 16)
+    if cfg.optim.pack:
+        _not_ported("sequence packing (optim.pack)", 13)
+    if cfg.model.remat:
+        _not_ported("remat (model.remat)", 7)
+    if cfg.checkpoint_dir:
+        _not_ported("training checkpoints (checkpoint_dir)", 7)
+    if cfg.profile_dir:
+        _not_ported("profiling (profile_dir)", 17)
+    if cfg.model.fused_mlp:
+        raise NotImplementedError("the fused SwiGLU MLP (model.fused_mlp) is not ported "
+                                  "to tst_torch yet (ROADMAP §2 K4)")
+    if any(s.answer_type != MCQ for s in ds):
+        _not_ported("decode-scored open and numeric rows", 11)
+    if cfg.rf.cross_check:
+        _not_ported("the RF cross-check (rf.cross_check=true; set it false)", 10)
+
+
+class _SftRunState:
+    """Everything a diagnose-sft run constructs before its first step."""
+
+    __slots__ = ("tokenizer", "tb", "fold_id", "spec", "params", "lspec", "batches",
+                 "t_max", "trainer", "lora", "opt_state", "tokens", "loss_mask",
+                 "answer_pos")
+
+
+def _build_sft_state(ds: BlindDataset, cfg: RunConfig, device: torch.device) -> _SftRunState:
+    st = _SftRunState()
+    k = cfg.data.k
+    st.tokenizer = build_tokenizer(cfg)
+    st.tb = tokenize_dataset(ds, st.tokenizer, max_len=cfg.data.max_len,
+                             include_context=cfg.data.include_context)
+    st.fold_id = kfold_assign(ds, k, cfg.data.seed)
+    st.spec, st.params = build_model(cfg, st.tokenizer, device)
+    st.lspec = lora_spec_from_cfg(cfg, st.spec.dtype)
+    st.batches = make_fold_batches(st.fold_id, k, cfg.optim.batch_size, cfg.optim.epochs,
+                                   cfg.data.seed, batch_multiple=cfg.mesh.data)
+    # answer-window length: the longest target
+    st.t_max = int(np.max(st.tb.lengths - st.tb.answer_pos - 1))
+    st.trainer = FoldTrainer(
+        st.spec, st.lspec, k, lr=cfg.optim.lr, total_steps=st.batches.shape[0],
+        warmup_frac=cfg.optim.warmup_frac, weight_decay=cfg.optim.weight_decay,
+        use_pallas=cfg.model.use_pallas, t_max=st.t_max, b1=cfg.optim.b1, b2=cfg.optim.b2)
+    st.lora, st.opt_state = st.trainer.init_state(
+        torch.Generator(device=device).manual_seed(cfg.data.seed + 1))
+    st.tokens = torch.from_numpy(st.tb.tokens).to(device)
+    st.loss_mask = torch.from_numpy(st.tb.loss_mask).to(device)
+    st.answer_pos = torch.from_numpy(st.tb.answer_pos).to(device)
+    return st
+
+
+def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
+                       device: torch.device) -> Dict[str, Any]:
+    """The core diagnostic: k-fold blind LoRA SFT → held-out s(x) → report.
+    Returns the report dict (artifacts on disk). Attention goes through the
+    flash kernels, forward and backward, when ``model.use_pallas`` is on
+    (their plain versions for CPU tensors) and the dense path otherwise."""
+    t_start = time.time()
+    _check_sft_config(ds, cfg)
+    k = cfg.data.k
+    st = _build_sft_state(ds, cfg, device)
+    setup_wall = time.time() - t_start
+    tb, fold_id, spec, params, lspec = st.tb, st.fold_id, st.spec, st.params, st.lspec
+    batches, trainer, lora, opt_state = st.batches, st.trainer, st.lora, st.opt_state
+    use_pallas = cfg.model.use_pallas
+    logger = JsonlLogger(cfg.out_dir)
+    stage_walls: Dict[str, float] = {}
+
+    def score_now(lora_now):
+        # every row is MCQ (checked above), so every row is scored
+        t0 = time.time()
+        probs = score_heldout_mcq(params, lora_now, spec, lspec, st.tokens, st.answer_pos,
+                                  tb.option_token_ids, tb.n_options, fold_id, k,
+                                  use_pallas=use_pallas, option_seqs=tb.option_token_seqs)
+        stage_walls["score_mcq"] = stage_walls.get("score_mcq", 0.0) + time.time() - t0
+        return probs
+
+    # s(x) averages the final epoch of every seed and the epochs listed in
+    # optim.score_epochs
+    score_after = {int(e) for e in cfg.optim.score_epochs if 1 <= int(e) < cfg.optim.epochs}
+    epoch_probs, seed_final_probs = [], []
+    steps_per_epoch = max(batches.shape[0] // max(cfg.optim.epochs, 1), 1)
+    n_seeds = max(int(cfg.optim.n_seeds), 1)
+    tlog = None
+    for s_i in range(n_seeds):
+        if s_i > 0:  # fresh adapters and batch order, same folds
+            lora, opt_state = trainer.init_state(
+                torch.Generator(device=device).manual_seed(cfg.data.seed + 1 + 7919 * s_i))
+            batches = make_fold_batches(fold_id, k, cfg.optim.batch_size, cfg.optim.epochs,
+                                        cfg.data.seed + s_i, batch_multiple=cfg.mesh.data)
+        for e in range(cfg.optim.epochs):
+            chunk = batches[e * steps_per_epoch: (e + 1) * steps_per_epoch]
+            if e == cfg.optim.epochs - 1:  # the last epoch takes any remainder
+                chunk = batches[e * steps_per_epoch:]
+            if chunk.shape[0] == 0:
+                continue
+            lora, opt_state, elog = trainer.fit(
+                params, lora, opt_state, st.tokens, st.loss_mask, chunk,
+                all_pos=st.answer_pos, log_every=cfg.log_every,
+                log_fn=lambda step, loss: logger.log(event="train", seed=s_i, epoch=e,
+                                                     step=step, loss=loss))
+            tlog = _merge_logs(tlog, elog)
+            if (e + 1) in score_after:
+                epoch_probs.append(score_now(lora))
+        final = score_now(lora)
+        epoch_probs.append(final)
+        seed_final_probs.append(final)
+
+    probs = np.mean(epoch_probs, axis=0) if len(epoch_probs) > 1 else epoch_probs[0]
+    s_x = bias_scores(probs, tb.gold, tb.n_options, rule=cfg.rf.score_rule)
+    pred = probs.argmax(-1).astype(np.int32)
+    report = _sft_report(ds, cfg, tb, pred, seed_final_probs)
+    report.update(
+        n_samples=len(ds),
+        n_mcq=int((tb.gold >= 0).sum()),
+        k=k,
+        model=spec.name,
+        fold_accuracies=[
+            round(float(metrics.accuracy(pred[fold_id == f], tb.gold[fold_id == f])), 4)
+            for f in range(k)],
+        train_steps=tlog.steps,
+        final_loss=tlog.losses[-1] if tlog.losses else None,
+        train_wall_seconds=round(tlog.wall_seconds, 2),
+        train_first_step_seconds=round(tlog.first_step_seconds, 2),
+        train_samples_per_sec=round(tlog.samples_per_sec, 2),
+        wall_seconds=round(time.time() - t_start, 2),
+        setup_wall_seconds=round(setup_wall, 2),
+        **{f"{name}_wall_seconds": round(w, 2) for name, w in sorted(stage_walls.items())},
+    )
+    outputs.write_sx_table(cfg.out_dir, ds, s_x, fold_id, pred=pred)
+    outputs.write_report(cfg.out_dir, report)
+    ds.save_jsonl(f"{cfg.out_dir}/dataset.jsonl")
+    cfg.save(f"{cfg.out_dir}/config.json")
+    logger.log(event="done", **{key: v for key, v in report.items()
+                                if isinstance(v, (int, float, str))})
+    logger.close()
+    return report
+
+
+def _sft_report(ds: BlindDataset, cfg: RunConfig, tb, pred: np.ndarray,
+                seed_final_probs) -> Dict[str, Any]:
+    """Blind accuracy, chance, per-category accuracy and the seed-stability
+    fields that open the diagnose-sft report."""
+    rule = cfg.rf.score_rule
+    report = metrics.blind_report(float(metrics.accuracy(pred, tb.gold)),
+                                  float(metrics.chance_accuracy(tb.n_options)), name=ds.name)
+    cat_names = ds.categories
+    cat_ids = np.array([cat_names.index(s.category) for s in ds])
+    cat_acc = metrics.per_category_accuracy(pred, tb.gold, cat_ids, len(cat_names)).numpy()
+    report["per_category_blind_accuracy"] = {
+        c: round(float(a), 4) for c, a in zip(cat_names, cat_acc) if np.isfinite(a)}
+    if len(seed_final_probs) > 1:
+        # seed stability: mean pairwise Spearman of the per-seed s(x), and
+        # the mean pairwise Jaccard of their top-q sets
+        per_seed = [bias_scores(p, tb.gold, tb.n_options, rule=rule) for p in seed_final_probs]
+        pairs = [(i, j) for i in range(len(per_seed)) for j in range(i + 1, len(per_seed))]
+        rho = float(np.nanmean([spearman(per_seed[i], per_seed[j]) for i, j in pairs]))
+        if np.isfinite(rho):
+            report["sx_seed_spearman"] = round(rho, 4)
+        mcq_rows = np.flatnonzero(tb.gold >= 0)
+
+        def top_jaccard(q):
+            m = max(int(round(q * len(mcq_rows))), 1)
+            tops = [set(mcq_rows[np.argsort(-sx[mcq_rows], kind="stable")[:m]])
+                    for sx in per_seed]
+            return float(np.mean([len(tops[i] & tops[j]) / len(tops[i] | tops[j])
+                                  for i, j in pairs]))
+
+        if len(mcq_rows):
+            report["sx_seed_top_jaccard"] = {"0.1": round(top_jaccard(0.1), 4),
+                                             "0.2": round(top_jaccard(0.2), 4)}
     return report

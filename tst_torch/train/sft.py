@@ -1,0 +1,381 @@
+"""Fold-parallel blind LoRA SFT (counterpart of ``tst/train/sft.py``).
+
+All k fold-models train at once as one program: the frozen base is one copy,
+the LoRA adapters and their AdamW moments carry a leading ``[k]`` fold axis,
+and one step gathers the batch ``[k, B, S]`` from the device-resident
+dataset by index, runs one forward and one backward over the ``k·B``
+fold-major rows, and updates every fold. The loss is the sum of the per-fold
+masked means, so each fold's adapter gets its own gradient. Fold f trains
+only on rows whose fold id is not f (``make_fold_batches``).
+
+The loss is cross-entropy on the answer tokens only, in f32 off bf16
+activations; AdamW with a warmup-cosine schedule mirrors optax's
+``adamw(warmup_cosine_decay_schedule(...))`` step for step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tst_torch.models.decoder import apply_model, lm_head_weight
+from tst_torch.models.lora import DROPOUT_ITEM, LoraSpec, fold_count, init_lora
+from tst_torch.models.spec import ModelSpec
+
+Params = Dict[str, Any]
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported to tst_torch yet ({item})")
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` leafwise to nested dicts of tensors of one structure."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key], *(r[key] for r in rest)) for key in tree}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    return [tree]
+
+
+def _masked_mean(logits: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+                 n_folds: Optional[int]) -> torch.Tensor:
+    """-Σ w·log p(label) / max(Σ w, 1): a scalar, or with ``n_folds`` the
+    [k] per-fold means over the fold-major row blocks."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    gold = lp.gather(-1, labels.long()[..., None])[..., 0]
+    k = n_folds or 1
+    nll = -(gold * w).reshape(k, -1).sum(-1)
+    loss = nll / w.reshape(k, -1).sum(-1).clamp_min(1.0)
+    return loss if n_folds else loss[0]
+
+
+def sft_loss(
+    base: Params,
+    lora: Params,
+    tokens: torch.Tensor,  # int [B, S]
+    loss_mask: torch.Tensor,  # f32 [B, S] — 1.0 on target tokens
+    spec: ModelSpec,
+    lora_spec: LoraSpec,
+    use_pallas: bool = False,
+    remat: bool = False,
+    ring_mesh=None,
+    fused_mlp: bool = False,
+    lora_rng=None,
+    seg_starts=None,
+) -> torch.Tensor:
+    """Prompt-masked causal-LM cross entropy (mean over target tokens). With
+    a fold-stacked ``lora`` and fold-major rows, the [k] per-fold means."""
+    logits = apply_model(base, tokens, spec, lora=lora, lora_spec=lora_spec,
+                         use_pallas=use_pallas, remat=remat, ring_mesh=ring_mesh,
+                         fused_mlp=fused_mlp, lora_rng=lora_rng,
+                         seg_starts=seg_starts)  # [B, S, V] f32
+    return _masked_mean(logits[:, :-1], tokens[:, 1:], loss_mask[:, 1:], fold_count(lora))
+
+
+def sft_loss_window(
+    base: Params,
+    lora: Params,
+    tokens: torch.Tensor,  # int [B, S]
+    loss_mask: torch.Tensor,  # f32 [B, S]
+    answer_pos: torch.Tensor,  # int [B] — last prompt-token index
+    t_max: int,  # max target length in tokens
+    spec: ModelSpec,
+    lora_spec: LoraSpec,
+    use_pallas: bool = False,
+    remat: bool = False,
+    ring_mesh=None,
+    fused_mlp: bool = False,
+    lora_rng=None,
+    seg_starts=None,
+) -> torch.Tensor:
+    """The loss of :func:`sft_loss`, with the vocabulary projection only on
+    the ``t_max`` rows ``answer_pos + [0, t_max)`` (targets are contiguous
+    from ``answer_pos + 1``; loss_mask is zero elsewhere). Logits are f32
+    products of the bf16 hidden rows and head. Packed rows (a 2-D
+    ``answer_pos``) are not ported."""
+    if answer_pos.ndim != 1:
+        _not_ported("the packed answer window (2-D answer_pos)", "ROADMAP item 13")
+    h = apply_model(base, tokens, spec, lora=lora, lora_spec=lora_spec,
+                    use_pallas=use_pallas, remat=remat, return_hidden=True,
+                    ring_mesh=ring_mesh, fused_mlp=fused_mlp, lora_rng=lora_rng,
+                    seg_starts=seg_starts)  # [B, S, D]
+    s = tokens.shape[1]
+    rows = answer_pos.long()[:, None] + torch.arange(t_max, device=h.device)[None, :]
+    in_range = rows <= s - 2
+    rows = rows.clamp_max(s - 2)  # [B, T]
+    hsel = h.gather(1, rows[..., None].expand(-1, -1, h.shape[-1]))  # [B, T, D]
+    logits = hsel.float() @ lm_head_weight(base, spec).to(spec.dtype).float()
+    labels = tokens.gather(1, rows + 1)
+    w = loss_mask.gather(1, rows + 1) * in_range
+    return _masked_mean(logits, labels, w, fold_count(lora))
+
+
+def warmup_cosine_schedule(lr: float, total_steps: int,
+                           warmup_frac: float = 0.03) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule(init_value=0, peak_value=lr,
+    warmup_steps=max(int(total·frac), 1), decay_steps=max(total, warmup+1),
+    end_value=0.05·lr): the lr of update ``count`` (0 at the first)."""
+    warmup = max(int(total_steps * warmup_frac), 1)
+    decay = max(total_steps, warmup + 1) - warmup
+    alpha = 0.05
+
+    def sched(count: int) -> float:
+        if count < warmup:
+            return lr * count / warmup
+        t = min(count - warmup, decay)
+        return lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / decay)) + alpha)
+
+    return sched
+
+
+@dataclasses.dataclass
+class AdamWState:
+    count: int
+    mu: Params
+    nu: Params
+
+
+class AdamW:
+    """optax.adamw (eps 1e-8, decoupled weight decay) on adapter trees, in
+    optax's order of operations. The moments keep the adapter's dtype, as
+    optax's do; leaves may be fold-stacked (the update is elementwise, so
+    each fold steps on its own)."""
+
+    def __init__(self, sched: Callable[[int], float], b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        self.sched, self.b1, self.b2, self.eps, self.wd = sched, b1, b2, eps, weight_decay
+
+    def init(self, params: Params) -> AdamWState:
+        zeros = tree_map(torch.zeros_like, params)
+        return AdamWState(0, zeros, tree_map(torch.zeros_like, params))
+
+    @torch.no_grad()
+    def update(self, grads: Params, state: AdamWState,
+               params: Params) -> Tuple[Params, AdamWState]:
+        """(updates, new state); apply with :func:`apply_updates`."""
+        b1, b2 = self.b1, self.b2
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
+        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state.nu)
+        count = state.count + 1
+        # bias corrections in f32, then in the moment's dtype (optax's)
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        lr = -self.sched(state.count)
+
+        def one(m, v, p):
+            u = (m / torch.tensor(bc1, dtype=m.dtype)) / (
+                torch.sqrt(v / torch.tensor(bc2, dtype=v.dtype)) + self.eps)
+            if self.wd:
+                u = u + self.wd * p
+            return torch.tensor(lr, dtype=u.dtype) * u
+
+        return tree_map(one, mu, nu, params), AdamWState(count, mu, nu)
+
+
+def apply_updates(params: Params, updates: Params) -> Params:
+    """optax.apply_updates: (p + u) in p's dtype."""
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def make_optimizer(lr: float, total_steps: int, warmup_frac: float = 0.03,
+                   weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.999) -> AdamW:
+    return AdamW(warmup_cosine_schedule(lr, total_steps, warmup_frac), b1=b1, b2=b2,
+                 weight_decay=weight_decay)
+
+
+def make_fold_batches(
+    fold_id: np.ndarray,
+    k: int,
+    batch_size: int,
+    epochs: int,
+    seed: int,
+    batch_multiple: int = 1,
+    include_mask: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Per-fold epoch index streams: int32 [total_steps, k, B] (a copy of the
+    reference's numpy function, whose module imports jax).
+
+    Fold f trains on rows with ``fold_id != f``. Every fold runs the same
+    number of steps, so steps_per_epoch is set by the largest train split;
+    smaller splits wrap around (a fresh permutation per wrap). ``batch_size``
+    is rounded up to ``batch_multiple``. ``include_mask`` (bool [N])
+    restricts training to a subset."""
+    b = batch_size + (-batch_size) % batch_multiple
+    rng = np.random.default_rng(seed)
+    keep = np.ones_like(fold_id, bool) if include_mask is None else np.asarray(include_mask, bool)
+    train_rows: List[np.ndarray] = [
+        np.flatnonzero((fold_id != f) & keep) for f in range(k)
+    ]
+    for f, rows in enumerate(train_rows):
+        if len(rows) == 0:
+            raise ValueError(f"fold {f} has an empty train split")
+    steps_per_epoch = max(int(np.ceil(len(r) / b)) for r in train_rows)
+    total = steps_per_epoch * epochs
+    out = np.zeros((total, k, b), np.int32)
+    for f, rows in enumerate(train_rows):
+        stream = []
+        while len(stream) < total * b:
+            stream.extend(rng.permutation(rows).tolist())
+        out[:, f, :] = np.asarray(stream[: total * b], np.int32).reshape(total, b)
+    return out
+
+
+@dataclasses.dataclass
+class TrainLog:
+    losses: List[float] = dataclasses.field(default_factory=list)  # mean over folds
+    fold_losses: List[List[float]] = dataclasses.field(default_factory=list)
+    steps: int = 0
+    wall_seconds: float = 0.0
+    samples_per_sec: float = 0.0
+    #: wall of the first step of each fit call, synchronized
+    first_step_seconds: float = 0.0
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+class FoldTrainer:
+    """The fold-parallel train step and the training loop. Options of the
+    reference that are not ported raise, naming their ROADMAP item."""
+
+    def __init__(
+        self,
+        spec: ModelSpec,
+        lora_spec: LoraSpec,
+        k: int,
+        lr: float = 1e-4,
+        total_steps: int = 100,
+        warmup_frac: float = 0.03,
+        weight_decay: float = 0.0,
+        use_pallas: bool = False,
+        remat: bool = False,
+        mesh=None,
+        t_max: Optional[int] = None,
+        ring: bool = False,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        fused_mlp: bool = False,
+        packed: bool = False,
+    ):
+        if lora_spec.dropout > 0.0:
+            _not_ported("training with LoRA dropout", DROPOUT_ITEM)
+        if remat:
+            _not_ported("remat", "ROADMAP item 7")
+        if packed:
+            _not_ported("packed training (packed=True)", "ROADMAP item 13")
+        if ring or mesh is not None:
+            _not_ported("meshes and ring attention", "ROADMAP item 16")
+        if fused_mlp:
+            _not_ported("the fused SwiGLU MLP", "ROADMAP §2 K4")
+        self.spec = spec
+        self.lora_spec = lora_spec
+        self.k = k
+        self.tx = make_optimizer(lr, total_steps, warmup_frac, weight_decay, b1, b2)
+        self.use_pallas = use_pallas
+        #: answer-window length; None = full-sequence loss
+        self.t_max = t_max
+
+    def ckpt_extra(self, **kw) -> Dict[str, Any]:
+        """Host metadata for a checkpoint's extra.json: k and the LoRA
+        geometry, so serving can rebuild the adapter tree."""
+        return {
+            "k": self.k,
+            "model_name": self.spec.name,
+            "lora_rank": self.lora_spec.rank,
+            "lora_alpha": self.lora_spec.alpha,
+            "lora_targets": list(self.lora_spec.targets),
+            **kw,
+        }
+
+    def init_state(self, rng: torch.Generator) -> Tuple[Params, AdamWState]:
+        """(fold-stacked adapters [k, ...], optimizer state). The k adapters
+        are consecutive draws of ``rng``, so the folds start decorrelated."""
+        loras = [init_lora(rng, self.spec, self.lora_spec) for _ in range(self.k)]
+        lora = tree_map(lambda *xs: torch.stack(xs), *loras)
+        return lora, self.tx.init(lora)
+
+    def loss_and_grads(self, base: Params, lora: Params, tokens: torch.Tensor,
+                       mask: torch.Tensor, pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+        """Per-fold losses [k] and the adapters' gradients for one batch
+        ``[k, B, S]``: one forward and one backward over all folds."""
+        k, b, s = tokens.shape
+        params = tree_map(lambda t: t.detach().requires_grad_(True), lora)
+        tokens, mask = tokens.reshape(k * b, s), mask.reshape(k * b, s)
+        if self.t_max is None:
+            losses = sft_loss(base, params, tokens, mask, self.spec, self.lora_spec,
+                              self.use_pallas)
+        else:
+            losses = sft_loss_window(base, params, tokens, mask, pos.reshape(k * b), self.t_max,
+                                     self.spec, self.lora_spec, self.use_pallas)
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(losses.sum(), leaves)
+        by_id = {id(leaf): g for leaf, g in zip(leaves, grads)}
+        return losses.detach(), tree_map(lambda t: by_id[id(t)], params)
+
+    def step(self, base: Params, lora: Params, opt_state: AdamWState,
+             all_tokens: torch.Tensor, all_mask: torch.Tensor, all_pos: torch.Tensor,
+             idx_kb: np.ndarray) -> Tuple[Params, AdamWState, torch.Tensor]:
+        """One fold-parallel step on rows ``idx_kb`` [k, B], gathered on the
+        device → (adapters, optimizer state, per-fold losses [k])."""
+        idx = torch.as_tensor(idx_kb, dtype=torch.long).to(all_tokens.device)
+        losses, grads = self.loss_and_grads(base, lora, all_tokens[idx], all_mask[idx],
+                                            all_pos[idx])
+        updates, opt_state = self.tx.update(grads, opt_state, lora)
+        return apply_updates(lora, updates), opt_state, losses
+
+    def fit(
+        self,
+        base: Params,
+        lora: Params,
+        opt_state: AdamWState,
+        all_tokens: torch.Tensor,
+        all_mask: torch.Tensor,
+        batches: np.ndarray,  # [steps, k, B]
+        all_pos: Optional[torch.Tensor] = None,  # int [N]; required if t_max set
+        log_every: int = 10,
+        log_fn: Optional[Callable[[int, float], None]] = None,
+        checkpoint_dir: Optional[str] = None,
+    ) -> Tuple[Params, AdamWState, TrainLog]:
+        if checkpoint_dir is not None:
+            _not_ported("training checkpoints (checkpoint_dir)", "ROADMAP item 7")
+        if all_pos is None:
+            if self.t_max is not None:
+                raise ValueError("windowed loss (t_max set) needs all_pos")
+            all_pos = torch.zeros(all_tokens.shape[0], dtype=torch.long,
+                                  device=all_tokens.device)
+        log = TrainLog()
+        t0 = time.time()
+        pending: List[torch.Tensor] = []
+        for t in range(batches.shape[0]):
+            lora, opt_state, loss = self.step(base, lora, opt_state, all_tokens, all_mask,
+                                              all_pos, batches[t])
+            pending.append(loss)
+            if t == 0:
+                _sync(loss)
+                log.first_step_seconds = time.time() - t0
+            if (t + 1) % log_every == 0 or t == batches.shape[0] - 1:
+                fold_loss = pending[-1].cpu().numpy()  # sync point
+                mean = float(fold_loss.mean())
+                log.losses.append(mean)
+                log.fold_losses.append([float(x) for x in fold_loss])
+                if log_fn:
+                    log_fn(t + 1, mean)
+                pending.clear()
+        _sync(all_tokens)
+        log.steps = int(batches.shape[0])
+        log.wall_seconds = time.time() - t0
+        n_samples = int(np.prod(batches.shape))
+        log.samples_per_sec = n_samples / max(log.wall_seconds, 1e-9)
+        return lora, opt_state, log
