@@ -28,7 +28,25 @@ Phases, each printing one line; any failure raises and exits non-zero:
                the median train-step time after the first step;
   7. train, kernel vs plain — one fold-parallel step's LoRA gradients and
                losses through the kernels against ``model.use_pallas=false``
-               on the same weights, adapters and batch (4 rows per fold).
+               on the same weights, adapters and batch (4 rows per fold);
+  8. kernel-seg — the segmented (packed-row) forward, dK/dV and dQ kernels
+               against their plain versions, and gradients through the
+               autograd Function against autograd of the plain masked
+               attention: at the packed train step's call with the run's own
+               segment starts, at Llama-3-8B heads with 8 segments a row at
+               S=2048, and at one 128-token case with starts inside tiles
+               and a row of all SEG_PAD; bad starts raise; median times of
+               the segmented kernels, the unsegmented ones and the plain
+               versions at the train step's shape;
+  9. train-packed — ``python -m tst_torch diagnose-sft --set optim.pack=true``
+               (phase 6's run, train and held-out rows packed three samples
+               to a row of 1024): the segmented kernels' launch counts must
+               be what the run's steps and scorer chunks imply, and the
+               unsegmented kernels must not run; report.json and the s(x)
+               table; the median train-step time after the first;
+ 10. train-packed, kernel vs plain — one packed step's LoRA gradients and
+               losses (2 packed rows per fold) and the packed scorer's letter
+               probabilities through the kernels against the plain path.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of jax or of the JAX
@@ -74,6 +92,17 @@ GRAD_COSINE, LOSS_TOL = 0.99, 1e-2
 #: scale of the drawn LoRA B for that step (nonzero, so A has gradients)
 B_SCALE = 0.005
 STEP_SAMPLES = 8
+PACKED = ["optim.pack=true"]
+#: the packed train step's attention call: 2 folds x 16 rows of 1024 tokens
+PACKED_TRAIN_SHAPE = (32, 1024, 14, 2, 64)
+#: the other segmented checks: Llama-3-8B heads at S=2048, 8 segments a row
+#: (where the TPU dispatches its chunked K2 bodies); one 128-token case
+SEG_SHAPES = [(2, 2048, 32, 8, 128), (5, 128, 14, 2, 64)]
+#: segment starts a row (kernel layout) and the unused slot
+MAX_SEGS, SEG_PAD = 8, 1 << 30
+#: packed rows per fold of the kernel-vs-plain step: the plain attention keeps
+#: several f32 [rows, 14, 1024, 1024] tensors per layer for its backward
+PACKED_PLAIN_ROWS = 2
 
 
 def median_ms(fn, samples=30, reps=10, warmup=3):
@@ -283,13 +312,16 @@ def phase_slice():
 def _launch_counts():
     import tst_torch.kernels.flash_attention as tfa
 
-    return {"fwd": tfa.LAUNCHES, "dkv": tfa.LAUNCHES_BWD_DKV, "dq": tfa.LAUNCHES_BWD_DQ}
+    return {"fwd": tfa.LAUNCHES, "dkv": tfa.LAUNCHES_BWD_DKV, "dq": tfa.LAUNCHES_BWD_DQ,
+            "fwd_seg": tfa.LAUNCHES_SEG, "dkv_seg": tfa.LAUNCHES_SEG_BWD_DKV,
+            "dq_seg": tfa.LAUNCHES_SEG_BWD_DQ}
 
 
 def _zero_launch_counts():
     import tst_torch.kernels.flash_attention as tfa
 
     tfa.LAUNCHES = tfa.LAUNCHES_BWD_DKV = tfa.LAUNCHES_BWD_DQ = 0
+    tfa.LAUNCHES_SEG = tfa.LAUNCHES_SEG_BWD_DKV = tfa.LAUNCHES_SEG_BWD_DQ = 0
 
 
 def _train_state(overrides=()):
@@ -323,7 +355,7 @@ def phase_train():
     k, steps = report["k"], report["train_steps"]
     chunks = k * math.ceil(max(int((folds == f).sum()) for f in range(k)) / SCORER_BATCH)
     want = {"fwd": N_LAYERS * (steps + chunks), "dkv": N_LAYERS * steps,
-            "dq": N_LAYERS * steps}
+            "dq": N_LAYERS * steps, "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0}
     loss = report["final_loss"]
     sx = np.array([r["s_x"] for r in rows], np.float64)
     if (rc != 0 or counts != want or report["n_mcq"] != N_SAMPLES or len(rows) != N_SAMPLES
@@ -389,6 +421,249 @@ def phase_train_vs_plain():
         raise AssertionError("the train step through the kernels disagrees with the plain path")
 
 
+def _seg_starts(b, s, seed):
+    """int32 [b, MAX_SEGS] starts. At S <= 1024: starts inside 64-row tiles
+    (1, 63, 64, 65 and near the end), a row of all SEG_PAD, one segment, a
+    first start after 0, then random rows; longer: MAX_SEGS segments a row."""
+    rng = np.random.default_rng(seed)
+    fixed = [sorted({0, 1, 63, 64, 65, s // 2 + 1, s - 65, s - 1}), [], [0], [7, 70]]
+    rows = []
+    for i in range(b):
+        if s <= 1024 and i < len(fixed):
+            starts = fixed[i][:MAX_SEGS]
+        else:
+            n = MAX_SEGS if s > 1024 else int(rng.integers(1, MAX_SEGS + 1))
+            starts = [0] + sorted(rng.choice(np.arange(1, s), n - 1, replace=False).tolist())
+        rows.append(starts + [SEG_PAD] * (MAX_SEGS - len(starts)))
+    return np.asarray(rows, np.int32)
+
+
+def _packed_step_starts():
+    """The segment starts of the packed run's first train step, fold-major
+    [k·B, MAX_SEGS], from the run's own state."""
+    st = _train_state(PACKED)
+    ka = np.arange(st.batches.shape[1])[:, None]
+    seg = st.pack.seg_starts[ka, st.batches[0]]
+    return seg.reshape(-1, seg.shape[-1])
+
+
+def phase_kernel_seg(device):
+    """The segmented kernels against their plain versions and autograd of
+    the plain masked attention, at the packed train step's call (its own
+    starts), Llama-3-8B heads at S=2048 with 8 segments, and one 128-token
+    case; then times at the train step's shape."""
+    import tst_torch.kernels.flash_attention as tfa
+
+    cases = [(PACKED_TRAIN_SHAPE, _packed_step_starts())]
+    cases += [(shape, _seg_starts(shape[0], shape[1], shape[1])) for shape in SEG_SHAPES]
+    out = {}
+    for (b, s, h, kvh, d), starts in cases:
+        rng = np.random.default_rng(s + d + 2)
+        q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
+        k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
+        seg = torch.from_numpy(starts).to(device)
+        o, lse = tfa.flash_attention(q, k, v, seg_starts=seg)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, seg_starts=seg)
+        o_err = (o.float() - o_ref.float()).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        del o_ref, lse_ref
+        got = tfa.flash_attention_backward(q, k, v, o, lse, do, seg_starts=seg)
+        torch.cuda.synchronize()
+        want = tfa.flash_attention_backward_reference(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(), seg_starts=seg)
+        errs = [_rel_err(g, w) for g, w in zip(got, want)]
+        abs_errs = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
+        del want
+
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = (tfa.LAUNCHES_SEG_BWD_DKV, tfa.LAUNCHES_SEG_BWD_DQ)
+        tfa.flash_attention(*leaves, seg_starts=seg)[0].backward(do)
+        if (tfa.LAUNCHES_SEG_BWD_DKV, tfa.LAUNCHES_SEG_BWD_DQ) != (before[0] + 1, before[1] + 1):
+            raise AssertionError("the Function's backward did not launch both segmented kernels")
+        plain = [t.detach().requires_grad_() for t in (q, k, v)]
+        tfa.masked_attention(*plain, tfa.segment_mask(seg, s))[0].backward(do)
+        torch.cuda.synchronize()
+        auto_errs = [_rel_err(a.grad, p.grad) for a, p in zip(leaves, plain)]
+        del leaves, plain
+        finite = bool(torch.isfinite(o).all()) and all(
+            bool(torch.isfinite(g).all()) and g.abs().max().item() > 0 for g in got)
+        print(f"[kernel-seg] B={b} S={s} H={h} KVH={kvh} D={d}, "
+              f"{int((starts < SEG_PAD).sum())} segment starts: max|o-ref| {o_err:.3e} "
+              f"(<= {O_TOL}), max|lse-ref| {lse_err:.3e} (<= {LSE_TOL}); max|d-ref|/max|ref| "
+              f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}; through autograd vs plain "
+              f"masked attention dq {auto_errs[0]:.3e} dk {auto_errs[1]:.3e} "
+              f"dv {auto_errs[2]:.3e} (each <= {GRAD_TOL})")
+        if (not finite or o_err > O_TOL or lse_err > LSE_TOL
+                or max(errs + auto_errs) > GRAD_TOL):
+            raise AssertionError(f"segmented flash attention disagrees with its plain version "
+                                 f"at {(b, s, h, kvh, d)}")
+        if (b, s, h, kvh, d) == PACKED_TRAIN_SHAPE:
+            out = _time_seg_kernels(q, k, v, do, seg, o, lse)
+            out["fwd"]["max_abs_err"] = o_err
+            out["dq"]["max_abs_err"], out["dkv"]["max_abs_err"] = abs_errs[0], abs_errs[1]
+        del q, k, v, do, o, lse, got
+        torch.cuda.empty_cache()
+    q = torch.zeros(2, 128, 4, 64, device=device, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 128, 2, 64, device=device, dtype=torch.bfloat16)
+    good = torch.zeros(2, MAX_SEGS, dtype=torch.int32, device=device)
+    for bad, causal in ((torch.zeros(2, MAX_SEGS + 1, dtype=torch.int32, device=device), True),
+                        (good.long(), True), (good[:1], True), (good, False)):
+        try:
+            tfa.flash_attention(q, kv, kv, causal=causal, seg_starts=bad)
+        except ValueError:
+            continue
+        raise AssertionError(f"flash_attention accepted seg_starts {tuple(bad.shape)} "
+                             f"{bad.dtype} causal={causal}")
+    f, dkv, dq = out["fwd"], out["dkv"], out["dq"]
+    print(f"[kernel-seg] bad starts rejected (9 columns, int64, wrong batch, causal=False); "
+          f"train shape {PACKED_TRAIN_SHAPE}: forward segmented {f['ms']:.4f} ms, unsegmented "
+          f"{f['unsegmented_ms']:.4f} ms, plain {f['plain_ms']:.4f} ms; dK/dV segmented "
+          f"{dkv['ms']:.4f} ms, unsegmented {dkv['unsegmented_ms']:.4f} ms; dQ segmented "
+          f"{dq['ms']:.4f} ms, unsegmented {dq['unsegmented_ms']:.4f} ms; plain backward "
+          f"{dq['plain_ms']:.4f} ms (kernels: median of 30 x 10 calls; plain: 10 x 3)")
+    return out
+
+
+def _time_seg_kernels(q, k, v, do, seg, o, lse):
+    """Median times of the segmented kernels, the unsegmented ones at the
+    same shape, and the plain versions (segment-masked)."""
+    import tst_torch.kernels.flash_attention as tfa
+
+    kseg = tfa.kernel_seg_starts(seg, q)
+    di = tfa.backward_row_stat(o, do)
+    o_u, lse_u = tfa.flash_attention(q, k, v)
+    di_u = tfa.backward_row_stat(o_u, do)
+    plain_bwd = median_ms(lambda: tfa.flash_attention_backward_reference(
+        q, k, v, o, lse, do, seg_starts=seg), samples=10, reps=3, warmup=1)
+    return {
+        "fwd": {"ms": median_ms(lambda: tfa._launch_fwd(q, k, v, kseg)),
+                "unsegmented_ms": median_ms(lambda: tfa._launch_fwd(q, k, v)),
+                "plain_ms": median_ms(lambda: tfa.flash_attention_reference(
+                    q, k, v, seg_starts=seg), samples=10, reps=3, warmup=1)},
+        "dkv": {"ms": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di, kseg)),
+                "unsegmented_ms": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse_u, di_u)),
+                "plain_ms": plain_bwd},
+        "dq": {"ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di, kseg)),
+               "unsegmented_ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse_u, di_u)),
+               "plain_ms": plain_bwd},
+    }
+
+
+def phase_train_packed():
+    from tst_torch import cli
+    from tst_torch.train.infer import pack_heldout_mcq, packed_scorer_batch
+
+    out_dir = tempfile.mkdtemp(prefix="tst_torch_packed_")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(TRAIN + ["--set", PACKED[0], "--out", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(out_dir, "report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(out_dir, "sx.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    st = _train_state(PACKED)
+    k, steps = report["k"], report["train_steps"]
+    batch = packed_scorer_batch(st.pack.pack_len)
+    held_out_rows = pack_heldout_mcq(st.tb, st.fold_id, k, st.pack.pack_len, batch)[0].shape[1]
+    chunks = k * held_out_rows // batch
+    want = {"fwd": 0, "dkv": 0, "dq": 0, "fwd_seg": N_LAYERS * (steps + chunks),
+            "dkv_seg": N_LAYERS * steps, "dq_seg": N_LAYERS * steps}
+    loss = report["final_loss"]
+    sx = np.array([r["s_x"] for r in rows], np.float64)
+    if (rc != 0 or counts != want or report.get("pack_len") != 1024
+            or "pack_fill_fraction" not in report or report["n_mcq"] != N_SAMPLES
+            or len(rows) != N_SAMPLES or not (loss is not None and math.isfinite(loss))
+            or not ((sx >= 0) & (sx <= 1)).all()):
+        raise AssertionError(f"packed diagnose-sft rc={rc}, launches {counts} (want {want}), "
+                             f"pack_len {report.get('pack_len')}, n_mcq {report['n_mcq']}, "
+                             f"sx rows {len(rows)}, final_loss {loss}")
+    print(f"[train-packed] diagnose-sft optim.pack=true rc=0, pack_len {report['pack_len']}, "
+          f"fill {report['pack_fill_fraction']}, packed rows per fold "
+          f"{st.pack.n_rows.tolist()}; {steps} steps x {k} folds, {chunks} scorer chunks of "
+          f"{batch} rows; segmented launches fwd {counts['fwd_seg']} dkv {counts['dkv_seg']} "
+          f"dq {counts['dq_seg']}, unsegmented 0 (as implied); final_loss {loss:.4f}, "
+          f"blind_accuracy {report['blind_accuracy']:.4f}, fold_accuracies "
+          f"{report['fold_accuracies']}; train {report['train_wall_seconds']} s "
+          f"({report['train_samples_per_sec']} samples/s incl. the first step "
+          f"{report['train_first_step_seconds']} s), scoring {report['score_mcq_wall_seconds']} s, "
+          f"CLI wall {wall:.2f} s; peak device memory {peak_gb:.2f} GB")
+
+    # steady step time: the same state, one synchronized step at a time
+    lora, opt = st.lora, st.opt_state
+    times = []
+    for t in range(STEP_SAMPLES + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lora, opt, _ = st.trainer.step(st.params, lora, opt, st.ptokens, st.pmask, st.ppos,
+                                       st.batches[t], st.psegs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times[1:]) * 1e3
+    ka = np.arange(st.batches.shape[1])[:, None]
+    samples = float(np.mean([st.pack.n_segs[ka, st.batches[t]].sum()
+                             for t in range(1, STEP_SAMPLES + 1)]))
+    rows_per_step = int(np.prod(st.batches.shape[1:]))
+    print(f"[train-packed] step ({rows_per_step} packed rows of {st.ptokens.shape[-1]} tokens, "
+          f"{samples:.1f} samples on average): median {step_ms:.2f} ms over {STEP_SAMPLES} "
+          f"steps after the first ({samples / step_ms * 1e3:.1f} train samples/s); first step "
+          f"{times[0] * 1e3:.1f} ms")
+    return counts
+
+
+def phase_train_packed_vs_plain():
+    """One packed step's LoRA gradients and losses, and the packed scorer's
+    letter probabilities, through the kernels and through the plain path
+    from the same seed: same weights, adapters (B drawn nonzero) and rows."""
+    from tst_torch.train.infer import score_heldout_mcq_packed
+
+    grads, probs, secs = {}, {}, {}
+    for use_pallas in (True, False):
+        st = _train_state(PACKED + [f"optim.batch_size={PACKED_PLAIN_ROWS}",
+                                    f"model.use_pallas={str(use_pallas).lower()}"])
+        rng = torch.Generator(device=st.tokens.device).manual_seed(7)
+        for ab in st.lora.values():
+            ab["b"] = (B_SCALE * torch.randn(ab["b"].shape, generator=rng,
+                                          device=rng.device)).to(ab["b"].dtype)
+        idx = torch.as_tensor(st.batches[0], dtype=torch.long, device=st.tokens.device)
+        idx = (torch.arange(idx.shape[0], device=idx.device)[:, None], idx)
+        grads[use_pallas] = st.trainer.loss_and_grads(
+            st.params, st.lora, st.ptokens[idx], st.pmask[idx], st.ppos[idx], st.psegs[idx])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs[use_pallas] = score_heldout_mcq_packed(
+            st.params, st.lora, st.spec, st.lspec, st.tb, st.fold_id, st.trainer.k,
+            pack_len=st.pack.pack_len, use_pallas=use_pallas)
+        secs[use_pallas] = time.perf_counter() - t0
+        gold = st.tb.gold
+        del st
+        torch.cuda.empty_cache()
+    (loss_k, grads_k), (loss_p, grads_p) = grads[True], grads[False]
+    cos = {f"{p}.{n}": torch.nn.functional.cosine_similarity(
+               grads_k[p][n].float().flatten(), grads_p[p][n].float().flatten(), dim=0).item()
+           for p in grads_k for n in grads_k[p]}
+    dloss = (loss_k - loss_p).abs().max().item()
+    worst = min(cos, key=cos.get)
+    pk, pp = probs[True], probs[False]
+    diff = float(np.abs(pk - pp).max())
+    agree = float((pk.argmax(-1) == pp.argmax(-1)).mean())
+    print(f"[train-packed-vs-plain] {PACKED_PLAIN_ROWS} packed rows per fold: fold losses "
+          f"kernel {loss_k.tolist()} plain {loss_p.tolist()} (max |d| {dloss:.3e} <= "
+          f"{LOSS_TOL}); LoRA gradient cosine min {cos[worst]:.5f} ({worst}) over {len(cos)} "
+          f"leaves (>= {GRAD_COSINE}); packed scorer letter probabilities max|dprob| "
+          f"{diff:.3e} (<= {PROB_TOL}), argmax agreement {agree:.4f} (>= {ARGMAX_AGREE}), "
+          f"accuracy {float((pk.argmax(-1) == gold).mean()):.4f}; scoring {secs[True]:.3f} s "
+          f"kernel, {secs[False]:.3f} s plain")
+    if (dloss > LOSS_TOL or cos[worst] < GRAD_COSINE or pk.shape != (N_SAMPLES, 4)
+            or not np.isfinite(pk).all() or diff > PROB_TOL or agree < ARGMAX_AGREE):
+        raise AssertionError("the packed path through the kernels disagrees with the plain path")
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -397,6 +672,9 @@ def main():
     bwd = phase_kernel_bwd(device)
     counts = phase_train()
     phase_train_vs_plain()
+    seg = phase_kernel_seg(device)
+    packed = phase_train_packed()
+    phase_train_packed_vs_plain()
     records = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
@@ -410,6 +688,18 @@ def main():
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:518",
          "launches": counts["dq"], **bwd["dq"]},
+        {"name": "flash_attention_fwd_seg", "route": "cuda",
+         "source": "tst_torch/csrc/flash_attention_fwd.cu",
+         "replaces": "tst/kernels/flash_attention.py:464",
+         "launches": packed["fwd_seg"], **seg["fwd"]},
+        {"name": "flash_attention_bwd_dkv_seg", "route": "cuda",
+         "source": "tst_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "tst/kernels/flash_attention.py:650",
+         "launches": packed["dkv_seg"], **seg["dkv"]},
+        {"name": "flash_attention_bwd_dq_seg", "route": "cuda",
+         "source": "tst_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "tst/kernels/flash_attention.py:650",
+         "launches": packed["dq_seg"], **seg["dq"]},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -108,8 +108,7 @@ def test_init_params_shapes_and_seed():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"lora_rng": object()}, "item 5"), ({"seg_starts": torch.zeros(1, 1)}, "item 13"),
-    ({"return_kv": True}, "item 11"), ({"ring_mesh": object()}, "item 16"),
+    ({"lora_rng": object()}, "item 5"), ({"return_kv": True}, "item 11"), ({"ring_mesh": object()}, "item 16"),
     ({"remat": True}, "item 7"), ({"fused_mlp": True}, "K4"),
 ])
 def test_unported_arguments_raise(kw, item):

@@ -105,12 +105,14 @@ def _assert_close(got, want, key):
 @pytest.mark.parametrize("n,extra", [
     (48, []),
     (24, ["optim.epochs=2", "optim.score_epochs=[1]", "optim.n_seeds=2"]),
+    (48, ["optim.pack=true"]),
 ])
 def test_diagnose_sft_matches_reference(tmp_path, monkeypatch, n, extra):
     """The whole slice, same data, weights and initial adapters: the same
     report.json and sx.jsonl, wall times aside. The second case adds an
     earlier snapshot to s(x) and a second seed (sx_seed_spearman and
-    sx_seed_top_jaccard)."""
+    sx_seed_top_jaccard); the third packs the train rows and the held-out
+    rows three samples to a row of 1024 (pack_len, pack_fill_fraction)."""
     ds = load_benchmark("synthetic:0.5", n=n, seed=0)
     want = jpipe.run_sft_diagnostic(ds, _cfg(tmp_path / "jax", n, "model.use_pallas=false",
                                              *extra))
@@ -124,8 +126,10 @@ def test_diagnose_sft_matches_reference(tmp_path, monkeypatch, n, extra):
         if key not in WALLS:
             _assert_close(got[key], want[key], key)
     assert got["n_mcq"] == n and math.isfinite(got["final_loss"])
-    if extra:
+    if "optim.n_seeds=2" in extra:
         assert "sx_seed_spearman" in got and "sx_seed_top_jaccard" in got
+    if "optim.pack=true" in extra:
+        assert got["pack_len"] == 1024 and 0.0 < got["pack_fill_fraction"] <= 1.0
     got_sx, want_sx = _sx(out), _sx(tmp_path / "jax")
     assert [list(r) for r in got_sx] == [list(r) for r in want_sx]
     for g, w in zip(got_sx, want_sx):
@@ -177,8 +181,7 @@ def test_spearman_and_per_category_accuracy_match_reference():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["rf.cross_check=true"], "item 10"), (["optim.pack=true"], "item 13"),
-    (["model.remat=true"], "item 7"), (["checkpoint_dir=ckpt"], "item 7"),
+    (["rf.cross_check=true"], "item 10"), (["model.remat=true"], "item 7"), (["checkpoint_dir=ckpt"], "item 7"),
     (["mesh.data=2"], "item 16"), (["model.path=/nonexistent"], "item 3"),
     (["profile_dir=prof"], "item 17"), (["lora.dropout=0.1"], "item 5"),
     (["model.fused_mlp=true"], "K4"),

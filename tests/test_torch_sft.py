@@ -212,7 +212,7 @@ def test_init_state_and_ckpt_extra():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"remat": True}, "item 7"), ({"packed": True}, "item 13"), ({"ring": True}, "item 16"),
+    ({"remat": True}, "item 7"), ({"ring": True}, "item 16"),
     ({"mesh": object()}, "item 16"), ({"fused_mlp": True}, "K4")])
 def test_unported_trainer_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -231,7 +231,3 @@ def test_unported_fit_and_loss_options_raise(data):
         trainer.fit(*args, all_pos=torch.from_numpy(pos), checkpoint_dir="ckpt")
     with pytest.raises(ValueError, match="needs all_pos"):
         trainer.fit(*args)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsft.sft_loss_window(bridge.to_torch(params), None, torch.from_numpy(tokens[:2]),
-                             torch.from_numpy(mask[:2]), torch.zeros(2, 3, dtype=torch.long),
-                             t_max, PORT_TINY, TLSPEC)

@@ -1,5 +1,6 @@
 // Causal GQA flash-attention backward for Hopper (sm_90a): two kernels, one
-// for dK/dV and one for dQ, bf16 in and out, f32 accumulation.
+// for dK/dV and one for dQ, bf16 in and out, f32 accumulation; plain, or
+// segment-masked for packed rows.
 //
 // Replaces the TPU backward kernels of tst/kernels/flash_attention.py:
 //   _bwd_fused_nolse_kernel (:590, via _flash_bwd_fused :836), the fused
@@ -8,12 +9,18 @@
 //     _flash_bwd :934, the one-shot forms from the saved lse;
 //   _bwd_dq_kernel (:732, via _flash_bwd) and _bwd_dkv_kernel (:778, via
 //     _dkv_tiled :1041), the tiled forms.
-// The five share one semantics; their one-shot / tiled / fused split is a
-// TPU VMEM schedule, so these two kernels cover all of them.
+// and, for packed rows, the `has_seg` branches of all five (:521, :556, :603,
+// :734, :780) and the segment-sparse `_bwd_fused_chunked_kernel` (:650, via
+// `_flash_bwd_fused` :854) that the TPU dispatches at S >= 2048.
+// They share one semantics; their one-shot / tiled / fused / chunked split is
+// a TPU VMEM schedule, so these two kernels cover all of them. The segmented
+// kernels (kSeg) are second instantiations of the same templates; the plain
+// ones compile as before.
 //
 // Semantics (the reference's): with the forward's f32 lse [B,H,S] and
 // di[b,h,i] = sum_d o·do (f32, computed by the caller from the bf16 o),
-//   P[i,j]  = exp(scale·q_i·k_j - lse_i) for j <= i, else exactly 0
+//   P[i,j]  = exp(scale·q_i·k_j - lse_i) for j <= i (and, packed,
+//             j >= seg_start(i): seg_starts.cuh), else exactly 0
 //   dv_j    = sum over the G = H/KVH query heads of a KV head, sum_i P[i,j] do_i
 //   dS[i,j] = P[i,j] · (do_i·v_j - di_i)
 //   dq_i    = scale · sum_j dS[i,j] k_j
@@ -43,6 +50,16 @@
 //     tiles up to the diagonal, dQ in registers; longest rows first;
 //   * only the diagonal tile is masked, and masked entries are set to 0
 //     rather than computed as exp(-inf - lse);
+//   * packed rows (kSeg): dQ visits KV tiles from floor(seg_start(p0)/64)
+//     up to the diagonal, as the forward does; a dK/dV block for KV tile
+//     [c0, c0+64) visits query tiles from the diagonal up to the first start
+//     > c0+63 (rows from there on start their segment after the whole tile),
+//     or S. A tile pair is masked per element (col <= row && col >=
+//     seg_start(row)) when it is diagonal or the query tile's largest start
+//     lies beyond the KV tile's first column; boundaries of ~300-token
+//     samples fall inside tiles, so rows of one query tile have different
+//     starts. The dK/dV block keeps each query's start in shared memory
+//     beside its lse and di;
 //   * a warp owns 16 rows and 64 columns of D: at D=128 two warps share the
 //     rows (8 warps), recomputing S and dP, so each thread holds 32 (dq) or
 //     64 (dkv) accumulator floats at any D and nothing spills;
@@ -55,6 +72,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "seg_starts.cuh"
 
 namespace {
 
@@ -148,14 +166,15 @@ __device__ __forceinline__ void store_rows(const float (&acc)[8][4], __nv_bfloat
 }
 
 // dK, dV: one block per (KV tile, KV head, batch). Warp w owns KV rows
-// (w % 4)·16 .. +16 of the tile and columns (w / 4)·64 .. +64 of D.
-template <int D>
+// (w % 4)·16 .. +16 of the tile and columns (w / 4)·64 .. +64 of D. `seg`
+// (int32 [B, kMaxSegs]) is read only when kSeg.
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(Geometry<D>::kThreads)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ di,
-                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
-                     int H, int KVH, float scale) {
+                     const int* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int S, int H, int KVH, float scale) {
   using G = Geometry<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // K[key][d]
@@ -166,6 +185,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   __nv_bfloat16* dot_s = qt_s + G::kColTile;                     // dO[d][query]
   float* lse_s = reinterpret_cast<float*>(dot_s + G::kColTile);  // log2 units
   float* di_s = lse_s + kTile;
+  int* st_s = reinterpret_cast<int*>(di_s + kTile);  // segment starts (kSeg)
 
   const int kv_tile = blockIdx.x;  // tile 0 has the most query tiles: launched first
   const int kvh = blockIdx.y;
@@ -178,6 +198,15 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int wrow = (warp % 4) * 16;  // this warp's first KV row in the tile
   const int d0 = (warp / 4) * 64;    // this warp's first column of D
   const float scale_log2 = scale * kLog2e;
+  const int kv0 = kv_tile * kTile;
+  // one past the last query tile that sees this KV tile: packed, the rows
+  // from the first start after the tile on start their segment after it
+  int q_end = S / kTile;
+  const int* sb = nullptr;
+  if constexpr (kSeg) {
+    sb = seg + (long)b * kMaxSegs;
+    q_end = (seg_end(sb, kv0 + kTile - 1, S) + kTile - 1) / kTile;
+  }
 
   const long q_stride = (long)H * D;
   const long kv_stride = (long)KVH * D;
@@ -194,7 +223,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   for (int hg = 0; hg < groups; ++hg) {
     const int h = kvh * groups + hg;
-    for (int q_tile = kv_tile; q_tile < S / kTile; ++q_tile) {
+    for (int q_tile = kv_tile; q_tile < q_end; ++q_tile) {
       const int q0 = q_tile * kTile;
       __syncthreads();  // every warp is done with the previous query tile
       const long q_off = ((long)b * S + q0) * q_stride + (long)h * D;
@@ -204,6 +233,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         const long r = ((long)b * H + h) * S + q0 + i;
         lse_s[i] = lse[r] * kLog2e;
         di_s[i] = di[r];
+        if constexpr (kSeg) st_s[i] = seg_start(sb, q0 + i);
       }
       __syncthreads();
 
@@ -211,13 +241,21 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       float p[8][4];
       gemm_abt<D>(p, k_s, q_s, wrow, g, t);
       const bool diag = q_tile == kv_tile;
+      // packed: masked per element when a query's segment starts after kv0
+      const bool masked = kSeg ? diag || st_s[kTile - 1] > kv0 : diag;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = nt * 8 + 2 * t + (e & 1);     // query within the tile
           const int row = wrow + g + (e >= 2 ? 8 : 0);  // key within the tile
-          p[nt][e] = (diag && col < row) ? 0.f : exp2f(p[nt][e] * scale_log2 - lse_s[col]);
+          bool off;
+          if constexpr (kSeg) {
+            off = masked && (kv0 + row > q0 + col || kv0 + row < st_s[col]);
+          } else {
+            off = masked && col < row;
+          }
+          p[nt][e] = off ? 0.f : exp2f(p[nt][e] * scale_log2 - lse_s[col]);
         }
       }
       gemm_xb<D>(acc_dv, p, dot_s, d0, g, t);  // dV += P^T dO
@@ -243,13 +281,15 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }
 
 // dQ: one block per (query tile, head, batch). Warp w owns query rows
-// (w % 4)·16 .. +16 of the tile and columns (w / 4)·64 .. +64 of D.
-template <int D>
+// (w % 4)·16 .. +16 of the tile and columns (w / 4)·64 .. +64 of D. `seg`
+// (int32 [B, kMaxSegs]) is read only when kSeg.
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(Geometry<D>::kThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ di,
-                    __nv_bfloat16* __restrict__ dq, int S, int H, int KVH, float scale) {
+                    const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq, int S, int H,
+                    int KVH, float scale) {
   using G = Geometry<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // Q[query][d]
@@ -279,12 +319,22 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const long stat = ((long)b * H + h) * S;
   const float lse_lo = lse[stat + row_lo] * kLog2e, lse_hi = lse[stat + row_lo + 8] * kLog2e;
   const float di_lo = di[stat + row_lo], di_hi = di[stat + row_lo + 8];
+  // packed rows: the segment starts of rows row_lo and row_lo + 8, the first
+  // KV tile the query tile needs, and its largest start
+  int st_lo = 0, st_hi = 0, kv_first = 0, st_max = 0;
+  if constexpr (kSeg) {
+    const int* sb = seg + (long)b * kMaxSegs;
+    st_lo = seg_start(sb, row_lo);
+    st_hi = seg_start(sb, row_lo + 8);
+    kv_first = seg_start(sb, q_tile * kTile) / kTile;
+    st_max = seg_start(sb, q_tile * kTile + kTile - 1);
+  }
 
   float acc[8][4];
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
 
-  for (int kv_tile = 0; kv_tile <= q_tile; ++kv_tile) {
+  for (int kv_tile = kv_first; kv_tile <= q_tile; ++kv_tile) {
     __syncthreads();  // every warp is done with the previous KV tile
     const long kv_off = ((long)b * S + (long)kv_tile * kTile) * kv_stride + (long)kvh * D;
     stage_tile<D>(k + kv_off, kv_stride, k_s, kt_s);
@@ -295,15 +345,22 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     gemm_abt<D>(s, q_s, k_s, wrow, g, t);    // S = Q K^T
     gemm_abt<D>(dp, do_s, v_s, wrow, g, t);  // dP = dO V^T
     const bool diag = kv_tile == q_tile;
+    const bool masked = kSeg ? diag || kv_tile * kTile < st_max : diag;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = nt * 8 + 2 * t + (e & 1);     // key within the tile
         const int row = wrow + g + (e >= 2 ? 8 : 0);  // query within the tile
-        const float p = (diag && col > row)
-                            ? 0.f
-                            : exp2f(s[nt][e] * scale_log2 - (e >= 2 ? lse_hi : lse_lo));
+        bool off;
+        if constexpr (kSeg) {
+          const int key = kv_tile * kTile + col;
+          off = masked && (key > row_lo + (e >= 2 ? 8 : 0) || key < (e >= 2 ? st_hi : st_lo));
+        } else {
+          off = masked && col > row;
+        }
+        const float p =
+            off ? 0.f : exp2f(s[nt][e] * scale_log2 - (e >= 2 ? lse_hi : lse_lo));
         s[nt][e] = p * (dp[nt][e] - (e >= 2 ? di_hi : di_lo)) * scale;  // scale·dS
       }
     }
@@ -314,9 +371,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   store_rows(acc, lo, lo + 8 * q_stride, t);
 }
 
-template <int D>
+template <int D, bool kSeg>
 constexpr int dkv_smem_bytes() {
-  return (4 * Geometry<D>::kRowTile + 2 * Geometry<D>::kColTile) * 2 + 2 * kTile * 4;
+  return (4 * Geometry<D>::kRowTile + 2 * Geometry<D>::kColTile) * 2 + (kSeg ? 3 : 2) * kTile * 4;
 }
 
 template <int D>
@@ -324,35 +381,36 @@ constexpr int dq_smem_bytes() {
   return (4 * Geometry<D>::kRowTile + Geometry<D>::kColTile) * 2;
 }
 
-template <int D>
+template <int D, bool kSeg>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* di, void* dk, void* dv, int B, int S,
-                       int H, int KVH, float scale, cudaStream_t st) {
-  constexpr int smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                       const void* lse, const void* di, const void* seg, void* dk, void* dv,
+                       int B, int S, int H, int KVH, float scale, cudaStream_t st) {
+  constexpr int smem = dkv_smem_bytes<D, kSeg>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, kSeg>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<D><<<dim3(S / kTile, KVH, B), Geometry<D>::kThreads, smem, st>>>(
+  flash_bwd_dkv_kernel<D, kSeg><<<dim3(S / kTile, KVH, B), Geometry<D>::kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H, KVH, scale);
+      static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, H, KVH, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kSeg>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* di, void* dq, int B, int S, int H, int KVH,
-                      float scale, cudaStream_t st) {
+                      const void* lse, const void* di, const void* seg, void* dq, int B, int S,
+                      int H, int KVH, float scale, cudaStream_t st) {
   constexpr int smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kSeg>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D><<<dim3(S / kTile, H, B), Geometry<D>::kThreads, smem, st>>>(
+  flash_bwd_dq_kernel<D, kSeg><<<dim3(S / kTile, H, B), Geometry<D>::kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<__nv_bfloat16*>(dq), S, H, KVH, scale);
+      static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(dq), S, H, KVH, scale);
   return cudaGetLastError();
 }
 
@@ -360,33 +418,77 @@ bool bad_shape(int B, int S, int H, int KVH) {
   return B <= 0 || S <= 0 || S % kTile != 0 || KVH <= 0 || H % KVH != 0;
 }
 
-}  // namespace
-
-// Plain C entries for ctypes. Pointers are device pointers of contiguous
-// tensors (lse, di: f32 [B,H,S]); `stream` is a cudaStream_t. Each returns
-// the launch's cudaError_t.
-extern "C" int tst_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                           const void* dout, const void* lse, const void* di,
-                                           void* dk, void* dv, int B, int S, int H, int KVH,
-                                           int D, float scale, int device, void* stream) {
+template <bool kSeg>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* di, const void* seg, void* dk, void* dv, int B, int S, int H, int KVH,
+            int D, float scale, int device, void* stream) {
   if (bad_shape(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch_dkv<64>(q, k, v, dout, lse, di, dk, dv, B, S, H, KVH, scale, st);
-  if (D == 128) return (int)launch_dkv<128>(q, k, v, dout, lse, di, dk, dv, B, S, H, KVH, scale, st);
+  if (D == 64) {
+    return (int)launch_dkv<64, kSeg>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH, scale, st);
+  }
+  if (D == 128) {
+    return (int)launch_dkv<128, kSeg>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH, scale,
+                                      st);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool kSeg>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* di, const void* seg, void* dq, int B, int S, int H, int KVH, int D,
+           float scale, int device, void* stream) {
+  if (bad_shape(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) {
+    return (int)launch_dq<64, kSeg>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, scale, st);
+  }
+  if (D == 128) {
+    return (int)launch_dq<128, kSeg>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entries for ctypes. Pointers are device pointers of contiguous
+// tensors (lse, di: f32 [B,H,S]; seg: int32 [B, kMaxSegs]); `stream` is a
+// cudaStream_t. Each returns the launch's cudaError_t.
+extern "C" int tst_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse, const void* di,
+                                           void* dk, void* dv, int B, int S, int H, int KVH,
+                                           int D, float scale, int device, void* stream) {
+  return bwd_dkv<false>(q, k, v, dout, lse, di, nullptr, dk, dv, B, S, H, KVH, D, scale, device,
+                        stream);
 }
 
 extern "C" int tst_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* di,
                                           void* dq, int B, int S, int H, int KVH, int D,
                                           float scale, int device, void* stream) {
-  if (bad_shape(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch_dq<64>(q, k, v, dout, lse, di, dq, B, S, H, KVH, scale, st);
-  if (D == 128) return (int)launch_dq<128>(q, k, v, dout, lse, di, dq, B, S, H, KVH, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return bwd_dq<false>(q, k, v, dout, lse, di, nullptr, dq, B, S, H, KVH, D, scale, device,
+                       stream);
+}
+
+extern "C" int tst_flash_attention_bwd_dkv_seg(const void* q, const void* k, const void* v,
+                                               const void* dout, const void* lse, const void* di,
+                                               const void* seg, void* dk, void* dv, int B, int S,
+                                               int H, int KVH, int D, float scale, int device,
+                                               void* stream) {
+  if (seg == nullptr) return (int)cudaErrorInvalidValue;
+  return bwd_dkv<true>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH, D, scale, device,
+                       stream);
+}
+
+extern "C" int tst_flash_attention_bwd_dq_seg(const void* q, const void* k, const void* v,
+                                              const void* dout, const void* lse, const void* di,
+                                              const void* seg, void* dq, int B, int S, int H,
+                                              int KVH, int D, float scale, int device,
+                                              void* stream) {
+  if (seg == nullptr) return (int)cudaErrorInvalidValue;
+  return bwd_dq<true>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, D, scale, device, stream);
 }

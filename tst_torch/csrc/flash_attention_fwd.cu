@@ -1,15 +1,21 @@
 // Causal GQA flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out
-// plus an f32 logsumexp.
+// plus an f32 logsumexp; plain, or segment-masked for packed rows.
 //
 // Replaces the TPU kernels `_fwd_kernel_oneshot` (tst/kernels/flash_attention.py:99,
 // whole KV in one tile) and `_fwd_kernel` (tst/kernels/flash_attention.py:274,
-// tiled online softmax with above-diagonal tiles skipped). One kernel covers
-// both schedules: the TPU's one-shot/tiled split and its folded `pos_mod`
-// view are VMEM schedules, not semantics.
+// tiled online softmax with above-diagonal tiles skipped), both with and
+// without their `has_seg` branch (:108, :276), and the segment-sparse
+// `_fwd_kernel_oneshot_chunked` (:464, via :346) that the TPU dispatches for
+// packed rows at S >= 2048. One kernel covers all of these: the TPU's
+// one-shot/tiled/chunked split and its folded `pos_mod` view are VMEM
+// schedules, not semantics. The segmented instance (kSeg) is a second
+// instantiation of the same template; the plain one compiles as before.
 //
 // Semantics (the reference's, not its block layout):
 //   o[b, i, h, :] = sum_j softmax_j(q[b,i,h]·k[b,j,h/G] / sqrt(D), j <= i) v[b,j,h/G]
 //   lse[b, h, i]  = logsumexp_j of the same scaled, masked logits (f32)
+// with packed rows (kSeg) the softmax runs over seg_start(i) <= j <= i only
+// (seg_starts.cuh).
 // q [B,S,H,D], k/v [B,S,KVH,D] contiguous in the model layout, read in place
 // with strides; query head h reads KV head h / (H/KVH) (heads are KV-major).
 // Logits accumulate in f32 and are scaled by 1/sqrt(D) in f32; the running
@@ -40,6 +46,16 @@
 //   * online softmax in registers; the KV loop stops at the diagonal tile,
 //     so tiles above it are never read, and only the diagonal tile is masked;
 //   * query tiles are issued longest-row first to even out the causal load.
+// Packed rows (kSeg): a query tile [p0, p0+64) visits KV tiles from
+// floor(seg_start(p0)/64) up to the diagonal (`_tile_run_condition` :239);
+// samples are ~300 tokens, so most boundaries fall inside a tile, and every
+// tile below the largest start of the query tile is masked per element
+// (col <= row && col >= seg_start(row)), not only the diagonal one. A row
+// whose first visited tiles lie wholly before its segment sees only -inf
+// there: its running max stays at the finite start value, its weights are
+// exp2(-inf) = 0 and l stays 0, and the first tile holding its own columns
+// rescales that zero state by exp2(kMaxInit - m) = 0. Every row sees at
+// least its own column, so l > 0 at the end.
 // Not yet: wgmma, TMA, warp specialisation, double buffering.
 
 #include <cuda_bf16.h>
@@ -47,6 +63,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "seg_starts.cuh"
 
 namespace {
 
@@ -60,12 +77,15 @@ constexpr float kLn2 = 0.6931471805599453f;
 // finite start of the running max (the reference's DEFAULT_MASK_VALUE)
 constexpr float kMaxInit = -0.7f * 3.4028234663852886e38f;
 
-// mma_16816, pack_bf16, load_u32 and the fragment layout: mma_bf16.cuh
-template <int D>
+// mma_16816, pack_bf16, load_u32 and the fragment layout: mma_bf16.cuh;
+// seg_start and the packed-row semantics: seg_starts.cuh (`seg` is read only
+// when kSeg)
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int KVH, float scale_log2) {
+                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int H, int KVH,
+                 float scale_log2) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN][D + kPad];    // K[key][d]
   __shared__ __align__(16) __nv_bfloat16 vt_s[D][kBlockN + kPad];   // V[key][d] transposed
@@ -87,6 +107,17 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int wrow = warp * 16;                 // this warp's first row in the tile
   const int row_lo = q_tile * kBlockM + wrow + g;  // sequence position of c0/c1
   const int row_hi = row_lo + 8;                   // sequence position of c2/c3
+  // packed rows: the segment starts of rows row_lo and row_hi, the first KV
+  // tile the query tile needs, and its largest start (KV tiles that begin
+  // below it are masked per element)
+  int st_lo = 0, st_hi = 0, kv_first = 0, st_max = 0;
+  if constexpr (kSeg) {
+    const int* sb = seg + (long)b * kMaxSegs;
+    st_lo = seg_start(sb, row_lo);
+    st_hi = seg_start(sb, row_hi);
+    kv_first = seg_start(sb, q_tile * kBlockM) / kBlockN;
+    st_max = seg_start(sb, q_tile * kBlockM + kBlockM - 1);
+  }
 
   // Q fragments for all of D, loaded once from device memory
   uint32_t qa[D / 16][4];
@@ -112,7 +143,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   float m_lo = kMaxInit, m_hi = kMaxInit;
   float l_lo = 0.f, l_hi = 0.f;
 
-  for (int kv_tile = 0; kv_tile <= q_tile; ++kv_tile) {
+  for (int kv_tile = kv_first; kv_tile <= q_tile; ++kv_tile) {
     const int kv0 = kv_tile * kBlockN;
     __syncthreads();  // every warp is done with the previous tile
     for (int i = threadIdx.x; i < kBlockN * D / 8; i += kThreads) {
@@ -142,18 +173,26 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       }
     }
 
-    // scale (log2 units), mask the diagonal tile, row max over the 4 lanes of a row
+    // scale (log2 units), mask the diagonal tile (and, packed, every tile
+    // that starts below a row's segment), row max over the 4 lanes of a row
     const bool diag = kv_tile == q_tile;
+    const bool masked = kSeg ? diag || kv0 < st_max : diag;
     float mx_lo = kMaxInit, mx_hi = kMaxInit;
 #pragma unroll
     for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[nt][e] * scale_log2;
-        if (diag) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          const int row = wrow + g + (e >= 2 ? 8 : 0);
-          if (col > row) x = -INFINITY;
+        if (masked) {
+          if constexpr (kSeg) {
+            const int col = kv0 + nt * 8 + 2 * t + (e & 1);
+            const bool hi = e >= 2;
+            if (col > (hi ? row_hi : row_lo) || col < (hi ? st_hi : st_lo)) x = -INFINITY;
+          } else {
+            const int col = nt * 8 + 2 * t + (e & 1);
+            const int row = wrow + g + (e >= 2 ? 8 : 0);
+            if (col > row) x = -INFINITY;
+          }
         }
         s[nt][e] = x;
       }
@@ -227,13 +266,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-}  // namespace
-
-// Plain C entry for ctypes. Pointers are device pointers of contiguous
-// tensors; `stream` is a cudaStream_t. Returns the launch's cudaError_t.
-extern "C" int tst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                       void* lse, int B, int S, int H, int KVH, int D,
-                                       float scale, int device, void* stream) {
+template <bool kSeg>
+int launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
+               int B, int S, int H, int KVH, int D, float scale, int device, void* stream) {
   if (B <= 0 || S <= 0 || S % kBlockM != 0 || KVH <= 0 || H % KVH != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -245,14 +280,36 @@ extern "C" int tst_flash_attention_fwd(const void* q, const void* k, const void*
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  const auto* sb = static_cast<const int*>(seg);
   auto* ob = static_cast<__nv_bfloat16*>(o);
   auto* lb = static_cast<float*>(lse);
   if (D == 64) {
-    flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(qb, kb, vb, ob, lb, S, H, KVH, scale_log2);
+    flash_fwd_kernel<64, kSeg><<<grid, kThreads, 0, st>>>(qb, kb, vb, sb, ob, lb, S, H, KVH,
+                                                          scale_log2);
   } else if (D == 128) {
-    flash_fwd_kernel<128><<<grid, kThreads, 0, st>>>(qb, kb, vb, ob, lb, S, H, KVH, scale_log2);
+    flash_fwd_kernel<128, kSeg><<<grid, kThreads, 0, st>>>(qb, kb, vb, sb, ob, lb, S, H, KVH,
+                                                           scale_log2);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entries for ctypes. Pointers are device pointers of contiguous
+// tensors (seg: int32 [B, kMaxSegs]); `stream` is a cudaStream_t. Each
+// returns the launch's cudaError_t.
+extern "C" int tst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                       void* lse, int B, int S, int H, int KVH, int D,
+                                       float scale, int device, void* stream) {
+  return launch_fwd<false>(q, k, v, nullptr, o, lse, B, S, H, KVH, D, scale, device, stream);
+}
+
+extern "C" int tst_flash_attention_fwd_seg(const void* q, const void* k, const void* v,
+                                           const void* seg, void* o, void* lse, int B, int S,
+                                           int H, int KVH, int D, float scale, int device,
+                                           void* stream) {
+  if (seg == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_fwd<true>(q, k, v, seg, o, lse, B, S, H, KVH, D, scale, device, stream);
 }

@@ -1,12 +1,15 @@
-"""Causal GQA flash attention, forward and backward: hand-written CUDA
-kernels for Hopper, inside a ``torch.autograd.Function``.
+"""Causal GQA flash attention, forward and backward, plain or segment-masked
+for packed rows: hand-written CUDA kernels for Hopper, inside a
+``torch.autograd.Function``.
 
 Counterpart of ``tst/kernels/flash_attention.py``: the forward of the Pallas
 TPU kernels ``_fwd_kernel_oneshot`` / ``_fwd_kernel`` and their backward
 (``_bwd_fused_nolse_kernel``, ``_bwd_dq_kernel(_oneshot)``,
-``_bwd_dkv_kernel(_oneshot)``). The CUDA sources are
-``tst_torch/csrc/flash_attention_fwd.cu`` and ``flash_attention_bwd.cu``;
-their headers say what bounds them on the card and how the design answers.
+``_bwd_dkv_kernel(_oneshot)``), each with its ``has_seg`` branch, and the
+segment-sparse ``_fwd_kernel_oneshot_chunked`` / ``_bwd_fused_chunked_kernel``.
+The CUDA sources are ``tst_torch/csrc/flash_attention_fwd.cu`` and
+``flash_attention_bwd.cu`` (segments: ``seg_starts.cuh``); their headers
+say what bounds them on the card and how the design answers.
 
 ``flash_attention`` is differentiable on every device. For CUDA tensors its
 forward launches the forward kernel and its backward the dK/dV and dQ
@@ -15,6 +18,12 @@ plain versions, ``flash_attention_reference`` and
 ``flash_attention_backward_reference``, through the same Function. Layout is
 the model's: q ``[B, S, H, D]``, k/v ``[B, S, KVH, D]``; outputs o
 ``[B, S, H, D]`` and an f32 logsumexp ``[B, H, S]`` (not differentiable).
+
+Packed rows (``seg_starts``, int32 ``[B, n <= MAX_SEGS]`` ascending sample
+offsets, unused slots ``>= SEG_PAD``, not differentiable): query i attends
+to key j iff ``j <= i`` and ``j >= segment start of i`` (``segment_mask``).
+They go to separate segmented kernels with their own launch counts; without
+``seg_starts`` the plain kernels run as before.
 """
 
 from __future__ import annotations
@@ -32,6 +41,15 @@ LAUNCHES = 0
 #: dK/dV-kernel and dQ-kernel launches made in this process
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_DQ = 0
+#: launches of the segmented (packed-row) forward, dK/dV and dQ kernels
+LAUNCHES_SEG = 0
+LAUNCHES_SEG_BWD_DKV = 0
+LAUNCHES_SEG_BWD_DQ = 0
+
+#: segment starts a packed row may carry, and the value of an unused slot
+#: (the reference's, tst/kernels/flash_attention.py:159,166)
+MAX_SEGS = 8
+SEG_PAD = 1 << 30
 
 #: query/key tile of the kernels: S must be a multiple of it
 BLOCK = 64
@@ -42,40 +60,70 @@ _ENTRY_DKV = "tst_flash_attention_bwd_dkv"
 _ENTRY_DQ = "tst_flash_attention_bwd_dq"
 
 
+def segment_starts_per_pos(seg_starts: torch.Tensor, s: int) -> torch.Tensor:
+    """[B, n] starts → [B, S] segment start of each position: the largest
+    start <= pos, 0 where none is (``segment_starts_per_pos`` :1351)."""
+    pos = torch.arange(s, dtype=seg_starts.dtype, device=seg_starts.device)[None, :, None]
+    seg = seg_starts[:, None, :]
+    return torch.where(seg <= pos, seg, torch.zeros_like(seg)).amax(-1)
+
+
+def segment_mask(seg_starts: torch.Tensor, s: int) -> torch.Tensor:
+    """[B, S, S] bool: ok[b, i, j] = j <= i and j >= segment start of i
+    (``segment_mask`` :1360)."""
+    start = segment_starts_per_pos(seg_starts, s)
+    pos = torch.arange(s, device=seg_starts.device)
+    return (pos[None, :] <= pos[:, None])[None] & (pos[None, None, :] >= start[:, :, None])
+
+
+def _mask(q: torch.Tensor, causal: bool,
+          seg_starts: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The attention mask: [B, S, S] for packed rows, else [S, S] or None."""
+    s = q.shape[1]
+    if seg_starts is not None:
+        check_seg_starts(seg_starts, q, causal)
+        return segment_mask(seg_starts, s)
+    return torch.ones(s, s, dtype=torch.bool, device=q.device).tril() if causal else None
+
+
+def _on_logits(mask: torch.Tensor) -> torch.Tensor:
+    """A [S, S] or [B, S, S] mask broadcast to logits [B, KVH, G, S, S]."""
+    return mask if mask.ndim == 2 else mask[:, None, None]
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense GQA attention → (o [B,S,H,D] in q's dtype, lse [B,H,S] f32).
 
-    ``mask``: bool [S, S], True = attend; None attends everywhere. f32
-    logits scaled by 1/sqrt(D), masked to -1e30, softmax in f32,
-    probabilities cast to the input dtype before P·V with f32 accumulation
-    (``mha_reference`` / ``_dense_attention`` of the JAX package)."""
+    ``mask``: bool [S, S] shared or [B, S, S] per row (packed segments),
+    True = attend; None attends everywhere. f32 logits scaled by 1/sqrt(D),
+    masked to -1e30, softmax in f32, probabilities cast to the input dtype
+    before P·V with f32 accumulation (``mha_reference`` /
+    ``_dense_attention`` of the JAX package)."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, d)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) / math.sqrt(d)
     if mask is not None:
-        logits = logits.masked_fill(~mask, -1e30)
+        logits = logits.masked_fill(~_on_logits(mask), -1e30)
     lse = torch.logsumexp(logits, dim=-1)  # [B, KVH, G, S]
     probs = torch.exp(logits - lse[..., None]).to(q.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), v.float())
     return o.reshape(b, s, h, d).to(q.dtype), lse.reshape(b, h, s)
 
 
-def _causal_mask(s: int, device) -> torch.Tensor:
-    return torch.ones(s, s, dtype=torch.bool, device=device).tril()
-
-
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the forward kernel: (o, lse) on any device."""
-    return masked_attention(q, k, v, _causal_mask(q.shape[1], q.device) if causal else None)
+                              causal: bool = True, seg_starts: Optional[torch.Tensor] = None,
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernels: (o, lse) on any device."""
+    return masked_attention(q, k, v, _mask(q, causal, seg_starts))
 
 
 def flash_attention_backward_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-        lse: torch.Tensor, do: torch.Tensor,
-        causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+        seg_starts: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels, in f32 → (dq, dk, dv)
     in the dtypes of q, k, v.
 
@@ -89,8 +137,9 @@ def flash_attention_backward_reference(
     dog = do.float().reshape(b, s, kvh, g, d)
     kf, vf = k.float(), v.float()
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) / math.sqrt(d)
-    if causal:
-        logits = logits.masked_fill(~_causal_mask(s, q.device), float("-inf"))
+    mask = _mask(q, causal, seg_starts)
+    if mask is not None:
+        logits = logits.masked_fill(~_on_logits(mask), float("-inf"))
     p = torch.exp(logits - lse.reshape(b, kvh, g, s, 1))  # [B, KVH, G, S, S]
     di = (o.float() * do.float()).sum(-1).reshape(b, s, kvh, g).permute(0, 2, 3, 1)
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
@@ -134,6 +183,33 @@ def _check_operand(name: str, t: torch.Tensor, q: torch.Tensor, dtype) -> None:
         raise ValueError(f"{name} is not 16-byte aligned")
 
 
+def check_seg_starts(seg_starts: torch.Tensor, q: torch.Tensor, causal: bool) -> None:
+    """Raise ValueError on segment starts that neither the kernels nor the
+    plain versions take (the reference's checks, :1256-1262 and ``seg_tile``)."""
+    if not causal:
+        raise ValueError("seg_starts (packed rows) needs causal=True")
+    if seg_starts.dtype != torch.int32:
+        raise ValueError(f"seg_starts is {seg_starts.dtype}; the kernels take torch.int32")
+    if seg_starts.ndim != 2 or seg_starts.shape[0] != q.shape[0]:
+        raise ValueError(f"seg_starts {tuple(seg_starts.shape)} is not [B, n] for the batch "
+                         f"B={q.shape[0]} of q")
+    if seg_starts.shape[1] > MAX_SEGS:
+        raise ValueError(f"{seg_starts.shape[1]} segment starts a row > MAX_SEGS={MAX_SEGS}")
+    if seg_starts.device != q.device:
+        raise ValueError(f"seg_starts is on {seg_starts.device}, q on {q.device}")
+
+
+def kernel_seg_starts(seg_starts: Optional[torch.Tensor], q: torch.Tensor,
+                      causal: bool = True) -> Optional[torch.Tensor]:
+    """Checked starts in the kernels' form: contiguous int32 [B, MAX_SEGS],
+    unused slots SEG_PAD (None stays None: the unsegmented kernels)."""
+    if seg_starts is None:
+        return None
+    check_seg_starts(seg_starts, q, causal)
+    return torch.nn.functional.pad(seg_starts, (0, MAX_SEGS - seg_starts.shape[1]),
+                                   value=SEG_PAD).contiguous()
+
+
 def check_backward_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor) -> None:
     """Raise ValueError on anything the backward kernels do not take."""
@@ -168,16 +244,24 @@ def _geometry(q, k):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _launch_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel on checked CUDA tensors → (o, lse)."""
-    global LAUNCHES
+def _launch_fwd(q, k, v, seg=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on checked CUDA tensors → (o, lse); the segmented
+    one when ``seg`` (``kernel_seg_starts``) is given."""
+    global LAUNCHES, LAUNCHES_SEG
     b, s, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    err = _bind(_ENTRY, 5)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                           lse.data_ptr(), *_geometry(q, k))
-    _raise_on(err, _ENTRY, q, k)
-    LAUNCHES += 1
+    if seg is None:
+        err = _bind(_ENTRY, 5)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                               lse.data_ptr(), *_geometry(q, k))
+        _raise_on(err, _ENTRY, q, k)
+        LAUNCHES += 1
+    else:
+        entry = _ENTRY + "_seg"
+        err = _bind(entry, 6)(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+                              o.data_ptr(), lse.data_ptr(), *_geometry(q, k))
+        _raise_on(err, entry, q, k)
+        LAUNCHES_SEG += 1
     return o, lse
 
 
@@ -187,73 +271,91 @@ def backward_row_stat(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _launch_bwd_dkv(q, k, v, do, lse, di) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dK/dV kernel on checked CUDA tensors → (dk, dv)."""
-    global LAUNCHES_BWD_DKV
+def _launch_bwd_dkv(q, k, v, do, lse, di, seg=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel on checked CUDA tensors → (dk, dv); the segmented one
+    when ``seg`` is given."""
+    global LAUNCHES_BWD_DKV, LAUNCHES_SEG_BWD_DKV
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _bind(_ENTRY_DKV, 8)(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                               lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                               *_geometry(q, k))
-    _raise_on(err, _ENTRY_DKV, q, k)
-    LAUNCHES_BWD_DKV += 1
+    ins = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           di.data_ptr()]
+    entry = _ENTRY_DKV if seg is None else _ENTRY_DKV + "_seg"
+    ptrs = ins + ([] if seg is None else [seg.data_ptr()]) + [dk.data_ptr(), dv.data_ptr()]
+    _raise_on(_bind(entry, len(ptrs))(*ptrs, *_geometry(q, k)), entry, q, k)
+    if seg is None:
+        LAUNCHES_BWD_DKV += 1
+    else:
+        LAUNCHES_SEG_BWD_DKV += 1
     return dk, dv
 
 
-def _launch_bwd_dq(q, k, v, do, lse, di) -> torch.Tensor:
-    """The dQ kernel on checked CUDA tensors → dq."""
-    global LAUNCHES_BWD_DQ
+def _launch_bwd_dq(q, k, v, do, lse, di, seg=None) -> torch.Tensor:
+    """The dQ kernel on checked CUDA tensors → dq; the segmented one when
+    ``seg`` is given."""
+    global LAUNCHES_BWD_DQ, LAUNCHES_SEG_BWD_DQ
     dq = torch.empty_like(q)
-    err = _bind(_ENTRY_DQ, 7)(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                              lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *_geometry(q, k))
-    _raise_on(err, _ENTRY_DQ, q, k)
-    LAUNCHES_BWD_DQ += 1
+    ins = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+           di.data_ptr()]
+    entry = _ENTRY_DQ if seg is None else _ENTRY_DQ + "_seg"
+    ptrs = ins + ([] if seg is None else [seg.data_ptr()]) + [dq.data_ptr()]
+    _raise_on(_bind(entry, len(ptrs))(*ptrs, *_geometry(q, k)), entry, q, k)
+    if seg is None:
+        LAUNCHES_BWD_DQ += 1
+    else:
+        LAUNCHES_SEG_BWD_DQ += 1
     return dq
 
 
 def flash_attention_backward(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-        lse: torch.Tensor, do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) through the two CUDA backward kernels; CUDA tensors only."""
+        lse: torch.Tensor, do: torch.Tensor, seg_starts: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) through the two CUDA backward kernels, segmented ones for
+    packed rows (``seg_starts``); CUDA tensors only."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward: the kernels take CUDA tensors, "
                          f"got {q.device}")
     do = do.contiguous()
     check_backward_args(q, k, v, o, lse, do)
+    seg = kernel_seg_starts(seg_starts, q)
     di = backward_row_stat(o, do)
-    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, di)
-    return _launch_bwd_dq(q, k, v, do, lse, di), dk, dv
+    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, di, seg)
+    return _launch_bwd_dq(q, k, v, do, lse, di, seg), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward saves (q, k, v, o, lse); backward takes the kernels for CUDA
-    tensors and the plain backward for CPU tensors."""
+    """Forward saves (q, k, v, o, lse, seg_starts); backward takes the
+    kernels for CUDA tensors and the plain backward for CPU tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, seg_starts):
         if q.device.type == "cpu":
-            o, lse = flash_attention_reference(q, k, v, causal)
+            o, lse = flash_attention_reference(q, k, v, causal, seg_starts)
         elif q.device.type == "cuda":
             check_kernel_args(q, k, v, causal)
-            o, lse = _launch_fwd(q, k, v)
+            o, lse = _launch_fwd(q, k, v, kernel_seg_starts(seg_starts, q, causal))
         else:
             raise ValueError(f"flash_attention: unsupported device {q.device}")
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.save_for_backward(q, k, v, o, lse, seg_starts)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, seg_starts = ctx.saved_tensors
         if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_backward_reference(q, k, v, o, lse, do, ctx.causal)
+            dq, dk, dv = flash_attention_backward_reference(q, k, v, o, lse, do, ctx.causal,
+                                                            seg_starts)
         else:
-            dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do)
-        return dq, dk, dv, None
+            dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, seg_starts)
+        return dq, dk, dv, None, None
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    seg_starts: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o [B,S,H,D], lse [B,H,S] f32), differentiable in q, k and v: the CUDA
-    kernels for CUDA tensors, the plain versions for CPU tensors."""
-    return _FlashAttention.apply(q, k, v, causal)
+    kernels for CUDA tensors, the plain versions for CPU tensors. With
+    ``seg_starts`` (int32 [B, n <= MAX_SEGS]) each query attends only within
+    its own packed segment, through the segmented kernels."""
+    return _FlashAttention.apply(q, k, v, causal, seg_starts)

@@ -12,6 +12,8 @@ adapters (``lora=``, tst_torch.models.lora), single or fold-stacked.
 Attention: ``use_pallas=True`` goes through ``tst_torch.kernels.flash_attention``
 (the CUDA kernels, forward and backward, for CUDA tensors, their plain
 versions for CPU tensors); ``use_pallas=False`` takes the dense path.
+Packed rows (``seg_starts``) confine attention to each sample's segment
+and restart RoPE positions at each segment start.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tst_torch.kernels.flash_attention import flash_attention, masked_attention
+from tst_torch.kernels.flash_attention import (flash_attention, masked_attention,
+                                                segment_mask, segment_starts_per_pos)
 from tst_torch.models.lora import DROPOUT_ITEM, apply_lora_delta, fold_count, layer_slice
 from tst_torch.models.spec import ModelSpec
 
@@ -98,22 +101,24 @@ def rope_tables(seq_len: int, d_head: int, theta: float,
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x: [B, S, H, dh]; rotate the two halves (HF non-interleaved layout).
-    The [S, dh/2] tables are cast to x.dtype before the multiply."""
+    cos/sin: [S, dh/2] shared tables, or [B, S, dh/2] per-row tables (packed
+    rows gather them at per-segment positions); cast to x.dtype before the
+    multiply."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
-    c = cos[None, :, None, :].to(x.dtype)
-    s = sin[None, :, None, :].to(x.dtype)
+    c = (cos[None] if cos.ndim == 2 else cos)[:, :, None, :].to(x.dtype)
+    s = (sin[None] if sin.ndim == 2 else sin)[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
 def _dense_attention(q, k, v, causal_mask):
     """Plain attention. q: [B,S,H,dh]; k/v: [B,S,K,dh] (GQA);
-    ``causal_mask``: bool [S, S]."""
+    ``causal_mask``: bool [S, S] shared, or [B, S, S] per row (packed)."""
     return masked_attention(q, k, v, causal_mask)[0]
 
 
-def _flash_attention(q, k, v):
-    return flash_attention(q, k, v, causal=True)[0]
+def _flash_attention(q, k, v, seg_starts=None):
+    return flash_attention(q, k, v, causal=True, seg_starts=seg_starts)[0]
 
 
 #: projection name → its bias key (Qwen2-style QKV biases)
@@ -144,6 +149,11 @@ def apply_model(
     the final-norm hidden states [B, S, D] in ``spec.dtype`` (callers that
     need a few positions project them themselves).
 
+    ``seg_starts``: int [B, n <= 8] packed-row segment starts (ascending,
+    unused slots >= SEG_PAD; tst_torch.data.packing). Attention stays inside
+    each token's segment and RoPE positions restart at each start, so a
+    packed row is numerically a batch of independent samples.
+
     ``lora``: an adapter tree (tst_torch.models.lora) added to its
     projections before their biases. A fold-stacked tree (``[k, L, ...]``
     leaves) takes fold-major tokens ``[k·B, S]``: row block f goes through
@@ -154,8 +164,6 @@ def apply_model(
     if n_folds is not None and tokens.shape[0] % n_folds:
         raise ValueError(f"{tokens.shape[0]} rows do not split into {n_folds} fold blocks "
                          "for a fold-stacked adapter")
-    if seg_starts is not None:
-        _not_ported("packed sequences (seg_starts=)", "ROADMAP item 13")
     if return_kv:
         _not_ported("return_kv (KV-cached decode)", "ROADMAP item 11")
     if ring_mesh is not None:
@@ -169,7 +177,19 @@ def apply_model(
     x = embed_lookup(params, tokens, spec)  # [B, S, D]
     cos, sin = rope_tables(s, spec.d_head, spec.rope_theta, spec.rope_scaling,
                            device=x.device)
-    causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+    if seg_starts is not None:
+        seg_starts = torch.as_tensor(seg_starts, dtype=torch.int32, device=x.device)
+        # per-segment positions: RoPE sees each sample from offset 0
+        positions = (torch.arange(s, device=x.device)[None, :]
+                     - segment_starts_per_pos(seg_starts, s).long())  # [B, S]
+        cos, sin = cos[positions], sin[positions]  # [B, S, dh/2]
+    # the dense path's mask; the kernels take the starts themselves
+    if use_pallas:
+        causal = None
+    elif seg_starts is not None:
+        causal = segment_mask(seg_starts, s)  # [B, S, S]
+    else:
+        causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
     layers = params["layers"]
 
     for i in range(spec.n_layers):
@@ -192,7 +212,7 @@ def apply_model(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if use_pallas:
-            attn = _flash_attention(q, k, v)
+            attn = _flash_attention(q, k, v, seg_starts)
         else:
             attn = _dense_attention(q, k, v, causal)
         h_mid = x + proj("o", attn.reshape(b, s, spec.q_dim), "wo")

@@ -1,5 +1,6 @@
 """Held-out MCQ scoring: per-option probabilities from one forward pass
-(port of the single-token path of ``tst/train/infer.py``).
+(port of the single-token paths of ``tst/train/infer.py``, unpacked and
+packed).
 
 MCQ answers are single tokens by construction (tst.data.tokenize), so one
 forward per sample gives every option's probability: gather the hidden row
@@ -9,7 +10,9 @@ rows are padded to a common [k, M] grid and scored in fixed chunks of
 ``batch`` rows, so every chunk has the same shape; fold f's rows go through
 fold f's adapter when fold-stacked adapters ``lora_k`` are given, so each
 sample is scored by the model that never trained on it. Probabilities are a
-softmax over each sample's valid letters.
+softmax over each sample's valid letters. The packed scorer packs each
+fold's held-out MCQ rows several to a row (tst_torch.data.packing) and reads
+every segment's answer slot from one segment-masked forward.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tst_torch.data.packing import pack_rows, padding_seg_row
 from tst_torch.models.decoder import apply_model, lm_head_weight
 from tst_torch.models.lora import LoraSpec
 from tst_torch.models.spec import ModelSpec
@@ -39,6 +43,13 @@ def heldout_index_grid(fold_id: np.ndarray, k: int,
         idx[f, : len(r)] = r
         valid[f, : len(r)] = True
     return idx, valid
+
+
+def _fold_adapter(lora_k, f: int):
+    """Fold f's adapter from fold-stacked adapters (None stays None)."""
+    if lora_k is None:
+        return None
+    return {p: {n: t[f] for n, t in ab.items()} for p, ab in lora_k.items()}
 
 
 def make_mcq_scorer(
@@ -72,8 +83,7 @@ def make_mcq_scorer(
         out = []
         with torch.inference_mode():
             for f in range(k):
-                lora = None if lora_k is None else {
-                    p: {n: t[f] for n, t in ab.items()} for p, ab in lora_k.items()}
+                lora = _fold_adapter(lora_k, f)
                 chunks = [forward_logits(base, lora, tokens[idx_b],
                                          answer_pos[idx_b].long(), option_ids)
                           for idx_b in idx[f].split(batch)]
@@ -136,6 +146,102 @@ def score_heldout_mcq(
     scorer = make_mcq_scorer(spec, lora_spec, use_pallas, batch)
     ll = scorer(base, lora_k, tokens, answer_pos, option_ids, idx)
     return letter_probs(ll.cpu().numpy(), n_options, idx, valid, tokens.shape[0])
+
+
+def pack_heldout_mcq(tb, fold_id: np.ndarray, k: int, pack_len: int, batch: int,
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Pack each fold's held-out MCQ rows for the packed scorer (the
+    trainer's first-fit packer) → (ptokens [k,R,L], ppos [k,R,G], psegs
+    [k,R,G], sample_rows [k,R,G]). R is padded to a multiple of ``batch``;
+    padding rows hold pad tokens, answer slots -1 and one segment at 0."""
+    is_mcq = tb.gold >= 0
+    packs = [pack_rows(tb, np.flatnonzero((fold_id == f) & is_mcq), pack_len)
+             for f in range(k)]
+    r = max(max(p.n_rows for p in packs), 1)
+    r += (-r) % batch
+
+    def pad_rows(a, fill):
+        out = np.full((r,) + a.shape[1:], fill, a.dtype)
+        out[: a.shape[0]] = a
+        return out
+
+    ptokens = np.stack([pad_rows(p.tokens, tb.pad_id) for p in packs])
+    ppos = np.stack([pad_rows(p.answer_pos, -1) for p in packs])
+    psegs = np.stack([pad_rows(p.seg_starts, padding_seg_row()) for p in packs])
+    srows = np.stack([pad_rows(p.sample_rows, -1) for p in packs])
+    return ptokens, ppos, psegs, srows
+
+
+def packed_scorer_batch(pack_len: int) -> int:
+    """Packed rows per chunk: the unpacked scorer's token budget, 32 × 512."""
+    return max(1, (32 * 512) // pack_len)
+
+
+def make_mcq_scorer_packed(
+    spec: ModelSpec,
+    lora_spec: Optional[LoraSpec] = None,
+    use_pallas: bool = False,
+    batch: int = 16,
+):
+    """Returns ``score(base, lora_k|None, ptokens [k,R,L], ppos [k,R,G],
+    psegs [k,R,G], option_ids)`` → letter logits f32 [k, R, G, C].
+
+    One segment-masked forward per packed row (RoPE restarts per segment),
+    in chunks of ``batch`` rows, fold f's rows through fold f's adapter; the
+    hidden states at every segment's answer slot are projected onto the
+    option-letter head columns only."""
+
+    def score(base, lora_k, ptokens, ppos, psegs, option_ids):
+        k, r, s = ptokens.shape
+        head_cols = lm_head_weight(base, spec)[:, torch.as_tensor(
+            option_ids, dtype=torch.long, device=ptokens.device)]  # [D, C]
+        out = []
+        with torch.inference_mode():
+            for f in range(k):
+                lora = _fold_adapter(lora_k, f)
+                chunks = []
+                for c0 in range(0, r, batch):
+                    rows = slice(c0, c0 + batch)
+                    h = apply_model(base, ptokens[f, rows], spec, lora=lora,
+                                    lora_spec=lora_spec, use_pallas=use_pallas,
+                                    return_hidden=True, seg_starts=psegs[f, rows])
+                    pos = ppos[f, rows].long().clamp(0, s - 1)  # [b, G]
+                    h_at = h.gather(1, pos[..., None].expand(-1, -1, h.shape[-1]))
+                    # bf16 operands, f32 products and sums (an f32-out product)
+                    chunks.append(h_at.float() @ head_cols.to(h.dtype).float())
+                out.append(torch.cat(chunks))
+        return torch.stack(out)  # [k, R, G, C]
+
+    return score
+
+
+def score_heldout_mcq_packed(
+    base,
+    lora_k,
+    spec: ModelSpec,
+    lora_spec: Optional[LoraSpec],
+    tb,
+    fold_id: np.ndarray,
+    k: int,
+    pack_len: int,
+    use_pallas: bool = False,
+    batch: Optional[int] = None,
+) -> np.ndarray:
+    """Packed variant of :func:`score_heldout_mcq`: held-out per-option
+    probabilities [N, C]; non-MCQ rows and rows whose fold id is outside
+    [0, k) keep prob 0. Single-token options only. The packed rows are
+    built on the host and moved to the weights' device."""
+    b = batch or packed_scorer_batch(pack_len)
+    ptokens, ppos, psegs, srows = pack_heldout_mcq(tb, fold_id, k, pack_len, b)
+    device = base["embed"].device
+    scorer = make_mcq_scorer_packed(spec, lora_spec, use_pallas, batch=b)
+    ll = scorer(base, lora_k, *(torch.from_numpy(a).to(device) for a in (ptokens, ppos, psegs)),
+                tb.option_token_ids)
+    kk, r, g, c = ll.shape
+    flat = ll.cpu().numpy().reshape(kk, r * g, c)
+    idx = srows.reshape(kk, r * g)
+    valid = idx >= 0
+    return letter_probs(flat, tb.n_options, np.where(valid, idx, 0), valid, tb.n)
 
 
 def score_all_mcq(

@@ -5,10 +5,11 @@ Ported so far:
   * the zero-shot blind evaluation (``eval-blind``): load → blind-render →
     tokenize → model → single-forward MCQ scoring → metrics →
     ``blind_eval.json``;
-  * the core diagnostic (``diagnose-sft``), its unpacked MCQ leg: tokenize →
-    stratified k folds → fold-parallel LoRA SFT → held-out scoring with each
-    fold's adapter → s(x) → metrics → ``report.json``, ``sx.jsonl``,
-    ``dataset.jsonl``, ``config.json``, ``events.jsonl``.
+  * the core diagnostic (``diagnose-sft``), its MCQ leg, unpacked or packed
+    (``optim.pack``): tokenize → stratified k folds → fold-parallel LoRA SFT
+    → held-out scoring with each fold's adapter → s(x) → metrics →
+    ``report.json``, ``sx.jsonl``, ``dataset.jsonl``, ``config.json``,
+    ``events.jsonl``.
 
 What the port does not have yet raises NotImplementedError naming its
 ROADMAP item; nothing is silently skipped.
@@ -28,13 +29,14 @@ from tst.data.folds import kfold_assign
 from tst.data.schema import MCQ, BlindDataset
 from tst.data.tokenize import ByteTokenizer, HFTokenizer, tokenize_dataset
 from tst.io import outputs
+from tst_torch.data.packing import FoldPacked, make_packed_fold_batches, pack_fold_datasets
 from tst_torch.diagnose.score import bias_scores
 from tst_torch.eval import metrics
 from tst_torch.eval.parity import spearman
 from tst_torch.models.decoder import Params, init_params
 from tst_torch.models.lora import LoraSpec
 from tst_torch.models.spec import ModelSpec, spec_by_name
-from tst_torch.train.infer import score_all_mcq, score_heldout_mcq
+from tst_torch.train.infer import score_all_mcq, score_heldout_mcq, score_heldout_mcq_packed
 from tst_torch.train.sft import FoldTrainer, TrainLog, make_fold_batches
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -154,8 +156,6 @@ def _check_sft_config(ds: BlindDataset, cfg: RunConfig) -> None:
     """Raise, before any work, on what the port's diagnose-sft does not have."""
     if cfg.mesh.fold * cfg.mesh.data * cfg.mesh.seq * cfg.mesh.tensor > 1:
         _not_ported("mesh sizes above 1", 16)
-    if cfg.optim.pack:
-        _not_ported("sequence packing (optim.pack)", 13)
     if cfg.model.remat:
         _not_ported("remat (model.remat)", 7)
     if cfg.checkpoint_dir:
@@ -176,7 +176,7 @@ class _SftRunState:
 
     __slots__ = ("tokenizer", "tb", "fold_id", "spec", "params", "lspec", "batches",
                  "t_max", "trainer", "lora", "opt_state", "tokens", "loss_mask",
-                 "answer_pos")
+                 "answer_pos", "pack", "ptokens", "pmask", "ppos", "psegs")
 
 
 def _build_sft_state(ds: BlindDataset, cfg: RunConfig, device: torch.device) -> _SftRunState:
@@ -188,20 +188,47 @@ def _build_sft_state(ds: BlindDataset, cfg: RunConfig, device: torch.device) -> 
     st.fold_id = kfold_assign(ds, k, cfg.data.seed)
     st.spec, st.params = build_model(cfg, st.tokenizer, device)
     st.lspec = lora_spec_from_cfg(cfg, st.spec.dtype)
-    st.batches = make_fold_batches(st.fold_id, k, cfg.optim.batch_size, cfg.optim.epochs,
-                                   cfg.data.seed, batch_multiple=cfg.mesh.data)
+    st.pack = _pack_train_data(st.tb, st.fold_id, cfg) if cfg.optim.pack else None
+    st.batches = _fold_batches(st, cfg, cfg.data.seed)
     # answer-window length: the longest target
     st.t_max = int(np.max(st.tb.lengths - st.tb.answer_pos - 1))
     st.trainer = FoldTrainer(
         st.spec, st.lspec, k, lr=cfg.optim.lr, total_steps=st.batches.shape[0],
         warmup_frac=cfg.optim.warmup_frac, weight_decay=cfg.optim.weight_decay,
-        use_pallas=cfg.model.use_pallas, t_max=st.t_max, b1=cfg.optim.b1, b2=cfg.optim.b2)
+        use_pallas=cfg.model.use_pallas, t_max=st.t_max, b1=cfg.optim.b1, b2=cfg.optim.b2,
+        packed=st.pack is not None)
     st.lora, st.opt_state = st.trainer.init_state(
         torch.Generator(device=device).manual_seed(cfg.data.seed + 1))
     st.tokens = torch.from_numpy(st.tb.tokens).to(device)
     st.loss_mask = torch.from_numpy(st.tb.loss_mask).to(device)
     st.answer_pos = torch.from_numpy(st.tb.answer_pos).to(device)
+    st.ptokens = st.pmask = st.ppos = st.psegs = None
+    if st.pack is not None:
+        st.ptokens, st.pmask, st.ppos, st.psegs = (
+            torch.from_numpy(a).to(device) for a in (st.pack.tokens, st.pack.loss_mask,
+                                                     st.pack.answer_pos, st.pack.seg_starts))
     return st
+
+
+def _pack_train_data(tb, fold_id: np.ndarray, cfg: RunConfig) -> FoldPacked:
+    """Per-fold packed train splits for ``optim.pack``; ``optim.pack_len`` 0
+    means twice the tokenized bucket."""
+    pack_len = int(cfg.optim.pack_len) or 2 * tb.seq_len
+    if pack_len < tb.seq_len:
+        raise ValueError(
+            f"optim.pack_len {pack_len} < tokenized bucket {tb.seq_len} — "
+            "the longest sample would not fit a packed row")
+    return pack_fold_datasets(tb, fold_id, cfg.data.k, pack_len)
+
+
+def _fold_batches(st: _SftRunState, cfg: RunConfig, seed: int) -> np.ndarray:
+    """[steps, k, B] index streams over the dataset rows, or over each fold's
+    packed rows."""
+    if st.pack is not None:
+        return make_packed_fold_batches(st.pack.n_rows, cfg.optim.batch_size,
+                                        cfg.optim.epochs, seed, batch_multiple=cfg.mesh.data)
+    return make_fold_batches(st.fold_id, cfg.data.k, cfg.optim.batch_size, cfg.optim.epochs,
+                             seed, batch_multiple=cfg.mesh.data)
 
 
 def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
@@ -221,12 +248,19 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     logger = JsonlLogger(cfg.out_dir)
     stage_walls: Dict[str, float] = {}
 
+    single_token_opts = (tb.option_token_seqs is None
+                         or tb.option_token_seqs.shape[-1] == 1)
+
     def score_now(lora_now):
         # every row is MCQ (checked above), so every row is scored
         t0 = time.time()
-        probs = score_heldout_mcq(params, lora_now, spec, lspec, st.tokens, st.answer_pos,
-                                  tb.option_token_ids, tb.n_options, fold_id, k,
-                                  use_pallas=use_pallas, option_seqs=tb.option_token_seqs)
+        if st.pack is not None and single_token_opts and cfg.optim.packed_scorer:
+            probs = score_heldout_mcq_packed(params, lora_now, spec, lspec, tb, fold_id, k,
+                                             pack_len=st.pack.pack_len, use_pallas=use_pallas)
+        else:
+            probs = score_heldout_mcq(params, lora_now, spec, lspec, st.tokens, st.answer_pos,
+                                      tb.option_token_ids, tb.n_options, fold_id, k,
+                                      use_pallas=use_pallas, option_seqs=tb.option_token_seqs)
         stage_walls["score_mcq"] = stage_walls.get("score_mcq", 0.0) + time.time() - t0
         return probs
 
@@ -236,13 +270,17 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     epoch_probs, seed_final_probs = [], []
     steps_per_epoch = max(batches.shape[0] // max(cfg.optim.epochs, 1), 1)
     n_seeds = max(int(cfg.optim.n_seeds), 1)
+    if st.pack is not None:  # each fold's own packed rows
+        train_data = dict(all_tokens=st.ptokens, all_mask=st.pmask, all_pos=st.ppos,
+                          all_segs=st.psegs, n_segs=st.pack.n_segs)
+    else:
+        train_data = dict(all_tokens=st.tokens, all_mask=st.loss_mask, all_pos=st.answer_pos)
     tlog = None
     for s_i in range(n_seeds):
         if s_i > 0:  # fresh adapters and batch order, same folds
             lora, opt_state = trainer.init_state(
                 torch.Generator(device=device).manual_seed(cfg.data.seed + 1 + 7919 * s_i))
-            batches = make_fold_batches(fold_id, k, cfg.optim.batch_size, cfg.optim.epochs,
-                                        cfg.data.seed + s_i, batch_multiple=cfg.mesh.data)
+            batches = _fold_batches(st, cfg, cfg.data.seed + s_i)
         for e in range(cfg.optim.epochs):
             chunk = batches[e * steps_per_epoch: (e + 1) * steps_per_epoch]
             if e == cfg.optim.epochs - 1:  # the last epoch takes any remainder
@@ -250,10 +288,9 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
             if chunk.shape[0] == 0:
                 continue
             lora, opt_state, elog = trainer.fit(
-                params, lora, opt_state, st.tokens, st.loss_mask, chunk,
-                all_pos=st.answer_pos, log_every=cfg.log_every,
+                params, lora, opt_state, batches=chunk, log_every=cfg.log_every,
                 log_fn=lambda step, loss: logger.log(event="train", seed=s_i, epoch=e,
-                                                     step=step, loss=loss))
+                                                     step=step, loss=loss), **train_data)
             tlog = _merge_logs(tlog, elog)
             if (e + 1) in score_after:
                 epoch_probs.append(score_now(lora))
@@ -282,6 +319,9 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
         setup_wall_seconds=round(setup_wall, 2),
         **{f"{name}_wall_seconds": round(w, 2) for name, w in sorted(stage_walls.items())},
     )
+    if st.pack is not None:
+        report["pack_len"] = st.pack.pack_len
+        report["pack_fill_fraction"] = round(st.pack.fill_fraction, 4)
     outputs.write_sx_table(cfg.out_dir, ds, s_x, fold_id, pred=pred)
     outputs.write_report(cfg.out_dir, report)
     ds.save_jsonl(f"{cfg.out_dir}/dataset.jsonl")

@@ -6,7 +6,9 @@ and one step gathers the batch ``[k, B, S]`` from the device-resident
 dataset by index, runs one forward and one backward over the ``k·B``
 fold-major rows, and updates every fold. The loss is the sum of the per-fold
 masked means, so each fold's adapter gets its own gradient. Fold f trains
-only on rows whose fold id is not f (``make_fold_batches``).
+only on rows whose fold id is not f (``make_fold_batches``). Packed
+training (``packed=True``, tst_torch.data.packing) gathers each fold's rows
+from its own packed split ``[k, Np, L]``, with segment starts.
 
 The loss is cross-entropy on the answer tokens only, in f32 off bf16
 activations; AdamW with a warmup-cosine schedule mirrors optax's
@@ -87,7 +89,7 @@ def sft_loss_window(
     lora: Params,
     tokens: torch.Tensor,  # int [B, S]
     loss_mask: torch.Tensor,  # f32 [B, S]
-    answer_pos: torch.Tensor,  # int [B] — last prompt-token index
+    answer_pos: torch.Tensor,  # int [B] or [B, G] — last prompt-token index
     t_max: int,  # max target length in tokens
     spec: ModelSpec,
     lora_spec: LoraSpec,
@@ -101,22 +103,31 @@ def sft_loss_window(
     """The loss of :func:`sft_loss`, with the vocabulary projection only on
     the ``t_max`` rows ``answer_pos + [0, t_max)`` (targets are contiguous
     from ``answer_pos + 1``; loss_mask is zero elsewhere). Logits are f32
-    products of the bf16 hidden rows and head. Packed rows (a 2-D
-    ``answer_pos``) are not ported."""
-    if answer_pos.ndim != 1:
-        _not_ported("the packed answer window (2-D answer_pos)", "ROADMAP item 13")
+    products of the bf16 hidden rows and head.
+
+    Packed rows: ``seg_starts`` [B, n] and a 2-D ``answer_pos`` [B, G], one
+    window per packed sample (-1 on unused slots, whose windows weigh 0).
+    A window stops before the next segment's start, so a long ``t_max``
+    never counts the next sample's first tokens."""
     h = apply_model(base, tokens, spec, lora=lora, lora_spec=lora_spec,
                     use_pallas=use_pallas, remat=remat, return_hidden=True,
                     ring_mesh=ring_mesh, fused_mlp=fused_mlp, lora_rng=lora_rng,
                     seg_starts=seg_starts)  # [B, S, D]
-    s = tokens.shape[1]
-    rows = answer_pos.long()[:, None] + torch.arange(t_max, device=h.device)[None, :]
-    in_range = rows <= s - 2
-    rows = rows.clamp_max(s - 2)  # [B, T]
-    hsel = h.gather(1, rows[..., None].expand(-1, -1, h.shape[-1]))  # [B, T, D]
+    b, s = tokens.shape
+    ap = (answer_pos if answer_pos.ndim == 2 else answer_pos[:, None]).long()  # [B, G]
+    g = ap.shape[1]
+    start = ap.clamp_min(0)
+    rows = start[:, :, None] + torch.arange(t_max, device=h.device)[None, None, :]  # [B, G, T]
+    in_range = (rows <= s - 2) & (ap >= 0)[:, :, None]
+    if seg_starts is not None:
+        seg = torch.as_tensor(seg_starts, device=h.device).long()[:, None, :]  # [B, 1, n]
+        seg_end = torch.where(seg > start[:, :, None], seg, s).amin(-1)  # [B, G]: next start
+        in_range = in_range & (rows + 1 < seg_end[:, :, None])
+    rows = rows.reshape(b, g * t_max).clamp_max(s - 2)
+    hsel = h.gather(1, rows[..., None].expand(-1, -1, h.shape[-1]))  # [B, G·T, D]
     logits = hsel.float() @ lm_head_weight(base, spec).to(spec.dtype).float()
     labels = tokens.gather(1, rows + 1)
-    w = loss_mask.gather(1, rows + 1) * in_range
+    w = loss_mask.gather(1, rows + 1) * in_range.reshape(b, g * t_max)
     return _masked_mean(logits, labels, w, fold_count(lora))
 
 
@@ -273,8 +284,6 @@ class FoldTrainer:
             _not_ported("training with LoRA dropout", DROPOUT_ITEM)
         if remat:
             _not_ported("remat", "ROADMAP item 7")
-        if packed:
-            _not_ported("packed training (packed=True)", "ROADMAP item 13")
         if ring or mesh is not None:
             _not_ported("meshes and ring attention", "ROADMAP item 16")
         if fused_mlp:
@@ -286,6 +295,9 @@ class FoldTrainer:
         self.use_pallas = use_pallas
         #: answer-window length; None = full-sequence loss
         self.t_max = t_max
+        #: packed rows (tst_torch.data.packing): ``step``/``fit`` take per-fold
+        #: arrays [k, Np, ...] with segment starts, and answer_pos [k, Np, G]
+        self.packed = packed
 
     def ckpt_extra(self, **kw) -> Dict[str, Any]:
         """Host metadata for a checkpoint's extra.json: k and the LoRA
@@ -307,18 +319,23 @@ class FoldTrainer:
         return lora, self.tx.init(lora)
 
     def loss_and_grads(self, base: Params, lora: Params, tokens: torch.Tensor,
-                       mask: torch.Tensor, pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+                       mask: torch.Tensor, pos: torch.Tensor,
+                       segs: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
         """Per-fold losses [k] and the adapters' gradients for one batch
-        ``[k, B, S]``: one forward and one backward over all folds."""
+        ``[k, B, S]`` (packed: ``pos`` and ``segs`` [k, B, G]): one forward
+        and one backward over all folds."""
         k, b, s = tokens.shape
         params = tree_map(lambda t: t.detach().requires_grad_(True), lora)
         tokens, mask = tokens.reshape(k * b, s), mask.reshape(k * b, s)
+        pos = pos.reshape(k * b, *pos.shape[2:])
+        if segs is not None:
+            segs = segs.reshape(k * b, -1)
         if self.t_max is None:
             losses = sft_loss(base, params, tokens, mask, self.spec, self.lora_spec,
-                              self.use_pallas)
+                              self.use_pallas, seg_starts=segs)
         else:
-            losses = sft_loss_window(base, params, tokens, mask, pos.reshape(k * b), self.t_max,
-                                     self.spec, self.lora_spec, self.use_pallas)
+            losses = sft_loss_window(base, params, tokens, mask, pos, self.t_max, self.spec,
+                                     self.lora_spec, self.use_pallas, seg_starts=segs)
         leaves = tree_leaves(params)
         grads = torch.autograd.grad(losses.sum(), leaves)
         by_id = {id(leaf): g for leaf, g in zip(leaves, grads)}
@@ -326,12 +343,19 @@ class FoldTrainer:
 
     def step(self, base: Params, lora: Params, opt_state: AdamWState,
              all_tokens: torch.Tensor, all_mask: torch.Tensor, all_pos: torch.Tensor,
-             idx_kb: np.ndarray) -> Tuple[Params, AdamWState, torch.Tensor]:
+             idx_kb: np.ndarray, all_segs: Optional[torch.Tensor] = None,
+             ) -> Tuple[Params, AdamWState, torch.Tensor]:
         """One fold-parallel step on rows ``idx_kb`` [k, B], gathered on the
-        device → (adapters, optimizer state, per-fold losses [k])."""
+        device → (adapters, optimizer state, per-fold losses [k]). Packed:
+        the arrays are per fold ([k, Np, ...], ``all_segs`` the starts) and
+        fold f's rows come from its own split."""
         idx = torch.as_tensor(idx_kb, dtype=torch.long).to(all_tokens.device)
+        if self.packed:
+            ka = torch.arange(idx.shape[0], device=idx.device)[:, None]
+            idx = (ka, idx)
+        segs = None if all_segs is None else all_segs[idx]
         losses, grads = self.loss_and_grads(base, lora, all_tokens[idx], all_mask[idx],
-                                            all_pos[idx])
+                                            all_pos[idx], segs)
         updates, opt_state = self.tx.update(grads, opt_state, lora)
         return apply_updates(lora, updates), opt_state, losses
 
@@ -347,9 +371,18 @@ class FoldTrainer:
         log_every: int = 10,
         log_fn: Optional[Callable[[int, float], None]] = None,
         checkpoint_dir: Optional[str] = None,
+        all_segs: Optional[torch.Tensor] = None,  # int32 [k, Np, MAX_SEGS] (packed)
+        n_segs: Optional[np.ndarray] = None,  # int [k, Np] samples per row (packed)
     ) -> Tuple[Params, AdamWState, TrainLog]:
         if checkpoint_dir is not None:
             _not_ported("training checkpoints (checkpoint_dir)", "ROADMAP item 7")
+        if self.packed:
+            if all_segs is None or all_pos is None:
+                raise ValueError("packed mode needs all_segs and all_pos "
+                                 "(tst_torch.data.packing.pack_fold_datasets arrays)")
+        elif all_segs is not None:
+            raise ValueError("all_segs passed to an unpacked FoldTrainer; "
+                             "construct it with packed=True")
         if all_pos is None:
             if self.t_max is not None:
                 raise ValueError("windowed loss (t_max set) needs all_pos")
@@ -360,7 +393,7 @@ class FoldTrainer:
         pending: List[torch.Tensor] = []
         for t in range(batches.shape[0]):
             lora, opt_state, loss = self.step(base, lora, opt_state, all_tokens, all_mask,
-                                              all_pos, batches[t])
+                                              all_pos, batches[t], all_segs)
             pending.append(loss)
             if t == 0:
                 _sync(loss)
@@ -376,6 +409,11 @@ class FoldTrainer:
         _sync(all_tokens)
         log.steps = int(batches.shape[0])
         log.wall_seconds = time.time() - t0
-        n_samples = int(np.prod(batches.shape))
+        if self.packed and n_segs is not None:
+            # real samples (segments), not packed rows
+            n_samples = int(np.asarray(n_segs)[np.arange(batches.shape[1])[None, :, None],
+                                               batches].sum())
+        else:
+            n_samples = int(np.prod(batches.shape))
         log.samples_per_sec = n_samples / max(log.wall_seconds, 1e-9)
         return lora, opt_state, log
