@@ -46,7 +46,29 @@ Phases, each printing one line; any failure raises and exits non-zero:
                table; the median train-step time after the first;
  10. train-packed, kernel vs plain — one packed step's LoRA gradients and
                losses (2 packed rows per fold) and the packed scorer's letter
-               probabilities through the kernels against the plain path.
+               probabilities through the kernels against the plain path;
+ 11. kernel-int4 — the packed-int4 dequant-matmul (K3) against its plain
+               version at decode's M (32, 64) for each int4 leaf of
+               Qwen2.5-0.5B and of Llama-3-8B, layer 1 of a stacked [2, K, N/2]
+               leaf; median times, and one decode layer's seven projections;
+ 12. kernel-mlp — the fused SwiGLU MLP (K4) against its plain version at the
+               int4 train step's shape, at Llama-3-8B widths and at an M that
+               is no tile multiple; gradients through the autograd Function
+               against autograd of the plain version; median times;
+ 13. decode-slice — ``python -m tst_torch eval-blind`` on synthetic-vsi:0.4
+               (384 MCQ + 128 numeric rows, n=512) with ``model.quantize=int4``
+               through the CLI: launch counts as the run implies (K3 on every
+               int4 projection of every decode step); the first decode step's
+               logits through K3 against the plain path on the same caches;
+               decode step times and the device's idle share (profiler);
+ 14. train-fused — ``python -m tst_torch diagnose-sft`` on synthetic-vsi:0.4
+               with ``model.quantize=int4 model.fused_mlp=true`` through the
+               CLI: launch counts as implied (K4 on every train-step MLP, K3 on
+               the held-out decode of both folds' rows at once); report.json
+               and the s(x) table; one step's LoRA gradients and fold losses
+               against the unfused plain path; median step time fused against
+               unfused, their peak device memory, and a profile of the fused
+               step.
 
 The second-to-last line is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of jax or of the JAX
@@ -103,6 +125,34 @@ MAX_SEGS, SEG_PAD = 8, 1 << 30
 #: packed rows per fold of the kernel-vs-plain step: the plain attention keeps
 #: several f32 [rows, 14, 1024, 1024] tensors per layer for its backward
 PACKED_PLAIN_ROWS = 2
+#: K3 at decode's M: Path A's chunk of 32 rows; Path B's 2 folds x 32 rows
+INT4_M = (32, 64)
+#: (K, N) of Qwen2.5-0.5B's seven int4 projections, in a layer's order
+QWEN_INT4 = {"wq": (896, 896), "wk": (896, 128), "wv": (896, 128), "wo": (896, 896),
+             "w_gate": (896, 4864), "w_up": (896, 4864), "w_down": (4864, 896)}
+#: Llama-3-8B's int4 leaves: q/o, k/v, gate/up, down
+LLAMA_INT4 = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+#: the same bf16-rounded weights, f32 sums in another order
+INT4_TOL = 1e-2
+#: K4: the int4 train step (2 folds x 16 rows x 512 tokens), Llama-3-8B
+#: widths, and an M that is no multiple of the kernel's 32-row tile
+MLP_SHAPES = [(16384, 896, 4864), (2048, 4096, 14336), (1000, 896, 4864)]
+#: bf16 output and h rounded to bf16 before the down product
+MLP_TOL = 2e-2
+DECODE = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=512",
+          "--set", "model.name=qwen2.5-0.5b", "--set", "model.quantize=int4"]
+#: synthetic-vsi:0.4 at n=512: 384 MCQ rows and 128 numeric rows
+N_MCQ_VSI, N_NUMERIC_VSI = 384, 128
+#: greedy tokens of a numeric answer (the reference's max_new), the int4
+#: projections of a layer, and the decode step's rows of Path A
+MAX_NEW, INT4_PROJ, DECODE_ROWS = 12, 7, 32
+#: the first decode step's f32 logits, K3 against the plain path on the same
+#: caches: max |Δ| <= 2e-2 max |logit|, argmax agreement >= 0.95 over the
+#: numeric rows (a random bf16 model of 24 layers: the plain path with its f32
+#: sums taken in another order moves its logits as far, PERF.md)
+LOGIT_TOL, FIRST_TOKEN_AGREE = 2e-2, 0.95
+TRAIN_FUSED = ([a.replace("synthetic:0.5", "synthetic-vsi:0.4") for a in TRAIN]
+               + ["--set", "model.quantize=int4", "--set", "model.fused_mlp=true"])
 
 
 def median_ms(fn, samples=30, reps=10, warmup=3):
@@ -311,26 +361,31 @@ def phase_slice():
 
 def _launch_counts():
     import tst_torch.kernels.flash_attention as tfa
+    import tst_torch.kernels.fused_mlp as tfm
+    import tst_torch.kernels.quant_matmul as tqm
 
     return {"fwd": tfa.LAUNCHES, "dkv": tfa.LAUNCHES_BWD_DKV, "dq": tfa.LAUNCHES_BWD_DQ,
             "fwd_seg": tfa.LAUNCHES_SEG, "dkv_seg": tfa.LAUNCHES_SEG_BWD_DKV,
-            "dq_seg": tfa.LAUNCHES_SEG_BWD_DQ}
+            "dq_seg": tfa.LAUNCHES_SEG_BWD_DQ, "int4": tqm.LAUNCHES, "mlp": tfm.LAUNCHES}
 
 
 def _zero_launch_counts():
     import tst_torch.kernels.flash_attention as tfa
+    import tst_torch.kernels.fused_mlp as tfm
+    import tst_torch.kernels.quant_matmul as tqm
 
     tfa.LAUNCHES = tfa.LAUNCHES_BWD_DKV = tfa.LAUNCHES_BWD_DQ = 0
     tfa.LAUNCHES_SEG = tfa.LAUNCHES_SEG_BWD_DKV = tfa.LAUNCHES_SEG_BWD_DQ = 0
+    tqm.LAUNCHES = tfm.LAUNCHES = 0
 
 
-def _train_state(overrides=()):
+def _train_state(overrides=(), base=TRAIN):
     """The diagnose-sft run's state (weights, adapters, batches) built as
-    the CLI builds it, with extra ``--set`` overrides."""
+    the CLI builds it from ``base``, with extra ``--set`` overrides."""
     from tst_torch import cli
     from tst_torch.train.pipeline import _build_sft_state
 
-    argv = TRAIN + [a for o in overrides for a in ("--set", o)]
+    argv = base + [a for o in overrides for a in ("--set", o)]
     cfg, device = cli._resolve(cli.build_parser().parse_args(argv))
     return _build_sft_state(cli._load_dataset(cfg), cfg, device)
 
@@ -355,7 +410,8 @@ def phase_train():
     k, steps = report["k"], report["train_steps"]
     chunks = k * math.ceil(max(int((folds == f).sum()) for f in range(k)) / SCORER_BATCH)
     want = {"fwd": N_LAYERS * (steps + chunks), "dkv": N_LAYERS * steps,
-            "dq": N_LAYERS * steps, "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0}
+            "dq": N_LAYERS * steps, "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0,
+            "mlp": 0}
     loss = report["final_loss"]
     sx = np.array([r["s_x"] for r in rows], np.float64)
     if (rc != 0 or counts != want or report["n_mcq"] != N_SAMPLES or len(rows) != N_SAMPLES
@@ -573,7 +629,7 @@ def phase_train_packed():
     held_out_rows = pack_heldout_mcq(st.tb, st.fold_id, k, st.pack.pack_len, batch)[0].shape[1]
     chunks = k * held_out_rows // batch
     want = {"fwd": 0, "dkv": 0, "dq": 0, "fwd_seg": N_LAYERS * (steps + chunks),
-            "dkv_seg": N_LAYERS * steps, "dq_seg": N_LAYERS * steps}
+            "dkv_seg": N_LAYERS * steps, "dq_seg": N_LAYERS * steps, "int4": 0, "mlp": 0}
     loss = report["final_loss"]
     sx = np.array([r["s_x"] for r in rows], np.float64)
     if (rc != 0 or counts != want or report.get("pack_len") != 1024
@@ -664,6 +720,361 @@ def phase_train_packed_vs_plain():
         raise AssertionError("the packed path through the kernels disagrees with the plain path")
 
 
+def _profile(fn, steps):
+    """Per call of ``fn``: the synchronized wall ms of ``steps`` calls
+    without the profiler, and the device's busy ms from a torch.profiler
+    trace of ``steps`` more (the sum of kernel times); the idle share is
+    1 - busy / wall. The profiler's own host cost stays out of the wall: a
+    launch-bound loop runs several times slower under it. Also the five
+    kernels that take the most device time, with their launches per call.
+    Busy and idle are None where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((us / 1e3 / steps, e.count / steps, e.key))
+    busy = sum(k[0] for k in kernels)
+    if busy <= 0:
+        return {"wall_ms": wall_ms, "busy_ms": None, "idle_share": None, "top": []}
+    top = [f"{name[:60]} {ms:.3f} ms x{cnt:g}" for ms, cnt, name in sorted(kernels)[::-1][:5]]
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms, "top": top}
+
+
+def _fmt_profile(p):
+    if p["busy_ms"] is None:
+        return f"wall {p['wall_ms']:.3f} ms; device time not measured (no kernel time in trace)"
+    return (f"wall {p['wall_ms']:.3f} ms, device busy {p['busy_ms']:.3f} ms, idle share "
+            f"{p['idle_share']:.3f}; top kernels: {'; '.join(p['top'])}")
+
+
+def phase_kernel_int4(device):
+    """K3 against its plain version at decode's M for every int4 leaf of
+    Qwen2.5-0.5B and Llama-3-8B (layer 1 of a 2-layer stack, weights drawn in
+    bf16 and quantized as the model's are); times at every Qwen shape."""
+    import tst_torch.kernels.quant_matmul as tqm
+    from tst_torch.models.quant import quantize_leaf
+
+    g = torch.Generator(device=device).manual_seed(11)
+    layer = {m: {"ms": 0.0, "plain_ms": 0.0} for m in INT4_M}
+    worst = 0.0
+    cases = [(name, k, n) for name, (k, n) in QWEN_INT4.items()]
+    cases += [("llama3-8b", k, n) for k, n in LLAMA_INT4]
+    for name, k, n in cases:
+        w = (torch.randn(2, k, n, device=device, generator=g) / math.sqrt(k)).to(torch.bfloat16)
+        leaf = quantize_leaf(w, bits=4)
+        q, sc = leaf["q"], leaf["scale"]
+        del w, leaf
+        for m in INT4_M:
+            y = torch.randn(m, k, device=device, generator=g).to(torch.bfloat16)
+            before = tqm.LAUNCHES
+            got = tqm.int4_matmul_stacked(y, q, sc, 1)
+            torch.cuda.synchronize()
+            want = tqm.int4_matmul_reference(y, q, sc, 1)
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            if (tqm.LAUNCHES != before + 1 or rel > INT4_TOL
+                    or not bool(torch.isfinite(got).all())):
+                raise AssertionError(f"int4_matmul disagrees with its plain version at "
+                                     f"M={m} K={k} N={n}: max|d|/max|ref| {rel:.3e}")
+            worst = max(worst, err)
+            line = f"[kernel-int4] {name} M={m} K={k} N={n}: max|out-ref|/max|ref| {rel:.3e}"
+            if name in QWEN_INT4:
+                ms = median_ms(lambda: tqm._launch(y, q, sc, 1))
+                plain = median_ms(lambda: tqm.int4_matmul_reference(y, q, sc, 1))
+                layer[m]["ms"] += ms
+                layer[m]["plain_ms"] += plain
+                line += f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
+            print(line + f" (<= {INT4_TOL})")
+        del q, sc
+    for m in INT4_M:
+        print(f"[kernel-int4] one decode layer's 7 projections at M={m}: kernel "
+              f"{layer[m]['ms']:.4f} ms, plain (dequantize, then product) "
+              f"{layer[m]['plain_ms']:.4f} ms (sums of medians of 30 x 10 calls)")
+    return {"max_abs_err": worst, "ms": layer[32]["ms"], "plain_ms": layer[32]["plain_ms"],
+            "timed": "sum over one Qwen2.5-0.5B layer's 7 projections at M=32"}
+
+
+def phase_kernel_mlp(device):
+    """K4 against its plain version and the decoder's unfused bf16 MLP;
+    gradients of all four inputs through the autograd Function against
+    autograd of the plain version; times at the train step's shape."""
+    import tst_torch.kernels.fused_mlp as tfm
+
+    out = {}
+    for m, d, f in MLP_SHAPES:
+        g = torch.Generator(device=device).manual_seed(m + d)
+        x = torch.randn(m, d, device=device, generator=g).to(torch.bfloat16)
+        wg, wu = ((torch.randn(d, f, device=device, generator=g) / math.sqrt(d))
+                  .to(torch.bfloat16) for _ in range(2))
+        wd = (torch.randn(f, d, device=device, generator=g) / math.sqrt(f)).to(torch.bfloat16)
+        dout = torch.randn(m, d, device=device, generator=g).to(torch.bfloat16)
+        before = tfm.LAUNCHES
+        got = tfm.fused_mlp_forward(x, wg, wu, wd)
+        torch.cuda.synchronize()
+        want = tfm.swiglu_reference(x, wg, wu, wd)
+        fwd_rel = _rel_err(got, want)
+        fwd_abs = (got.float() - want.float()).abs().max().item()
+        leaves = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
+        tfm.fused_swiglu_mlp(*leaves).backward(dout)
+        plain = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
+        tfm.swiglu_reference(*plain).backward(dout)
+        torch.cuda.synchronize()
+        grad_rel = [_rel_err(a.grad, p.grad) for a, p in zip(leaves, plain)]
+        del leaves, plain
+        print(f"[kernel-mlp] M={m} D={d} F={f}: forward max|out-ref|/max|ref| {fwd_rel:.3e}; "
+              f"through autograd vs plain dx {grad_rel[0]:.3e} dWg {grad_rel[1]:.3e} "
+              f"dWu {grad_rel[2]:.3e} dWd {grad_rel[3]:.3e} (each <= {MLP_TOL})")
+        if (tfm.LAUNCHES != before + 2 or not bool(torch.isfinite(got).all())
+                or max([fwd_rel] + grad_rel) > MLP_TOL):
+            raise AssertionError(f"fused_swiglu_mlp disagrees with its plain version at "
+                                 f"{(m, d, f)}")
+        if (m, d, f) == MLP_SHAPES[0]:
+            def unfused():
+                act = torch.nn.functional.silu((x @ wg).float()).to(x.dtype) * (x @ wu)
+                return act @ wd
+
+            out = {"max_abs_err": fwd_abs, "ms": median_ms(lambda: tfm._launch(x, wg, wu, wd)),
+                   "plain_ms": median_ms(lambda: tfm.swiglu_reference(x, wg, wu, wd),
+                                         samples=10, reps=3, warmup=1),
+                   "unfused_bf16_ms": median_ms(unfused, samples=10, reps=3, warmup=1)}
+        del x, wg, wu, wd, dout, got, want
+        torch.cuda.empty_cache()
+    flops = 3 * 2 * np.prod(MLP_SHAPES[0]) / 1e12
+    print(f"[kernel-mlp] train shape {MLP_SHAPES[0]}: kernel {out['ms']:.4f} ms "
+          f"({flops / out['ms'] * 1e3:.1f} TFLOP/s), plain (f32 products, the reference's "
+          f"numbers) {out['plain_ms']:.4f} ms, the decoder's unfused bf16 MLP "
+          f"{out['unfused_bf16_ms']:.4f} ms (kernel: median of 30 x 10 calls; others 10 x 3)")
+    return out
+
+
+def _numeric_rows(ds):
+    from tst_torch.train.pipeline import gold_values_of
+
+    return np.flatnonzero(np.isfinite(gold_values_of(ds)))
+
+
+def _decode_chunks(spec, params, seq_len, fold_of_rows, k):
+    """(rows per fold of a decode chunk, decode chunks) as the held-out
+    decode sizes them for these rows."""
+    from tst_torch.models.quant import quantized_bytes
+    from tst_torch.train.infer import decode_chunk_rows
+
+    m = max(int((fold_of_rows == f).sum()) for f in range(k))
+    chunk = decode_chunk_rows(spec, seq_len, MAX_NEW, k, base_bytes=quantized_bytes(params))
+    mc = min(m, chunk)
+    return mc, math.ceil(m / mc)
+
+
+def phase_decode_slice():
+    """Path A through the CLI, then K3 against the plain path on the same
+    weights and caches, decode step times and a profile of the step."""
+    from tst_torch import cli
+    from tst_torch.models.decode import _decode_step, chunk_logits, greedy_decode, prefill
+    from tst_torch.train.pipeline import prepare_blind_eval
+
+    out_dir = tempfile.mkdtemp(prefix="tst_torch_decode_")
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(DECODE + ["--out", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    with open(os.path.join(out_dir, "blind_eval.json")) as f:
+        report = json.load(f)
+    cfg, device = cli._resolve(cli.build_parser().parse_args(DECODE))
+    ds = cli._load_dataset(cfg)
+    tb, tokens, pos, spec, params = prepare_blind_eval(ds, cfg, device)
+    rows = _numeric_rows(ds)
+    mc, dchunks = _decode_chunks(spec, params, tokens.shape[1], np.zeros(len(rows)), 1)
+    mcq_chunks = math.ceil(N_SAMPLES / SCORER_BATCH)
+    want = {"fwd": N_LAYERS * (mcq_chunks + dchunks), "dkv": 0, "dq": 0, "fwd_seg": 0,
+            "dkv_seg": 0, "dq_seg": 0, "int4": INT4_PROJ * N_LAYERS * (MAX_NEW - 1) * dchunks,
+            "mlp": 0}
+    mra = report.get("numeric_blind_mra")
+    if (rc != 0 or counts != want or report.get("n_numeric") != N_NUMERIC_VSI
+            or report["n_mcq"] != N_MCQ_VSI or mra is None or not math.isfinite(mra)):
+        raise AssertionError(f"eval-blind int4 rc={rc}, launches {counts} (want {want}), "
+                             f"report {report}")
+    print(f"[decode-slice] eval-blind synthetic-vsi:0.4 int4 rc=0: n_mcq {report['n_mcq']}, "
+          f"n_numeric {report['n_numeric']} in {dchunks} decode chunks of {mc} rows x "
+          f"{MAX_NEW} tokens; launches fwd {counts['fwd']} (24 x ({mcq_chunks} MCQ + {dchunks} "
+          f"prefill chunks)), int4 {counts['int4']} (7 x 24 x {MAX_NEW - 1} steps x {dchunks}), "
+          f"mlp/dkv/dq 0 (as implied); blind_accuracy {report['blind_accuracy']:.4f}, "
+          f"numeric_blind_mra {mra}; CLI wall {wall:.2f} s")
+
+    # the first decode step of every numeric row, chunk by chunk, on the same
+    # weights and caches: K3 vs plain
+    rels, agree, whole, per_tok, gaps = [], 0, 0, 0.0, []
+    for c0 in range(0, len(rows), DECODE_ROWS):
+        sel = torch.as_tensor(rows[c0: c0 + DECODE_ROWS], device=device)
+        tok, plen = tokens[sel], pos[sel].long() + 1
+        s = tok.shape[1]
+        with torch.inference_mode():
+            tok0, kc, vc, head, rope = prefill(params, tok, plen, MAX_NEW, spec, use_pallas=True)
+            valid = torch.arange(kc.shape[2], device=device)[None, :] < plen[:, None]
+            lk, lp = (chunk_logits(params, None, None, spec, tok0[:, None], plen[:, None], s,
+                                   valid, kc.clone(), vc.clone(), use_pallas=up, head=head,
+                                   rope=rope)[0][:, 0] for up in (True, False))
+        if not bool(torch.isfinite(lk).all()):
+            raise AssertionError("non-finite logits through K3")
+        rels.append(((lk - lp).abs().max() / lp.abs().max()).item())
+        same = lk.argmax(-1) == lp.argmax(-1)
+        agree += int(same.sum().item())
+        top2 = lp.topk(2, dim=-1).values
+        gaps += (top2[:, 0] - top2[:, 1])[~same].tolist()
+        gen_k, gen_p = (greedy_decode(params, tok, plen, MAX_NEW, spec, use_pallas=up)
+                        for up in (True, False))
+        whole += int((gen_k == gen_p).all(-1).sum().item())
+        per_tok += (gen_k == gen_p).float().sum().item() / MAX_NEW
+    first = agree / len(rows)
+    print(f"[decode-slice] first decode step of the {len(rows)} numeric rows ({DECODE_ROWS} a "
+          f"chunk), same caches: K3 vs plain max|dlogit|/max|logit| {max(rels):.3e} "
+          f"(<= {LOGIT_TOL}), argmax agreement {first:.4f} (>= {FIRST_TOKEN_AGREE}; the plain "
+          f"path's top-2 gap on the rows that differ: {[round(g, 4) for g in gaps]}); greedy "
+          f"continuations ({MAX_NEW} tokens): whole-row agreement {whole / len(rows):.4f}, "
+          f"per-token {per_tok / len(rows):.4f}")
+    if max(rels) > LOGIT_TOL or first < FIRST_TOKEN_AGREE:
+        raise AssertionError("the decode step through K3 disagrees with the plain path")
+
+    # step times and the device's idle share in the step
+    step = {}
+    with torch.inference_mode():
+        for up in (True, False):
+            def one(up=up):
+                _decode_step(params, None, None, spec, tok0, plen, s, plen, s, kc, vc,
+                             use_pallas=up, head=head, rope=rope)
+            step[up] = _profile(one, 10)
+    for up, name in ((True, "through K3"), (False, "plain path (dequantize, then product)")):
+        print(f"[decode-slice] decode step ({DECODE_ROWS} rows, 24 layers), {name}: "
+              f"{DECODE_ROWS / step[up]['wall_ms'] * 1e3:.1f} tokens/s; "
+              f"{_fmt_profile(step[up])}")
+    return counts
+
+
+def phase_train_fused():
+    """Path B through the CLI; one step's gradients fused vs the unfused
+    plain path; step times fused vs unfused, peak memory, a profile."""
+    from tst_torch import cli
+
+    out_dir = tempfile.mkdtemp(prefix="tst_torch_fused_")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(TRAIN_FUSED + ["--out", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(out_dir, "report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(out_dir, "sx.jsonl")) as f:
+        sx_rows = [json.loads(line) for line in f]
+    st = _train_state(base=TRAIN_FUSED)
+    cfg, _ = cli._resolve(cli.build_parser().parse_args(TRAIN_FUSED))
+    rows = _numeric_rows(cli._load_dataset(cfg))
+    k, steps = report["k"], report["train_steps"]
+    mcq_fold = np.where(st.tb.gold >= 0, st.fold_id, -1)
+    chunks = k * math.ceil(max(int((mcq_fold == f).sum()) for f in range(k)) / SCORER_BATCH)
+    mc, dchunks = _decode_chunks(st.spec, st.params, st.tokens.shape[1], st.fold_id[rows], k)
+    want = {"fwd": N_LAYERS * (steps + chunks + dchunks), "dkv": N_LAYERS * steps,
+            "dq": N_LAYERS * steps, "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0,
+            "int4": INT4_PROJ * N_LAYERS * (MAX_NEW - 1) * dchunks, "mlp": N_LAYERS * steps}
+    loss = report["final_loss"]
+    sx = np.array([r["s_x"] for r in sx_rows], np.float64)
+    mra = report.get("numeric_blind_mra")
+    if (rc != 0 or counts != want or report.get("n_numeric") != N_NUMERIC_VSI
+            or report["n_mcq"] != N_MCQ_VSI or len(sx_rows) != N_SAMPLES
+            or "numeric_decode_wall_seconds" not in report or mra is None
+            or not math.isfinite(mra) or not (loss is not None and math.isfinite(loss))
+            or not ((sx >= 0) & (sx <= 1)).all()):
+        raise AssertionError(f"diagnose-sft int4 fused rc={rc}, launches {counts} "
+                             f"(want {want}), report {report}")
+    print(f"[train-fused] diagnose-sft int4 fused_mlp rc=0, {steps} steps x {k} folds, "
+          f"{chunks} scorer chunks, {dchunks} decode chunks of {k} x {mc} rows; launches "
+          f"mlp {counts['mlp']} fwd {counts['fwd']} dkv {counts['dkv']} dq {counts['dq']} "
+          f"int4 {counts['int4']} (as implied); CLI wall {wall:.2f} s; peak device memory "
+          f"{peak_gb:.2f} GB")
+    print(f"[train-fused] report.json {json.dumps(report, sort_keys=True)}")
+    top = sorted(sx_rows, key=lambda r: -r["s_x"])[:5]
+    print(f"[train-fused] s(x) table: {len(sx_rows)} rows, mean {sx.mean():.4f}, quantiles "
+          f"10/50/90% {np.quantile(sx, [0.1, 0.5, 0.9]).round(4).tolist()}; top 5 "
+          f"{json.dumps(top)}")
+
+    # one step, fused through the kernels vs the unfused plain path
+    states = {}
+    for fused in (True, False):
+        over = [f"optim.batch_size={PLAIN_ROWS}"] + ([] if fused else ["model.use_pallas=false"])
+        st2 = _train_state(over, base=TRAIN_FUSED)
+        rng = torch.Generator(device=st2.tokens.device).manual_seed(7)
+        for ab in st2.lora.values():
+            ab["b"] = (B_SCALE * torch.randn(ab["b"].shape, generator=rng,
+                                          device=rng.device)).to(ab["b"].dtype)
+        idx = torch.as_tensor(st2.batches[0], dtype=torch.long, device=st2.tokens.device)
+        states[fused] = st2.trainer.loss_and_grads(
+            st2.params, st2.lora, st2.tokens[idx], st2.loss_mask[idx], st2.answer_pos[idx])
+        del st2
+    (loss_k, grads_k), (loss_p, grads_p) = states[True], states[False]
+    cos = {f"{p}.{n}": torch.nn.functional.cosine_similarity(
+               grads_k[p][n].float().flatten(), grads_p[p][n].float().flatten(), dim=0).item()
+           for p in grads_k for n in grads_k[p]}
+    dloss = (loss_k - loss_p).abs().max().item()
+    worst = min(cos, key=cos.get)
+    print(f"[train-fused] {PLAIN_ROWS} rows per fold, fused kernels vs unfused plain path: "
+          f"fold losses {loss_k.tolist()} vs {loss_p.tolist()} (max |d| {dloss:.3e} <= "
+          f"{LOSS_TOL}); LoRA gradient cosine min {cos[worst]:.5f} ({worst}) over {len(cos)} "
+          f"leaves (>= {GRAD_COSINE})")
+    if dloss > LOSS_TOL or cos[worst] < GRAD_COSINE:
+        raise AssertionError("the fused train step disagrees with the unfused plain path")
+    del states, grads_k, grads_p
+
+    # step times fused vs unfused (both int4, flash kernels), peak memory
+    timing = {}
+    for fused in (True, False):
+        st2 = st if fused else _train_state(["model.fused_mlp=false"], base=TRAIN_FUSED)
+        lora, opt = st2.lora, st2.opt_state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for t in range(STEP_SAMPLES + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lora, opt, _ = st2.trainer.step(st2.params, lora, opt, st2.tokens, st2.loss_mask,
+                                            st2.answer_pos, st2.batches[t])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = _profile(lambda: st2.trainer.step(st2.params, lora, opt, st2.tokens,
+                                                 st2.loss_mask, st2.answer_pos,
+                                                 st2.batches[0]), 2)
+        timing[fused] = (statistics.median(times[1:]) * 1e3, peak, prof)
+        del st2, lora, opt
+        torch.cuda.empty_cache()
+    rows_per_step = int(np.prod(st.batches.shape[1:]))
+    for fused, name in ((True, "fused (K4)"), (False, "unfused")):
+        ms, peak, prof = timing[fused]
+        print(f"[train-fused] int4 step {name} ({rows_per_step} rows of {st.tokens.shape[1]} "
+              f"tokens): median {ms:.2f} ms over {STEP_SAMPLES} steps after the first "
+              f"({rows_per_step / ms * 1e3:.1f} samples/s), peak device memory {peak:.2f} GB; "
+              f"profile of one step: {_fmt_profile(prof)}")
+    return counts
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -675,6 +1086,10 @@ def main():
     seg = phase_kernel_seg(device)
     packed = phase_train_packed()
     phase_train_packed_vs_plain()
+    int4 = phase_kernel_int4(device)
+    mlp = phase_kernel_mlp(device)
+    decode = phase_decode_slice()
+    fused = phase_train_fused()
     records = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
@@ -700,6 +1115,11 @@ def main():
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:650",
          "launches": packed["dq_seg"], **seg["dq"]},
+        {"name": "int4_matmul", "route": "cuda", "source": "tst_torch/csrc/int4_matmul.cu",
+         "replaces": "tst/kernels/quant_matmul.py:64", "launches": decode["int4"],
+         "launches_diagnose_sft": fused["int4"], **int4},
+        {"name": "fused_swiglu_mlp", "route": "cuda", "source": "tst_torch/csrc/fused_mlp.cu",
+         "replaces": "tst/kernels/fused_mlp.py:44", "launches": fused["mlp"], **mlp},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

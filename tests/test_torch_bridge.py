@@ -52,8 +52,25 @@ def test_roundtrip_exact(spec, dtype):
         np.testing.assert_array_equal(ret[path].view(np.uint8), a.view(np.uint8), err_msg=path)
 
 
-def test_quantized_leaves_raise():
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_leaves_cross_bit_exact(bits):
+    """{"q", "scale"} leaves (int8 per channel, int4 packed with grouped
+    scales) cross as int8 and f32 tensors and come back bit for bit."""
     params = jax.tree.map(np.asarray, jdec.init_params(
-        jax.random.key(0), jdec.spec_by_name("tiny"), quantize=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        bridge.to_torch(params)
+        jax.random.key(0), jdec.spec_by_name("tiny"), quantize=True, bits=bits))
+    tree = bridge.to_torch(params)
+    assert tree["layers"]["wq"]["q"].dtype == torch.int8
+    assert tree["layers"]["w_down"]["scale"].dtype == torch.float32
+    assert tree["layers"]["w_down"]["scale"].ndim == (4 if bits == 4 else 3)
+    for (path, a), (path2, b) in zip(_flat(params), _flat(bridge.to_numpy(tree))):
+        assert path == path2 and a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8), err_msg=path)
+
+
+def test_quantized_leaves_raise():
+    """Quantized leaves streamed from an HF checkpoint (``quantizing_put``)
+    wait for checkpoint loading; the bridge carries them (above)."""
+    from tst_torch.models import quant as tquant
+
+    with pytest.raises(NotImplementedError, match="item 3"):
+        tquant.quantizing_put(bits=4)

@@ -108,11 +108,55 @@ def test_init_params_shapes_and_seed():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"lora_rng": object()}, "item 5"), ({"return_kv": True}, "item 11"), ({"ring_mesh": object()}, "item 16"),
-    ({"remat": True}, "item 7"), ({"fused_mlp": True}, "K4"),
+    ({"lora_rng": object()}, "item 5"), ({"ring_mesh": object()}, "item 16"),
+    ({"remat": True}, "item 7"),
 ])
 def test_unported_arguments_raise(kw, item):
     spec = _port_spec(SPECS["tiny"])
     params = tdec.init_params(torch.Generator().manual_seed(0), spec)
     with pytest.raises(NotImplementedError, match=item):
         tdec.apply_model(params, torch.zeros(1, 8, dtype=torch.long), spec, **kw)
+
+
+@pytest.mark.parametrize("name", ["qwen", "llama"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_return_kv_matches_reference(name, use_pallas):
+    """``return_kv=True``: final hidden states and every layer's post-RoPE
+    K and V [L, B, S, KVH, dh], atol/rtol 1e-4."""
+    spec = SPECS[name]
+    params = _params(spec)
+    tparams = bridge.to_torch(params)
+    tokens = np.random.default_rng(1).integers(0, spec.vocab_size, (2, 64)).astype(np.int32)
+    want = jdec.apply_model(params, jnp.asarray(tokens), spec, return_kv=True)
+    got = tdec.apply_model(tparams, torch.from_numpy(tokens), _port_spec(spec),
+                           use_pallas=use_pallas, return_kv=True)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("targets,fused", [(("q_proj", "v_proj"), True),
+                                           (("q_proj", "up_proj"), False)])
+def test_fused_mlp_takes_the_reference_condition(monkeypatch, targets, fused):
+    """``fused_mlp`` with ``use_pallas`` routes every layer's MLP through
+    the fused SwiGLU wrapper unless an adapter targets the MLP; either way
+    the logits equal the unfused forward's within 1e-5."""
+    from tst_torch.models import lora as tlora
+
+    spec = SPECS["tiny"]
+    tparams = bridge.to_torch(_params(spec))
+    lspec = tlora.LoraSpec(rank=2, alpha=4.0, targets=targets, dtype=torch.float32)
+    lora = tlora.init_lora(torch.Generator().manual_seed(0), _port_spec(spec), lspec)
+    for ab in lora.values():
+        ab["b"] = 0.1 * torch.randn(ab["b"].shape, generator=torch.Generator().manual_seed(1))
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).integers(0, spec.vocab_size, (2, 128)).astype(np.int32))
+    calls = []
+    real = tdec.fused_swiglu_mlp
+    monkeypatch.setattr(tdec, "fused_swiglu_mlp", lambda *a: calls.append(1) or real(*a))
+    kw = dict(lora=lora, lora_spec=lspec, use_pallas=True)
+    got = tdec.apply_model(tparams, tokens, _port_spec(spec), fused_mlp=True, **kw)
+    assert len(calls) == (spec.n_layers if fused else 0)
+    want = tdec.apply_model(tparams, tokens, _port_spec(spec), **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)

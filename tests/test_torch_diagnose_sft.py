@@ -46,7 +46,8 @@ TINY = dataclasses.replace(jdec.spec_by_name("tiny"), dtype=jnp.float32)
 CPU_TINY = ["--set", "model.name=tiny", "--set", "model.dtype=float32"]
 #: report fields that are wall-clock times
 WALLS = {"wall_seconds", "train_wall_seconds", "train_first_step_seconds",
-         "train_samples_per_sec", "setup_wall_seconds", "score_mcq_wall_seconds"}
+         "train_samples_per_sec", "setup_wall_seconds", "score_mcq_wall_seconds",
+         "numeric_decode_wall_seconds", "open_decode_wall_seconds"}
 
 
 def _cfg(out_dir, n=48, *extra):
@@ -60,12 +61,14 @@ def _jax_spec(tokenizer):
     return dataclasses.replace(TINY, vocab_size=max(TINY.vocab_size, tokenizer.vocab_size))
 
 
-def _bridge_port(monkeypatch):
-    """The port's model and initial adapters become the JAX package's."""
+def _bridge_port(monkeypatch, quantize=None):
+    """The port's model (plain, or quantized to ``quantize`` bits) and
+    initial adapters become the JAX package's."""
 
     def bridged_model(cfg, tokenizer, device):
         spec = _jax_spec(tokenizer)
-        params = jdec.init_params(jax.random.key(cfg.data.seed), spec)
+        params = jdec.init_params(jax.random.key(cfg.data.seed), spec,
+                                  quantize=quantize is not None, bits=quantize or 8)
         port_spec = ModelSpec(**{**dataclasses.asdict(spec), "dtype": torch.float32})
         return port_spec, bridge.to_torch(jax.tree.map(np.asarray, params), device)
 
@@ -140,6 +143,40 @@ def test_diagnose_sft_matches_reference(tmp_path, monkeypatch, n, extra):
     assert "train" in events and events[-1] == "done"
 
 
+@pytest.mark.parametrize("bench,quantize,extra", [
+    ("synthetic-vsi:0.4", 4, ["model.fused_mlp=true"]),
+    ("synthetic-vsi:0.4", None, ["model.fused_mlp=true", 'lora.targets=["gate_proj","q_proj"]']),
+    ("synthetic-open", None, []),
+])
+def test_diagnose_sft_decode_slice_matches_reference(tmp_path, monkeypatch, bench, quantize,
+                                                     extra):
+    """The decode-scored legs after training: numeric rows (VSI's mix) and
+    open rows greedy-decoded with each fold's adapter, their s(x) merged
+    into the table; int4 weights; ``model.fused_mlp`` (the fused MLP on the
+    port's train forward where no adapter targets the MLP, the plain one
+    where one does; the reference on the CPU takes its plain MLP). The same
+    report.json and sx.jsonl, wall times aside."""
+    n = 32
+    ds = load_benchmark(bench, n=n, seed=0)
+    quant = [f"model.quantize=int{quantize}"] if quantize else []
+    want = jpipe.run_sft_diagnostic(ds, _cfg(tmp_path / "jax", n, "model.use_pallas=false",
+                                             *quant, *extra))
+    _bridge_port(monkeypatch, quantize)
+    out = tmp_path / "port"
+    got = tpipe.run_sft_diagnostic(ds, _cfg(out, n, *quant, *extra), torch.device("cpu"))
+    assert list(got) == list(want)
+    for key in want:
+        if key not in WALLS:
+            _assert_close(got[key], want[key], key)
+    decoded = {"synthetic-open": "open_decode_wall_seconds"}.get(bench,
+                                                                 "numeric_decode_wall_seconds")
+    assert decoded in got and got["n_samples"] == n
+    got_sx, want_sx = _sx(out), _sx(tmp_path / "jax")
+    assert [list(r) for r in got_sx] == [list(r) for r in want_sx]
+    for g, w in zip(got_sx, want_sx):
+        _assert_close(g, w, "sx")
+
+
 def _probs(seed=0, n=40, c=5):
     rng = np.random.default_rng(seed)
     p = rng.random((n, c)).astype(np.float32)
@@ -184,7 +221,7 @@ def test_spearman_and_per_category_accuracy_match_reference():
     (["rf.cross_check=true"], "item 10"), (["model.remat=true"], "item 7"), (["checkpoint_dir=ckpt"], "item 7"),
     (["mesh.data=2"], "item 16"), (["model.path=/nonexistent"], "item 3"),
     (["profile_dir=prof"], "item 17"), (["lora.dropout=0.1"], "item 5"),
-    (["model.fused_mlp=true"], "K4"),
+    (["perf.spec_draft_model=tiny"], "item 15"),
 ])
 def test_unported_config_raises(tmp_path, extra, item):
     ds = load_benchmark("synthetic:0.5", n=8, seed=0)
@@ -195,8 +232,9 @@ def test_unported_config_raises(tmp_path, extra, item):
 def test_decode_scored_rows_raise(tmp_path):
     numeric = BlindDataset("n", [Sample(id=str(i), question="how far?", options=[],
                                         answer="3", answer_type="numeric") for i in range(4)])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpipe.run_sft_diagnostic(numeric, _cfg(tmp_path, 4), torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="item 15"):  # speculative decode
+        tpipe.run_sft_diagnostic(numeric, _cfg(tmp_path, 4, "perf.spec_draft_path=/draft"),
+                                 torch.device("cpu"))
 
 
 def test_cli_unported_flags_raise(tmp_path):

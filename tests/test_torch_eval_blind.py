@@ -128,6 +128,60 @@ def test_blind_eval_slice_matches_reference(tmp_path, monkeypatch):
         assert got["n_mcq"] == 48 and got["benchmark"] == ds.name
 
 
+def _bridged_model(quantize):
+    def bridged_model(cfg, tokenizer, device):
+        spec = dataclasses.replace(TINY, vocab_size=max(TINY.vocab_size, tokenizer.vocab_size))
+        params = jdec.init_params(jax.random.key(cfg.data.seed), spec,
+                                  quantize=quantize is not None, bits=quantize or 8)
+        return _port_spec(spec), bridge.to_torch(jax.tree.map(np.asarray, params), device)
+
+    return bridged_model
+
+
+@pytest.mark.parametrize("bench,quantize", [
+    ("synthetic-vsi:0.4", None), ("synthetic-vsi:0.4", 4), ("synthetic-open", None),
+    ("synthetic-numeric", 8),
+])
+def test_blind_eval_decode_slice_matches_reference(tmp_path, monkeypatch, bench, quantize):
+    """The decode-scored legs: MCQ and numeric rows (VSI's mix), open rows,
+    an all-numeric set (no MCQ leg); plain, int8 or int4 weights (the same
+    bridged JAX init). Every report field within 1e-6, wall time aside."""
+    ds = load_benchmark(bench, n=40, seed=0)
+    quant = [f"model.quantize=int{quantize}"] if quantize else []
+    want = jpipe.run_blind_eval(ds, _cfg(tmp_path / "jax", 40, "model.use_pallas=false", *quant))
+    monkeypatch.setattr(tpipe, "build_model", _bridged_model(quantize))
+    out = tmp_path / "port"
+    got = tpipe.run_blind_eval(ds, _cfg(out, 40, *quant), torch.device("cpu"))
+    with open(out / "blind_eval.json") as f:
+        assert json.load(f) == got
+    assert list(got) == list(want)
+    for key in want:
+        if key != "wall_seconds":
+            assert got[key] == pytest.approx(want[key], abs=1e-6), key
+    n_numeric = sum(s.answer_type == "numeric" for s in ds)
+    assert got.get("n_numeric", 0) == n_numeric and got["n_samples"] == 40
+    assert ("n_open" in got) == (bench == "synthetic-open")
+
+
+def test_build_model_quantizes(tmp_path):
+    """model.quantize: int8 everywhere, or int4 on the layer matrices whose
+    input axis is a multiple of 128 (the rest and the embedding stay int8)."""
+    from tst_torch.models import quant as tquant
+
+    tok = ByteTokenizer()
+    for bits in ("int8", "int4"):
+        spec, params = tpipe.build_model(_cfg(tmp_path, 8, f"model.quantize={bits}"), tok,
+                                         torch.device("cpu"))
+        layers = params["layers"]
+        assert tquant.is_quantized_leaf(params["embed"]) and not tquant.is_int4_leaf(
+            params["embed"])
+        assert tquant.is_int4_leaf(layers["w_down"]) == (bits == "int4")  # d_ff = 128
+        assert not tquant.is_int4_leaf(layers["wq"])  # d_model = 64
+        assert not tquant.is_quantized_leaf(layers["attn_norm"])
+    with pytest.raises(ValueError, match="unknown model.quantize"):
+        tpipe.build_model(_cfg(tmp_path, 8, "model.quantize=int2"), tok, torch.device("cpu"))
+
+
 def test_platform_gpu_raises_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -136,7 +190,7 @@ def test_platform_gpu_raises_without_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["model.quantize=int8"], "item 14"), (["model.path=/nonexistent"], "item 3"),
+    (["perf.spec_draft_model=tiny"], "item 15"), (["model.path=/nonexistent"], "item 3"),
     (["mesh.data=2"], "item 16"),
 ])
 def test_unported_config_raises(tmp_path, extra, item):
@@ -151,8 +205,9 @@ def test_unported_rows_and_adapter_raise(tmp_path):
         tpipe.run_blind_eval(ds, _cfg(tmp_path), torch.device("cpu"), adapter_dir="x")
     numeric = BlindDataset("n", [Sample(id="0", question="how far?", options=[],
                                         answer="3", answer_type="numeric")])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpipe.run_blind_eval(numeric, _cfg(tmp_path), torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="item 15"):  # speculative decode
+        tpipe.run_blind_eval(numeric, _cfg(tmp_path, 8, "perf.spec_draft_path=/draft"),
+                             torch.device("cpu"))
 
 
 @pytest.mark.parametrize("cmd", sorted(cli.NOT_PORTED))

@@ -86,7 +86,8 @@ def test_nvcc_command_targets_sm90a(tmp_path):
     assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
     assert "-shared" in cmd and "-O3" in cmd
     assert [p.name for p in _build.sources()] == ["flash_attention_bwd.cu",
-                                                  "flash_attention_fwd.cu"]
+                                                  "flash_attention_fwd.cu", "fused_mlp.cu",
+                                                  "int4_matmul.cu"]
     assert "-c" in _build.nvcc_command("nvcc", _build.sources()[:1], tmp_path / "a.o",
                                        compile_only=True)
     assert _build.library_path().parent == _build.BUILD_DIR

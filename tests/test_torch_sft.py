@@ -213,10 +213,57 @@ def test_init_state_and_ckpt_extra():
 
 @pytest.mark.parametrize("kw,item", [
     ({"remat": True}, "item 7"), ({"ring": True}, "item 16"),
-    ({"mesh": object()}, "item 16"), ({"fused_mlp": True}, "K4")])
+    ({"mesh": object()}, "item 16")])
 def test_unported_trainer_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tsft.FoldTrainer(PORT_TINY, TLSPEC, 2, **kw)
+
+
+@pytest.mark.parametrize("windowed", [True, False])
+def test_fused_mlp_trainer_matches_reference(data, windowed, monkeypatch):
+    """``fused_mlp`` through the trainer, 2 folds x 2 rows: per-fold losses
+    and LoRA gradients against jax.value_and_grad of tst's loss with
+    ``use_pallas`` and ``fused_mlp`` (its Pallas kernels in interpret mode,
+    the fused MLP's custom_vjp backward), atol 1e-5. The port's fused MLP
+    (its plain forward on CPU tensors) runs once a layer."""
+    import tst.kernels.flash_attention as jfa
+    import tst.kernels.fused_mlp as jfm
+    import tst_torch.kernels.fused_mlp as tfm
+    import tst_torch.models.decoder as tdec
+
+    monkeypatch.setattr(jfa, "_INTERPRET", True)
+    monkeypatch.setattr(jfm, "_INTERPRET", True)
+    params, tokens, mask, pos, t_max = data
+    k, b = 2, 2
+    lora = _adapters(k, seed=4)
+    t_max = t_max if windowed else None
+    loss_fn = jsft.sft_loss_window if windowed else jsft.sft_loss
+    want_losses, want_grads = [], []
+    for f in range(k):
+        rows = slice(f * b, (f + 1) * b)
+        args = [params, jax.tree.map(lambda x: x[f], lora), jnp.asarray(tokens[rows]),
+                jnp.asarray(mask[rows])]
+        if windowed:
+            args += [jnp.asarray(pos[rows]), t_max]
+        loss, grads = jax.value_and_grad(loss_fn, argnums=1)(
+            *args, TINY, JLSPEC, use_pallas=True, fused_mlp=True)
+        want_losses.append(float(loss))
+        want_grads.append(grads)
+    calls = []
+    monkeypatch.setattr(tdec, "fused_swiglu_mlp",
+                        lambda *a, **kw: calls.append(1) or tfm.fused_swiglu_mlp(*a, **kw))
+    trainer = tsft.FoldTrainer(PORT_TINY, TLSPEC, k, use_pallas=True, t_max=t_max,
+                               fused_mlp=True)
+    shape = (k, b, tokens.shape[1])
+    before = tfm.LAUNCHES
+    losses, grads = trainer.loss_and_grads(
+        bridge.to_torch(params), bridge.to_torch(lora),
+        torch.from_numpy(tokens[:k * b]).reshape(shape),
+        torch.from_numpy(mask[:k * b]).reshape(shape),
+        torch.from_numpy(pos[:k * b]).reshape(k, b))
+    assert len(calls) == TINY.n_layers and tfm.LAUNCHES == before
+    np.testing.assert_allclose(losses.numpy(), want_losses, atol=1e-5)
+    _close(grads, jax.tree.map(lambda *xs: np.stack(xs), *want_grads), atol=1e-5)
 
 
 def test_unported_fit_and_loss_options_raise(data):

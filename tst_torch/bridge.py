@@ -6,7 +6,9 @@ with torch tensors as leaves. LoRA adapter trees cross the same way, single
 (``{proj: {"a": [L, r, in], "b": [L, out, r]}}``) or fold-stacked as
 ``FoldTrainer.init_state`` makes them (``[k, L, ...]`` leaves): that is how
 a test gives both packages the same adapters, since ``jax.random`` streams
-cannot be reproduced in torch. bf16 leaves keep their bits: ``np.asarray`` of
+cannot be reproduced in torch. Quantized ``{"q", "scale"}`` leaves
+(tst.models.quant: int8 ``q`` and f32 scales, int8 or packed int4) cross
+as the two tensors they are, bit for bit. bf16 leaves keep their bits: ``np.asarray`` of
 a bf16 JAX array has the ``bfloat16`` dtype of ml_dtypes, which
 ``torch.from_numpy`` refuses, so its raw 16-bit words are reinterpreted.
 Neither jax nor ml_dtypes is imported here.
@@ -20,10 +22,6 @@ import numpy as np
 import torch
 
 Tree = Union[Dict[str, Any], Any]
-
-
-def _is_quantized(node) -> bool:
-    return isinstance(node, dict) and set(node) == {"q", "scale"}
 
 
 def leaf_to_torch(a, device: Union[str, torch.device] = "cpu") -> torch.Tensor:
@@ -44,10 +42,6 @@ def leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def to_torch(tree: Tree, device: Union[str, torch.device] = "cpu") -> Tree:
     """JAX/numpy parameter tree → the port's tree of tensors on ``device``."""
-    if _is_quantized(tree):
-        raise NotImplementedError(
-            "quantized {'q', 'scale'} leaves are not ported yet "
-            "(ROADMAP item 14, quantization)")
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     return leaf_to_torch(tree, device)

@@ -32,4 +32,17 @@ __device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The B fragment (b0, b1) of one k16 x n8 tile of a row-major [k][n] matrix
+// in shared memory: lanes 0-15 point at the 16 rows k of the tile (8 columns
+// from n0, 16-byte aligned); .trans hands lane (g, t) B[2t..2t+1][g] and
+// B[2t+8..2t+9][g], the layout above. Lanes 16-31 pass addresses too (any
+// valid row); ldmatrix .x2 ignores them.
+__device__ __forceinline__ void ldmatrix_b_trans(uint32_t& b0, uint32_t& b1,
+                                                 const __nv_bfloat16* row_ptr) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row_ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(addr));
+}
+
 }  // namespace

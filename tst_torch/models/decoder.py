@@ -13,7 +13,13 @@ Attention: ``use_pallas=True`` goes through ``tst_torch.kernels.flash_attention`
 (the CUDA kernels, forward and backward, for CUDA tensors, their plain
 versions for CPU tensors); ``use_pallas=False`` takes the dense path.
 Packed rows (``seg_starts``) confine attention to each sample's segment
-and restart RoPE positions at each segment start.
+and restart RoPE positions at each segment start. With ``use_pallas`` and
+``fused_mlp`` the MLP goes through ``tst_torch.kernels.fused_mlp`` (the CUDA
+kernel K4) when no adapter targets it, as in the reference.
+
+Weight leaves may be quantized (tst_torch.models.quant: int8, or packed
+int4 on the layer matrices): projections go through ``qdot``, the embedding
+gathers int8 rows and dequantizes only those, and the head is dequantized.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ import torch.nn.functional as F
 
 from tst_torch.kernels.flash_attention import (flash_attention, masked_attention,
                                                 segment_mask, segment_starts_per_pos)
+from tst_torch.kernels.fused_mlp import fused_swiglu_mlp
 from tst_torch.models.lora import DROPOUT_ITEM, apply_lora_delta, fold_count, layer_slice
+from tst_torch.models.quant import dequantize_leaf, is_quantized_leaf, qdot
 from tst_torch.models.spec import ModelSpec
 
 Params = Dict[str, Any]
@@ -147,7 +155,10 @@ def apply_model(
 ) -> torch.Tensor:
     """Forward pass → logits f32 [B, S, V], or with ``return_hidden=True``
     the final-norm hidden states [B, S, D] in ``spec.dtype`` (callers that
-    need a few positions project them themselves).
+    need a few positions project them themselves). ``return_kv=True``
+    returns (hidden [B, S, D], k [L, B, S, KVH, dh], v [L, B, S, KVH, dh]):
+    the post-RoPE keys and values of every layer, the prefill of KV-cached
+    decode (tst_torch.models.decode).
 
     ``seg_starts``: int [B, n <= 8] packed-row segment starts (ascending,
     unused slots >= SEG_PAD; tst_torch.data.packing). Attention stays inside
@@ -164,14 +175,10 @@ def apply_model(
     if n_folds is not None and tokens.shape[0] % n_folds:
         raise ValueError(f"{tokens.shape[0]} rows do not split into {n_folds} fold blocks "
                          "for a fold-stacked adapter")
-    if return_kv:
-        _not_ported("return_kv (KV-cached decode)", "ROADMAP item 11")
     if ring_mesh is not None:
         _not_ported("ring attention (ring_mesh=)", "ROADMAP item 16")
     if remat:
         _not_ported("remat", "ROADMAP item 7")
-    if fused_mlp:
-        _not_ported("the fused SwiGLU MLP (fused_mlp=)", "ROADMAP §2 K4")
     b, s = tokens.shape
     dt = spec.dtype
     x = embed_lookup(params, tokens, spec)  # [B, S, D]
@@ -191,13 +198,14 @@ def apply_model(
     else:
         causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
     layers = params["layers"]
+    ks, vs = [], []
 
     for i in range(spec.n_layers):
-        lw = {key: w[i] for key, w in layers.items()}
+        lw = {key: layer_of(w, i) for key, w in layers.items()}
         la = layer_slice(lora, i) if lora else {}
 
         def proj(name, y, w_key):
-            out = y @ lw[w_key].to(dt)
+            out = qdot(y, lw[w_key], dt)
             if name in la:
                 out = out + apply_lora_delta(la[name], y, lora_spec)
             bias_key = _BIAS_KEYS.get(name)
@@ -211,32 +219,60 @@ def apply_model(
         v = proj("v", h, "wv").reshape(b, s, spec.n_kv_heads, spec.d_head)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
         if use_pallas:
             attn = _flash_attention(q, k, v, seg_starts)
         else:
             attn = _dense_attention(q, k, v, causal)
         h_mid = x + proj("o", attn.reshape(b, s, spec.q_dim), "wo")
         h = rms_norm(h_mid, lw["mlp_norm"], spec.rms_eps)
-        act = F.silu(proj("gate", h, "w_gate").float()).to(dt) * proj("up", h, "w_up")
-        x = h_mid + proj("down", act, "w_down")
+        # the fused kernel only when no adapter targets the MLP (an adapter on
+        # gate/up changes the hidden nonlinearly), the reference's condition
+        mlp_lora = any(t in la for t in ("gate", "up", "down"))
+        if use_pallas is True and fused_mlp and not mlp_lora:
+            down = fused_swiglu_mlp(h, dequantize_leaf(lw["w_gate"], dt),
+                                    dequantize_leaf(lw["w_up"], dt),
+                                    dequantize_leaf(lw["w_down"], dt))
+        else:
+            act = F.silu(proj("gate", h, "w_gate").float()).to(dt) * proj("up", h, "w_up")
+            down = proj("down", act, "w_down")
+        x = h_mid + down
 
     x = rms_norm(x, params["final_norm"], spec.rms_eps)
+    if return_kv:
+        return x, torch.stack(ks), torch.stack(vs)
     if return_hidden:
         return x
     # bf16 operands, f32 products and sums (the reference's f32-out einsum)
     return x.float() @ lm_head_weight(params, spec).to(dt).float()
 
 
+def layer_of(w, i: int):
+    """Layer ``i`` of a stacked leaf, plain or quantized ({"q", "scale"})."""
+    if is_quantized_leaf(w):
+        return {"q": w["q"][i], "scale": w["scale"][i]}
+    return w[i]
+
+
 def embed_lookup(params: Params, tokens: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
-    """Token embedding gather in ``spec.dtype``."""
-    return F.embedding(tokens.long(), params["embed"]).to(spec.dtype)
+    """Token embedding gather in ``spec.dtype``; int8 rows are gathered
+    first and only the gathered rows dequantized (f32 product, then cast)."""
+    embed = params["embed"]
+    if is_quantized_leaf(embed):
+        x = embed["q"][tokens.long()].float() * embed["scale"][0]
+        return x.to(spec.dtype)
+    return F.embedding(tokens.long(), embed).to(spec.dtype)
 
 
 def lm_head_weight(params: Params, spec: ModelSpec) -> torch.Tensor:
-    """[D, V] vocabulary projection (embed transpose when tied)."""
-    if spec.tie_embeddings:
-        return params["embed"].T
-    return params["lm_head"]
+    """[D, V] vocabulary projection (embed transpose when tied); a quantized
+    leaf is dequantized to ``spec.dtype``."""
+    w = params["embed"] if spec.tie_embeddings else params["lm_head"]
+    if is_quantized_leaf(w):
+        w = dequantize_leaf(w, spec.dtype)
+    return w.T if spec.tie_embeddings else w
 
 
 class Decoder(torch.nn.Module):

@@ -1,6 +1,6 @@
-"""Held-out MCQ scoring: per-option probabilities from one forward pass
-(port of the single-token paths of ``tst/train/infer.py``, unpacked and
-packed).
+"""Held-out scoring (port of ``tst/train/infer.py``): MCQ rows by
+per-option probabilities from one forward pass, unpacked and packed;
+numeric and open rows by greedy decode (tst_torch.models.decode).
 
 MCQ answers are single tokens by construction (tst.data.tokenize), so one
 forward per sample gives every option's probability: gather the hidden row
@@ -13,18 +13,27 @@ sample is scored by the model that never trained on it. Probabilities are a
 softmax over each sample's valid letters. The packed scorer packs each
 fold's held-out MCQ rows several to a row (tst_torch.data.packing) and reads
 every segment's answer slot from one segment-masked forward.
+
+Numeric and open rows are greedy-decoded with each row's held-out fold
+model: the rows of all folds go through one decode per chunk, fold-major
+``[k·chunk]``, with the fold-stacked adapters (the reference vmaps the fold
+axis instead); numeric answers are scored by per-sample MRA, open ones by
+normalized exact match.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from tst_torch.data.packing import pack_rows, padding_seg_row
+from tst_torch.eval.metrics import MRA_THRESHOLDS, open_exact_match
+from tst_torch.models.decode import decode_numeric, decode_text, greedy_decode
 from tst_torch.models.decoder import apply_model, lm_head_weight
 from tst_torch.models.lora import LoraSpec
+from tst_torch.models.quant import quantized_bytes
 from tst_torch.models.spec import ModelSpec
 
 
@@ -263,3 +272,120 @@ def score_all_mcq(
         np.zeros(n, np.int32), k=1, use_pallas=use_pallas, batch=batch,
         option_seqs=option_seqs,
     )
+
+
+def decode_chunk_rows(spec: ModelSpec, seq_len: int, max_new: int, k: int,
+                      base_bytes: Optional[int] = None, draft_spec: Optional[ModelSpec] = None,
+                      ) -> int:
+    """Rows per fold of one held-out decode chunk: the reference's budget
+    (the KV cache, k·rows × [L, S + pad, KVH, dh] × 2 in ``spec.dtype``, in
+    what a 16 GB chip has left after the base weights), capped at 32 rows.
+    At 0.5B the cap binds. Sizing it for 80 GB is open (ROADMAP item 11)."""
+    s_max = seq_len + max_new + (-max_new) % 128
+    itemsize = torch.empty((), dtype=spec.dtype).element_size()
+    row_bytes = spec.n_layers * s_max * spec.n_kv_heads * spec.d_head * 2 * itemsize
+    if draft_spec is not None:
+        row_bytes += (draft_spec.n_layers * s_max * draft_spec.n_kv_heads * draft_spec.d_head
+                      * 2 * torch.empty((), dtype=draft_spec.dtype).element_size())
+    budget = 2.5e9 if base_bytes is None else max(1.5e9, 10.5e9 - base_bytes)
+    return max(1, min(32, int(budget / max(k * row_bytes, 1))))
+
+
+def _decode_heldout_rows(
+    base, lora_k, spec: ModelSpec, lora_spec: Optional[LoraSpec], tokens: torch.Tensor,
+    answer_pos: torch.Tensor, rows: np.ndarray, fold_id: np.ndarray, k: int, max_new: int,
+    use_pallas: bool, pad_to: Optional[int] = None, chunk: Optional[int] = None,
+    draft=None, gamma: int = 2,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Greedy-decode ``rows`` with each row's held-out fold model →
+    (gen [k, M, max_new], idx [k, M], valid [k, M]).
+
+    Rows are padded (with row 0) to a [k, M] grid and decoded in chunks of
+    ``chunk`` rows per fold; a chunk's rows of all folds go through one
+    decode as fold-major ``[k·chunk]`` rows with the fold-stacked adapters
+    ``lora_k`` (or the base model when None), so each projection runs once
+    for every fold."""
+    if draft is not None:
+        raise NotImplementedError("speculative decode (perf.spec_draft_*) is not ported to "
+                                  "tst_torch yet (ROADMAP item 15)")
+    rows_by_fold = [rows[fold_id[rows] == f] for f in range(k)]
+    m = pad_to or max(max((len(r) for r in rows_by_fold), default=1), 1)
+    if max((len(r) for r in rows_by_fold), default=0) > m:
+        raise ValueError(f"pad_to={m} smaller than a fold's held-out count")
+    idx = np.zeros((k, m), np.int32)
+    valid = np.zeros((k, m), bool)
+    for f, r in enumerate(rows_by_fold):
+        idx[f, : len(r)] = r
+        valid[f, : len(r)] = True
+    if chunk is None:
+        chunk = decode_chunk_rows(spec, tokens.shape[1], max_new, k,
+                                  base_bytes=quantized_bytes(base))
+    mc = min(m, max(int(chunk), 1))
+    idx_p = np.pad(idx, ((0, 0), (0, (-m) % mc)))
+    prompt_len = answer_pos.long() + 1  # decode continues right after the marker
+    outs = []
+    for c0 in range(0, idx_p.shape[1], mc):
+        sel = torch.from_numpy(idx_p[:, c0: c0 + mc].reshape(-1).astype(np.int64)).to(
+            tokens.device)  # fold-major [k·mc]
+        gen = greedy_decode(base, tokens[sel], prompt_len[sel], max_new, spec, lora=lora_k,
+                            lora_spec=lora_spec, use_pallas=use_pallas)
+        outs.append(gen.reshape(k, mc, max_new))
+    gen = torch.cat(outs, dim=1)[:, :m].cpu().numpy()
+    return gen, idx, valid
+
+
+def score_heldout_numeric(
+    base, lora_k, spec: ModelSpec, lora_spec: Optional[LoraSpec], tokens: torch.Tensor,
+    answer_pos: torch.Tensor,  # last prompt-token index
+    gold_values: np.ndarray,  # [N] float, NaN on non-numeric rows
+    fold_id: np.ndarray, k: int, tokenizer=None, max_new: int = 12,
+    use_pallas: bool = False, pad_to: Optional[int] = None, draft=None, gamma: int = 2,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Greedy-decode numeric answers with each row's held-out fold model →
+    (pred_values [N], per-sample MRA [N]), NaN on other rows. The per-sample
+    MRA is the numeric rows' s(x)."""
+    n = tokens.shape[0]
+    numeric_rows = np.flatnonzero(np.isfinite(gold_values))
+    pred = np.full(n, np.nan, np.float32)
+    s_num = np.full(n, np.nan, np.float32)
+    if len(numeric_rows) == 0:
+        return pred, s_num
+    gen, idx, valid = _decode_heldout_rows(
+        base, lora_k, spec, lora_spec, tokens, answer_pos, numeric_rows, fold_id, k,
+        max_new, use_pallas, pad_to=pad_to, draft=draft, gamma=gamma)
+    for f in range(k):
+        rows = idx[f][valid[f]]
+        vals = decode_numeric(gen[f][valid[f]], tokenizer)
+        pred[rows] = vals
+        rel = np.abs(vals - gold_values[rows]) / np.maximum(np.abs(gold_values[rows]), 1e-9)
+        rel = np.where(np.isnan(vals), np.inf, rel)
+        s_num[rows] = np.mean([(rel < (1.0 - th)).astype(np.float32) for th in MRA_THRESHOLDS],
+                              axis=0)
+    return pred, s_num
+
+
+def score_heldout_open(
+    base, lora_k, spec: ModelSpec, lora_spec: Optional[LoraSpec], tokens: torch.Tensor,
+    answer_pos: torch.Tensor,
+    gold_texts: Sequence[Optional[str]],  # [N]; None on non-open rows
+    fold_id: np.ndarray, k: int, tokenizer=None, max_new: int = 16,
+    use_pallas: bool = False, pad_to: Optional[int] = None, draft=None, gamma: int = 2,
+) -> Tuple[list, np.ndarray]:
+    """Greedy-decode open answers with each row's held-out fold model →
+    (pred_texts [N], None on other rows; s_open [N]: 1.0 when the normalized
+    answer matches the gold one, NaN on other rows)."""
+    n = tokens.shape[0]
+    open_rows = np.array([i for i, g in enumerate(gold_texts) if g is not None], np.int32)
+    pred_texts: list = [None] * n
+    s_open = np.full(n, np.nan, np.float32)
+    if len(open_rows) == 0:
+        return pred_texts, s_open
+    gen, idx, valid = _decode_heldout_rows(
+        base, lora_k, spec, lora_spec, tokens, answer_pos, open_rows, fold_id, k, max_new,
+        use_pallas, pad_to=pad_to, draft=draft, gamma=gamma)
+    for f in range(k):
+        rows = idx[f][valid[f]]
+        for r, t in zip(rows, decode_text(gen[f][valid[f]], tokenizer)):
+            pred_texts[r] = t
+            s_open[r] = open_exact_match(t, gold_texts[r])
+    return pred_texts, s_open

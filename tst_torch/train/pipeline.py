@@ -3,13 +3,18 @@
 Ported so far:
 
   * the zero-shot blind evaluation (``eval-blind``): load → blind-render →
-    tokenize → model → single-forward MCQ scoring → metrics →
-    ``blind_eval.json``;
-  * the core diagnostic (``diagnose-sft``), its MCQ leg, unpacked or packed
+    tokenize → model → single-forward MCQ scoring, greedy-decoded numeric
+    (MRA) and open (exact match) rows → metrics → ``blind_eval.json``;
+  * the core diagnostic (``diagnose-sft``), unpacked or packed
     (``optim.pack``): tokenize → stratified k folds → fold-parallel LoRA SFT
-    → held-out scoring with each fold's adapter → s(x) → metrics →
+    → held-out scoring with each fold's adapter (MCQ rows by one forward,
+    numeric and open rows by greedy decode) → s(x) → metrics →
     ``report.json``, ``sx.jsonl``, ``dataset.jsonl``, ``config.json``,
     ``events.jsonl``.
+
+Both take a quantized base (``model.quantize`` int8 / int4, decoded through
+the int4 kernel K3) and ``model.fused_mlp`` (the fused SwiGLU kernel K4 in
+training).
 
 What the port does not have yet raises NotImplementedError naming its
 ROADMAP item; nothing is silently skipped.
@@ -26,7 +31,7 @@ import torch
 from tst.aux.log import JsonlLogger
 from tst.config import RunConfig
 from tst.data.folds import kfold_assign
-from tst.data.schema import MCQ, BlindDataset
+from tst.data.schema import NUMERIC, OPEN, BlindDataset
 from tst.data.tokenize import ByteTokenizer, HFTokenizer, tokenize_dataset
 from tst.io import outputs
 from tst_torch.data.packing import FoldPacked, make_packed_fold_batches, pack_fold_datasets
@@ -35,8 +40,10 @@ from tst_torch.eval import metrics
 from tst_torch.eval.parity import spearman
 from tst_torch.models.decoder import Params, init_params
 from tst_torch.models.lora import LoraSpec
+from tst_torch.models.quant import quantize_params
 from tst_torch.models.spec import ModelSpec, spec_by_name
-from tst_torch.train.infer import score_all_mcq, score_heldout_mcq, score_heldout_mcq_packed
+from tst_torch.train.infer import (score_all_mcq, score_heldout_mcq, score_heldout_mcq_packed,
+                                   score_heldout_numeric, score_heldout_open)
 from tst_torch.train.sft import FoldTrainer, TrainLog, make_fold_batches
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -68,19 +75,38 @@ def build_tokenizer(cfg: RunConfig):
 def build_model(cfg: RunConfig, tokenizer,
                 device: torch.device) -> Tuple[ModelSpec, Params]:
     """ModelSpec + random-init params on ``device``, from a generator seeded
-    with ``data.seed``."""
+    with ``data.seed``; ``model.quantize`` int8 / int4 quantizes the big
+    matrices after the init, leaf by leaf (tst_torch.models.quant)."""
     dtype = DTYPES[cfg.model.dtype]
-    if cfg.model.quantize not in ("none", "int8", "int4"):
+    quant_bits = {"none": None, "int8": 8, "int4": 4}.get(cfg.model.quantize, -1)
+    if quant_bits == -1:
         raise ValueError(f"unknown model.quantize {cfg.model.quantize!r}")
-    if cfg.model.quantize != "none":
-        _not_ported(f"model.quantize={cfg.model.quantize!r}", 14)
     if cfg.model.path:
         _not_ported("loading a checkpoint (model.path)", 3)
     spec = spec_by_name(cfg.model.name, dtype=dtype)
     if spec.vocab_size < tokenizer.vocab_size:
         spec = spec_by_name(cfg.model.name, dtype=dtype, vocab_size=tokenizer.vocab_size)
     rng = torch.Generator(device=device).manual_seed(cfg.data.seed)
-    return spec, init_params(rng, spec)
+    params = init_params(rng, spec)
+    if quant_bits is not None:
+        params = quantize_params(params, bits=quant_bits)
+    return spec, params
+
+
+def _check_spec_decode(cfg: RunConfig) -> None:
+    if cfg.perf.spec_draft_model or cfg.perf.spec_draft_path:
+        _not_ported("speculative decode (perf.spec_draft_model / perf.spec_draft_path)", 15)
+
+
+def gold_values_of(ds: BlindDataset) -> np.ndarray:
+    """[N] numeric gold answers, NaN on other rows."""
+    return np.asarray([s.answer_value if s.answer_type == NUMERIC else np.nan for s in ds],
+                      np.float64)
+
+
+def gold_texts_of(ds: BlindDataset) -> list:
+    """[N] open gold answers, None on other rows."""
+    return [s.answer if s.answer_type == OPEN else None for s in ds]
 
 
 def prepare_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device):
@@ -101,26 +127,48 @@ def run_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device,
     baseline leg of the vision-blind gap. ``full_accuracy`` (the with-vision
     accuracy, measured elsewhere) adds ``vision_blind_gap`` to the report.
     Attention goes through the flash kernel when ``model.use_pallas`` is on
-    (its plain version for CPU tensors) and the dense path otherwise."""
+    (its plain version for CPU tensors) and the dense path otherwise; numeric
+    and open rows are greedy-decoded (int4 weights through K3)."""
     t_start = time.time()
     if adapter_dir:
         _not_ported("serving a LoRA checkpoint (--adapter)", 5)
     if cfg.mesh.fold * cfg.mesh.data * cfg.mesh.seq * cfg.mesh.tensor > 1:
         _not_ported("mesh sizes above 1", 16)
-    if any(s.answer_type != MCQ for s in ds):
-        _not_ported("decode-scored open and numeric rows", 11)
+    _check_spec_decode(cfg)
     tb, tokens, answer_pos, spec, params = prepare_blind_eval(ds, cfg, device)
-    # every row is MCQ (checked above), so the MCQ leg always runs
-    probs = score_all_mcq(
-        params, spec, tokens, answer_pos, tb.option_token_ids, tb.n_options,
-        use_pallas=cfg.model.use_pallas, option_seqs=tb.option_token_seqs,
-    )
-    pred = probs.argmax(-1).astype(np.int32)
-    blind_acc = float(metrics.accuracy(pred, tb.gold))
-    chance = float(metrics.chance_accuracy(tb.n_options))
+    use_pallas = cfg.model.use_pallas
+    # the MCQ leg only when the set has options (an all-numeric or all-open
+    # set has none)
+    if int(np.max(tb.n_options, initial=0)) > 0:
+        probs = score_all_mcq(
+            params, spec, tokens, answer_pos, tb.option_token_ids, tb.n_options,
+            use_pallas=use_pallas, option_seqs=tb.option_token_seqs,
+        )
+        pred = probs.argmax(-1).astype(np.int32)
+        blind_acc = float(metrics.accuracy(pred, tb.gold))
+        chance = float(metrics.chance_accuracy(tb.n_options))
+    else:
+        blind_acc, chance = 0.0, 0.0
     report = metrics.blind_report(blind_acc, chance, full_acc=full_accuracy,
                                   name=ds.name)
     report["n_mcq"] = int((np.asarray(tb.n_options) > 0).sum())
+    tokenizer = build_tokenizer(cfg)
+    zero_folds = np.zeros(tb.n, np.int32)
+    gold_texts = gold_texts_of(ds)
+    if any(g is not None for g in gold_texts):
+        _, s_open = score_heldout_open(params, None, spec, None, tokens, answer_pos, gold_texts,
+                                       zero_folds, 1, tokenizer=tokenizer, use_pallas=use_pallas)
+        report["open_blind_accuracy"] = round(float(np.nanmean(s_open)), 4)
+        report["n_open"] = int(sum(g is not None for g in gold_texts))
+    # numeric (NA) rows: greedy decode → MRA, the VSI-Bench numeric metric
+    gold_values = gold_values_of(ds)
+    if np.isfinite(gold_values).any():
+        pred_values, _ = score_heldout_numeric(params, None, spec, None, tokens, answer_pos,
+                                               gold_values, zero_folds, 1, tokenizer=tokenizer,
+                                               use_pallas=use_pallas)
+        report["numeric_blind_mra"] = round(
+            float(metrics.mra(np.nan_to_num(pred_values), gold_values)), 4)
+        report["n_numeric"] = int(np.isfinite(gold_values).sum())
     report.update(n_samples=len(ds), model=spec.name, zero_shot=True,
                   adapter=None, adapter_fold=None,
                   wall_seconds=round(time.time() - t_start, 2))
@@ -162,11 +210,7 @@ def _check_sft_config(ds: BlindDataset, cfg: RunConfig) -> None:
         _not_ported("training checkpoints (checkpoint_dir)", 7)
     if cfg.profile_dir:
         _not_ported("profiling (profile_dir)", 17)
-    if cfg.model.fused_mlp:
-        raise NotImplementedError("the fused SwiGLU MLP (model.fused_mlp) is not ported "
-                                  "to tst_torch yet (ROADMAP §2 K4)")
-    if any(s.answer_type != MCQ for s in ds):
-        _not_ported("decode-scored open and numeric rows", 11)
+    _check_spec_decode(cfg)
     if cfg.rf.cross_check:
         _not_ported("the RF cross-check (rf.cross_check=true; set it false)", 10)
 
@@ -196,7 +240,7 @@ def _build_sft_state(ds: BlindDataset, cfg: RunConfig, device: torch.device) -> 
         st.spec, st.lspec, k, lr=cfg.optim.lr, total_steps=st.batches.shape[0],
         warmup_frac=cfg.optim.warmup_frac, weight_decay=cfg.optim.weight_decay,
         use_pallas=cfg.model.use_pallas, t_max=st.t_max, b1=cfg.optim.b1, b2=cfg.optim.b2,
-        packed=st.pack is not None)
+        fused_mlp=cfg.model.fused_mlp, packed=st.pack is not None)
     st.lora, st.opt_state = st.trainer.init_state(
         torch.Generator(device=device).manual_seed(cfg.data.seed + 1))
     st.tokens = torch.from_numpy(st.tb.tokens).to(device)
@@ -236,7 +280,10 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     """The core diagnostic: k-fold blind LoRA SFT → held-out s(x) → report.
     Returns the report dict (artifacts on disk). Attention goes through the
     flash kernels, forward and backward, when ``model.use_pallas`` is on
-    (their plain versions for CPU tensors) and the dense path otherwise."""
+    (their plain versions for CPU tensors) and the dense path otherwise;
+    with ``model.fused_mlp`` the train step's MLP goes through the fused
+    kernel. Numeric and open rows are greedy-decoded with each fold's
+    adapter after training (int4 weights through K3)."""
     t_start = time.time()
     _check_sft_config(ds, cfg)
     k = cfg.data.k
@@ -248,21 +295,31 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     logger = JsonlLogger(cfg.out_dir)
     stage_walls: Dict[str, float] = {}
 
+    def timed(name, fn):
+        t0 = time.time()
+        out = fn()
+        stage_walls[name] = stage_walls.get(name, 0.0) + time.time() - t0
+        return out
+
     single_token_opts = (tb.option_token_seqs is None
                          or tb.option_token_seqs.shape[-1] == 1)
+    has_mcq = bool((tb.gold >= 0).any())
+    # numeric and open rows are decode-scored (below), so the MCQ scorer's
+    # grid holds the MCQ rows only
+    mcq_fold_id = np.where(tb.gold >= 0, fold_id, -1)
+
+    def score_mcq(lora_now):
+        if not has_mcq:  # an all-numeric or all-open set: no letter columns
+            return np.zeros((tb.n, 1), np.float32)
+        if st.pack is not None and single_token_opts and cfg.optim.packed_scorer:
+            return score_heldout_mcq_packed(params, lora_now, spec, lspec, tb, mcq_fold_id, k,
+                                            pack_len=st.pack.pack_len, use_pallas=use_pallas)
+        return score_heldout_mcq(params, lora_now, spec, lspec, st.tokens, st.answer_pos,
+                                 tb.option_token_ids, tb.n_options, mcq_fold_id, k,
+                                 use_pallas=use_pallas, option_seqs=tb.option_token_seqs)
 
     def score_now(lora_now):
-        # every row is MCQ (checked above), so every row is scored
-        t0 = time.time()
-        if st.pack is not None and single_token_opts and cfg.optim.packed_scorer:
-            probs = score_heldout_mcq_packed(params, lora_now, spec, lspec, tb, fold_id, k,
-                                             pack_len=st.pack.pack_len, use_pallas=use_pallas)
-        else:
-            probs = score_heldout_mcq(params, lora_now, spec, lspec, st.tokens, st.answer_pos,
-                                      tb.option_token_ids, tb.n_options, fold_id, k,
-                                      use_pallas=use_pallas, option_seqs=tb.option_token_seqs)
-        stage_walls["score_mcq"] = stage_walls.get("score_mcq", 0.0) + time.time() - t0
-        return probs
+        return timed("score_mcq", lambda: score_mcq(lora_now))
 
     # s(x) averages the final epoch of every seed and the epochs listed in
     # optim.score_epochs
@@ -302,6 +359,25 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     s_x = bias_scores(probs, tb.gold, tb.n_options, rule=cfg.rf.score_rule)
     pred = probs.argmax(-1).astype(np.int32)
     report = _sft_report(ds, cfg, tb, pred, seed_final_probs)
+
+    # numeric (NA) rows: held-out greedy decode, per-sample MRA as their s(x)
+    gold_values = gold_values_of(ds).astype(np.float32)
+    if np.isfinite(gold_values).any():
+        pred_values, s_num = timed("numeric_decode", lambda: score_heldout_numeric(
+            params, lora, spec, lspec, st.tokens, st.answer_pos, gold_values, fold_id, k,
+            tokenizer=st.tokenizer, use_pallas=use_pallas))
+        s_x = np.where(np.isfinite(s_num), s_num, s_x)
+        report["numeric_blind_mra"] = float(metrics.mra(np.nan_to_num(pred_values), gold_values))
+        report["n_numeric"] = int(np.isfinite(gold_values).sum())
+    # open rows: held-out greedy decode, normalized exact match as their s(x)
+    gold_texts = gold_texts_of(ds)
+    if any(g is not None for g in gold_texts):
+        _, s_open = timed("open_decode", lambda: score_heldout_open(
+            params, lora, spec, lspec, st.tokens, st.answer_pos, gold_texts, fold_id, k,
+            tokenizer=st.tokenizer, use_pallas=use_pallas))
+        s_x = np.where(np.isfinite(s_open), s_open, s_x)
+        report["open_blind_accuracy"] = round(float(np.nanmean(s_open)), 4)
+        report["n_open"] = int(sum(g is not None for g in gold_texts))
     report.update(
         n_samples=len(ds),
         n_mcq=int((tb.gold >= 0).sum()),

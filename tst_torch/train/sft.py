@@ -286,13 +286,13 @@ class FoldTrainer:
             _not_ported("remat", "ROADMAP item 7")
         if ring or mesh is not None:
             _not_ported("meshes and ring attention", "ROADMAP item 16")
-        if fused_mlp:
-            _not_ported("the fused SwiGLU MLP", "ROADMAP §2 K4")
         self.spec = spec
         self.lora_spec = lora_spec
         self.k = k
         self.tx = make_optimizer(lr, total_steps, warmup_frac, weight_decay, b1, b2)
         self.use_pallas = use_pallas
+        #: the fused SwiGLU MLP kernel (with use_pallas, no adapter on the MLP)
+        self.fused_mlp = fused_mlp
         #: answer-window length; None = full-sequence loss
         self.t_max = t_max
         #: packed rows (tst_torch.data.packing): ``step``/``fit`` take per-fold
@@ -332,10 +332,11 @@ class FoldTrainer:
             segs = segs.reshape(k * b, -1)
         if self.t_max is None:
             losses = sft_loss(base, params, tokens, mask, self.spec, self.lora_spec,
-                              self.use_pallas, seg_starts=segs)
+                              self.use_pallas, fused_mlp=self.fused_mlp, seg_starts=segs)
         else:
             losses = sft_loss_window(base, params, tokens, mask, pos, self.t_max, self.spec,
-                                     self.lora_spec, self.use_pallas, seg_starts=segs)
+                                     self.lora_spec, self.use_pallas, fused_mlp=self.fused_mlp,
+                                     seg_starts=segs)
         leaves = tree_leaves(params)
         grads = torch.autograd.grad(losses.sum(), leaves)
         by_id = {id(leaf): g for leaf, g in zip(leaves, grads)}
