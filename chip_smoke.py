@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tst_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --only rank  # phases 1-2, then the attention kernels vs the library
 
 Phases, each printing one line; any failure raises and exits non-zero:
 
   1. device  — a CUDA device is present; its name and power limit;
-  2. build   — nvcc builds every kernel from tst_torch/csrc (sm_90a);
+  2. build   — nvcc builds every kernel from tst_torch/csrc (sm_90a); the
+               count of wgmma (HGMMA) instructions in each backward kernel's
+               SASS (cuobjdump), which must not be 0;
   3. kernel  — the flash-attention kernel against its plain PyTorch version
                on the card at the slice's shape, Llama-3-8B heads and one
                tile; bad shapes raise; median kernel and plain times;
@@ -18,8 +21,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
                same letter probabilities;
   5. kernel-bwd — the dK/dV and dQ kernels against the plain backward, and
                gradients through the autograd Function against autograd of
-               the plain attention, at the shapes of phase 3; bad shapes
-               raise; median times at the train step's shape;
+               the plain attention, at the shapes of phase 3 and one tile
+               (S=64); a second call must give bit-equal results; bad shapes
+               raise; median times at the train step's shape, beside
+               torch's scaled_dot_product_attention (forward, and its
+               backward alone) as the library yardstick;
   6. train   — ``python -m tst_torch diagnose-sft`` (Qwen2.5-0.5B at full
                width, k=2 folds x 16 rows, 3 epochs, LoRA r16 on q/k/v/o,
                bf16, synthetic:0.5, n=512) through the CLI entry point; the
@@ -34,10 +40,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
                autograd Function against autograd of the plain masked
                attention: at the packed train step's call with the run's own
                segment starts, at Llama-3-8B heads with 8 segments a row at
-               S=2048, and at one 128-token case with starts inside tiles
-               and a row of all SEG_PAD; bad starts raise; median times of
-               the segmented kernels, the unsegmented ones and the plain
-               versions at the train step's shape;
+               S=2048, and at 128- and 64-token cases with starts inside
+               tiles and a row of all SEG_PAD; bit-equal on a second call;
+               bad starts raise; median times of the segmented kernels, the
+               unsegmented ones, the plain versions and scaled_dot_product_
+               attention with the boolean segment mask at the train step's
+               shape;
   9. train-packed — ``python -m tst_torch diagnose-sft --set optim.pack=true``
                (phase 6's run, train and held-out rows packed three samples
                to a row of 1024): the segmented kernels' launch counts must
@@ -70,14 +78,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
                unfused, their peak device memory, and a profile of the fused
                step.
 
-The second-to-last line is the per-kernel JSON record, the last line
+The second-to-last line is the per-kernel JSON record (launches on the
+main path, error, kernel, plain and library times, and the bound: the
+larger of the function's bytes over 3.35 TB/s and its operations over
+989 TFLOP/s bf16, counted from this run's shapes and masks), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of jax or of the JAX
-package ``tst``; the port shares only tst's jax-free host modules.
+package ``tst``, and neither does the port it drives.
 """
 
+import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -92,6 +105,11 @@ SLICE = ["eval-blind", "--bench", "synthetic:0.5", "--set", "data.n=512",
 N_SAMPLES, N_LAYERS, SCORER_BATCH = 512, 24, 32
 #: (B, S, H, KVH, D): the slice's own attention call, Llama-3-8B heads, one tile
 KERNEL_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64)]
+#: the backward kernels also at one tile (S=64), at both head dims
+BWD_ONE_TILE = [(3, 64, 14, 2, 64), (2, 64, 8, 2, 128)]
+#: the card's peaks for the bounds (NVIDIA H100 SXM data sheet: dense bf16,
+#: HBM3)
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 #: bf16 output: one rounding of P and of o (|o| < 2) -> 2e-2; f32 lse -> 1e-3
 O_TOL, LSE_TOL = 2e-2, 1e-3
 #: letter probabilities of the kernel path vs the plain path, bf16 model
@@ -118,8 +136,8 @@ PACKED = ["optim.pack=true"]
 #: the packed train step's attention call: 2 folds x 16 rows of 1024 tokens
 PACKED_TRAIN_SHAPE = (32, 1024, 14, 2, 64)
 #: the other segmented checks: Llama-3-8B heads at S=2048, 8 segments a row
-#: (where the TPU dispatches its chunked K2 bodies); one 128-token case
-SEG_SHAPES = [(2, 2048, 32, 8, 128), (5, 128, 14, 2, 64)]
+#: (where the TPU dispatches its chunked K2 bodies); 128- and 64-token cases
+SEG_SHAPES = [(2, 2048, 32, 8, 128), (5, 128, 14, 2, 64), (5, 64, 14, 2, 64)]
 #: segment starts a row (kernel layout) and the unused slot
 MAX_SEGS, SEG_PAD = 8, 1 << 30
 #: packed rows per fold of the kernel-vs-plain step: the plain attention keeps
@@ -191,12 +209,34 @@ def phase_device():
     return device
 
 
-def phase_build():
+def phase_build(sass=True):
     from tst_torch.kernels import _build
 
     res = _build.build()
     regs = [ln.split(":", 1)[1].strip() for ln in res.log.splitlines() if "registers" in ln]
     print(f"[build] {res.path.name} nvcc {res.seconds:.1f} s; {'; '.join(regs)}")
+    for ln in res.log.splitlines():
+        if "warning" in ln or re.search(r"[1-9]\d* bytes spill", ln):
+            print(f"[build] ptxas: {ln.strip()}")
+    if not sass:
+        return
+    # wgmma in the backward kernels: HGMMA instructions in each one's SASS
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(res.path)], check=True, capture_output=True,
+                          text=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : \S*flash_bwd_(dkv|dq)_kernelILi(\d+)ELb([01])E", ln)
+        if m:
+            name = f"{m[1]}<D={m[2]}{', seg' if m[3] == '1' else ''}>"
+            counts[name] = 0
+        elif "Function :" in ln:
+            name = None
+        elif name and "HGMMA" in ln:
+            counts[name] += 1
+    print(f"[build] HGMMA instructions in the backward kernels' SASS: {counts}")
+    if len(counts) != 8 or min(counts.values()) == 0:
+        raise AssertionError(f"every backward kernel must run its products on wgmma: {counts}")
 
 
 def phase_kernel(device):
@@ -246,6 +286,91 @@ def _rel_err(got, want):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
+def _bound(flops, nbytes):
+    """The least time the card could take: the larger of the operations over
+    the bf16 peak and the bytes (each input read once, each output written
+    once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _attention_bounds(q, k, seg=None):
+    """Bounds of the forward, the dK/dV and the dQ functions at these
+    shapes: products over the (query, key) pairs the mask keeps (causal,
+    and packed within each segment: this run's starts), 2·D operations a
+    pair each: forward Q·Kᵀ, P·V; dK/dV Sᵀ, dPᵀ, dV, dK; dQ S, dP, dQ."""
+    import tst_torch.kernels.flash_attention as tfa
+
+    b, s, h, d = q.shape
+    if seg is None:
+        pairs = b * h * s * (s + 1) // 2
+    else:
+        start = tfa.segment_starts_per_pos(seg, s).long()
+        pairs = h * int((torch.arange(s, device=seg.device) - start + 1).sum().item())
+    qb, kvb, stat = q.numel() * 2, k.numel() * 2 * 2, b * h * s * 4
+    segb = 0 if seg is None else seg.numel() * 4
+    return {"fwd": _bound(4 * d * pairs, 2 * qb + kvb + stat + segb),
+            "dkv": _bound(8 * d * pairs, 2 * qb + 2 * kvb + 2 * stat + segb),
+            "dq": _bound(6 * d * pairs, 3 * qb + kvb + 2 * stat + segb)}
+
+
+def _sdpa_yardstick(q, k, v, do, o, mask=None):
+    """library_ms of the attention function: one call of torch's
+    scaled_dot_product_attention on [B, H, S, D] views of the same q, k, v
+    (causal, or the boolean [B, 1, S, S] segment mask), and its backward
+    (``torch.autograd.grad`` of o on its graph) timed alone. The backend is
+    pinned, the first of flash, cuDNN and memory-efficient that runs (flash
+    takes no mask); GQA through ``enable_gqa``, else k and v expanded to H
+    heads outside the timed region. The port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = q.shape[2] // k.shape[2]
+    backends = [SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    if mask is None:
+        backends.insert(0, SDPBackend.FLASH_ATTENTION)
+    for backend in backends:
+        for gqa in (True, False):
+            qh = q.transpose(1, 2).detach().requires_grad_()
+            kh, vh = (t.transpose(1, 2) if gqa else t.transpose(1, 2).repeat_interleave(g, 1)
+                      for t in (k, v))
+            kh, vh = kh.detach().requires_grad_(), vh.detach().requires_grad_()
+            doh = do.transpose(1, 2)
+            kw = ({"is_causal": True} if mask is None else {"attn_mask": mask[:, None]})
+            if gqa:
+                kw["enable_gqa"] = True
+            try:
+                with sdpa_kernel(backend):
+                    oh = sdpa(qh, kh, vh, **kw)
+                    torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            with sdpa_kernel(backend):
+                with torch.no_grad():
+                    fwd_ms = median_ms(lambda: sdpa(qh, kh, vh, **kw))
+                bwd_ms = median_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
+                                                               retain_graph=True))
+            err = (oh.detach().transpose(1, 2).float() - o.float()).abs().max().item()
+            if err > O_TOL:
+                raise AssertionError(f"scaled_dot_product_attention disagrees with the kernel's "
+                                     f"o: {err:.3e}")
+            return {"backend": backend.name,
+                    "gqa": "enable_gqa" if gqa else "k, v expanded to H heads, untimed",
+                    "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "max_abs_o_diff": err}
+    raise AssertionError("no scaled_dot_product_attention backend ran")
+
+
+def _check_bitwise(fn, got):
+    """A second call of ``fn`` must give bit-equal outputs (no atomics, one
+    fixed summation order)."""
+    again = fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("the backward kernels are not bit-reproducible")
+
+
 def phase_kernel_bwd(device):
     """The dK/dV and dQ kernels against the plain backward (f32, same o and
     lse), and gradients through the autograd Function against autograd of
@@ -253,13 +378,14 @@ def phase_kernel_bwd(device):
     import tst_torch.kernels.flash_attention as tfa
 
     out = {}
-    for b, s, h, kvh, d in KERNEL_SHAPES:
+    for b, s, h, kvh, d in KERNEL_SHAPES + BWD_ONE_TILE:
         rng = np.random.default_rng(s + d + 1)
         q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
         k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
         o, lse = tfa.flash_attention(q, k, v)
         got = tfa.flash_attention_backward(q, k, v, o, lse, do)
         torch.cuda.synchronize()
+        _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do), got)
         want = tfa.flash_attention_backward_reference(
             q.float(), k.float(), v.float(), o.float(), lse, do.float())
         errs = [_rel_err(g, w) for g, w in zip(got, want)]
@@ -286,12 +412,15 @@ def phase_kernel_bwd(device):
             di = tfa.backward_row_stat(o, do)
             plain_ms = median_ms(lambda: tfa.flash_attention_backward_reference(
                 q, k, v, o, lse, do))
+            lib = _sdpa_yardstick(q, k, v, do, o)
+            bounds = _attention_bounds(q, k)
             out["dkv"] = {"max_abs_err": (got[1].float() - want[1]).abs().max().item(),
                           "ms": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di)),
-                          "plain_ms": plain_ms}
+                          "plain_ms": plain_ms, "library_ms": lib["bwd_ms"], **bounds["dkv"]}
             out["dq"] = {"max_abs_err": (got[0].float() - want[0]).abs().max().item(),
                          "ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di)),
-                         "plain_ms": plain_ms}
+                         "plain_ms": plain_ms, "library_ms": lib["bwd_ms"], **bounds["dq"]}
+            out["fwd"] = {"library_ms": lib["fwd_ms"], **bounds["fwd"]}
             both_ms = median_ms(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do))
     bad = torch.zeros(1, 100, 2, 64, device=device, dtype=torch.bfloat16)
     lse_bad = torch.zeros(1, 2, 100, device=device)
@@ -301,11 +430,55 @@ def phase_kernel_bwd(device):
         pass
     else:
         raise AssertionError("flash_attention_backward accepted S=100")
-    print(f"[kernel-bwd] S=100 rejected; train shape {TRAIN_SHAPE}: dkv "
-          f"{out['dkv']['ms']:.4f} ms + dq {out['dq']['ms']:.4f} ms; wrapper (di, checks, "
-          f"both kernels) {both_ms:.4f} ms; plain backward {plain_ms:.4f} ms "
-          f"(median of 30 x 10 calls)")
+    dkv, dq = out["dkv"], out["dq"]
+    print(f"[kernel-bwd] bit-equal on a second call at every shape; S=100 rejected; train "
+          f"shape {TRAIN_SHAPE}: dkv {dkv['ms']:.4f} ms (bound {dkv['bound_ms']:.4f}, "
+          f"{dkv['bound_by']}) + dq {dq['ms']:.4f} ms (bound {dq['bound_ms']:.4f}, "
+          f"{dq['bound_by']}); wrapper (di, checks, both kernels) {both_ms:.4f} ms; plain "
+          f"backward {plain_ms:.4f} ms; scaled_dot_product_attention ({lib['backend']}, "
+          f"{lib['gqa']}; max|o-o_kernel| {lib['max_abs_o_diff']:.3e}): backward alone "
+          f"{lib['bwd_ms']:.4f} ms, forward {lib['fwd_ms']:.4f} ms (forward kernel bound "
+          f"{out['fwd']['bound_ms']:.4f}, {out['fwd']['bound_by']}) (median of 30 x 10 calls)")
     return out
+
+
+def phase_rank(device, rounds=5):
+    """Which attention kernels lose most to the library: at the train
+    step's shape, the forward kernel against scaled_dot_product_attention's
+    forward and the backward pair (dK/dV + dQ kernels) against its backward,
+    interleaved over ``rounds`` in one process (medians). The forward is
+    ranked first only if it is slower than the library's forward and loses
+    to it by a larger factor than the pair loses to the library's backward."""
+    import tst_torch.kernels.flash_attention as tfa
+
+    b, s, h, kvh, d = TRAIN_SHAPE
+    rng = np.random.default_rng(s + d + 1)
+    q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
+    k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
+    o, lse = tfa.flash_attention(q, k, v)
+    di = tfa.backward_row_stat(o, do)
+
+    def pair():
+        tfa._launch_bwd_dkv(q, k, v, do, lse, di)
+        tfa._launch_bwd_dq(q, k, v, do, lse, di)
+
+    times = {"fwd": [], "pair": [], "library_fwd": [], "library_bwd": []}
+    for _ in range(rounds):
+        times["fwd"].append(median_ms(lambda: tfa._launch_fwd(q, k, v)))
+        times["pair"].append(median_ms(pair))
+        lib = _sdpa_yardstick(q, k, v, do, o)
+        times["library_fwd"].append(lib["fwd_ms"])
+        times["library_bwd"].append(lib["bwd_ms"])
+    med = {key: statistics.median(val) for key, val in times.items()}
+    f_fwd, f_pair = med["fwd"] / med["library_fwd"], med["pair"] / med["library_bwd"]
+    first = ("forward" if med["fwd"] > med["library_fwd"] and f_fwd > f_pair
+             else "backward pair")
+    print(f"[rank] train shape {TRAIN_SHAPE}, {rounds} interleaved rounds (medians; per round "
+          f"{json.dumps({key: [round(x, 4) for x in val] for key, val in times.items()})}): "
+          f"forward {med['fwd']:.4f} ms vs scaled_dot_product_attention ({lib['backend']}, "
+          f"{lib['gqa']}) {med['library_fwd']:.4f} ms, factor {f_fwd:.3f}; backward pair "
+          f"{med['pair']:.4f} ms vs {med['library_bwd']:.4f} ms, factor {f_pair:.3f}; "
+          f"loses most: the {first}")
 
 
 def phase_slice():
@@ -441,9 +614,13 @@ def phase_train():
         times.append(time.perf_counter() - t0)
     step_ms = statistics.median(times[1:]) * 1e3
     rows_per_step = int(np.prod(st.batches.shape[1:]))
+    prof = _profile(lambda: st.trainer.step(st.params, lora, opt, st.tokens, st.loss_mask,
+                                            st.answer_pos, st.batches[0]), 2)
     print(f"[train] step ({rows_per_step} rows of {st.tokens.shape[1]} tokens): median "
           f"{step_ms:.2f} ms over {STEP_SAMPLES} steps after the first "
-          f"({rows_per_step / step_ms * 1e3:.1f} samples/s); first step {times[0] * 1e3:.1f} ms")
+          f"({rows_per_step / step_ms * 1e3:.1f} samples/s); first step {times[0] * 1e3:.1f} ms; "
+          f"profile of one step: {_fmt_profile(prof)}; device time by op: "
+          f"{'; '.join(prof['ops'])}")
     return counts
 
 
@@ -482,7 +659,7 @@ def _seg_starts(b, s, seed):
     (1, 63, 64, 65 and near the end), a row of all SEG_PAD, one segment, a
     first start after 0, then random rows; longer: MAX_SEGS segments a row."""
     rng = np.random.default_rng(seed)
-    fixed = [sorted({0, 1, 63, 64, 65, s // 2 + 1, s - 65, s - 1}), [], [0], [7, 70]]
+    fixed = [sorted({0, 1, 63, 64, 65, s // 2 + 1, max(s - 65, 0), s - 1}), [], [0], [7, 70]]
     rows = []
     for i in range(b):
         if s <= 1024 and i < len(fixed):
@@ -526,6 +703,8 @@ def phase_kernel_seg(device):
         del o_ref, lse_ref
         got = tfa.flash_attention_backward(q, k, v, o, lse, do, seg_starts=seg)
         torch.cuda.synchronize()
+        _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do, seg_starts=seg),
+                       got)
         want = tfa.flash_attention_backward_reference(
             q.float(), k.float(), v.float(), o.float(), lse, do.float(), seg_starts=seg)
         errs = [_rel_err(g, w) for g, w in zip(got, want)]
@@ -571,13 +750,18 @@ def phase_kernel_seg(device):
             continue
         raise AssertionError(f"flash_attention accepted seg_starts {tuple(bad.shape)} "
                              f"{bad.dtype} causal={causal}")
-    f, dkv, dq = out["fwd"], out["dkv"], out["dq"]
-    print(f"[kernel-seg] bad starts rejected (9 columns, int64, wrong batch, causal=False); "
-          f"train shape {PACKED_TRAIN_SHAPE}: forward segmented {f['ms']:.4f} ms, unsegmented "
-          f"{f['unsegmented_ms']:.4f} ms, plain {f['plain_ms']:.4f} ms; dK/dV segmented "
-          f"{dkv['ms']:.4f} ms, unsegmented {dkv['unsegmented_ms']:.4f} ms; dQ segmented "
-          f"{dq['ms']:.4f} ms, unsegmented {dq['unsegmented_ms']:.4f} ms; plain backward "
-          f"{dq['plain_ms']:.4f} ms (kernels: median of 30 x 10 calls; plain: 10 x 3)")
+    f, dkv, dq, lib = out["fwd"], out["dkv"], out["dq"], out.pop("library")
+    print(f"[kernel-seg] bit-equal on a second call at every shape; bad starts rejected (9 "
+          f"columns, int64, wrong batch, causal=False); train shape {PACKED_TRAIN_SHAPE}: "
+          f"forward segmented {f['ms']:.4f} ms (bound {f['bound_ms']:.4f}, {f['bound_by']}), "
+          f"unsegmented {f['unsegmented_ms']:.4f} ms, plain {f['plain_ms']:.4f} ms; dK/dV "
+          f"segmented {dkv['ms']:.4f} ms (bound {dkv['bound_ms']:.4f}, {dkv['bound_by']}), "
+          f"unsegmented {dkv['unsegmented_ms']:.4f} ms; dQ segmented {dq['ms']:.4f} ms (bound "
+          f"{dq['bound_ms']:.4f}, {dq['bound_by']}), unsegmented {dq['unsegmented_ms']:.4f} ms; "
+          f"plain backward {dq['plain_ms']:.4f} ms; scaled_dot_product_attention with the "
+          f"segment mask ({lib['backend']}, {lib['gqa']}; max|o-o_kernel| "
+          f"{lib['max_abs_o_diff']:.3e}): forward {lib['fwd_ms']:.4f} ms, backward alone "
+          f"{lib['bwd_ms']:.4f} ms (kernels and library: median of 30 x 10 calls; plain: 10 x 3)")
     return out
 
 
@@ -592,17 +776,21 @@ def _time_seg_kernels(q, k, v, do, seg, o, lse):
     di_u = tfa.backward_row_stat(o_u, do)
     plain_bwd = median_ms(lambda: tfa.flash_attention_backward_reference(
         q, k, v, o, lse, do, seg_starts=seg), samples=10, reps=3, warmup=1)
+    lib = _sdpa_yardstick(q, k, v, do, o, tfa.segment_mask(seg, q.shape[1]))
+    bounds = _attention_bounds(q, k, seg)
     return {
         "fwd": {"ms": median_ms(lambda: tfa._launch_fwd(q, k, v, kseg)),
                 "unsegmented_ms": median_ms(lambda: tfa._launch_fwd(q, k, v)),
                 "plain_ms": median_ms(lambda: tfa.flash_attention_reference(
-                    q, k, v, seg_starts=seg), samples=10, reps=3, warmup=1)},
+                    q, k, v, seg_starts=seg), samples=10, reps=3, warmup=1),
+                "library_ms": lib["fwd_ms"], **bounds["fwd"]},
         "dkv": {"ms": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di, kseg)),
                 "unsegmented_ms": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse_u, di_u)),
-                "plain_ms": plain_bwd},
+                "plain_ms": plain_bwd, "library_ms": lib["bwd_ms"], **bounds["dkv"]},
         "dq": {"ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di, kseg)),
                "unsegmented_ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse_u, di_u)),
-               "plain_ms": plain_bwd},
+               "plain_ms": plain_bwd, "library_ms": lib["bwd_ms"], **bounds["dq"]},
+        "library": lib,
     }
 
 
@@ -665,10 +853,13 @@ def phase_train_packed():
     samples = float(np.mean([st.pack.n_segs[ka, st.batches[t]].sum()
                              for t in range(1, STEP_SAMPLES + 1)]))
     rows_per_step = int(np.prod(st.batches.shape[1:]))
+    prof = _profile(lambda: st.trainer.step(st.params, lora, opt, st.ptokens, st.pmask, st.ppos,
+                                            st.batches[0], st.psegs), 2)
     print(f"[train-packed] step ({rows_per_step} packed rows of {st.ptokens.shape[-1]} tokens, "
           f"{samples:.1f} samples on average): median {step_ms:.2f} ms over {STEP_SAMPLES} "
           f"steps after the first ({samples / step_ms * 1e3:.1f} train samples/s); first step "
-          f"{times[0] * 1e3:.1f} ms")
+          f"{times[0] * 1e3:.1f} ms; profile of one step: {_fmt_profile(prof)}; device time by "
+          f"op: {'; '.join(prof['ops'])}")
     return counts
 
 
@@ -726,8 +917,10 @@ def _profile(fn, steps):
     trace of ``steps`` more (the sum of kernel times); the idle share is
     1 - busy / wall. The profiler's own host cost stays out of the wall: a
     launch-bound loop runs several times slower under it. Also the five
-    kernels that take the most device time, with their launches per call.
-    Busy and idle are None where the trace shows no device time."""
+    kernels that take the most device time, with their launches per call,
+    and the twelve host ops whose launches take the most device time (a
+    hand-written kernel counts under the op that launched it). Busy and
+    idle are None where the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -741,19 +934,23 @@ def _profile(fn, steps):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    kernels = []
+    kernels, ops = [], []
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        kernels.append((us / 1e3 / steps, e.count / steps, e.key))
+        row = (us / 1e3 / steps, e.count / steps, e.key)
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            kernels.append(row)
+        elif us > 0:
+            ops.append(row)
     busy = sum(k[0] for k in kernels)
     if busy <= 0:
-        return {"wall_ms": wall_ms, "busy_ms": None, "idle_share": None, "top": []}
+        return {"wall_ms": wall_ms, "busy_ms": None, "idle_share": None, "top": [], "ops": []}
     top = [f"{name[:60]} {ms:.3f} ms x{cnt:g}" for ms, cnt, name in sorted(kernels)[::-1][:5]]
-    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms, "top": top}
+    by_op = [f"{name[:48]} {ms:.3f} ms ({ms / busy:.1%})" for ms, _, name in sorted(ops)[::-1][:12]]
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms, "top": top,
+            "ops": by_op}
 
 
 def _fmt_profile(p):
@@ -806,8 +1003,14 @@ def phase_kernel_int4(device):
         print(f"[kernel-int4] one decode layer's 7 projections at M={m}: kernel "
               f"{layer[m]['ms']:.4f} ms, plain (dequantize, then product) "
               f"{layer[m]['plain_ms']:.4f} ms (sums of medians of 30 x 10 calls)")
-    return {"max_abs_err": worst, "ms": layer[32]["ms"], "plain_ms": layer[32]["plain_ms"],
-            "timed": "sum over one Qwen2.5-0.5B layer's 7 projections at M=32"}
+    # a layer's seven projections at M=32: y, packed weights and f32 scales in, f32 out
+    m = INT4_M[0]
+    flops = sum(2 * m * k * n for k, n in QWEN_INT4.values())
+    nbytes = sum(m * k * 2 + k * n // 2 + (k // 128) * n * 4 + m * n * 4
+                 for k, n in QWEN_INT4.values())
+    return {"max_abs_err": worst, "ms": layer[m]["ms"], "plain_ms": layer[m]["plain_ms"],
+            "library_ms": None, **_bound(flops, nbytes),
+            "timed": f"sum over one Qwen2.5-0.5B layer's 7 projections at M={m}"}
 
 
 def phase_kernel_mlp(device):
@@ -852,7 +1055,9 @@ def phase_kernel_mlp(device):
             out = {"max_abs_err": fwd_abs, "ms": median_ms(lambda: tfm._launch(x, wg, wu, wd)),
                    "plain_ms": median_ms(lambda: tfm.swiglu_reference(x, wg, wu, wd),
                                          samples=10, reps=3, warmup=1),
-                   "unfused_bf16_ms": median_ms(unfused, samples=10, reps=3, warmup=1)}
+                   "library_ms": None,  # no single torch call computes the fused MLP
+                   "unfused_bf16_ms": median_ms(unfused, samples=10, reps=3, warmup=1),
+                   **_bound(3 * 2 * m * d * f, 2 * m * d * 2 + 3 * d * f * 2)}
         del x, wg, wu, wd, dout, got, want
         torch.cuda.empty_cache()
     flops = 3 * 2 * np.prod(MLP_SHAPES[0]) / 1e12
@@ -1075,9 +1280,17 @@ def phase_train_fused():
     return counts
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", choices=["rank"], default=None,
+                        help="rank: the attention kernels against the library at the train "
+                             "shape (any build of tst_torch, so also a parent commit's)")
+    args = parser.parse_args(argv)
     device = phase_device()
-    phase_build()
+    phase_build(sass=args.only != "rank")
+    if args.only == "rank":
+        phase_rank(device)
+        return
     kern = phase_kernel(device)
     blind_launches = phase_slice()
     bwd = phase_kernel_bwd(device)
@@ -1094,7 +1307,8 @@ def main():
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
          "replaces": "tst/kernels/flash_attention.py:99",
-         "launches": counts["fwd"], "launches_eval_blind": blind_launches, **kern},
+         "launches": counts["fwd"], "launches_eval_blind": blind_launches, **kern,
+         **bwd["fwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:553",

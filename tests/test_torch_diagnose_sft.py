@@ -25,7 +25,6 @@ import torch
 
 from tst import config as config_mod
 from tst.data.adapters import load_benchmark
-from tst.data.schema import BlindDataset, Sample
 from tst.diagnose import score as jscore
 from tst.eval import metrics as jmetrics
 from tst.eval import parity as jparity
@@ -34,6 +33,9 @@ from tst.models import lora as jlora
 from tst.train import pipeline as jpipe
 from tst.train import sft as jsft
 from tst_torch import bridge, cli
+from tst_torch import config as tconfig
+from tst_torch.data.adapters import load_benchmark as tload_benchmark
+from tst_torch.data.schema import BlindDataset, Sample
 from tst_torch.diagnose import score as tscore
 from tst_torch.eval import metrics as tmetrics
 from tst_torch.eval import parity as tparity
@@ -50,8 +52,9 @@ WALLS = {"wall_seconds", "train_wall_seconds", "train_first_step_seconds",
          "numeric_decode_wall_seconds", "open_decode_wall_seconds"}
 
 
-def _cfg(out_dir, n=48, *extra):
-    return config_mod.resolve(None, None, [
+def _cfg(out_dir, n=48, *extra, config=tconfig):
+    """The port's RunConfig; ``config=config_mod`` gives tst's for the JAX side."""
+    return config.resolve(None, None, [
         "model.name=tiny", "model.dtype=float32", "data.bench=synthetic:0.5", f"data.n={n}",
         "data.k=2", "optim.batch_size=4", "optim.epochs=1", "rf.cross_check=false",
         f"out_dir={out_dir}", *extra])
@@ -118,10 +121,11 @@ def test_diagnose_sft_matches_reference(tmp_path, monkeypatch, n, extra):
     rows three samples to a row of 1024 (pack_len, pack_fill_fraction)."""
     ds = load_benchmark("synthetic:0.5", n=n, seed=0)
     want = jpipe.run_sft_diagnostic(ds, _cfg(tmp_path / "jax", n, "model.use_pallas=false",
-                                             *extra))
+                                             *extra, config=config_mod))
     _bridge_port(monkeypatch)
     out = tmp_path / "port"
-    got = tpipe.run_sft_diagnostic(ds, _cfg(out, n, *extra), torch.device("cpu"))
+    got = tpipe.run_sft_diagnostic(tload_benchmark("synthetic:0.5", n=n, seed=0),
+                                   _cfg(out, n, *extra), torch.device("cpu"))
     assert list(got) == list(want)
     with open(out / "report.json") as f:
         assert json.load(f) == got
@@ -160,10 +164,11 @@ def test_diagnose_sft_decode_slice_matches_reference(tmp_path, monkeypatch, benc
     ds = load_benchmark(bench, n=n, seed=0)
     quant = [f"model.quantize=int{quantize}"] if quantize else []
     want = jpipe.run_sft_diagnostic(ds, _cfg(tmp_path / "jax", n, "model.use_pallas=false",
-                                             *quant, *extra))
+                                             *quant, *extra, config=config_mod))
     _bridge_port(monkeypatch, quantize)
     out = tmp_path / "port"
-    got = tpipe.run_sft_diagnostic(ds, _cfg(out, n, *quant, *extra), torch.device("cpu"))
+    got = tpipe.run_sft_diagnostic(tload_benchmark(bench, n=n, seed=0),
+                                   _cfg(out, n, *quant, *extra), torch.device("cpu"))
     assert list(got) == list(want)
     for key in want:
         if key not in WALLS:
@@ -224,7 +229,7 @@ def test_spearman_and_per_category_accuracy_match_reference():
     (["perf.spec_draft_model=tiny"], "item 15"),
 ])
 def test_unported_config_raises(tmp_path, extra, item):
-    ds = load_benchmark("synthetic:0.5", n=8, seed=0)
+    ds = tload_benchmark("synthetic:0.5", n=8, seed=0)
     with pytest.raises(NotImplementedError, match=item):
         tpipe.run_sft_diagnostic(ds, _cfg(tmp_path, 8, *extra), torch.device("cpu"))
 

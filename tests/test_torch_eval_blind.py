@@ -21,13 +21,16 @@ import torch
 
 from tst import config as config_mod
 from tst.data.adapters import load_benchmark
-from tst.data.schema import BlindDataset, Sample
 from tst.data.tokenize import ByteTokenizer, tokenize_dataset
 from tst.eval import metrics as jmetrics
 from tst.models import decoder as jdec
 from tst.train import infer as jinfer
 from tst.train import pipeline as jpipe
 from tst_torch import bridge, cli
+from tst_torch import config as tconfig
+from tst_torch.data.adapters import load_benchmark as tload_benchmark
+from tst_torch.data.schema import BlindDataset, Sample
+from tst_torch.data.tokenize import ByteTokenizer as TByteTokenizer
 from tst_torch.eval import metrics as tmetrics
 from tst_torch.models.spec import ModelSpec
 from tst_torch.train import infer as tinfer
@@ -42,8 +45,9 @@ def _port_spec(spec):
     return ModelSpec(**{**dataclasses.asdict(spec), "dtype": torch.float32})
 
 
-def _cfg(out_dir, n=48, *extra):
-    return config_mod.resolve(None, None, [
+def _cfg(out_dir, n=48, *extra, config=tconfig):
+    """The port's RunConfig; ``config=config_mod`` gives tst's for the JAX side."""
+    return config.resolve(None, None, [
         "model.name=tiny", "model.dtype=float32", "data.bench=synthetic:0.5",
         f"data.n={n}", f"out_dir={out_dir}", *extra])
 
@@ -107,7 +111,8 @@ def test_blind_eval_slice_matches_reference(tmp_path, monkeypatch):
     """The whole slice: same dataset, same (bridged) weights → the same
     blind_eval.json, wall time aside."""
     ds = load_benchmark("synthetic:0.5", n=48, seed=0)
-    want = jpipe.run_blind_eval(ds, _cfg(tmp_path / "jax", 48, "model.use_pallas=false"))
+    want = jpipe.run_blind_eval(ds, _cfg(tmp_path / "jax", 48, "model.use_pallas=false",
+                                          config=config_mod))
 
     def bridged_model(cfg, tokenizer, device):
         spec = dataclasses.replace(TINY, vocab_size=max(TINY.vocab_size, tokenizer.vocab_size))
@@ -117,7 +122,8 @@ def test_blind_eval_slice_matches_reference(tmp_path, monkeypatch):
     monkeypatch.setattr(tpipe, "build_model", bridged_model)
     for use_pallas in ("false", "true"):
         out = tmp_path / f"port_{use_pallas}"
-        got = tpipe.run_blind_eval(ds, _cfg(out, 48, f"model.use_pallas={use_pallas}"),
+        got = tpipe.run_blind_eval(tload_benchmark("synthetic:0.5", n=48, seed=0),
+                                   _cfg(out, 48, f"model.use_pallas={use_pallas}"),
                                    torch.device("cpu"))
         with open(out / "blind_eval.json") as f:
             assert json.load(f) == got
@@ -148,10 +154,12 @@ def test_blind_eval_decode_slice_matches_reference(tmp_path, monkeypatch, bench,
     bridged JAX init). Every report field within 1e-6, wall time aside."""
     ds = load_benchmark(bench, n=40, seed=0)
     quant = [f"model.quantize=int{quantize}"] if quantize else []
-    want = jpipe.run_blind_eval(ds, _cfg(tmp_path / "jax", 40, "model.use_pallas=false", *quant))
+    want = jpipe.run_blind_eval(ds, _cfg(tmp_path / "jax", 40, "model.use_pallas=false", *quant,
+                                         config=config_mod))
     monkeypatch.setattr(tpipe, "build_model", _bridged_model(quantize))
     out = tmp_path / "port"
-    got = tpipe.run_blind_eval(ds, _cfg(out, 40, *quant), torch.device("cpu"))
+    got = tpipe.run_blind_eval(tload_benchmark(bench, n=40, seed=0), _cfg(out, 40, *quant),
+                               torch.device("cpu"))
     with open(out / "blind_eval.json") as f:
         assert json.load(f) == got
     assert list(got) == list(want)
@@ -168,7 +176,7 @@ def test_build_model_quantizes(tmp_path):
     input axis is a multiple of 128 (the rest and the embedding stay int8)."""
     from tst_torch.models import quant as tquant
 
-    tok = ByteTokenizer()
+    tok = TByteTokenizer()
     for bits in ("int8", "int4"):
         spec, params = tpipe.build_model(_cfg(tmp_path, 8, f"model.quantize={bits}"), tok,
                                          torch.device("cpu"))
@@ -194,13 +202,13 @@ def test_platform_gpu_raises_without_cuda(tmp_path):
     (["mesh.data=2"], "item 16"),
 ])
 def test_unported_config_raises(tmp_path, extra, item):
-    ds = load_benchmark("synthetic:0.5", n=8, seed=0)
+    ds = tload_benchmark("synthetic:0.5", n=8, seed=0)
     with pytest.raises(NotImplementedError, match=item):
         tpipe.run_blind_eval(ds, _cfg(tmp_path, 8, *extra), torch.device("cpu"))
 
 
 def test_unported_rows_and_adapter_raise(tmp_path):
-    ds = load_benchmark("synthetic:0.5", n=8, seed=0)
+    ds = tload_benchmark("synthetic:0.5", n=8, seed=0)
     with pytest.raises(NotImplementedError, match="item 5"):
         tpipe.run_blind_eval(ds, _cfg(tmp_path), torch.device("cpu"), adapter_dir="x")
     numeric = BlindDataset("n", [Sample(id="0", question="how far?", options=[],
@@ -216,11 +224,10 @@ def test_unported_subcommands_exit_nonzero(cmd, capsys):
     assert f"not yet ported (ROADMAP item {cli.NOT_PORTED[cmd]})" in capsys.readouterr().err
 
 
-#: jax-free modules of tst that the port may share; every other tst module
-#: imports jax (directly or through another module)
-SHARED = {"tst", "tst.config", "tst.data.adapters", "tst.data.schema",
-          "tst.data.tokenize", "tst.data.blind", "tst.data.folds", "tst.native",
-          "tst.native.fast_pack", "tst.io", "tst.io.outputs", "tst.aux.log"}
+#: top-level packages the port and chip_smoke.py must not import: jax and
+#: its kin, and the JAX package tst (the port keeps its own copies of tst's
+#: jax-free host code, held to tst's by tests/test_torch_host.py)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tst")
 
 
 def _imports(path: Path):
@@ -229,14 +236,6 @@ def _imports(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
             yield node.module
-            yield from (f"{node.module}.{a.name}" for a in node.names
-                        if node.module == "tst" or node.module.startswith("tst."))
-
-
-def _shared(name: str) -> bool:
-    """A shared module, or a name imported from one."""
-    parent = name.rsplit(".", 1)[0]
-    return name in SHARED or (parent in SHARED and parent != "tst")
 
 
 def test_port_imports_no_jax():
@@ -244,25 +243,25 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
-            top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax"), (path, name)
-            assert top != "tst" or _shared(name), (path, name)
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
 def test_port_runs_with_jax_blocked():
-    """Every module of the port imports in a process where jax cannot load."""
+    """Every module of the port imports in a process where neither jax nor
+    the JAX package tst can load, and no tst module is loaded after it."""
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   for p in (REPO / "tst_torch").rglob("*.py") if p.name != "__main__.py")
     code = (
         "import importlib, importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib'):\n"
-        "            raise ImportError('jax is blocked: ' + name)\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'tst'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(m.split('.')[0] == 'jax' for m in sys.modules)\n")
+        "assert not any(m.split('.')[0] in ('jax', 'tst') for m in sys.modules)\n"
+        "assert 'tst_torch' in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 

@@ -21,8 +21,8 @@ import json
 import sys
 from typing import List, Optional
 
-from tst import config as config_mod
-from tst.config import RunConfig
+from tst_torch import config as config_mod
+from tst_torch.config import RunConfig
 from tst_torch.runtime.device import PLATFORMS, select_device
 
 #: subcommands of ``tst`` that the port does not have yet → ROADMAP item
@@ -66,7 +66,7 @@ def _resolve(args):
 
 
 def _load_dataset(cfg: RunConfig):
-    from tst.data.adapters import load_benchmark
+    from tst_torch.data.adapters import load_benchmark
 
     return load_benchmark(
         cfg.data.bench, source=cfg.data.source, split=cfg.data.split,

@@ -1,6 +1,6 @@
 // Causal GQA flash-attention backward for Hopper (sm_90a): two kernels, one
 // for dK/dV and one for dQ, bf16 in and out, f32 accumulation; plain, or
-// segment-masked for packed rows.
+// segment-masked for packed rows. Every product is a warpgroup wgmma.
 //
 // Replaces the TPU backward kernels of tst/kernels/flash_attention.py:
 //   _bwd_fused_nolse_kernel (:590, via _flash_bwd_fused :836), the fused
@@ -14,8 +14,7 @@
 // `_flash_bwd_fused` :854) that the TPU dispatches at S >= 2048.
 // They share one semantics; their one-shot / tiled / fused / chunked split is
 // a TPU VMEM schedule, so these two kernels cover all of them. The segmented
-// kernels (kSeg) are second instantiations of the same templates; the plain
-// ones compile as before.
+// kernels (kSeg) are second instantiations of the same templates.
 //
 // Semantics (the reference's): with the forward's f32 lse [B,H,S] and
 // di[b,h,i] = sum_d o·do (f32, computed by the caller from the bf16 o),
@@ -30,173 +29,151 @@
 // minus the f32 lse (both in log2 units); P and scale·dS are rounded to bf16
 // only as operands of the products.
 //
-// What bounds it on an H100: at the slice's shape (q [32,512,14,64], k/v
-// [32,512,2,64]) the two kernels run 7 products of 64x64x64 per visited
-// (query tile, key tile) pair (dkv: S^T, dV, dP^T, dK; dq: S, dP, dQ):
-// 59 GFLOP over the 36 of 64 tile pairs at or below the diagonal, 60 us at
-// the dense bf16 peak. Device memory must carry at least q, do, dq (29 MB
-// each), k, v, dk, dv (4 MB each), lse and di: ~107 MB, 32 us at 3.35 TB/s.
-// So the backward is bound by its products, and by how fast they run.
+// What bounds it on an H100, at the train step's call (q [32,512,14,64], k/v
+// [32,512,2,64], bf16): the causal mask keeps 58.8 M (query, key) pairs over
+// the 448 (b, h), 2·D = 128 operations a pair for each product.
+//   dK/dV: S^T, dP^T, dV, dK: 30.1 GFLOP, 30.5 us at the dense bf16 peak
+//     (989 TFLOP/s), against 77 MB (q, do 29 MB each; k, v, dk, dv 4 MB each;
+//     lse, di 0.9 MB each), 23 us at 3.35 TB/s: bound by its products.
+//   dQ: S, dP, dQ: 22.6 GFLOP, 22.8 us, against 98 MB (q, do, dq; k, v; lse,
+//     di), 29.3 us: bound by its bytes.
+//   (chip_smoke.py computes both bounds from each run's shapes and masks.)
+//   The two kernels stay separate, with no dq by atomics: S and dP are
+//   computed in both, 7 products a pair where a fused kernel would do 5.
 //
-// What the design does about it (simple and correct first):
-//   * all products on tensor cores with mma.sync m16n8k16; a product's f32
-//     accumulator is re-packed into the A fragment of the next product, so P
-//     and dS never leave registers;
-//   * dkv: one block per (64-row KV tile, KV head, batch) loops over the G
-//     query heads of its group and the query tiles at or below the diagonal,
-//     keeping dK and dV in registers: no [B,H,S,D] per-head intermediate, no
-//     group-sum pass, no atomics; each dk/dv row is written once;
-//   * dq: one block per (64-row query tile, head, batch) loops over the KV
-//     tiles up to the diagonal, dQ in registers; longest rows first;
-//   * only the diagonal tile is masked, and masked entries are set to 0
-//     rather than computed as exp(-inf - lse);
-//   * packed rows (kSeg): dQ visits KV tiles from floor(seg_start(p0)/64)
-//     up to the diagonal, as the forward does; a dK/dV block for KV tile
+// What the design does about each limit of the earlier mma.sync design:
+//   * products: wgmma m64n64k16 for all of them. dK/dV: S^T = K·Q^T and
+//     dP^T = V·dO^T with both operands in shared memory; P^T and scale·dS^T
+//     go from the accumulators to registers as bf16 and are the A operand of
+//     dV += P^T·dO and dK += scale·dS^T·Q, which read dO and Q MN-major
+//     through the descriptor's transpose bit. dQ: S = Q·K^T, dP = dO·V^T from
+//     shared memory, dQ += scale·dS·K with K read MN-major. Tiles are staged
+//     once, in the 128-byte-swizzled layout wgmma reads (wgmma_sm90.cuh), so
+//     there is no transposed copy and no bank-conflicted scalar store;
+//   * staging overlaps the products: each warpgroup walks its tiles through a
+//     2-stage ring loaded ahead by 16-byte cp.async (dK/dV: Q, dO, lse, di
+//     and, packed, the segment starts; dQ: K and V). An iteration waits for
+//     its own copies and passes one barrier of its own warpgroup (named, of
+//     128 threads, in dK/dV; in dQ the block is one warpgroup), then starts
+//     the next tile's copies before its products: one barrier an iteration
+//     where there were two block-wide ones;
+//   * the GQA loop is balanced: a dK/dV block (one 64-row KV tile, one KV
+//     head) hands its (query head, query tile) pairs round-robin to W
+//     warpgroups (W = 3 at D = 64, 2 at D = 128, as registers allow), each
+//     with its own dK and dV accumulators and its own ring. The block of KV
+//     tile 0, 7 heads x 8 query tiles = 56 pairs at the train shape, is
+//     19 pairs deep instead of 56. At the end the warpgroups' accumulators
+//     are summed in shared memory in a fixed order (0, then 1, then 2): no
+//     atomics, each dk/dv/dq element written once, bit-equal across calls;
+//   * dQ: one warpgroup per (64-row query tile, head, batch) walks the KV
+//     tiles up to the diagonal, longest rows launched first;
+//   * masks as before: only the diagonal tile is masked when unpacked, and a
+//     masked entry is set to 0 rather than computed as exp(-inf - lse).
+//     Packed rows (kSeg): dQ visits KV tiles from floor(seg_start(p0)/64) up
+//     to the diagonal, as the forward does; a dK/dV block for KV tile
 //     [c0, c0+64) visits query tiles from the diagonal up to the first start
 //     > c0+63 (rows from there on start their segment after the whole tile),
 //     or S. A tile pair is masked per element (col <= row && col >=
 //     seg_start(row)) when it is diagonal or the query tile's largest start
-//     lies beyond the KV tile's first column; boundaries of ~300-token
-//     samples fall inside tiles, so rows of one query tile have different
-//     starts. The dK/dV block keeps each query's start in shared memory
-//     beside its lse and di;
-//   * a warp owns 16 rows and 64 columns of D: at D=128 two warps share the
-//     rows (8 warps), recomputing S and dP, so each thread holds 32 (dq) or
-//     64 (dkv) accumulator floats at any D and nothing spills;
-//   * tiles are staged in (dynamic) shared memory with 16-byte loads, rows
-//     padded by 8 elements; operands needed k-major are staged transposed.
-// Not yet: wgmma, TMA, double buffering, bank-conflict-free transposes.
+//     lies beyond the KV tile's first column; the dK/dV ring stage carries
+//     each query's start beside its lse and di.
+// Not yet: TMA and a producer warp (cp.async costs the consumers issue
+// slots), overlap of one pair's dV/dK products with the next pair's S^T.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
 #include "seg_starts.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
 constexpr int kTile = 64;  // rows of a query tile and of a KV tile
-constexpr int kPad = 8;    // bf16 elements of padding per shared-memory row
+constexpr int kStages = 2;  // depth of each warpgroup's tile ring
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-struct Geometry {
-  static_assert(D % 64 == 0, "head dim must be a multiple of 64");
-  static constexpr int kSplit = D / 64;            // warps sharing 16 rows
-  static constexpr int kThreads = 32 * 4 * kSplit;
-  static constexpr int kRow = D + kPad;            // row-major [64][D] tile stride
-  static constexpr int kCol = kTile + kPad;        // transposed [D][64] tile stride
-  static constexpr int kRowTile = kTile * kRow;    // elements of a row-major tile
-  static constexpr int kColTile = D * kCol;        // elements of a transposed tile
+struct Bwd {
+  static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
+  static constexpr int kBlocks = D / 64;                   // 64-column blocks of a tile
+  static constexpr int kTileBytes = kBlocks * kSw128Block;  // one [64][D] bf16 tile
+  // dK/dV: warpgroups a block (each 128 threads), K and V, then a ring per
+  // warpgroup of (Q tile, dO tile, lse[64], di[64], starts[64]) stages
+  static constexpr int kDkvGroups = D == 64 ? 3 : 2;
+  static constexpr int kDkvStage = 2 * kTileBytes + 1024;  // stats padded to keep tiles aligned
+  static constexpr int kDkvSmem = 2 * kTileBytes + kDkvGroups * kStages * kDkvStage + 1024;
+  // dQ: one warpgroup; Q and dO, then a ring of (K tile, V tile) stages
+  static constexpr int kDqSmem = 2 * kTileBytes + kStages * 2 * kTileBytes + 1024;
+  // the final sum of the dK/dV warpgroups' accumulators fits in their rings
+  static_assert((kDkvGroups - 1) * 2 * 64 * D * 4 <= kDkvGroups * kStages * kDkvStage, "");
 };
 
-// Stage rows [0, 64) of a bf16 matrix (row stride `stride` elements, D used
-// columns) into shared memory, row-major into `dst` and/or transposed into
-// `dst_t` (either may be null).
-template <int D>
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* src, long stride,
-                                           __nv_bfloat16* dst, __nv_bfloat16* dst_t) {
-  using G = Geometry<D>;
-  for (int i = threadIdx.x; i < kTile * D / 8; i += G::kThreads) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    const uint4 val = *reinterpret_cast<const uint4*>(src + (long)r * stride + c);
-    if (dst != nullptr) *reinterpret_cast<uint4*>(dst + r * G::kRow + c) = val;
-    if (dst_t != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+// the first 1024-byte-aligned address of dynamic shared memory (the
+// requested size carries 1024 bytes of slack for it)
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((1024 - (a & 1023)) & 1023);
+}
+
+// cp.async a [64][D] bf16 tile (rows `stride` elements apart) into the sw128
+// tile at shared address `dst`; thread `tid` of `kThreads`
+template <int D, int kThreads>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, long stride,
+                                          int tid) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) dst_t[(c + j) * G::kCol + r] = e[j];
+  for (int i = tid; i < kTile * D / 8; i += kThreads) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    cp_async16(dst + sw128_offset(r, c), src + (long)r * stride + c);
+  }
+}
+
+// write a warpgroup's 64 x D block of f32 accumulators as bf16: this
+// thread's rows 16·warp + g and + 8 of `out`, rows `stride` elements apart
+template <int D>
+__device__ __forceinline__ void store_tile(const float (&acc)[D / 64][32], __nv_bfloat16* out,
+                                           long stride, int warp, int g, int t) {
+  __nv_bfloat16* lo = out + (long)(16 * warp + g) * stride;
+  __nv_bfloat16* hi = lo + 8 * stride;
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = cb * 64 + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(lo + c) = pack_bf16(acc[cb][4 * j], acc[cb][4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(hi + c) = pack_bf16(acc[cb][4 * j + 2], acc[cb][4 * j + 3]);
     }
   }
 }
 
-// c (16 x 64: eight 16x8 C tiles) = A[row0 .. row0+16, :D] · B[0 .. 64, :D]^T,
-// A and B row-major [.][kRow] tiles in shared memory.
-template <int D>
-__device__ __forceinline__ void gemm_abt(float (&c)[8][4], const __nv_bfloat16* a_s,
-                                         const __nv_bfloat16* b_s, int row0, int g, int t) {
-  using G = Geometry<D>;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* ar = a_s + (row0 + g) * G::kRow + kk * 16 + 2 * t;
-    const uint32_t a[4] = {load_u32(ar), load_u32(ar + 8 * G::kRow), load_u32(ar + 8),
-                           load_u32(ar + 8 * G::kRow + 8)};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* br = b_s + (nt * 8 + g) * G::kRow + kk * 16 + 2 * t;
-      mma_16816(c[nt], a, load_u32(br), load_u32(br + 8));
-    }
-  }
-}
-
-// acc (16 x 64: columns d0 .. d0+64 of D) += X · B[0 .. 64, d0 .. d0+64), where
-// X (16 x 64) is the f32 C fragments `x` of a gemm_abt, rounded to bf16 here,
-// and B is staged transposed: bt_s[d][row], stride kCol.
-template <int D>
-__device__ __forceinline__ void gemm_xb(float (&acc)[8][4], const float (&x)[8][4],
-                                        const __nv_bfloat16* bt_s, int d0, int g, int t) {
-  using G = Geometry<D>;
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t xa[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      const __nv_bfloat16* br = bt_s + (d0 + dt * 8 + g) * G::kCol + kk * 16 + 2 * t;
-      mma_16816(acc[dt], xa, load_u32(br), load_u32(br + 8));
-    }
-  }
-}
-
-// write this warp's 16 x 64 block of f32 accumulators as bf16 rows `row_lo`
-// and `row_lo + 8` (pointers to column d0 of each row)
-__device__ __forceinline__ void store_rows(const float (&acc)[8][4], __nv_bfloat16* lo,
-                                           __nv_bfloat16* hi, int t) {
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(lo + c) = pack_bf16(acc[dt][0], acc[dt][1]);
-    *reinterpret_cast<uint32_t*>(hi + c) = pack_bf16(acc[dt][2], acc[dt][3]);
-  }
-}
-
-// dK, dV: one block per (KV tile, KV head, batch). Warp w owns KV rows
-// (w % 4)·16 .. +16 of the tile and columns (w / 4)·64 .. +64 of D. `seg`
-// (int32 [B, kMaxSegs]) is read only when kSeg.
+// dK, dV: one block per (KV tile, KV head, batch), W warpgroups. Warpgroup
+// w takes pairs w, w + W, ... of the (query head, query tile) pairs that see
+// the tile; warp i of a warpgroup owns KV rows 16i .. 16i+16. `seg` (int32
+// [B, kMaxSegs]) is read only when kSeg.
 template <int D, bool kSeg>
-__global__ void __launch_bounds__(Geometry<D>::kThreads)
+__global__ void __launch_bounds__(Bwd<D>::kDkvGroups * 128, 1)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ di,
                      const int* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int S, int H, int KVH, float scale) {
-  using G = Geometry<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // K[key][d]
-  __nv_bfloat16* v_s = k_s + G::kRowTile;                        // V[key][d]
-  __nv_bfloat16* q_s = v_s + G::kRowTile;                        // Q[query][d]
-  __nv_bfloat16* do_s = q_s + G::kRowTile;                       // dO[query][d]
-  __nv_bfloat16* qt_s = do_s + G::kRowTile;                      // Q[d][query]
-  __nv_bfloat16* dot_s = qt_s + G::kColTile;                     // dO[d][query]
-  float* lse_s = reinterpret_cast<float*>(dot_s + G::kColTile);  // log2 units
-  float* di_s = lse_s + kTile;
-  int* st_s = reinterpret_cast<int*>(di_s + kTile);  // segment starts (kSeg)
+  using T = Bwd<D>;
+  constexpr int W = T::kDkvGroups;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t k_s = smem_u32(smem);  // K[key][d], sw128
+  const uint32_t v_s = k_s + T::kTileBytes;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  unsigned char* ring = smem + 2 * T::kTileBytes + wg * kStages * T::kDkvStage;
 
   const int kv_tile = blockIdx.x;  // tile 0 has the most query tiles: launched first
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int groups = H / KVH;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wrow = (warp % 4) * 16;  // this warp's first KV row in the tile
-  const int d0 = (warp / 4) * 64;    // this warp's first column of D
   const float scale_log2 = scale * kLog2e;
   const int kv0 = kv_tile * kTile;
   // one past the last query tile that sees this KV tile: packed, the rows
@@ -207,115 +184,187 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     sb = seg + (long)b * kMaxSegs;
     q_end = (seg_end(sb, kv0 + kTile - 1, S) + kTile - 1) / kTile;
   }
+  const int nq = q_end - kv_tile;
+  const int n_pairs = groups * nq;
+  const int n_mine = wg < n_pairs ? (n_pairs - wg + W - 1) / W : 0;
 
   const long q_stride = (long)H * D;
   const long kv_stride = (long)KVH * D;
-  const long kv_off = ((long)b * S + (long)kv_tile * kTile) * kv_stride + (long)kvh * D;
-  stage_tile<D>(k + kv_off, kv_stride, k_s, nullptr);
-  stage_tile<D>(v + kv_off, kv_stride, v_s, nullptr);
+  const long kv_off = ((long)b * S + kv0) * kv_stride + (long)kvh * D;
+  load_tile<D, W * 128>(k_s, k + kv_off, kv_stride, threadIdx.x);
+  load_tile<D, W * 128>(v_s, v + kv_off, kv_stride, threadIdx.x);
+  cp_async_commit();
 
-  float acc_dk[8][4], acc_dv[8][4];
+  // this warpgroup's j-th pair into ring stage j % kStages
+  auto load_pair = [&](int j) {
+    const int p = wg + j * W;
+    const int h = kvh * groups + p / nq;
+    const int q0 = (kv_tile + p % nq) * kTile;
+    unsigned char* st = ring + (j % kStages) * T::kDkvStage;
+    const long q_off = ((long)b * S + q0) * q_stride + (long)h * D;
+    load_tile<D, 128>(smem_u32(st), q + q_off, q_stride, tid);
+    load_tile<D, 128>(smem_u32(st) + T::kTileBytes, dout + q_off, q_stride, tid);
+    float* lse_s = reinterpret_cast<float*>(st + 2 * T::kTileBytes);
+    const long r0 = ((long)b * H + h) * S + q0;
+    if (tid < 16) {
+      cp_async16(smem_u32(lse_s + 4 * tid), lse + r0 + 4 * tid);
+    } else if (tid < 32) {
+      cp_async16(smem_u32(lse_s + kTile + 4 * (tid - 16)), di + r0 + 4 * (tid - 16));
+    } else if (kSeg && tid >= 64) {
+      reinterpret_cast<int*>(lse_s + 2 * kTile)[tid - 64] = seg_start(sb, q0 + tid - 64);
+    }
+  };
+
+  if (n_mine > 0) load_pair(0);
+  cp_async_commit();
+  cp_async_wait<1>();  // K and V (this thread's copies)
+  fence_proxy_async();
+  __syncthreads();     // all of K and V
+
+  float acc_dk[T::kBlocks][32], acc_dv[T::kBlocks][32];
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
+  for (int cb = 0; cb < T::kBlocks; ++cb) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[dt][e] = acc_dv[dt][e] = 0.f;
+    for (int i = 0; i < 32; ++i) acc_dk[cb][i] = acc_dv[cb][i] = 0.f;
   }
 
-  for (int hg = 0; hg < groups; ++hg) {
-    const int h = kvh * groups + hg;
-    for (int q_tile = kv_tile; q_tile < q_end; ++q_tile) {
-      const int q0 = q_tile * kTile;
-      __syncthreads();  // every warp is done with the previous query tile
-      const long q_off = ((long)b * S + q0) * q_stride + (long)h * D;
-      stage_tile<D>(q + q_off, q_stride, q_s, qt_s);
-      stage_tile<D>(dout + q_off, q_stride, do_s, dot_s);
-      for (int i = threadIdx.x; i < kTile; i += G::kThreads) {
-        const long r = ((long)b * H + h) * S + q0 + i;
-        lse_s[i] = lse[r] * kLog2e;
-        di_s[i] = di[r];
-        if constexpr (kSeg) st_s[i] = seg_start(sb, q0 + i);
-      }
-      __syncthreads();
+  for (int j = 0; j < n_mine; ++j) {
+    cp_async_wait<0>();  // pair j's copies (this thread's)
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);  // all of pair j; every warp done with pair j - 1
+    if (j + 1 < n_mine) load_pair(j + 1);
+    cp_async_commit();
 
-      // P^T: this warp's 16 keys x the tile's 64 queries
-      float p[8][4];
-      gemm_abt<D>(p, k_s, q_s, wrow, g, t);
-      const bool diag = q_tile == kv_tile;
-      // packed: masked per element when a query's segment starts after kv0
-      const bool masked = kSeg ? diag || st_s[kTile - 1] > kv0 : diag;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);     // query within the tile
-          const int row = wrow + g + (e >= 2 ? 8 : 0);  // key within the tile
-          bool off;
-          if constexpr (kSeg) {
-            off = masked && (kv0 + row > q0 + col || kv0 + row < st_s[col]);
-          } else {
-            off = masked && col < row;
-          }
-          p[nt][e] = off ? 0.f : exp2f(p[nt][e] * scale_log2 - lse_s[col]);
-        }
-      }
-      gemm_xb<D>(acc_dv, p, dot_s, d0, g, t);  // dV += P^T dO
+    const int p = wg + j * W;
+    const int q_tile = kv_tile + p % nq;
+    const int q0 = q_tile * kTile;
+    unsigned char* st = ring + (j % kStages) * T::kDkvStage;
+    const uint32_t q_t = smem_u32(st);  // Q[query][d], sw128
+    const uint32_t do_t = q_t + T::kTileBytes;
+    const float* lse_s = reinterpret_cast<const float*>(st + 2 * T::kTileBytes);
+    const float* di_s = lse_s + kTile;
+    const int* st_s = reinterpret_cast<const int*>(di_s + kTile);
 
-      float dpt[8][4];
-      gemm_abt<D>(dpt, v_s, do_s, wrow, g, t);  // dP^T = V dO^T
+    // S^T = K Q^T and dP^T = V dO^T: keys x queries
+    float s[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(s, desc_k_major(k_s, kk), desc_k_major(q_t, kk), kk > 0);
+    }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          p[nt][e] = p[nt][e] * (dpt[nt][e] - di_s[col]) * scale;  // scale·dS^T
-        }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(dp, desc_k_major(v_s, kk), desc_k_major(do_t, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+
+    const bool diag = q_tile == kv_tile;
+    // packed: masked per element when a query's segment starts after kv0
+    const bool masked = kSeg ? diag || st_s[kTile - 1] > kv0 : diag;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + 2 * t + (i & 1);     // query within the tile
+      const int row = 16 * warp + g + ((i & 2) ? 8 : 0);  // key within the tile
+      bool off;
+      if constexpr (kSeg) {
+        off = masked && (kv0 + row > q0 + col || kv0 + row < st_s[col]);
+      } else {
+        off = masked && col < row;
       }
-      gemm_xb<D>(acc_dk, p, qt_s, d0, g, t);  // dK += scale·dS^T Q
+      const float pv = off ? 0.f : exp2f(s[i] * scale_log2 - lse_s[col] * kLog2e);
+      s[i] = pv;                                   // P^T
+      dp[i] = pv * (dp[i] - di_s[col]) * scale;    // scale·dS^T
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    pack_a(pa, s);
+    pack_a(dsa, dp);
+
+    // dV += P^T dO and dK += scale·dS^T Q, dO and Q read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < T::kBlocks; ++cb) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc_dv[cb], pa[kk], desc_mn_major(do_t, cb, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc_dk[cb], dsa[kk], desc_mn_major(q_t, cb, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < T::kBlocks; ++cb) {
+      fence_acc(acc_dv[cb]);
+      fence_acc(acc_dk[cb]);
     }
   }
 
-  const long r_lo = ((long)b * S + (long)kv_tile * kTile + wrow + g) * kv_stride + kvh * D + d0;
-  const long r_hi = r_lo + 8 * kv_stride;
-  store_rows(acc_dk, dk + r_lo, dk + r_hi, t);
-  store_rows(acc_dv, dv + r_lo, dv + r_hi, t);
+  // sum the warpgroups' accumulators in a fixed order, through the rings
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem + 2 * T::kTileBytes);
+  constexpr int kRegs = T::kBlocks * 32;
+  if (wg > 0) {
+    float* mine = red + (wg - 1) * 2 * kRegs * 128;
+#pragma unroll
+    for (int cb = 0; cb < T::kBlocks; ++cb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        mine[(cb * 32 + i) * 128 + tid] = acc_dk[cb][i];
+        mine[(kRegs + cb * 32 + i) * 128 + tid] = acc_dv[cb][i];
+      }
+    }
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int w = 1; w < W; ++w) {
+      const float* theirs = red + (w - 1) * 2 * kRegs * 128;
+#pragma unroll
+      for (int cb = 0; cb < T::kBlocks; ++cb) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          acc_dk[cb][i] += theirs[(cb * 32 + i) * 128 + tid];
+          acc_dv[cb][i] += theirs[(kRegs + cb * 32 + i) * 128 + tid];
+        }
+      }
+    }
+    store_tile<D>(acc_dk, dk + kv_off, kv_stride, warp, g, t);
+    store_tile<D>(acc_dv, dv + kv_off, kv_stride, warp, g, t);
+  }
 }
 
-// dQ: one block per (query tile, head, batch). Warp w owns query rows
-// (w % 4)·16 .. +16 of the tile and columns (w / 4)·64 .. +64 of D. `seg`
-// (int32 [B, kMaxSegs]) is read only when kSeg.
+// dQ: one warpgroup per (query tile, head, batch); warp i owns query rows
+// 16i .. 16i+16 of the tile. `seg` (int32 [B, kMaxSegs]) is read only when
+// kSeg.
 template <int D, bool kSeg>
-__global__ void __launch_bounds__(Geometry<D>::kThreads)
+__global__ void __launch_bounds__(128)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ di,
                     const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq, int S, int H,
                     int KVH, float scale) {
-  using G = Geometry<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // Q[query][d]
-  __nv_bfloat16* do_s = q_s + G::kRowTile;                       // dO[query][d]
-  __nv_bfloat16* k_s = do_s + G::kRowTile;                       // K[key][d]
-  __nv_bfloat16* v_s = k_s + G::kRowTile;                        // V[key][d]
-  __nv_bfloat16* kt_s = v_s + G::kRowTile;                       // K[d][key]
+  using T = Bwd<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t q_s = smem_u32(smem);  // Q[query][d], sw128
+  const uint32_t do_s = q_s + T::kTileBytes;
+  const uint32_t ring = do_s + T::kTileBytes;  // stages of (K[key][d], V[key][d])
 
   const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wrow = (warp % 4) * 16;  // this warp's first query row in the tile
-  const int d0 = (warp / 4) * 64;    // this warp's first column of D
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
   const float scale_log2 = scale * kLog2e;
 
   const long q_stride = (long)H * D;
   const long kv_stride = (long)KVH * D;
   const long q_off = ((long)b * S + (long)q_tile * kTile) * q_stride + (long)h * D;
-  stage_tile<D>(q + q_off, q_stride, q_s, nullptr);
-  stage_tile<D>(dout + q_off, q_stride, do_s, nullptr);
-  const int row_lo = q_tile * kTile + wrow + g;  // sequence position of c0/c1
+  const int row_lo = q_tile * kTile + 16 * warp + g;  // sequence position of rows g, g + 8
   const long stat = ((long)b * H + h) * S;
   const float lse_lo = lse[stat + row_lo] * kLog2e, lse_hi = lse[stat + row_lo + 8] * kLog2e;
   const float di_lo = di[stat + row_lo], di_hi = di[stat + row_lo + 8];
@@ -329,67 +378,98 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     kv_first = seg_start(sb, q_tile * kTile) / kTile;
     st_max = seg_start(sb, q_tile * kTile + kTile - 1);
   }
+  const int n_kv = q_tile - kv_first + 1;
 
-  float acc[8][4];
+  auto load_kv = [&](int j) {
+    const long kv_off = ((long)b * S + (long)(kv_first + j) * kTile) * kv_stride + (long)kvh * D;
+    const uint32_t st = ring + (j % kStages) * 2 * T::kTileBytes;
+    load_tile<D, 128>(st, k + kv_off, kv_stride, tid);
+    load_tile<D, 128>(st + T::kTileBytes, v + kv_off, kv_stride, tid);
+  };
+  load_tile<D, 128>(q_s, q + q_off, q_stride, tid);
+  load_tile<D, 128>(do_s, dout + q_off, q_stride, tid);
+  load_kv(0);
+  cp_async_commit();
+
+  float acc[T::kBlocks][32];
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  for (int cb = 0; cb < T::kBlocks; ++cb) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+  }
 
-  for (int kv_tile = kv_first; kv_tile <= q_tile; ++kv_tile) {
-    __syncthreads();  // every warp is done with the previous KV tile
-    const long kv_off = ((long)b * S + (long)kv_tile * kTile) * kv_stride + (long)kvh * D;
-    stage_tile<D>(k + kv_off, kv_stride, k_s, kt_s);
-    stage_tile<D>(v + kv_off, kv_stride, v_s, nullptr);
-    __syncthreads();
+  for (int j = 0; j < n_kv; ++j) {
+    cp_async_wait<0>();  // KV tile j's copies (this thread's)
+    fence_proxy_async();
+    __syncthreads();     // the block is this one warpgroup
+    if (j + 1 < n_kv) load_kv(j + 1);
+    cp_async_commit();
 
-    float s[8][4], dp[8][4];
-    gemm_abt<D>(s, q_s, k_s, wrow, g, t);    // S = Q K^T
-    gemm_abt<D>(dp, do_s, v_s, wrow, g, t);  // dP = dO V^T
+    const int kv_tile = kv_first + j;
+    const uint32_t k_t = ring + (j % kStages) * 2 * T::kTileBytes;
+    const uint32_t v_t = k_t + T::kTileBytes;
+
+    // S = Q K^T and dP = dO V^T: queries x keys
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(s, desc_k_major(q_s, kk), desc_k_major(k_t, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(dp, desc_k_major(do_s, kk), desc_k_major(v_t, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+
     const bool diag = kv_tile == q_tile;
     const bool masked = kSeg ? diag || kv_tile * kTile < st_max : diag;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);     // key within the tile
-        const int row = wrow + g + (e >= 2 ? 8 : 0);  // query within the tile
-        bool off;
-        if constexpr (kSeg) {
-          const int key = kv_tile * kTile + col;
-          off = masked && (key > row_lo + (e >= 2 ? 8 : 0) || key < (e >= 2 ? st_hi : st_lo));
-        } else {
-          off = masked && col > row;
-        }
-        const float p =
-            off ? 0.f : exp2f(s[nt][e] * scale_log2 - (e >= 2 ? lse_hi : lse_lo));
-        s[nt][e] = p * (dp[nt][e] - (e >= 2 ? di_hi : di_lo)) * scale;  // scale·dS
+    for (int i = 0; i < 32; ++i) {
+      const bool hi = (i & 2) != 0;
+      const int col = 8 * (i / 4) + 2 * t + (i & 1);  // key within the tile
+      const int row = 16 * warp + g + (hi ? 8 : 0);   // query within the tile
+      bool off;
+      if constexpr (kSeg) {
+        const int key = kv_tile * kTile + col;
+        off = masked && (key > row_lo + (hi ? 8 : 0) || key < (hi ? st_hi : st_lo));
+      } else {
+        off = masked && col > row;
       }
+      const float pv = off ? 0.f : exp2f(s[i] * scale_log2 - (hi ? lse_hi : lse_lo));
+      dp[i] = pv * (dp[i] - (hi ? di_hi : di_lo)) * scale;  // scale·dS
     }
-    gemm_xb<D>(acc, s, kt_s, d0, g, t);  // dQ += scale·dS K
+    uint32_t dsa[4][4];
+    pack_a(dsa, dp);
+
+    // dQ += scale·dS K, K read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < T::kBlocks; ++cb) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc[cb], dsa[kk], desc_mn_major(k_t, cb, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < T::kBlocks; ++cb) fence_acc(acc[cb]);
   }
 
-  __nv_bfloat16* lo = dq + ((long)b * S + row_lo) * q_stride + (long)h * D + d0;
-  store_rows(acc, lo, lo + 8 * q_stride, t);
-}
-
-template <int D, bool kSeg>
-constexpr int dkv_smem_bytes() {
-  return (4 * Geometry<D>::kRowTile + 2 * Geometry<D>::kColTile) * 2 + (kSeg ? 3 : 2) * kTile * 4;
-}
-
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (4 * Geometry<D>::kRowTile + Geometry<D>::kColTile) * 2;
+  store_tile<D>(acc, dq + q_off, q_stride, warp, g, t);
 }
 
 template <int D, bool kSeg>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* di, const void* seg, void* dk, void* dv,
                        int B, int S, int H, int KVH, float scale, cudaStream_t st) {
-  constexpr int smem = dkv_smem_bytes<D, kSeg>();
+  constexpr int smem = Bwd<D>::kDkvSmem;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, kSeg>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<D, kSeg><<<dim3(S / kTile, KVH, B), Geometry<D>::kThreads, smem, st>>>(
+  flash_bwd_dkv_kernel<D, kSeg><<<dim3(S / kTile, KVH, B), Bwd<D>::kDkvGroups * 128, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di),
@@ -402,11 +482,11 @@ template <int D, bool kSeg>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* di, const void* seg, void* dq, int B, int S,
                       int H, int KVH, float scale, cudaStream_t st) {
-  constexpr int smem = dq_smem_bytes<D>();
+  constexpr int smem = Bwd<D>::kDqSmem;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kSeg>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D, kSeg><<<dim3(S / kTile, H, B), Geometry<D>::kThreads, smem, st>>>(
+  flash_bwd_dq_kernel<D, kSeg><<<dim3(S / kTile, H, B), 128, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di),

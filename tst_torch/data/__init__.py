@@ -1,1 +1,2 @@
-"""Data helpers of the port that cannot be shared with tst (counterpart of tst.data)."""
+"""Data loading, tokenization, folds and packing of the port: its own copies
+of tst.data's jax-free modules, and a numpy packer (``packing``)."""

@@ -20,7 +20,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from tst.data.tokenize import TokenBatch
+from tst_torch.data.tokenize import TokenBatch
 from tst_torch.kernels.flash_attention import MAX_SEGS, SEG_PAD
 
 

@@ -28,16 +28,16 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tst.aux.log import JsonlLogger
-from tst.config import RunConfig
-from tst.data.folds import kfold_assign
-from tst.data.schema import NUMERIC, OPEN, BlindDataset
-from tst.data.tokenize import ByteTokenizer, HFTokenizer, tokenize_dataset
-from tst.io import outputs
+from tst_torch.aux.log import JsonlLogger
+from tst_torch.config import RunConfig
+from tst_torch.data.folds import kfold_assign
+from tst_torch.data.schema import NUMERIC, OPEN, BlindDataset
+from tst_torch.data.tokenize import ByteTokenizer, HFTokenizer, tokenize_dataset
 from tst_torch.data.packing import FoldPacked, make_packed_fold_batches, pack_fold_datasets
 from tst_torch.diagnose.score import bias_scores
 from tst_torch.eval import metrics
 from tst_torch.eval.parity import spearman
+from tst_torch.io import outputs
 from tst_torch.models.decoder import Params, init_params
 from tst_torch.models.lora import LoraSpec
 from tst_torch.models.quant import quantize_params
