@@ -32,7 +32,7 @@ def _qkv(b, s, h, kvh, d, seed=0, scale=0.3):
                  for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
 
 
-@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("s", [64, 128, 256])
 @pytest.mark.parametrize("d", [32, 64])
 def test_reference_matches_jax(jax_fa, s, d):
     """f32, GQA 8:2. o atol 2e-5 (the JAX suite's own kernel-vs-reference
@@ -94,14 +94,17 @@ def test_nvcc_command_targets_sm90a(tmp_path):
 
 
 #: shapes of chip_smoke.py's kernel phase: the slice's own (Qwen2.5-0.5B
-#: heads, 32-row scorer chunk, S=512), Llama-3-8B heads, one tile
-CARD_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64)]
+#: heads, 32-row scorer chunk, S=512), Llama-3-8B heads, a 128-token case and
+#: one tile (S=64) at both head dims
+CARD_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64),
+               (3, 64, 14, 2, 64), (2, 64, 8, 2, 128)]
 
 
 @pytest.mark.cuda
 def test_kernel_matches_reference_on_card():
     """bf16 on the card: o max|Δ| <= 2e-2 (one bf16 rounding of P and of o
-    at |o| < 2) and lse max|Δ| <= 1e-3 (f32 sums in another order)."""
+    at |o| < 2) and lse max|Δ| <= 1e-3 (f32 sums in another order); a
+    second call is bit-equal (one fixed summation order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for b, s, h, kvh, d in CARD_SHAPES:
@@ -111,6 +114,8 @@ def test_kernel_matches_reference_on_card():
         o, lse = tfa.flash_attention(q, k, v)
         torch.cuda.synchronize()
         assert tfa.LAUNCHES == before + 1
+        o2, lse2 = tfa.flash_attention(q, k, v)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
         o_ref, lse_ref = tfa.flash_attention_reference(q, k, v)
         assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
         assert (lse - lse_ref).abs().max().item() <= 1e-3

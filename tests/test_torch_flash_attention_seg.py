@@ -27,7 +27,7 @@ def seg_rows(b, s, seed=0):
     """int32 [b, MAX_SEGS] starts: starts inside 64-row tiles (1, 63, 64, 65
     and near the end), all SEG_PAD, one segment, a first start after 0, then
     random ascending layouts."""
-    fixed = [sorted({0, 1, 63, 64, 65, s // 2 + 1, s - 65, s - 1}),
+    fixed = [sorted({0, 1, 63, 64, 65, s // 2 + 1, max(s - 65, 0), s - 1}),
              [], [0], [7, min(70, s - 1)]]
     rng = np.random.default_rng(seed)
     rows = []
@@ -172,8 +172,9 @@ def test_bad_seg_starts_raise(seg, causal, msg):
 
 #: the train step's attention call (2 folds x 16 packed rows of 1024,
 #: Qwen2.5-0.5B heads), Llama-3-8B heads at S=2048 (where the TPU dispatches
-#: its K2 bodies), one 128-token case
-CARD_SHAPES = [(32, 1024, 14, 2, 64), (2, 2048, 32, 8, 128), (5, 128, 14, 2, 64)]
+#: its K2 bodies), a 128-token case and one tile (S=64) at both head dims
+CARD_SHAPES = [(32, 1024, 14, 2, 64), (2, 2048, 32, 8, 128), (5, 128, 14, 2, 64),
+               (5, 64, 14, 2, 64), (3, 64, 8, 2, 128)]
 
 
 @pytest.mark.cuda
@@ -183,7 +184,8 @@ def test_segmented_kernels_match_reference_on_card():
     kernels against the f32 plain backward on the same o and lse, and the
     gradients through the Function against autograd of the plain masked
     attention, at max|d - ref| <= 2e-2·max|ref|. Each launches its own
-    segmented kernel once; bad starts raise."""
+    segmented kernel once, and a second forward call is bit-equal; bad starts
+    raise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for b, s, h, kvh, d in CARD_SHAPES:
@@ -194,6 +196,8 @@ def test_segmented_kernels_match_reference_on_card():
         o, lse = tfa.flash_attention(q, k, v, seg_starts=seg)
         torch.cuda.synchronize()
         assert (tfa.LAUNCHES, tfa.LAUNCHES_SEG) == (before[0], before[1] + 1)
+        o2, lse2 = tfa.flash_attention(q, k, v, seg_starts=seg)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
         o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, seg_starts=seg)
         assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
         assert (lse - lse_ref).abs().max().item() <= 1e-3

@@ -84,20 +84,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_sm90.cuh"
 #include "seg_starts.cuh"
-#include "wgmma_sm90.cuh"
 
 namespace {
 
-constexpr int kTile = 64;  // rows of a query tile and of a KV tile
-constexpr int kStages = 2;  // depth of each warpgroup's tile ring
-constexpr float kLog2e = 1.4426950408889634f;
-
+// kTile, kStages, the tile size, aligned_smem, load_tile, store_tile:
+// flash_sm90.cuh
 template <int D>
 struct Bwd {
-  static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
-  static constexpr int kBlocks = D / 64;                   // 64-column blocks of a tile
-  static constexpr int kTileBytes = kBlocks * kSw128Block;  // one [64][D] bf16 tile
+  static constexpr int kBlocks = FlashTile<D>::kBlocks;
+  static constexpr int kTileBytes = FlashTile<D>::kTileBytes;
   // dK/dV: warpgroups a block (each 128 threads), K and V, then a ring per
   // warpgroup of (Q tile, dO tile, lse[64], di[64], starts[64]) stages
   static constexpr int kDkvGroups = D == 64 ? 3 : 2;
@@ -108,43 +105,6 @@ struct Bwd {
   // the final sum of the dK/dV warpgroups' accumulators fits in their rings
   static_assert((kDkvGroups - 1) * 2 * 64 * D * 4 <= kDkvGroups * kStages * kDkvStage, "");
 };
-
-// the first 1024-byte-aligned address of dynamic shared memory (the
-// requested size carries 1024 bytes of slack for it)
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  const uint32_t a = smem_u32(raw);
-  return raw + ((1024 - (a & 1023)) & 1023);
-}
-
-// cp.async a [64][D] bf16 tile (rows `stride` elements apart) into the sw128
-// tile at shared address `dst`; thread `tid` of `kThreads`
-template <int D, int kThreads>
-__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, long stride,
-                                          int tid) {
-#pragma unroll
-  for (int i = tid; i < kTile * D / 8; i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    cp_async16(dst + sw128_offset(r, c), src + (long)r * stride + c);
-  }
-}
-
-// write a warpgroup's 64 x D block of f32 accumulators as bf16: this
-// thread's rows 16·warp + g and + 8 of `out`, rows `stride` elements apart
-template <int D>
-__device__ __forceinline__ void store_tile(const float (&acc)[D / 64][32], __nv_bfloat16* out,
-                                           long stride, int warp, int g, int t) {
-  __nv_bfloat16* lo = out + (long)(16 * warp + g) * stride;
-  __nv_bfloat16* hi = lo + 8 * stride;
-#pragma unroll
-  for (int cb = 0; cb < D / 64; ++cb) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = cb * 64 + 8 * j + 2 * t;
-      *reinterpret_cast<uint32_t*>(lo + c) = pack_bf16(acc[cb][4 * j], acc[cb][4 * j + 1]);
-      *reinterpret_cast<uint32_t*>(hi + c) = pack_bf16(acc[cb][4 * j + 2], acc[cb][4 * j + 3]);
-    }
-  }
-}
 
 // dK, dV: one block per (KV tile, KV head, batch), W warpgroups. Warpgroup
 // w takes pairs w, w + W, ... of the (query head, query tile) pairs that see

@@ -1,5 +1,6 @@
 // Causal GQA flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out
-// plus an f32 logsumexp; plain, or segment-masked for packed rows.
+// plus an f32 logsumexp; plain, or segment-masked for packed rows. Both
+// products are warpgroup wgmma.
 //
 // Replaces the TPU kernels `_fwd_kernel_oneshot` (tst/kernels/flash_attention.py:99,
 // whole KV in one tile) and `_fwd_kernel` (tst/kernels/flash_attention.py:274,
@@ -9,7 +10,7 @@
 // packed rows at S >= 2048. One kernel covers all of these: the TPU's
 // one-shot/tiled/chunked split and its folded `pos_mod` view are VMEM
 // schedules, not semantics. The segmented instance (kSeg) is a second
-// instantiation of the same template; the plain one compiles as before.
+// instantiation of the same template.
 //
 // Semantics (the reference's, not its block layout):
 //   o[b, i, h, :] = sum_j softmax_j(q[b,i,h]·k[b,j,h/G] / sqrt(D), j <= i) v[b,j,h/G]
@@ -18,34 +19,36 @@
 // (seg_starts.cuh).
 // q [B,S,H,D], k/v [B,S,KVH,D] contiguous in the model layout, read in place
 // with strides; query head h reads KV head h / (H/KVH) (heads are KV-major).
-// Logits accumulate in f32 and are scaled by 1/sqrt(D) in f32; the running
-// max starts at a finite large negative value, so exp(-inf - -inf) never
-// appears; probabilities are rounded to bf16 before the P·V product, which
-// accumulates in f32, as the reference does.
+// Logits accumulate in f32 and are scaled by 1/sqrt(D) in f32 (log2 units);
+// the running max starts at a finite large negative value, so exp(-inf -
+// -inf) never appears; probabilities are rounded to bf16 before the P·V
+// product, which accumulates in f32, as the reference does.
 //
-// What bounds it on an H100: a 64-row query tile reads up to 2·S·D bf16 of
-// K and V (4·S·D bytes) for 4·64·S·D FLOPs of the two products: 64 FLOPs
-// per byte, far below the card's ~295 if K and V came from device memory
-// each time. They do not: one KV head's K and V (128 KB at S=512, D=64)
-// are read by every query tile of every query head in its group, so they
-// are served from L2. Over a whole call at the slice's shape (B=32, S=512,
-// H=14, KVH=2, D=64) device memory must carry at least ~68 MB (q and o
-// dominate) against 15.1 GFLOP of causal work: ~221 FLOPs per byte, so the
-// byte and tensor-core bounds are close, and the kernel is compute-bound
-// once its products run on tensor cores at full issue rate.
+// What bounds it on an H100, at the train step's call (q [32,512,14,64],
+// k/v [32,512,2,64], bf16): device memory must carry ~68 MB (q and o 29 MB
+// each; k and v 8 MB; lse 0.9 MB), 20.3 us at 3.35 TB/s, against 15.1 GFLOP
+// over the 58.8 M (query, key) pairs the causal mask keeps, 15.3 us at the
+// dense bf16 peak (989 TFLOP/s): bound by its bytes, with the products close
+// behind once they run at the tensor cores' full rate. K and V (8 MB) are
+// read by every query tile of every head of their group, so they come from
+// L2: ~264 MB of L2 reads a call.
 //
-// What the design does about it (simple and correct first):
-//   * one block of 4 warps per (64-row query tile, head, batch); each warp
-//     owns 16 query rows, kept as mma.sync A fragments in registers;
-//   * both products run on tensor cores with mma.sync m16n8k16 (bf16 in,
-//     f32 accumulate); P never leaves registers: the f32 S accumulator is
-//     re-packed into the A fragment of the P·V product;
-//   * K (row-major) and V (transposed) tiles of 64 rows are staged in shared
-//     memory with 16-byte loads; rows are padded by 8 elements so the
-//     fragment reads are free of bank conflicts;
-//   * online softmax in registers; the KV loop stops at the diagonal tile,
-//     so tiles above it are never read, and only the diagonal tile is masked;
-//   * query tiles are issued longest-row first to even out the causal load.
+// What the design does about it:
+//   * one warpgroup (128 threads) per (64-row query tile, head, batch),
+//     longest causal rows launched first; warp w owns query rows 16w..16w+16;
+//   * S = Q·K^T and O += P·V on wgmma m64n64k16: Q and K from shared memory,
+//     both K-major; P from registers (the S accumulator rounded to bf16 in
+//     place, pack_a) and V read MN-major through the descriptor's transpose
+//     bit, so V is never staged transposed;
+//   * Q is copied once and K and V walk a 2-stage ring, all by 16-byte
+//     cp.async into the 128-byte-swizzled tiles wgmma reads: an iteration
+//     waits for its own copies, passes one barrier and starts the next tile's
+//     copies before its products, so staging overlaps the products;
+//   * online softmax on the accumulator layout (wgmma_sm90.cuh): rows
+//     16w + g and + 8, row max and sum over the 4 lanes of a row by shuffles;
+//     the O accumulator is rescaled by exp2(m_old - m_new) before each P·V;
+//   * the KV loop stops at the diagonal tile, so tiles above it are never
+//     read, and only the diagonal tile is masked.
 // Packed rows (kSeg): a query tile [p0, p0+64) visits KV tiles from
 // floor(seg_start(p0)/64) up to the diagonal (`_tile_run_condition` :239);
 // samples are ~300 tokens, so most boundaries fall inside a tile, and every
@@ -56,148 +59,141 @@
 // exp2(-inf) = 0 and l stays 0, and the first tile holding its own columns
 // rescales that zero state by exp2(kMaxInit - m) = 0. Every row sees at
 // least its own column, so l > 0 at the end.
-// Not yet: wgmma, TMA, warp specialisation, double buffering.
+// Not yet: TMA and a producer warp (cp.async takes instruction slots from
+// the consumer), more than one consumer warpgroup a block, 16-byte stores
+// of O.
+// Measured and not kept (PERF.md §6): two warpgroups a block taking a GQA
+// group's heads round-robin over one shared K/V ring (1.38x slower: a
+// seventh of the blocks, each warpgroup held to the ring's lockstep), and
+// waiting for a tile's P·V only after the next tile's S (within the noise).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "flash_sm90.cuh"
 #include "seg_starts.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;   // query rows per block
-constexpr int kBlockN = 64;   // key rows per KV tile
-constexpr int kWarps = 4;     // 16 query rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;       // bf16 elements of padding per shared-memory row
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // finite start of the running max (the reference's DEFAULT_MASK_VALUE)
 constexpr float kMaxInit = -0.7f * 3.4028234663852886e38f;
 
-// mma_16816, pack_bf16, load_u32 and the fragment layout: mma_bf16.cuh;
-// seg_start and the packed-row semantics: seg_starts.cuh (`seg` is read only
-// when kSeg)
+// dynamic shared memory: the Q tile, then a ring of (K tile, V tile) stages,
+// and the slack of aligned_smem; 41 KB at D=64, 81 KB at D=128
+template <int D>
+constexpr int fwd_smem() {
+  return (1 + 2 * kStages) * FlashTile<D>::kTileBytes + 1024;
+}
+
+// one warpgroup per (query tile, head, batch); `seg` (int32 [B, kMaxSegs])
+// is read only when kSeg
 template <int D, bool kSeg>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(128)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int H, int KVH,
                  float scale_log2) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN][D + kPad];    // K[key][d]
-  __shared__ __align__(16) __nv_bfloat16 vt_s[D][kBlockN + kPad];   // V[key][d] transposed
+  constexpr int kBlocks = FlashTile<D>::kBlocks;
+  constexpr int kTileBytes = FlashTile<D>::kTileBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = smem_u32(aligned_smem(smem_raw));  // Q[query][d], sw128
+  const uint32_t ring = q_s + kTileBytes;  // stages of (K[key][d], V[key][d])
 
   const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
 
-  const long q_stride = (long)H * D;    // elements between consecutive positions
+  const long q_stride = (long)H * D;  // elements between consecutive positions
   const long kv_stride = (long)KVH * D;
-  const __nv_bfloat16* q_base = q + (long)b * S * q_stride + (long)h * D;
-  const __nv_bfloat16* k_base = k + (long)b * S * kv_stride + (long)kvh * D;
-  const __nv_bfloat16* v_base = v + (long)b * S * kv_stride + (long)kvh * D;
-  const int wrow = warp * 16;                 // this warp's first row in the tile
-  const int row_lo = q_tile * kBlockM + wrow + g;  // sequence position of c0/c1
-  const int row_hi = row_lo + 8;                   // sequence position of c2/c3
-  // packed rows: the segment starts of rows row_lo and row_hi, the first KV
-  // tile the query tile needs, and its largest start (KV tiles that begin
+  const long q_off = ((long)b * S + (long)q_tile * kTile) * q_stride + (long)h * D;
+  const int row_lo = q_tile * kTile + 16 * warp + g;  // sequence position of rows g, g + 8
+  // packed rows: the segment starts of rows row_lo and row_lo + 8, the first
+  // KV tile the query tile needs, and its largest start (KV tiles that begin
   // below it are masked per element)
   int st_lo = 0, st_hi = 0, kv_first = 0, st_max = 0;
   if constexpr (kSeg) {
     const int* sb = seg + (long)b * kMaxSegs;
     st_lo = seg_start(sb, row_lo);
-    st_hi = seg_start(sb, row_hi);
-    kv_first = seg_start(sb, q_tile * kBlockM) / kBlockN;
-    st_max = seg_start(sb, q_tile * kBlockM + kBlockM - 1);
+    st_hi = seg_start(sb, row_lo + 8);
+    kv_first = seg_start(sb, q_tile * kTile) / kTile;
+    st_max = seg_start(sb, q_tile * kTile + kTile - 1);
   }
+  const int n_kv = q_tile - kv_first + 1;
 
-  // Q fragments for all of D, loaded once from device memory
-  uint32_t qa[D / 16][4];
-  {
-    const __nv_bfloat16* r_lo = q_base + (long)row_lo * q_stride;
-    const __nv_bfloat16* r_hi = q_base + (long)row_hi * q_stride;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qa[kk][0] = load_u32(r_lo + c);
-      qa[kk][1] = load_u32(r_hi + c);
-      qa[kk][2] = load_u32(r_lo + c + 8);
-      qa[kk][3] = load_u32(r_hi + c + 8);
-    }
-  }
+  // the j-th visited KV tile into ring stage j % kStages
+  auto load_kv = [&](int j) {
+    const long kv_off = ((long)b * S + (long)(kv_first + j) * kTile) * kv_stride + (long)kvh * D;
+    const uint32_t st = ring + (j % kStages) * 2 * kTileBytes;
+    load_tile<D, 128>(st, k + kv_off, kv_stride, tid);
+    load_tile<D, 128>(st + kTileBytes, v + kv_off, kv_stride, tid);
+  };
+  load_tile<D, 128>(q_s, q + q_off, q_stride, tid);
+  load_kv(0);
+  cp_async_commit();
 
-  float acc[D / 8][4];
+  float acc[kBlocks][32];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  for (int cb = 0; cb < kBlocks; ++cb) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
   }
   // running max (log2 units) and this thread's partial row sums, rows g and g+8
   float m_lo = kMaxInit, m_hi = kMaxInit;
   float l_lo = 0.f, l_hi = 0.f;
 
-  for (int kv_tile = kv_first; kv_tile <= q_tile; ++kv_tile) {
-    const int kv0 = kv_tile * kBlockN;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = threadIdx.x; i < kBlockN * D / 8; i += kThreads) {
-      const int r = i / (D / 8);
-      const int c = (i % (D / 8)) * 8;
-      const long off = (long)(kv0 + r) * kv_stride + c;
-      *reinterpret_cast<uint4*>(&k_s[r][c]) = *reinterpret_cast<const uint4*>(k_base + off);
-      const uint4 vv = *reinterpret_cast<const uint4*>(v_base + off);
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt_s[c + j][r] = ve[j];
-    }
-    __syncthreads();
+  for (int j = 0; j < n_kv; ++j) {
+    cp_async_wait<0>();  // KV tile j's copies (this thread's), and Q's
+    fence_proxy_async();
+    __syncthreads();     // all of them; every warp is done with tile j - 1
+    if (j + 1 < n_kv) load_kv(j + 1);
+    cp_async_commit();
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    }
+    const int kv_tile = kv_first + j;
+    const int kv0 = kv_tile * kTile;
+    const uint32_t k_t = ring + (j % kStages) * 2 * kTileBytes;
+    const uint32_t v_t = k_t + kTileBytes;
+
+    // S = Q K^T: queries x keys
+    float s[32];
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        const __nv_bfloat16* kr = &k_s[nt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(s[nt], qa[kk], load_u32(kr), load_u32(kr + 8));
-      }
+      wgmma_ss(s, desc_k_major(q_s, kk), desc_k_major(k_t, kk), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
 
     // scale (log2 units), mask the diagonal tile (and, packed, every tile
     // that starts below a row's segment), row max over the 4 lanes of a row
-    const bool diag = kv_tile == q_tile;
-    const bool masked = kSeg ? diag || kv0 < st_max : diag;
+    const bool masked = kSeg ? kv_tile == q_tile || kv0 < st_max : kv_tile == q_tile;
     float mx_lo = kMaxInit, mx_hi = kMaxInit;
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale_log2;
-        if (masked) {
-          if constexpr (kSeg) {
-            const int col = kv0 + nt * 8 + 2 * t + (e & 1);
-            const bool hi = e >= 2;
-            if (col > (hi ? row_hi : row_lo) || col < (hi ? st_hi : st_lo)) x = -INFINITY;
-          } else {
-            const int col = nt * 8 + 2 * t + (e & 1);
-            const int row = wrow + g + (e >= 2 ? 8 : 0);
-            if (col > row) x = -INFINITY;
-          }
+    for (int i = 0; i < 32; ++i) {
+      const bool hi = (i & 2) != 0;
+      const int col = 8 * (i / 4) + 2 * t + (i & 1);  // key within the tile
+      float x = s[i] * scale_log2;
+      if (masked) {
+        if constexpr (kSeg) {
+          const int key = kv0 + col;
+          if (key > row_lo + (hi ? 8 : 0) || key < (hi ? st_hi : st_lo)) x = -INFINITY;
+        } else {
+          if (col > 16 * warp + g + (hi ? 8 : 0)) x = -INFINITY;
         }
-        s[nt][e] = x;
       }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+      s[i] = x;
+      if (hi) {
+        mx_hi = fmaxf(mx_hi, x);
+      } else {
+        mx_lo = fmaxf(mx_lo, x);
+      }
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -213,37 +209,36 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
     float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn_lo);
-      s[nt][1] = exp2f(s[nt][1] - mn_lo);
-      s[nt][2] = exp2f(s[nt][2] - mn_hi);
-      s[nt][3] = exp2f(s[nt][3] - mn_hi);
-      sum_lo += s[nt][0] + s[nt][1];
-      sum_hi += s[nt][2] + s[nt][3];
+    for (int i = 0; i < 32; ++i) {
+      if (i & 2) {
+        s[i] = exp2f(s[i] - mn_hi);
+        sum_hi += s[i];
+      } else {
+        s[i] = exp2f(s[i] - mn_lo);
+        sum_lo += s[i];
+      }
     }
     l_lo = l_lo * corr_lo + sum_lo;
     l_hi = l_hi * corr_hi + sum_hi;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= corr_lo;
-      acc[dt][1] *= corr_lo;
-      acc[dt][2] *= corr_hi;
-      acc[dt][3] *= corr_hi;
+    for (int cb = 0; cb < kBlocks; ++cb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[cb][i] *= (i & 2) ? corr_hi : corr_lo;
     }
 
-    // O += P V, P re-packed from the S accumulator into A fragments
+    // O += P V: P rounded to bf16 A fragments, V read MN-major
+    uint32_t pa[4][4];
+    pack_a(pa, s);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int cb = 0; cb < kBlocks; ++cb) {
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vr = &vt_s[dt * 8 + g][kk * 16 + 2 * t];
-        mma_16816(acc[dt], pa, load_u32(vr), load_u32(vr + 8));
-      }
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc[cb], pa[kk], desc_mn_major(v_t, cb, kk));
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < kBlocks; ++cb) fence_acc(acc[cb]);
   }
 
 #pragma unroll
@@ -251,48 +246,51 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
-  __nv_bfloat16* o_lo = o + ((long)b * S + row_lo) * q_stride + (long)h * D;
-  __nv_bfloat16* o_hi = o + ((long)b * S + row_hi) * q_stride + (long)h * D;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(o_lo + c) = pack_bf16(acc[dt][0] / l_lo, acc[dt][1] / l_lo);
-    *reinterpret_cast<uint32_t*>(o_hi + c) = pack_bf16(acc[dt][2] / l_hi, acc[dt][3] / l_hi);
+  for (int cb = 0; cb < kBlocks; ++cb) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] /= (i & 2) ? l_hi : l_lo;
   }
+  store_tile<D>(acc, o + q_off, q_stride, warp, g, t);
   if (t == 0) {
     float* lse_bh = lse + ((long)b * H + h) * S;
     lse_bh[row_lo] = (m_lo + log2f(l_lo)) * kLn2;
-    lse_bh[row_hi] = (m_hi + log2f(l_hi)) * kLn2;
+    lse_bh[row_lo + 8] = (m_hi + log2f(l_hi)) * kLn2;
   }
 }
 
+template <int D, bool kSeg>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* o,
+                       void* lse, int B, int S, int H, int KVH, float scale_log2,
+                       cudaStream_t st) {
+  constexpr int smem = fwd_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, kSeg>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<D, kSeg><<<dim3(S / kTile, H, B), 128, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg),
+      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S, H, KVH, scale_log2);
+  return cudaGetLastError();
+}
+
 template <bool kSeg>
-int launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
-               int B, int S, int H, int KVH, int D, float scale, int device, void* stream) {
-  if (B <= 0 || S <= 0 || S % kBlockM != 0 || KVH <= 0 || H % KVH != 0) {
+int fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse, int B,
+        int S, int H, int KVH, int D, float scale, int device, void* stream) {
+  if (B <= 0 || S <= 0 || S % kTile != 0 || KVH <= 0 || H % KVH != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(S / kBlockM, H, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * kLog2e;
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  const auto* sb = static_cast<const int*>(seg);
-  auto* ob = static_cast<__nv_bfloat16*>(o);
-  auto* lb = static_cast<float*>(lse);
   if (D == 64) {
-    flash_fwd_kernel<64, kSeg><<<grid, kThreads, 0, st>>>(qb, kb, vb, sb, ob, lb, S, H, KVH,
-                                                          scale_log2);
-  } else if (D == 128) {
-    flash_fwd_kernel<128, kSeg><<<grid, kThreads, 0, st>>>(qb, kb, vb, sb, ob, lb, S, H, KVH,
-                                                           scale_log2);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)launch_fwd<64, kSeg>(q, k, v, seg, o, lse, B, S, H, KVH, scale_log2, st);
   }
-  return (int)cudaGetLastError();
+  if (D == 128) {
+    return (int)launch_fwd<128, kSeg>(q, k, v, seg, o, lse, B, S, H, KVH, scale_log2, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -303,7 +301,7 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* seg, voi
 extern "C" int tst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                        void* lse, int B, int S, int H, int KVH, int D,
                                        float scale, int device, void* stream) {
-  return launch_fwd<false>(q, k, v, nullptr, o, lse, B, S, H, KVH, D, scale, device, stream);
+  return fwd<false>(q, k, v, nullptr, o, lse, B, S, H, KVH, D, scale, device, stream);
 }
 
 extern "C" int tst_flash_attention_fwd_seg(const void* q, const void* k, const void* v,
@@ -311,5 +309,5 @@ extern "C" int tst_flash_attention_fwd_seg(const void* q, const void* k, const v
                                            int H, int KVH, int D, float scale, int device,
                                            void* stream) {
   if (seg == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_fwd<true>(q, k, v, seg, o, lse, B, S, H, KVH, D, scale, device, stream);
+  return fwd<true>(q, k, v, seg, o, lse, B, S, H, KVH, D, scale, device, stream);
 }

@@ -1,5 +1,6 @@
 // Fragment helpers for mma.sync m16n8k16 (bf16 in, f32 accumulate), shared by
-// the flash-attention kernels of this directory.
+// the int4 dequant-matmul and fused-MLP kernels of this directory (and
+// pack_bf16 by the wgmma kernels).
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],

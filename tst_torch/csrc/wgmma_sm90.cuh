@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks of the attention-backward kernels: the
+// Hopper (sm_90a) building blocks of the flash-attention kernels: the
 // warpgroup product wgmma m64n64k16 (bf16 in, f32 accumulate) with B, and A,
 // read from shared memory through 128-byte-swizzle matrix descriptors, or A
 // from registers; 16-byte cp.async copies into the same swizzled layout;

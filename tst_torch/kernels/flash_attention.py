@@ -8,8 +8,10 @@ TPU kernels ``_fwd_kernel_oneshot`` / ``_fwd_kernel`` and their backward
 ``_bwd_dkv_kernel(_oneshot)``), each with its ``has_seg`` branch, and the
 segment-sparse ``_fwd_kernel_oneshot_chunked`` / ``_bwd_fused_chunked_kernel``.
 The CUDA sources are ``tst_torch/csrc/flash_attention_fwd.cu`` and
-``flash_attention_bwd.cu`` (segments: ``seg_starts.cuh``); their headers
-say what bounds them on the card and how the design answers.
+``flash_attention_bwd.cu``; every product in both is a Hopper warpgroup
+``wgmma`` on 128-byte-swizzled shared-memory tiles (``wgmma_sm90.cuh``,
+``flash_sm90.cuh``; segments: ``seg_starts.cuh``). Their headers say what
+bounds them on the card and how the design answers.
 
 ``flash_attention`` is differentiable on every device. For CUDA tensors its
 forward launches the forward kernel and its backward the dK/dV and dQ
