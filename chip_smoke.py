@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``tst_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --only rank  # phases 1-2, then the attention kernels vs the library
+    python3 chip_smoke.py                  # every phase below
+    python3 chip_smoke.py --only rank      # phases 1-2, then the attention kernels vs the library
+    python3 chip_smoke.py --only mlp-int4  # phases 1-2, 11-12 (K3, K4), the int4 decode
+                                           # and fused train steps of phases 13-14
 
 Every step compared with the plain path (phases 7, 10, 14) holds its
 per-fold losses within 1e-3 of the plain loss, relative, and its LoRA
@@ -15,7 +17,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                kernel's registers and spill bytes; the count of wgmma (HGMMA)
                instructions in the SASS (cuobjdump) of each of the 12
                attention kernels (forward, dK/dV, dQ at D=64 and 128, plain
-               and segmented), which must not be 0;
+               and segmented) and of the two K4 kernels (gate-up, down),
+               which must not be 0;
   3. kernel  — the flash-attention forward kernel against its plain PyTorch
                version on the card at the slice's shape, Llama-3-8B heads, a
                128-token case and one tile (S=64) at both head dims;
@@ -67,18 +70,27 @@ Phases, each printing one line; any failure raises and exits non-zero:
  11. kernel-int4 — the packed-int4 dequant-matmul (K3) against its plain
                version at decode's M (32, 64) for each int4 leaf of
                Qwen2.5-0.5B and of Llama-3-8B, layer 1 of a stacked [2, K, N/2]
-               leaf; median times, and one decode layer's seven projections;
+               leaf, bit-equal on a second call, one kernel a call (the
+               kernel nodes of a CUDA graph of one call);
+               at every Qwen shape the device time a call (a CUDA graph of 10
+               calls, replayed: no host in it) and the host time a call (the
+               public entry, back to back), summed over a decode layer's
+               seven projections at M=32 and M=64;
  12. kernel-mlp — the fused SwiGLU MLP (K4) against its plain version at the
                int4 train step's shape, at Llama-3-8B widths and at an M that
-               is no tile multiple; gradients through the autograd Function
-               against autograd of the plain version; median times;
+               is no tile multiple, bit-equal on a second call; gradients
+               through the autograd Function against autograd of the plain
+               version; at the train shape the median time of the call and
+               of each of its two kernels, with TFLOP/s, the decoder's
+               unfused bf16 MLP and the bound;
  13. decode-slice — ``python -m tst_torch eval-blind`` on synthetic-vsi:0.4
                (384 MCQ + 128 numeric rows, n=512) with ``model.quantize=int4``
                through the CLI: launch counts as the run implies (K3 on every
                int4 projection of every decode step); the first decode step's
                logits through K3 against the plain path on the same caches
                (no decisive first-token disagreement);
-               decode step times and the device's idle share (profiler);
+               decode step times, the device's idle share and K3's share of
+               the busy time (profiler);
  14. train-fused — ``python -m tst_torch diagnose-sft`` on synthetic-vsi:0.4
                with ``model.quantize=int4 model.fused_mlp=true`` through the
                CLI: launch counts as implied (K4 on every train-step MLP, K3 on
@@ -97,6 +109,7 @@ package ``tst``, and neither does the port it drives.
 """
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -211,12 +224,15 @@ def median_ms(fn, samples=30, reps=10, warmup=3):
 _FLASH_KERNEL = re.compile(r"flash_(?:bwd_)?(fwd|dkv|dq)_kernelILi(\d+)ELb([01])E")
 #: the attention kernels' instantiations: {fwd, dkv, dq} x D {64, 128} x {plain, seg}
 N_ATTENTION_KERNELS = 12
+#: K4's two kernels, which must run their products on wgmma too
+K4_KERNELS = ("swiglu_gate_up_kernel", "swiglu_down_kernel")
+_K4_KERNEL = re.compile(r"\d+(" + "|".join(K4_KERNELS) + r")(?=E|I)")
 
 
 def kernel_name(mangled):
     """A short name for a kernel's mangled name: ``fwd<D=64, seg>`` for the
     attention kernels, else the last name of the nested name with its int
-    template argument (``fused_mlp_kernel<8>``)."""
+    template arguments (``fused_mlp_kernel<8>``, ``int4_matmul_kernel<2, 4>``)."""
     m = _FLASH_KERNEL.search(mangled)
     if m:
         return f"{m[1]}<D={m[2]}{', seg' if m[3] == '1' else ''}>"
@@ -226,18 +242,19 @@ def kernel_name(mangled):
     while m := re.match(r"\d+", mangled[i:]):
         i += len(m[0])
         name, i = mangled[i:i + int(m[0])], i + int(m[0])
-    m = re.match(r"ILi(\d+)E", mangled[i:])
-    return f"{name}<{m[1]}>" if m else name
+    m = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    return f"{name}<{', '.join(re.findall(r'Li(\d+)E', m[1]))}>" if m else name
 
 
 def hgmma_counts(sass):
-    """HGMMA (wgmma) instructions in each attention kernel of a
-    ``cuobjdump -sass`` listing, by short name."""
+    """HGMMA (wgmma) instructions in each attention kernel and each K4
+    kernel of a ``cuobjdump -sass`` listing, by short name."""
     counts, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
             m = _FLASH_KERNEL.search(ln)
-            name = kernel_name(m[0]) if m else None
+            k4 = _K4_KERNEL.search(ln)
+            name = kernel_name(m[0]) if m else (k4[1] if k4 else None)
             if name:
                 counts[name] = 0
         elif name and "HGMMA" in ln:
@@ -247,10 +264,12 @@ def hgmma_counts(sass):
 
 def check_hgmma(counts):
     """Every attention kernel (forward, dK/dV, dQ at both head dims, plain
-    and segmented) must run its products on wgmma."""
-    if len(counts) != N_ATTENTION_KERNELS or min(counts.values(), default=0) == 0:
-        raise AssertionError(f"each of the {N_ATTENTION_KERNELS} attention kernels must run "
-                             f"its products on wgmma: {counts}")
+    and segmented) and both K4 kernels must run their products on wgmma."""
+    attention = {k: v for k, v in counts.items() if k not in K4_KERNELS}
+    if (len(attention) != N_ATTENTION_KERNELS or any(k not in counts for k in K4_KERNELS)
+            or min(counts.values(), default=0) == 0):
+        raise AssertionError(f"each of the {N_ATTENTION_KERNELS} attention kernels and the K4 "
+                             f"kernels {K4_KERNELS} must run its products on wgmma: {counts}")
 
 
 def ptxas_usage(log):
@@ -329,7 +348,7 @@ def phase_build(sass=True):
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     counts = hgmma_counts(subprocess.run([cuobjdump, "-sass", str(res.path)], check=True,
                                          capture_output=True, text=True).stdout)
-    print(f"[build] HGMMA instructions in the attention kernels' SASS: {counts}")
+    print(f"[build] HGMMA instructions in the attention and K4 kernels' SASS: {counts}")
     check_hgmma(counts)
 
 
@@ -1032,16 +1051,17 @@ def phase_train_packed_vs_plain():
         raise AssertionError("the packed path through the kernels disagrees with the plain path")
 
 
-def _profile(fn, steps):
+def _profile(fn, steps, match=None):
     """Per call of ``fn``: the synchronized wall ms of ``steps`` calls
     without the profiler, and the device's busy ms from a torch.profiler
     trace of ``steps`` more (the sum of kernel times); the idle share is
     1 - busy / wall. The profiler's own host cost stays out of the wall: a
     launch-bound loop runs several times slower under it. Also the five
     kernels that take the most device time, with their launches per call,
-    and the twelve host ops whose launches take the most device time (a
-    hand-written kernel counts under the op that launched it). Busy and
-    idle are None where the trace shows no device time."""
+    the twelve host ops whose launches take the most device time (a
+    hand-written kernel counts under the op that launched it), and the
+    device ms and launches of the kernels whose names hold ``match``. Busy
+    and idle are None where the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1070,27 +1090,108 @@ def _profile(fn, steps):
         return {"wall_ms": wall_ms, "busy_ms": None, "idle_share": None, "top": [], "ops": []}
     top = [f"{name[:60]} {ms:.3f} ms x{cnt:g}" for ms, cnt, name in sorted(kernels)[::-1][:5]]
     by_op = [f"{name[:48]} {ms:.3f} ms ({ms / busy:.1%})" for ms, _, name in sorted(ops)[::-1][:12]]
-    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms, "top": top,
-            "ops": by_op}
+    out = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms, "top": top,
+           "ops": by_op}
+    if match:
+        mine = [(ms, cnt) for ms, cnt, name in kernels if match in name]
+        out["match"] = (match, sum(ms for ms, _ in mine), sum(cnt for _, cnt in mine))
+    return out
 
 
 def _fmt_profile(p):
     if p["busy_ms"] is None:
         return f"wall {p['wall_ms']:.3f} ms; device time not measured (no kernel time in trace)"
-    return (f"wall {p['wall_ms']:.3f} ms, device busy {p['busy_ms']:.3f} ms, idle share "
-            f"{p['idle_share']:.3f}; top kernels: {'; '.join(p['top'])}")
+    line = (f"wall {p['wall_ms']:.3f} ms, device busy {p['busy_ms']:.3f} ms, idle share "
+            f"{p['idle_share']:.3f}")
+    if "match" in p:
+        name, ms, cnt = p["match"]
+        line += (f"; kernels named {name}: {ms:.3f} ms in {cnt:g} launches, "
+                 f"{ms / p['busy_ms']:.1%} of busy")
+    return line + f"; top kernels: {'; '.join(p['top'])}"
 
 
-def phase_kernel_int4(device):
+def _capture(fn, calls=1, keep=False):
+    """A CUDA graph of ``calls`` calls of ``fn``, after one call on a side
+    stream has bound the entries and warmed the allocator outside the
+    capture; ``keep`` keeps the graph for libcuda's graph API."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=keep)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    return graph
+
+
+def graph_us(fn, calls=10, replays=20):
+    """Device µs a call of ``fn``, without the host: ``calls`` calls captured
+    in one CUDA graph, the median over ``replays`` CUDA-event timings of a
+    replay, per call."""
+    graph = _capture(fn, calls)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls * 1e3)
+    return statistics.median(times)
+
+
+def graph_kernels(fn):
+    """Kernel launches a call of ``fn``: the kernel nodes of a CUDA graph
+    captured around one call, counted through libcuda's graph API (the profiler
+    can drop kernel events, so it is no gate)."""
+    graph = _capture(fn, keep=True)
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        if libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+def host_us(fn, calls=300):
+    """Host µs a call of ``fn``: ``calls`` calls back to back, no
+    synchronization inside the timed loop (the device, faster a call than the
+    host here, keeps up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / calls * 1e6
+
+
+def phase_kernel_int4(device, strict=True):
     """K3 against its plain version at decode's M for every int4 leaf of
     Qwen2.5-0.5B and Llama-3-8B (layer 1 of a 2-layer stack, weights drawn in
-    bf16 and quantized as the model's are); times at every Qwen shape."""
+    bf16 and quantized as the model's are), bit-equal on a second call; at
+    every Qwen shape its device time a call (CUDA graph), its host time a
+    call (the public entry) and the plain version's time; one kernel a call
+    (``strict``: else only printed, for a parent tree)."""
     import tst_torch.kernels.quant_matmul as tqm
     from tst_torch.models.quant import quantize_leaf
 
     g = torch.Generator(device=device).manual_seed(11)
-    layer = {m: {"ms": 0.0, "plain_ms": 0.0} for m in INT4_M}
-    worst = 0.0
+    layer = {m: {"device_us": 0.0, "host_us": 0.0, "plain_ms": 0.0} for m in INT4_M}
+    worst, timed = 0.0, []
     cases = [(name, k, n) for name, (k, n) in QWEN_INT4.items()]
     cases += [("llama3-8b", k, n) for k, n in LLAMA_INT4]
     for name, k, n in cases:
@@ -1110,34 +1211,52 @@ def phase_kernel_int4(device):
                     or not bool(torch.isfinite(got).all())):
                 raise AssertionError(f"int4_matmul disagrees with its plain version at "
                                      f"M={m} K={k} N={n}: max|d|/max|ref| {rel:.3e}")
+            _check_bitwise(lambda: (tqm.int4_matmul_stacked(y, q, sc, 1),), (got,), "K3")
             worst = max(worst, err)
             line = f"[kernel-int4] {name} M={m} K={k} N={n}: max|out-ref|/max|ref| {rel:.3e}"
             if name in QWEN_INT4:
-                ms = median_ms(lambda: tqm._launch(y, q, sc, 1))
+                timed.append((y, q, sc))
+                dev = graph_us(lambda: tqm._launch(y, q, sc, 1))
+                host = host_us(lambda: tqm.int4_matmul_stacked(y, q, sc, 1))
                 plain = median_ms(lambda: tqm.int4_matmul_reference(y, q, sc, 1))
-                layer[m]["ms"] += ms
+                layer[m]["device_us"] += dev
+                layer[m]["host_us"] += host
                 layer[m]["plain_ms"] += plain
-                line += f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
+                line += (f"; kernel {dev:.2f} µs on the device, {host:.2f} µs on the host; "
+                         f"plain {plain:.4f} ms")
             print(line + f" (<= {INT4_TOL})")
         del q, sc
+    # kernels a call: a CUDA graph of one call at every Qwen shape
+    launches = graph_kernels(lambda: [tqm._launch(y, q, sc, 1) for y, q, sc in timed]) / len(timed)
+    del timed
+    print(f"[kernel-int4] bit-equal on a second call at every shape; kernels a call: "
+          f"{launches:g}")
+    if strict and launches != 1:
+        raise AssertionError(f"K3 must be one launch a call: {launches:g}")
     for m in INT4_M:
-        print(f"[kernel-int4] one decode layer's 7 projections at M={m}: kernel "
-              f"{layer[m]['ms']:.4f} ms, plain (dequantize, then product) "
-              f"{layer[m]['plain_ms']:.4f} ms (sums of medians of 30 x 10 calls)")
+        print(f"[kernel-int4] one decode layer's 7 projections at M={m}: device "
+              f"{layer[m]['device_us']:.2f} µs (CUDA graph of 10 calls, median of 20 replays), "
+              f"host {layer[m]['host_us']:.2f} µs (300 calls back to back), plain (dequantize, "
+              f"then product) {layer[m]['plain_ms']:.4f} ms (sums over the projections)")
     # a layer's seven projections at M=32: y, packed weights and f32 scales in, f32 out
     m = INT4_M[0]
     flops = sum(2 * m * k * n for k, n in QWEN_INT4.values())
     nbytes = sum(m * k * 2 + k * n // 2 + (k // 128) * n * 4 + m * n * 4
                  for k, n in QWEN_INT4.values())
-    return {"max_abs_err": worst, "ms": layer[m]["ms"], "plain_ms": layer[m]["plain_ms"],
-            "library_ms": None, **_bound(flops, nbytes),
-            "timed": f"sum over one Qwen2.5-0.5B layer's 7 projections at M={m}"}
+    return {"max_abs_err": worst, "ms": layer[m]["device_us"] / 1e3,
+            "plain_ms": layer[m]["plain_ms"], "library_ms": None, **_bound(flops, nbytes),
+            "host_ms": layer[m]["host_us"] / 1e3,
+            "device_us_a_call": {str(mm): layer[mm]["device_us"] / INT4_PROJ for mm in INT4_M},
+            "host_us_a_call": {str(mm): layer[mm]["host_us"] / INT4_PROJ for mm in INT4_M},
+            "timed": f"device time summed over one Qwen2.5-0.5B layer's 7 projections at M={m} "
+                     f"(CUDA graph); host_ms the same sum on the host"}
 
 
 def phase_kernel_mlp(device):
-    """K4 against its plain version and the decoder's unfused bf16 MLP;
-    gradients of all four inputs through the autograd Function against
-    autograd of the plain version; times at the train step's shape."""
+    """K4 against its plain version and the decoder's unfused bf16 MLP,
+    bit-equal on a second call; gradients of all four inputs through the
+    autograd Function against autograd of the plain version; times at the
+    train step's shape, each kernel's on its own."""
     import tst_torch.kernels.fused_mlp as tfm
 
     out = {}
@@ -1168,24 +1287,41 @@ def phase_kernel_mlp(device):
                 or max([fwd_rel] + grad_rel) > MLP_TOL):
             raise AssertionError(f"fused_swiglu_mlp disagrees with its plain version at "
                                  f"{(m, d, f)}")
+        _check_bitwise(lambda: (tfm.fused_mlp_forward(x, wg, wu, wd),), (got,), "K4")
         if (m, d, f) == MLP_SHAPES[0]:
             def unfused():
                 act = torch.nn.functional.silu((x @ wg).float()).to(x.dtype) * (x @ wu)
                 return act @ wd
 
+            by_kernel = None  # a tree with one K4 kernel: the call is the kernel
+            if hasattr(tfm, "_gate_up"):
+                h = tfm._gate_up(x, wg, wu)
+                by_kernel = {K4_KERNELS[0]: median_ms(lambda: tfm._gate_up(x, wg, wu)),
+                             K4_KERNELS[1]: median_ms(lambda: tfm._down(h, wd))}
+                del h
             out = {"max_abs_err": fwd_abs, "ms": median_ms(lambda: tfm._launch(x, wg, wu, wd)),
                    "plain_ms": median_ms(lambda: tfm.swiglu_reference(x, wg, wu, wd),
                                          samples=10, reps=3, warmup=1),
                    "library_ms": None,  # no single torch call computes the fused MLP
                    "unfused_bf16_ms": median_ms(unfused, samples=10, reps=3, warmup=1),
+                   "kernels_ms": by_kernel,
                    **_bound(3 * 2 * m * d * f, 2 * m * d * 2 + 3 * d * f * 2)}
         del x, wg, wu, wd, dout, got, want
         torch.cuda.empty_cache()
-    flops = 3 * 2 * np.prod(MLP_SHAPES[0]) / 1e12
-    print(f"[kernel-mlp] train shape {MLP_SHAPES[0]}: kernel {out['ms']:.4f} ms "
-          f"({flops / out['ms'] * 1e3:.1f} TFLOP/s), plain (f32 products, the reference's "
-          f"numbers) {out['plain_ms']:.4f} ms, the decoder's unfused bf16 MLP "
-          f"{out['unfused_bf16_ms']:.4f} ms (kernel: median of 30 x 10 calls; others 10 x 3)")
+    m, d, f = MLP_SHAPES[0]
+
+    def tflops(name, ms):  # gate-up makes two products of the three
+        share = 2 if "gate_up" in name else 1 if "down" in name else 3
+        return 2 * share * m * d * f / ms / 1e9
+
+    kernels = "; ".join(f"{name} {ms:.4f} ms ({tflops(name, ms):.1f} TFLOP/s)"
+                        for name, ms in (out["kernels_ms"] or {}).items()) or "one kernel"
+    print(f"[kernel-mlp] bit-equal on a second call at every shape; train shape {MLP_SHAPES[0]}: "
+          f"call {out['ms']:.4f} ms ({tflops('', out['ms']):.1f} TFLOP/s; median of 30 x 10 "
+          f"calls); by kernel (the same): {kernels}; bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}); plain (f32 products, the reference's numbers) "
+          f"{out['plain_ms']:.4f} ms, the decoder's unfused bf16 MLP "
+          f"{out['unfused_bf16_ms']:.4f} ms (10 x 3)")
     return out
 
 
@@ -1211,7 +1347,7 @@ def phase_decode_slice():
     """Path A through the CLI, then K3 against the plain path on the same
     weights and caches, decode step times and a profile of the step."""
     from tst_torch import cli
-    from tst_torch.models.decode import _decode_step, chunk_logits, greedy_decode, prefill
+    from tst_torch.models.decode import chunk_logits, greedy_decode, prefill
     from tst_torch.train.pipeline import prepare_blind_eval
 
     out_dir = tempfile.mkdtemp(prefix="tst_torch_decode_")
@@ -1276,18 +1412,82 @@ def phase_decode_slice():
         raise AssertionError("the decode step through K3 disagrees with the plain path")
 
     # step times and the device's idle share in the step
+    step = decode_step_profiles((params, spec, tok0, plen, s, kc, vc, head, rope))
+    for up, name in ((True, "through K3"), (False, "plain path (dequantize, then product)")):
+        print(f"[decode-slice] decode step ({DECODE_ROWS} rows, 24 layers), {name}: "
+              f"{DECODE_ROWS / step[up]['wall_ms'] * 1e3:.1f} tokens/s; "
+              f"{_fmt_profile(step[up])}")
+    return counts
+
+
+def decode_state():
+    """Phase 13's model and the caches of its first chunk of numeric rows
+    after the prefill: the state one greedy decode step runs on."""
+    from tst_torch import cli
+    from tst_torch.models.decode import prefill
+    from tst_torch.train.pipeline import prepare_blind_eval
+
+    cfg, device = cli._resolve(cli.build_parser().parse_args(DECODE))
+    ds = cli._load_dataset(cfg)
+    _, tokens, pos, spec, params = prepare_blind_eval(ds, cfg, device)
+    sel = torch.as_tensor(_numeric_rows(ds)[:DECODE_ROWS], device=device)
+    tok, plen = tokens[sel], pos[sel].long() + 1
+    with torch.inference_mode():
+        tok0, kc, vc, head, rope = prefill(params, tok, plen, MAX_NEW, spec, use_pallas=True)
+    return params, spec, tok0, plen, tok.shape[1], kc, vc, head, rope
+
+
+def decode_step_profiles(state, steps=10):
+    """One greedy decode step through K3 and through the plain path on
+    ``state`` (decode_state): _profile of each, K3's kernels matched."""
+    from tst_torch.models.decode import _decode_step
+
+    params, spec, tok0, plen, s, kc, vc, head, rope = state
     step = {}
     with torch.inference_mode():
         for up in (True, False):
             def one(up=up):
                 _decode_step(params, None, None, spec, tok0, plen, s, plen, s, kc, vc,
                              use_pallas=up, head=head, rope=rope)
-            step[up] = _profile(one, 10)
-    for up, name in ((True, "through K3"), (False, "plain path (dequantize, then product)")):
-        print(f"[decode-slice] decode step ({DECODE_ROWS} rows, 24 layers), {name}: "
-              f"{DECODE_ROWS / step[up]['wall_ms'] * 1e3:.1f} tokens/s; "
-              f"{_fmt_profile(step[up])}")
-    return counts
+            step[up] = _profile(one, steps, match="int4_matmul")
+    return step
+
+
+def step_timing(st, match="swiglu"):
+    """A train state's median synchronized step ms over STEP_SAMPLES steps
+    after the first, the peak device memory over them, and _profile of two
+    more steps (kernels named ``match`` counted)."""
+    lora, opt = st.lora, st.opt_state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for t in range(STEP_SAMPLES + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lora, opt, _ = st.trainer.step(st.params, lora, opt, st.tokens, st.loss_mask,
+                                       st.answer_pos, st.batches[t])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profile(lambda: st.trainer.step(st.params, lora, opt, st.tokens, st.loss_mask,
+                                            st.answer_pos, st.batches[0]), 2, match=match)
+    return statistics.median(times[1:]) * 1e3, peak, prof
+
+
+def phase_steps():
+    """For --only mlp-int4: the int4 decode step through K3 (phase 13's
+    profile) and the fused int4 train step (phase 14's timing)."""
+    step = decode_step_profiles(decode_state())[True]
+    print(f"[steps] int4 decode step ({DECODE_ROWS} rows, 24 layers) through K3: "
+          f"{_fmt_profile(step)}")
+    ms, peak, prof = step_timing(_train_state(base=TRAIN_FUSED))
+    print(f"[steps] int4 train step fused (K4): median {ms:.2f} ms over {STEP_SAMPLES} steps "
+          f"after the first, peak device memory {peak:.2f} GB; profile of one step: "
+          f"{_fmt_profile(prof)}")
+    return {"decode_step_wall_ms": step["wall_ms"], "decode_step_busy_ms": step["busy_ms"],
+            "decode_step_k3_ms": step.get("match", (None, None))[1],
+            "fused_step_ms": ms, "fused_step_peak_gb": peak, "fused_step_busy_ms": prof["busy_ms"],
+            "fused_step_k4_ms": prof.get("match", (None, None))[1]}
 
 
 def phase_train_fused():
@@ -1360,27 +1560,11 @@ def phase_train_fused():
     del states
 
     # step times fused vs unfused (both int4, flash kernels), peak memory
-    timing = {}
-    for fused in (True, False):
-        st2 = st if fused else _train_state(["model.fused_mlp=false"], base=TRAIN_FUSED)
-        lora, opt = st2.lora, st2.opt_state
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for t in range(STEP_SAMPLES + 1):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lora, opt, _ = st2.trainer.step(st2.params, lora, opt, st2.tokens, st2.loss_mask,
-                                            st2.answer_pos, st2.batches[t])
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        prof = _profile(lambda: st2.trainer.step(st2.params, lora, opt, st2.tokens,
-                                                 st2.loss_mask, st2.answer_pos,
-                                                 st2.batches[0]), 2)
-        timing[fused] = (statistics.median(times[1:]) * 1e3, peak, prof)
-        del st2, lora, opt
-        torch.cuda.empty_cache()
+    timing = {True: step_timing(st)}
+    st2 = _train_state(["model.fused_mlp=false"], base=TRAIN_FUSED)
+    timing[False] = step_timing(st2)
+    del st2
+    torch.cuda.empty_cache()
     rows_per_step = int(np.prod(st.batches.shape[1:]))
     for fused, name in ((True, "fused (K4)"), (False, "unfused")):
         ms, peak, prof = timing[fused]
@@ -1393,14 +1577,19 @@ def phase_train_fused():
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["rank"], default=None,
+    parser.add_argument("--only", choices=["rank", "mlp-int4"], default=None,
                         help="rank: the attention kernels against the library at the train "
-                             "shape (any build of tst_torch, so also a parent commit's)")
+                             "shape; mlp-int4: K3 and K4 against their plain versions, timed "
+                             "(either runs on any build of tst_torch, so also a parent commit's)")
     args = parser.parse_args(argv)
     device = phase_device()
-    phase_build(sass=args.only != "rank")
+    phase_build(sass=args.only is None)
     if args.only == "rank":
         phase_rank(device)
+        return
+    if args.only == "mlp-int4":
+        print(json.dumps({"int4": phase_kernel_int4(device, strict=False),
+                          "mlp": phase_kernel_mlp(device), "steps": phase_steps()}))
         return
     kern = phase_kernel(device)
     blind_launches = phase_slice()

@@ -143,3 +143,27 @@ def test_kernel_matches_reference_on_card():
         ref.backward(dout)
         assert (xk.grad.float() - xp.grad.float()).abs().max() <= \
             2e-2 * xp.grad.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 1000, 4096])
+@pytest.mark.parametrize("d,f", [(896, 4864), (4096, 14336)])
+def test_kernel_pair_bit_equal_on_card(m, d, f):
+    """The gate-up and down kernels at Qwen2.5-0.5B and Llama-3-8B widths,
+    M from one row up: forward within 2e-2 max|ref| of the plain version,
+    one count a call, and bit-equal on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(m + d)
+    x = torch.randn(m, d, device="cuda", generator=g).to(torch.bfloat16)
+    wg, wu = ((torch.randn(d, f, device="cuda", generator=g) / d ** 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    wd = (torch.randn(f, d, device="cuda", generator=g) / f ** 0.5).to(torch.bfloat16)
+    before = tfm.LAUNCHES
+    out = tfm.fused_mlp_forward(x, wg, wu, wd)
+    again = tfm.fused_mlp_forward(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert tfm.LAUNCHES == before + 2
+    assert torch.equal(out, again)
+    ref = tfm.swiglu_reference(x, wg, wu, wd)
+    assert (out.float() - ref.float()).abs().max() <= 2e-2 * ref.float().abs().max()

@@ -13,6 +13,9 @@ jax is imported inside the fixtures, so those collect where jax is missing:
     python -m pytest --noconftest -m cuda tests/test_torch_quant_matmul.py
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -116,6 +119,33 @@ CARD_SHAPES = [(896, 896), (896, 128), (896, 4864), (4864, 896),
                (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 
 
+@pytest.mark.parametrize("k,n", CARD_SHAPES + [(128, 128), (256, 256), (1024, 128)])
+@pytest.mark.parametrize("m", [1, 7, 32, 64, 100, 1000])
+def test_split_plan_covers_k(m, k, n):
+    """The groups of K go to at most MAX_SPLITS blocks of one cluster, none
+    empty, covering K exactly and once; more splits only where the column
+    blocks alone leave the card short of TARGET_BLOCKS."""
+    splits, per = tqm.split_plan(m, k, n // 2)
+    groups = k // tqm.GROUP
+    assert 1 <= splits <= tqm.MAX_SPLITS and splits <= groups
+    ranges = [range(s * per, min((s + 1) * per, groups)) for s in range(splits)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [g for r in ranges for g in r] == list(range(groups))
+    blocks = (n // 2 // tqm.NH_MULTIPLE) * -(-m // tqm.BLOCK_M)
+    if splits > 1:
+        assert blocks * (splits - 1) < tqm.TARGET_BLOCKS
+    assert tqm.split_plan(m, k, n // 2) == (splits, per)
+
+
+def test_split_plan_of_the_decode_step():
+    """Qwen2.5-0.5B at decode's M=32: 7 splits of one group on the narrow
+    leaves, 4 on gate/up (38 column blocks), 8 of up to 5 groups on w_down."""
+    assert tqm.split_plan(32, 896, 64) == (7, 1)
+    assert tqm.split_plan(32, 896, 448) == (7, 1)
+    assert tqm.split_plan(32, 896, 2432) == (4, 2)
+    assert tqm.split_plan(32, 4864, 448) == (8, 5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 32, 64, 100])
 def test_kernel_matches_reference_on_card(m):
@@ -132,5 +162,32 @@ def test_kernel_matches_reference_on_card(m):
         torch.cuda.synchronize()
         assert tqm.LAUNCHES == before + 1
         want = tqm.int4_matmul_reference(y, leaf["q"], leaf["scale"], 1)
+        err = (got - want).abs().max().item()
+        assert err <= 1e-2 * want.abs().max().item(), (m, k, n, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 7, 32, 64])
+def test_kernel_one_launch_bit_equal_on_card(m):
+    """Every Qwen2.5-0.5B and Llama-3-8B leaf, the narrow wk/wv (N/2 = 64)
+    included, at decode's M and below: one launch a call (one kernel node in
+    a CUDA graph of a call), within 1e-2 max|ref| of the plain version, and
+    bit-equal on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import graph_kernels
+
+    g = torch.Generator(device="cuda").manual_seed(m)
+    for k, n in CARD_SHAPES:
+        w = (torch.randn(2, k, n, device="cuda", generator=g) / k ** 0.5).to(torch.bfloat16)
+        leaf = tquant.quantize_leaf(w, bits=4)
+        q, sc = leaf["q"], leaf["scale"]
+        y = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+        got = tqm.int4_matmul_stacked(y, q, sc, 1)
+        again = tqm.int4_matmul_stacked(y, q, sc, 1)
+        assert torch.equal(got, again), (m, k, n)
+        assert graph_kernels(lambda: tqm.int4_matmul_stacked(y, q, sc, 1)) == 1, (m, k, n)
+        want = tqm.int4_matmul_reference(y, q, sc, 1)
         err = (got - want).abs().max().item()
         assert err <= 1e-2 * want.abs().max().item(), (m, k, n, err)

@@ -1,9 +1,8 @@
 // Tiles of the flash-attention kernels for Hopper (sm_90a), shared by the
 // forward (flash_attention_fwd.cu) and the backward (flash_attention_bwd.cu):
 // the tile size, the size of a [64][D] bf16 tile in the 128-byte-swizzled
-// layout that wgmma reads (wgmma_sm90.cuh), the aligned start of dynamic
-// shared memory, and the copies of a tile in (cp.async) and of a warpgroup's
-// accumulators out (bf16 stores).
+// layout that wgmma reads (wgmma_sm90.cuh), and the copies of a tile in
+// (cp.async) and of a warpgroup's accumulators out (bf16 stores).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,13 +22,6 @@ struct FlashTile {
   static constexpr int kBlocks = D / 64;                   // 64-column blocks of a tile
   static constexpr int kTileBytes = kBlocks * kSw128Block;  // one [64][D] bf16 tile
 };
-
-// the first 1024-byte-aligned address of dynamic shared memory (the
-// requested size carries 1024 bytes of slack for it)
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  const uint32_t a = smem_u32(raw);
-  return raw + ((1024 - (a & 1023)) & 1023);
-}
 
 // cp.async a [64][D] bf16 tile (rows `stride` elements apart) into the sw128
 // tile at shared address `dst`; thread `tid` of `kThreads`

@@ -1,5 +1,5 @@
-// Fused SwiGLU MLP forward for Hopper (sm_90a): out = down(silu(x·Wg) ⊙ (x·Wu)),
-// bf16 in and out, f32 accumulation, the [M, F] hidden never in device memory.
+// SwiGLU MLP forward for Hopper (sm_90a): out = down(silu(x·Wg) ⊙ (x·Wu)),
+// bf16 in and out, f32 accumulation; two warpgroup-wgmma kernels.
 //
 // Replaces the TPU kernel `_fused_mlp_kernel` (tst/kernels/fused_mlp.py:44, via
 // `_fused_mlp_fwd_impl` :62 and `fused_swiglu_mlp` :116). Semantics are the
@@ -9,226 +9,283 @@
 // x [M, D], Wg/Wu [D, F], Wd [F, D], all contiguous row-major bf16.
 //
 // What bounds it on an H100: at the train step's shape (M = 16384, D = 896,
-// F = 4864) the three products are 428 GFLOP and the weights 26 MB, so the
-// call is compute-bound on the tensor cores if the weights stay in L2 (they
-// fit its 50 MB) and every block reuses a weight tile over enough rows. The
-// TPU kernel kept a [bm, D] f32 output accumulator in VMEM and streamed F;
-// on Hopper that accumulator is the problem: [64, 896] f32 is 224 KiB, more
-// than a block's registers and than its 227 KiB of shared memory, and at
-// Llama-3-8B's D = 4096 it is 4.6x that.
+// F = 4864) the three products are 428 GFLOP, 0.433 ms at the dense bf16 peak
+// (989 TFLOP/s), against 84 MB of inputs and output (0.025 ms at 3.35 TB/s):
+// bound by the tensor cores, given enough rows to every weight tile. The TPU
+// kernel kept a [bm, D] f32 output accumulator in VMEM and streamed F; on
+// Hopper that accumulator is the problem ([64, 896] f32 is 224 KiB, more than
+// a block's registers and shared memory), and the first port cut its rows to
+// 32 to fit, re-reading the weights for every 32 rows on mma.sync.
 //
-// What the design does about it (simple and correct first):
-//   * a block owns 32 rows (two m16 tiles) and an output slice of DN = 128·NT
-//     columns; the f32 accumulator [32, DN] is spread over 16 warps, NT n8
-//     tiles each for both m tiles (2·NT·4 registers a thread, 56 at D = 896);
-//   * where D is wider than 1024, the output is cut into D / DN slices, one
-//     block each, and every slice recomputes h for its rows (the "output-D
-//     slices, h recomputed" option): at D = 896 there is one slice and no
-//     recomputation; at D = 4096, four slices of 1024;
-//   * F is streamed in chunks of 64: the gate and up products of the chunk
-//     (each warp one 16 x 8 tile of each) run over D in steps of 64 with x,
-//     Wg and Wu tiles staged in shared memory; h = silu(g)·u goes to shared
-//     memory as bf16, the chunk's Wd rows [64, DN] are staged, and every warp
-//     adds h·Wd to its accumulator tiles;
-//   * all products are mma.sync m16n8k16 (bf16 in, f32 accumulate); B
-//     fragments come from row-major shared tiles through ldmatrix .trans,
-//     rows padded by 8 elements so the reads are free of bank conflicts;
-//   * rows past M are read as zero and never stored, so any M works.
-// Not yet: cp.async / TMA double buffering, wgmma, larger row tiles.
+// What the design does about it: the hidden h = silu(g)·u [M, F] is written to
+// device memory as bf16, exactly the values the down product reads, so the
+// two products become two GEMMs with 128-row tiles:
+//   * swiglu_gate_up_kernel: a tile is 128 rows x 128 columns of F; Wg's and
+//     Wu's columns sit side by side in one [64, 256] B tile, so one wgmma
+//     m64n256k16 a k16 step gives both g and u in the same thread's registers,
+//     and the epilogue computes silu(g)·u in f32 there and stores h in bf16;
+//   * swiglu_down_kernel: out = h·Wd, tiles of 128 rows x 128 columns of D,
+//     wgmma m64n128k16, one bf16 rounding on store;
+//   * both: a producer warp and two consumer warpgroups (64 rows each) a
+//     block. The producer's one thread fills a ring of 4 (gate-up) or 6 (down)
+//     stages by TMA, 128-byte-swizzled tiles of [128 rows][64] of A and
+//     [64][64] blocks of the weights, each stage paid to a `full` mbarrier;
+//     the consumers wait on it, run the stage's four k16 products and give
+//     the stage back through an `empty` mbarrier. A is read K-major and the
+//     weights MN-major (the descriptor's transpose bit, gemm_sm90.cuh), so
+//     nothing is staged transposed, and no block-wide barrier sits in the
+//     loop. A persistent grid of one block an SM walks its tiles row-major,
+//     so the producer fetches the next tile while the consumers store the
+//     last, and the blocks in flight share their x rows and weights in L2;
+//     TMA reads rows past M and columns past F as zeros, and they are never
+//     stored.
+// h costs 2·M·F·2 bytes of traffic (159 MB each way at the train shape,
+// ~0.1 ms), outside the function's bound; it lives for the call only.
+// Measured and not kept (PERF.md §6): the same GEMMs fed by cp.async from
+// all threads with a block barrier every k-step (slower), and keeping one
+// wgmma group in flight across k-steps (the compiler serializes it: slower).
+// Not yet: 16-byte or TMA stores of h and out through shared memory, two
+// consumer blocks sharing a weight tile by TMA multicast in a cluster, the
+// fused variant that keeps h on chip (a cluster splitting the [128, D]
+// accumulator over its blocks' shared memory).
 
+#include <cuda.h>
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int kBM = 32;        // rows per block: two m16 tiles
-constexpr int kBF = 64;        // hidden columns per F chunk: eight n8 tiles
-constexpr int kBK = 64;        // depth of one x / Wg / Wu tile of the gate/up products
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;        // bf16 elements of padding per shared-memory row
+constexpr int kBM = 128;        // rows of a tile: one m64 slab for each consumer warpgroup
+constexpr int kBK = 64;         // depth of a k-step: one 128-byte swizzle block
+constexpr int kTileN = 128;     // output columns of a tile (of F for gate-up, of D for down)
+constexpr int kConsumers = 256; // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kATileBytes = kBM * kBK * 2;  // [128][64] bf16: two stacked sw128 blocks
+constexpr int kMaxDevices = 32;
 
-__device__ __forceinline__ uint4 load16(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
+// kGate: h = silu(x·Wg)·(x·Wu) (B = Wg | Wu, n256); else out = h·Wd (n128)
+template <bool kGate>
+struct Gemm {
+  static constexpr int kN = kGate ? 2 * kTileN : kTileN;  // wgmma width
+  static constexpr int kStages = kGate ? 4 : 6;
+  static constexpr int kStageBytes = kATileBytes + kBK * kN * 2;
+  // the ring, its full and empty barriers, aligned_smem's slack
+  static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+};
 
-__device__ __forceinline__ void store16(__nv_bfloat16* p, uint4 v) {
-  *reinterpret_cast<uint4*>(p) = v;
-}
-
-template <int NT>
-__host__ __device__ constexpr int slice_cols() { return kWarps * 8 * NT; }
-
-template <int NT>
-constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) *
-         ((size_t)kBM * (kBK + kPad)              // x tile
-          + 2 * (size_t)kBK * (kBF + kPad)         // Wg, Wu tiles
-          + (size_t)kBM * (kBF + kPad)             // h
-          + (size_t)kBF * (slice_cols<NT>() + kPad));  // Wd rows of the chunk
-}
-
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_mlp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wg,
-                 const __nv_bfloat16* __restrict__ wu, const __nv_bfloat16* __restrict__ wd,
-                 __nv_bfloat16* __restrict__ out, int M, int D, int F) {
-  constexpr int DN = slice_cols<NT>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto* x_s = reinterpret_cast<__nv_bfloat16(*)[kBK + kPad]>(smem);
-  auto* wg_s = reinterpret_cast<__nv_bfloat16(*)[kBF + kPad]>(x_s + kBM);
-  auto* wu_s = wg_s + kBK;
-  auto* h_s = wu_s + kBK;
-  auto* wd_s = reinterpret_cast<__nv_bfloat16(*)[DN + kPad]>(h_s + kBM);
-
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * DN;
+// C [M, N] (row-major bf16) from A [M, K] and B [K, N] through their TMA
+// maps (tb1 beside tb0 when kGate), one persistent block an SM over 128 x 128
+// output tiles
+template <bool kGate>
+__device__ __forceinline__ void gemm_body(const CUtensorMap* ta, const CUtensorMap* tb0,
+                                          const CUtensorMap* tb1, __nv_bfloat16* __restrict__ c,
+                                          int M, int K, int N) {
+  using G = Gemm<kGate>;
+  constexpr int kN = G::kN;
+  constexpr int kS = G::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(aligned_smem(smem_raw));
+  const uint32_t full = ring + kS * G::kStageBytes;  // stage s landed: full + 8s
+  const uint32_t empty = full + kS * 8;               // stage s consumed: empty + 8s
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  // gate/up products: warp -> (m tile, n8 tile of the chunk)
-  const int mt1 = warp / 8;
-  const int nt1 = warp % 8;
-  // down product: warp -> NT n8 tiles of the slice, both m tiles
-  const int wcol = warp * NT * 8;
-  // ldmatrix row of this lane inside a k16 tile (lanes 16-31 repeat 0-15)
-  const int lrow = lane % 16;
+  const int n_tiles = (N + kTileN - 1) / kTileN;
+  const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
+  const int ksteps = K / kBK;
+  const int total = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * ksteps;
 
-  float acc[2][NT][4];
+  if (tid == 0) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
-        acc[mt][nt][3] = 0.f;
-
-  for (int f0 = 0; f0 < F; f0 += kBF) {
-    float cg[4] = {0.f, 0.f, 0.f, 0.f};
-    float cu[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < D; d0 += kBK) {
-      __syncthreads();  // every warp is done with the previous tiles (and with h / Wd)
-      if (tid < kBM * kBK / 8) {  // x tile: 256 vectors of 8
-        const int r = tid / (kBK / 8), c = (tid % (kBK / 8)) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (row0 + r < M) v = load16(x + (long)(row0 + r) * D + d0 + c);
-        store16(&x_s[r][c], v);
-      }
-      {  // Wg and Wu tiles: 512 vectors of 8 each
-        const int r = tid / (kBF / 8), c = (tid % (kBF / 8)) * 8;
-        const long off = (long)(d0 + r) * F + f0 + c;
-        store16(&wg_s[r][c], load16(wg + off));
-        store16(&wu_s[r][c], load16(wu + off));
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        const int ar = mt1 * 16 + g, ac = kk * 16 + 2 * t;
-        const uint32_t a[4] = {load_u32(&x_s[ar][ac]), load_u32(&x_s[ar + 8][ac]),
-                               load_u32(&x_s[ar][ac + 8]), load_u32(&x_s[ar + 8][ac + 8])};
-        uint32_t b0, b1;
-        ldmatrix_b_trans(b0, b1, &wg_s[kk * 16 + lrow][nt1 * 8]);
-        mma_16816(cg, a, b0, b1);
-        ldmatrix_b_trans(b0, b1, &wu_s[kk * 16 + lrow][nt1 * 8]);
-        mma_16816(cu, a, b0, b1);
-      }
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
     }
-    // h = silu(g) * u in f32, rounded to bf16 (c0,c1: row g; c2,c3: row g + 8)
-    {
-      float h[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) h[i] = cg[i] / (1.f + expf(-cg[i])) * cu[i];
-      const int hr = mt1 * 16 + g, hc = nt1 * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(&h_s[hr][hc]) = pack_bf16(h[0], h[1]);
-      *reinterpret_cast<uint32_t*>(&h_s[hr + 8][hc]) = pack_bf16(h[2], h[3]);
-    }
-    // the chunk's Wd rows [64, DN] of this block's output slice
-    for (int v = tid; v < kBF * DN / 8; v += kThreads) {
-      const int r = v / (DN / 8), c = (v % (DN / 8)) * 8;
-      store16(&wd_s[r][c], load16(wd + (long)(f0 + r) * D + col0 + c));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBF / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int ar = mt * 16 + g, ac = kk * 16 + 2 * t;
-        a[mt][0] = load_u32(&h_s[ar][ac]);
-        a[mt][1] = load_u32(&h_s[ar + 8][ac]);
-        a[mt][2] = load_u32(&h_s[ar][ac + 8]);
-        a[mt][3] = load_u32(&h_s[ar + 8][ac + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        ldmatrix_b_trans(b0, b1, &wd_s[kk * 16 + lrow][wcol + nt * 8]);
-        mma_16816(acc[0][nt], a[0], b0, b1);
-        mma_16816(acc[1][nt], a[1], b0, b1);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warp: one thread issues every copy
+    if (tid == kConsumers) {
+      int tile = blockIdx.x, k0 = 0;
+      for (int it = 0; it < total; ++it) {
+        const int s = it % kS;
+        if (it >= kS) mbar_wait(empty + 8 * s, (it / kS - 1) & 1);
+        const uint32_t st = ring + s * G::kStageBytes;
+        mbar_expect_tx(full + 8 * s, G::kStageBytes);
+        const int row0 = (tile / n_tiles) * kBM, n0 = (tile % n_tiles) * kTileN;
+        tma_load(st, ta, full + 8 * s, k0, row0);  // rows past M arrive as zeros
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int r_lo = row0 + mt * 16 + g;
-    const int r_hi = r_lo + 8;
+        for (int cb = 0; cb < kN / 64; ++cb) {  // columns past N arrive as zeros
+          tma_load(st + kATileBytes + cb * kSw128Block, (kGate && cb >= 2) ? tb1 : tb0,
+                   full + 8 * s, n0 + (cb % 2) * 64, k0);
+        }
+        k0 += kBK;
+        if (k0 == K) {
+          k0 = 0;
+          tile += gridDim.x;
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;  // consumer warpgroup: rows 64·wg .. 64·wg + 63 of a tile
+  const int warp = (tid % 128) / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  float acc[kN / 2];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = col0 + wcol + nt * 8 + 2 * t;
-      if (r_lo < M)
-        *reinterpret_cast<uint32_t*>(out + (long)r_lo * D + c) =
-            pack_bf16(acc[mt][nt][0], acc[mt][nt][1]);
-      if (r_hi < M)
-        *reinterpret_cast<uint32_t*>(out + (long)r_hi * D + c) =
-            pack_bf16(acc[mt][nt][2], acc[mt][nt][3]);
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+  int tile = blockIdx.x, kb = 0;
+  for (int it = 0; it < total; ++it) {
+    const int s = it % kS;
+    mbar_wait(full + 8 * s, (it / kS) & 1);
+    const uint32_t st = ring + s * G::kStageBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      wgmma_ss_mn(acc, desc_k_major(st + wg * kSw128Block, kk),
+                  desc_mn_wide(st + kATileBytes, kk), kb > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    mbar_arrive(empty + 8 * s);
+    if (++kb < ksteps) continue;
+    fence_acc_n(acc);
+    // the tile's epilogue: this thread's rows 16·warp + g and + 8 of its slab
+    const int row = (tile / n_tiles) * kBM + 64 * wg + 16 * warp + g;
+    const int n0 = (tile % n_tiles) * kTileN;
+    kb = 0;
+    tile += gridDim.x;
+#pragma unroll
+    for (int j = 0; j < kTileN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (col >= N) continue;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float v0 = acc[4 * j + 2 * hf], v1 = acc[4 * j + 2 * hf + 1];
+        if constexpr (kGate) {  // u sits kTileN columns (16 n8 groups) to the right of g
+          v0 = v0 / (1.f + expf(-v0)) * acc[4 * (j + kTileN / 8) + 2 * hf];
+          v1 = v1 / (1.f + expf(-v1)) * acc[4 * (j + kTileN / 8) + 2 * hf + 1];
+        }
+        if (row + 8 * hf < M) {
+          *reinterpret_cast<uint32_t*>(c + (long)(row + 8 * hf) * N + col) = pack_bf16(v0, v1);
+        }
+      }
     }
   }
 }
 
-template <int NT>
-int launch(const void* x, const void* wg, const void* wu, const void* wd, void* out, int M,
-           int D, int F, cudaStream_t st) {
-  const size_t smem = smem_bytes<NT>();
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_kernel<NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + kBM - 1) / kBM, D / slice_cols<NT>());
-  fused_mlp_kernel<NT><<<grid, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wg),
-      static_cast<const __nv_bfloat16*>(wu), static_cast<const __nv_bfloat16*>(wd),
-      static_cast<__nv_bfloat16*>(out), M, D, F);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(kThreads, 1)
+swiglu_gate_up_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap twg,
+                      const __grid_constant__ CUtensorMap twu, __nv_bfloat16* __restrict__ h,
+                      int M, int D, int F) {
+  gemm_body<true>(&tx, &twg, &twu, h, M, D, F);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+swiglu_down_kernel(const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap twd,
+                   __nv_bfloat16* __restrict__ out, int M, int F, int D) {
+  gemm_body<false>(&th, &twd, &twd, out, M, F, D);
+}
+
+// a TMA map of a row-major [rows, cols] bf16 matrix, read in boxes of
+// [box_rows][64] into 128-byte-swizzled tiles; out-of-range elements read as zero
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the common start of both entries: the shapes checked, `device` made
+// current (a no-op when it is), its SM count (read once) in `sms`, and the
+// kernel's dynamic shared memory limit raised (once a device)
+template <bool kGate>
+cudaError_t prepare(const void* kernel, int M, int D, int F, int device, unsigned* smem_set,
+                    int* sms) {
+  static int cached[kMaxDevices] = {0};
+  if (M <= 0 || D <= 0 || F <= 0 || D % 128 != 0 || F % 64 != 0 || device < 0 ||
+      device >= kMaxDevices) {
+    return cudaErrorInvalidValue;
+  }
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+  if (err == cudaSuccess && cached[device] == 0) {
+    err = cudaDeviceGetAttribute(&cached[device], cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess && !(*smem_set & (1u << device))) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Gemm<kGate>::kSmem);
+    if (err == cudaSuccess) *smem_set |= 1u << device;
+  }
+  *sms = cached[device];
+  return err;
+}
+
+// one persistent block an SM, or a block a tile where there are fewer
+int grid_for(int M, int N, int sms) {
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + kTileN - 1) / kTileN);
+  return tiles < sms ? tiles : sms;
 }
 
 }  // namespace
 
-// Plain C entry for ctypes: device pointers of contiguous bf16 tensors x [M, D],
-// wg/wu [D, F], wd [F, D], out [M, D]; `stream` is a cudaStream_t. D must be a
-// multiple of 128 and F of 64; any M >= 1. Returns the launch's cudaError_t.
-extern "C" int tst_fused_mlp_fwd(const void* x, const void* wg, const void* wu, const void* wd,
-                                 void* out, int M, int D, int F, int device, void* stream) {
-  if (M <= 0 || D <= 0 || F <= 0 || D % 128 != 0 || F % kBF != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSetDevice(device);
+// Plain C entries for ctypes: device pointers of contiguous bf16 tensors;
+// `stream` is a cudaStream_t. D must be a multiple of 128 and F of 64; any
+// M >= 1. Each returns its launch's cudaError_t.
+//
+// h [M, F] = silu(x [M, D] · wg [D, F]) · (x · wu [D, F])
+extern "C" int tst_swiglu_gate_up(const void* x, const void* wg, const void* wu, void* h, int M,
+                                  int D, int F, int device, void* stream) {
+  static unsigned smem_set = 0;
+  int sms = 0;
+  CUtensorMap tx, twg, twu;
+  cudaError_t err = prepare<true>((const void*)swiglu_gate_up_kernel, M, D, F, device, &smem_set,
+                                  &sms);
+  if (err == cudaSuccess) err = tensor_map(&tx, x, M, D, kBM);
+  if (err == cudaSuccess) err = tensor_map(&twg, wg, D, F, kBK);
+  if (err == cudaSuccess) err = tensor_map(&twu, wu, D, F, kBK);
   if (err != cudaSuccess) return (int)err;
-  // the fewest output slices whose width DN = 128·NT keeps NT <= 8
-  const int n128 = D / 128;
-  int slices = 1;
-  while (n128 % slices != 0 || n128 / slices > 8) ++slices;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (n128 / slices) {
-    case 1: return launch<1>(x, wg, wu, wd, out, M, D, F, st);
-    case 2: return launch<2>(x, wg, wu, wd, out, M, D, F, st);
-    case 3: return launch<3>(x, wg, wu, wd, out, M, D, F, st);
-    case 4: return launch<4>(x, wg, wu, wd, out, M, D, F, st);
-    case 5: return launch<5>(x, wg, wu, wd, out, M, D, F, st);
-    case 6: return launch<6>(x, wg, wu, wd, out, M, D, F, st);
-    case 7: return launch<7>(x, wg, wu, wd, out, M, D, F, st);
-    case 8: return launch<8>(x, wg, wu, wd, out, M, D, F, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  swiglu_gate_up_kernel<<<grid_for(M, F, sms), kThreads, Gemm<true>::kSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      tx, twg, twu, static_cast<__nv_bfloat16*>(h), M, D, F);
+  return (int)cudaGetLastError();
+}
+
+// out [M, D] = h [M, F] · wd [F, D]
+extern "C" int tst_swiglu_down(const void* h, const void* wd, void* out, int M, int F, int D,
+                               int device, void* stream) {
+  static unsigned smem_set = 0;
+  int sms = 0;
+  CUtensorMap th, twd;
+  cudaError_t err = prepare<false>((const void*)swiglu_down_kernel, M, D, F, device, &smem_set,
+                                   &sms);
+  if (err == cudaSuccess) err = tensor_map(&th, h, M, F, kBM);
+  if (err == cudaSuccess) err = tensor_map(&twd, wd, F, D, kBK);
+  if (err != cudaSuccess) return (int)err;
+  swiglu_down_kernel<<<grid_for(M, D, sms), kThreads, Gemm<false>::kSmem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      th, twd, static_cast<__nv_bfloat16*>(out), M, F, D);
+  return (int)cudaGetLastError();
 }

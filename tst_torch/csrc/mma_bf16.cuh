@@ -1,6 +1,5 @@
-// Fragment helpers for mma.sync m16n8k16 (bf16 in, f32 accumulate), shared by
-// the int4 dequant-matmul and fused-MLP kernels of this directory (and
-// pack_bf16 by the wgmma kernels).
+// Fragment helpers for mma.sync m16n8k16 (bf16 in, f32 accumulate) of the
+// int4 dequant-matmul kernel (and pack_bf16, shared by the wgmma kernels).
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],
@@ -29,20 +28,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// four 8x8 b16 matrices from shared memory: lanes 8i .. 8i + 7 point at the
+// rows of matrix i, and lane (g, t) receives row g, columns 2t, 2t + 1 of
+// each (with .trans: rows 2t, 2t + 1 of column g), the lower in the low half
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-// The B fragment (b0, b1) of one k16 x n8 tile of a row-major [k][n] matrix
-// in shared memory: lanes 0-15 point at the 16 rows k of the tile (8 columns
-// from n0, 16-byte aligned); .trans hands lane (g, t) B[2t..2t+1][g] and
-// B[2t+8..2t+9][g], the layout above. Lanes 16-31 pass addresses too (any
-// valid row); ldmatrix .x2 ignores them.
-__device__ __forceinline__ void ldmatrix_b_trans(uint32_t& b0, uint32_t& b1,
-                                                 const __nv_bfloat16* row_ptr) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row_ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
 

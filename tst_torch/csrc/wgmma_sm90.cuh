@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels: the
-// warpgroup product wgmma m64n64k16 (bf16 in, f32 accumulate) with B, and A,
-// read from shared memory through 128-byte-swizzle matrix descriptors, or A
-// from registers; 16-byte cp.async copies into the same swizzled layout;
-// the fences and barriers around them.
+// Hopper (sm_90a) building blocks of the flash-attention and fused-MLP
+// kernels (and the int4 kernel's copies): the warpgroup product wgmma
+// m64n64k16 (bf16 in, f32 accumulate) with B, and A, read from shared memory
+// through 128-byte-swizzle matrix descriptors, or A from registers; 16-byte
+// cp.async copies into the same swizzled layout; the fences and barriers
+// around them; the aligned start of dynamic shared memory.
 //
 // Tile layout in shared memory ("sw128 tile"): a [64 rows][64 cols] bf16
 // block holds 128 bytes a row, and the 16-byte chunk c of row r sits at
@@ -42,6 +43,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// the first 1024-byte-aligned address of dynamic shared memory (the
+// requested size carries 1024 bytes of slack for it)
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((1024 - (a & 1023)) & 1023);
+}
+
 // byte offset of element (r, c) in a sw128 tile
 __device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
   return (c / 64) * kSw128Block + r * 128 + ((((c % 64) / 8) ^ (r % 8)) * 16) + (c % 8) * 2;
@@ -68,6 +76,13 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int cb, int kk)
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// the same, writing zeros and reading nothing where `valid` is false
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

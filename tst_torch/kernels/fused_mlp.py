@@ -1,14 +1,15 @@
 """Fused SwiGLU MLP, ``down(silu(x·Wg)·(x·Wu))``: a hand-written CUDA forward
-kernel for Hopper inside a ``torch.autograd.Function``.
+for Hopper (two wgmma kernels) inside a ``torch.autograd.Function``.
 
 Counterpart of ``tst/kernels/fused_mlp.py``: ``fused_swiglu_mlp`` (:116), its
 custom_vjp (:84), the Pallas kernel ``_fused_mlp_kernel`` (:44) and
 ``swiglu_reference`` (:136). The CUDA source is ``tst_torch/csrc/fused_mlp.cu``;
 its header says what bounds it on the card and how the design answers.
 
-For CUDA tensors the forward launches the kernel (or raises: there is no
-fallback); for CPU tensors it takes the plain version,
-:func:`swiglu_reference`. The backward is the reference's ``_swiglu_bwd``
+For CUDA tensors the forward launches the two kernels, gate-up (h =
+silu(x·Wg)·(x·Wu), bf16, in a scratch tensor that lives for the call) and
+down (h·Wd), or raises: there is no fallback; for CPU tensors it takes the
+plain version, :func:`swiglu_reference`. The backward is the reference's ``_swiglu_bwd``
 (:93-110) on every device: the hidden is recomputed in f32 and every product
 is a plain f32 ``torch.matmul``, as in the reference; weight gradients are
 computed only for the inputs that need them (``ctx.needs_input_grad``: the
@@ -18,17 +19,17 @@ frozen base needs none), with the same numbers where they are.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from tst_torch.kernels import _build
 
-#: kernel launches made in this process
+#: calls of the kernel pair (one per MLP forward) made in this process
 LAUNCHES = 0
 
-_ENTRY = "tst_fused_mlp_fwd"
-#: the kernel's constraints: D a multiple of 128, F of 64
+#: the kernels' constraints: D a multiple of 128, F of 64
 D_MULTIPLE, F_MULTIPLE = 128, 64
 
 
@@ -66,20 +67,46 @@ def check_kernel_args(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(x, w_gate, w_up, w_down) -> torch.Tensor:
-    """The kernel on checked CUDA tensors → out [M, D] bf16."""
-    global LAUNCHES
-    m, d = x.shape
-    out = torch.empty_like(x)
-    fn = getattr(_build.library(), _ENTRY)
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """The library's C entry ``name``, typed once: pointers, then M and the
+    two widths, the device, the stream."""
+    fn = getattr(_build.library(), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    err = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-             out.data_ptr(), m, d, w_gate.shape[1], x.device.index,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    n_ptr = 4 if name == "tst_swiglu_gate_up" else 3
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn
+
+
+def _call(name: str, ptrs, m: int, k: int, n: int, device: torch.device) -> None:
+    err = _entry(name)(*ptrs, m, k, n, device.index, _build.current_stream(device))
     if err != 0:
-        raise RuntimeError(f"{_ENTRY} failed with cudaError_t {err} (x {tuple(x.shape)}, "
-                           f"w_gate {tuple(w_gate.shape)})")
+        raise RuntimeError(f"{name} failed with cudaError_t {err} (M={m}, K={k}, N={n})")
+
+
+def _gate_up(x, w_gate, w_up) -> torch.Tensor:
+    """The gate-up kernel on checked CUDA tensors → h [M, F] bf16."""
+    m, d = x.shape
+    f = w_gate.shape[1]
+    h = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    _call("tst_swiglu_gate_up", (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr()),
+          m, d, f, x.device)
+    return h
+
+
+def _down(h, w_down) -> torch.Tensor:
+    """The down kernel on checked CUDA tensors → out [M, D] bf16."""
+    m, f = h.shape
+    d = w_down.shape[1]
+    out = torch.empty((m, d), dtype=h.dtype, device=h.device)
+    _call("tst_swiglu_down", (h.data_ptr(), w_down.data_ptr(), out.data_ptr()), m, f, d, h.device)
+    return out
+
+
+def _launch(x, w_gate, w_up, w_down) -> torch.Tensor:
+    """The kernel pair on checked CUDA tensors → out [M, D] bf16."""
+    global LAUNCHES
+    out = _down(_gate_up(x, w_gate, w_up), w_down)
     LAUNCHES += 1
     return out
 

@@ -17,11 +17,18 @@ fallback); for CPU tensors it takes the plain version,
 with f32 accumulation: ``qdot``'s numbers). The TPU kernel's limits (M a
 multiple of 8, N/2 a multiple of 128) do not apply: the CUDA kernel takes
 any M, K a multiple of 128 and N/2 a multiple of 64. Inference only.
+
+One call is one launch. K is split over the blocks of a thread-block
+cluster by :func:`split_plan`, computed once a shape; the entry point is
+typed once, and the wrapper allocates only the output: the decode step makes
+168 of these calls, and their host cost is most of the step.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
@@ -34,6 +41,12 @@ LAUNCHES = 0
 GROUP = INT4_GROUP
 #: the kernel's constraint on N/2 (packed columns per block)
 NH_MULTIPLE = 64
+#: rows of y a block takes (the row tiles of M)
+BLOCK_M = 64
+#: blocks of a cluster, i.e. K splits at most (the portable cluster size)
+MAX_SPLITS = 8
+#: blocks a call aims for: one on each of an H100's 132 SMs
+TARGET_BLOCKS = 132
 _ENTRY = "tst_int4_matmul"
 
 
@@ -67,20 +80,37 @@ def check_kernel_args(y: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if y.shape[0] == 0 or q.shape[2] % NH_MULTIPLE:
         raise ValueError(f"the kernel takes M >= 1 and N/2 a multiple of {NH_MULTIPLE}; got "
                          f"M={y.shape[0]}, N/2={q.shape[2]}")
+    device = y.get_device()  # an int: cheaper than comparing torch.device objects
     for name, t, dtype in (("y", y, torch.bfloat16), ("q", q, torch.int8),
                            ("scale", scale, torch.float32)):
         if t.dtype != dtype:
             raise ValueError(f"{name} is {t.dtype}; the kernel takes {dtype}")
-        if t.device != y.device:
+        if t.get_device() != device:
             raise ValueError(f"{name} is on {t.device}, y on {y.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _fn(name: str, argtypes):
-    fn = getattr(_build.library(), name)
+@functools.lru_cache(maxsize=None)
+def split_plan(m: int, k: int, n_half: int) -> Tuple[int, int]:
+    """(splits, groups per split) of K's 128-row groups for a call: enough
+    splits that the column blocks times the row tiles times the splits come
+    near TARGET_BLOCKS, at most MAX_SPLITS (one cluster) and at most one
+    split a group; split s takes groups [s·per, min((s + 1)·per, groups)),
+    and none is empty."""
+    groups = k // GROUP
+    blocks = (n_half // NH_MULTIPLE) * -(-m // BLOCK_M)
+    want = max(1, min(MAX_SPLITS, groups, -(-TARGET_BLOCKS // blocks)))
+    per = -(-groups // want)
+    return -(-groups // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The library's C entry, typed once."""
+    fn = getattr(_build.library(), _ENTRY)
     fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return fn
 
 
@@ -89,14 +119,11 @@ def _launch(y, q, scale, layer: int) -> torch.Tensor:
     global LAUNCHES
     m, k = y.shape
     n_half = q.shape[2]
-    splits = _fn("tst_int4_matmul_splits", [ctypes.c_int] * 3)(m, k, n_half)
-    out = torch.empty((m, 2 * n_half), dtype=torch.float32, device=y.device)
-    ws = (torch.empty((splits, m, 2 * n_half), dtype=torch.float32, device=y.device)
-          if splits > 1 else None)
-    fn = _fn(_ENTRY, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    err = fn(y.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-             None if ws is None else ws.data_ptr(), m, k, n_half, int(layer), splits,
-             y.device.index, torch.cuda.current_stream(y.device).cuda_stream)
+    device = y.device
+    out = torch.empty((m, 2 * n_half), dtype=torch.float32, device=device)
+    err = _entry()(y.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n_half,
+                   layer, split_plan(m, k, n_half)[0], device.index,
+                   _build.current_stream(device))
     if err != 0:
         raise RuntimeError(f"{_ENTRY} failed with cudaError_t {err} (y {tuple(y.shape)}, "
                            f"q {tuple(q.shape)}, layer {layer})")
