@@ -41,7 +41,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                width, k=2 folds x 16 rows, 3 epochs, LoRA r16 on q/k/v/o,
                bf16, synthetic:0.5, n=512) through the CLI entry point; the
                three kernels' launch counts must be what the run's own step
-               and chunk counts imply; report.json and the s(x) table; then
+               and chunk counts imply; report.json and the s(x) table, with
+               the RF cross-check of the default config (a finite
+               rf_sft_spearman and rf_blind_accuracy, and its wall); then
                the median train-step time after the first step;
   7. train, kernel vs plain — one fold-parallel step's LoRA gradients and
                losses through the kernels against ``model.use_pallas=false``
@@ -98,7 +100,27 @@ Phases, each printing one line; any failure raises and exits non-zero:
                and the s(x) table; one step's LoRA gradients and fold losses
                against the unfused plain path; median step time fused against
                unfused, their peak device memory, and a profile of the fused
-               step.
+               step;
+ 15. diagnose-rf — ``python -m tst_torch diagnose-rf`` (synthetic:0.5, n=512,
+               k=5) through the CLI, the port's own forest fit on the host and
+               the forests traversed on the card: each fold's forest traversed
+               on the host path gives probabilities within 1e-6 and the same
+               s(x) ranking; no kernel launches; blind accuracy above chance
+               (the benchmark plants a length bias); the fit's wall and the
+               traversal's time on the card;
+ 16. debias-ibp — ``python -m tst_torch debias-ibp`` (Qwen2.5-0.5B at full
+               width, bf16, synthetic-vsi:0.4, n=512, phase 6's training, 3
+               rounds, stop_epsilon -1) through the CLI: 3 rounds; the audit
+               rows, debiased.jsonl + removed.jsonl and sx.jsonl's kept column
+               add up; ibp_report.json is strict JSON; the three attention
+               kernels launch as the rounds' own steps, scorer chunks and
+               decode prefills imply; round 0's held-out MCQ s(x) on its final
+               adapters through the plain attention at Spearman >= 0.999; each
+               round's stage walls and the peak device memory;
+ 17. debias-ibp-rf — the same subcommand with ``ibp.diagnostic=rf``
+               (synthetic:0.5, n=512, k=3, 2 rounds): each round prunes
+               prune_mask's budget, the audit and split add up, no kernel
+               launches.
 
 The second-to-last line is the per-kernel JSON record (launches on the
 main path, error, kernel, plain and library times, and the bound: the
@@ -145,7 +167,7 @@ TRAIN_SHAPE = (32, 512, 14, 2, 64)
 GRAD_TOL = 2e-2
 TRAIN = ["diagnose-sft", "--bench", "synthetic:0.5", "--set", "data.n=512",
          "--set", "data.k=2", "--set", "optim.batch_size=16", "--set", "optim.epochs=3",
-         "--set", "model.name=qwen2.5-0.5b", "--set", "rf.cross_check=false"]
+         "--set", "model.name=qwen2.5-0.5b"]  # the default rf.cross_check=true
 #: rows per fold of the kernel-vs-plain step: the plain attention keeps
 #: several f32 [rows, 14, 512, 512] tensors per layer for its backward
 PLAIN_ROWS = 4
@@ -199,6 +221,28 @@ MAX_NEW, INT4_PROJ, DECODE_ROWS = 12, 7, 32
 LOGIT_TOL = 2e-2
 TRAIN_FUSED = ([a.replace("synthetic:0.5", "synthetic-vsi:0.4") for a in TRAIN]
                + ["--set", "model.quantize=int4", "--set", "model.fused_mlp=true"])
+#: the RF auditor on the planted-bias benchmark (forests traversed on the card)
+RF = ["diagnose-rf", "--bench", "synthetic:0.5", "--set", "data.n=512", "--k", "5"]
+#: the device traversal against the host one: the same trees, f32 mean over
+#: trees against sklearn's f64 sum
+RF_TOL = 1e-6
+#: IBP with the SFT diagnostic on phase 14's mix, the train geometry of phase
+#: 6; stop_epsilon -1, so the loop at random weights (blind accuracy near
+#: chance) still prunes every round
+IBP_ROUNDS = 3
+IBP = ["debias-ibp", "--bench", "synthetic-vsi:0.4", "--set", "data.n=512", "--k", "2",
+       "--set", "optim.batch_size=16", "--set", "optim.epochs=3",
+       "--set", f"ibp.rounds={IBP_ROUNDS}", "--set", "ibp.stop_epsilon=-1",
+       "--set", "model.name=qwen2.5-0.5b"]
+#: round 0's held-out MCQ s(x), kernels against the plain attention on the
+#: same adapters: the bf16 rank rule (ROADMAP, "Hold parity on the same inputs")
+IBP_SPEARMAN = 0.999
+IBP_RF_ROUNDS = 2
+IBP_RF = ["debias-ibp", "--bench", "synthetic:0.5", "--set", "data.n=512", "--k", "3",
+          "--set", "ibp.diagnostic=rf", "--set", f"ibp.rounds={IBP_RF_ROUNDS}",
+          "--set", "ibp.stop_epsilon=-1"]
+#: prune_mask's floor of survivors
+IBP_MIN_KEEP = 8
 
 
 def median_ms(fn, samples=30, reps=10, warmup=3):
@@ -313,6 +357,80 @@ def fold_losses_agree(loss_k, loss_p):
     k, p = np.asarray(loss_k, np.float64), np.asarray(loss_p, np.float64)
     gap = float(np.max(np.abs(k - p) / np.abs(p)))
     return gap, bool(gap <= LOSS_RTOL)
+
+
+def strict_json(text):
+    """``json.loads`` that refuses NaN and ±Infinity, which Python's json
+    writes and a strict reader rejects."""
+    def refuse(name):
+        raise ValueError(f"not strict JSON: {name}")
+
+    return json.loads(text, parse_constant=refuse)
+
+
+def check_audit(report, n):
+    """An IBP report's rounds add up: round 0 starts from all ``n`` rows,
+    each round's n_alive is the previous round's less what it pruned, and
+    the last round's less what it pruned is n_debiased."""
+    rows = report["per_round"]
+    alive = [row["n_alive"] for row in rows]
+    pruned = [row.get("pruned_this_round", 0) for row in rows]
+    want = [n] + [a - p for a, p in zip(alive, pruned)]
+    if not rows or alive + [report["n_debiased"]] != want:
+        raise AssertionError(f"IBP audit does not add up: n_alive {alive}, pruned {pruned}, "
+                             f"n_debiased {report['n_debiased']}, n {n}")
+
+
+def check_split(n, kept_ids, removed_ids, sx_rows):
+    """debiased.jsonl and removed.jsonl partition the ``n`` rows, and the
+    ``kept`` column of sx.jsonl names the same rows."""
+    kept, removed = set(kept_ids), set(removed_ids)
+    sx_kept = {r["id"] for r in sx_rows if r["kept"] == 1.0}
+    sx_removed = {r["id"] for r in sx_rows if r["kept"] == 0.0}
+    if (len(kept_ids) + len(removed_ids) != n or kept & removed or len(sx_rows) != n
+            or sx_kept != kept or sx_removed != removed):
+        raise AssertionError(f"IBP split: {len(kept_ids)} kept + {len(removed_ids)} removed "
+                             f"of {n}; sx.jsonl {len(sx_rows)} rows, {len(sx_kept)} kept, "
+                             f"{len(sx_removed)} removed")
+
+
+def ibp_launches_want(plan, n_layers=N_LAYERS):
+    """The attention kernels' launches that IBP rounds imply, each round of
+    ``plan`` given as its train steps, scorer chunks and decode prefill
+    chunks (summed over the round's seeds and scoring passes): one forward a
+    layer for each step, chunk and prefill, one dK/dV and one dQ a layer for
+    each step, and nothing else."""
+    steps = sum(p["steps"] for p in plan)
+    fwd = steps + sum(p["scorer_chunks"] + p["decode_chunks"] for p in plan)
+    return {"fwd": n_layers * fwd, "dkv": n_layers * steps, "dq": n_layers * steps,
+            "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0}
+
+
+def check_launches(counts, want, what):
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, want {want}")
+
+
+def same_ranking(s_dev, s_host, tol=2 * RF_TOL):
+    """The host s(x)'s order (most biased first, NaN last, ties by index)
+    sorts the device s(x) too: NaN in the same rows, and no later row above
+    an earlier one by more than ``tol`` (what the traversals' rounding can
+    move)."""
+    s_dev, s_host = np.asarray(s_dev, np.float64), np.asarray(s_host, np.float64)
+    if not np.array_equal(np.isnan(s_dev), np.isnan(s_host)):
+        return False
+    order = np.argsort(-np.where(np.isnan(s_host), -np.inf, s_host), kind="stable")
+    ranked = s_dev[order][np.isfinite(s_dev[order])]
+    return bool(np.all(np.diff(ranked) <= tol))
+
+
+def pruned_as_implied(report, rate, min_keep=IBP_MIN_KEEP):
+    """Every round pruned prune_mask's budget, round(rate · n_alive) capped
+    at n_alive - min_keep: what a set with a finite s(x) on every row
+    implies."""
+    return all(row.get("pruned_this_round") == min(int(round(rate * row["n_alive"])),
+                                                   row["n_alive"] - min_keep)
+               for row in report["per_round"])
 
 
 def phase_device():
@@ -723,15 +841,20 @@ def phase_train():
             "mlp": 0}
     loss = report["final_loss"]
     sx = np.array([r["s_x"] for r in rows], np.float64)
+    rf_rho, rf_acc = report.get("rf_sft_spearman"), report.get("rf_blind_accuracy")
     if (rc != 0 or counts != want or report["n_mcq"] != N_SAMPLES or len(rows) != N_SAMPLES
             or not (loss is not None and math.isfinite(loss))
-            or not ((sx >= 0) & (sx <= 1)).all()):
+            or not ((sx >= 0) & (sx <= 1)).all()
+            or not all(isinstance(v, float) and math.isfinite(v) for v in (rf_rho, rf_acc))):
         raise AssertionError(f"diagnose-sft rc={rc}, launches {counts} (want {want}), "
-                             f"n_mcq {report['n_mcq']}, sx rows {len(rows)}, final_loss {loss}")
+                             f"n_mcq {report['n_mcq']}, sx rows {len(rows)}, final_loss {loss}, "
+                             f"rf_sft_spearman {rf_rho}, rf_blind_accuracy {rf_acc}")
     print(f"[train] diagnose-sft rc=0, {steps} steps x {k} folds, {chunks} scorer chunks; "
           f"launches fwd {counts['fwd']} dkv {counts['dkv']} dq {counts['dq']} (as implied); "
           f"final_loss {loss:.4f}, blind_accuracy {report['blind_accuracy']:.4f}, "
-          f"fold_accuracies {report['fold_accuracies']}; train {report['train_wall_seconds']} s "
+          f"fold_accuracies {report['fold_accuracies']}; RF cross-check (rf.cross_check, the "
+          f"default): rf_sft_spearman {rf_rho}, rf_blind_accuracy {rf_acc}, wall "
+          f"{report['rf_cross_check_wall_seconds']} s; train {report['train_wall_seconds']} s "
           f"({report['train_samples_per_sec']} samples/s incl. the first step "
           f"{report['train_first_step_seconds']} s), scoring "
           f"{report['score_mcq_wall_seconds']} s, CLI wall {wall:.2f} s; peak device memory "
@@ -1575,12 +1698,254 @@ def phase_train_fused():
     return counts
 
 
+def _read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_diagnose_rf(device):
+    """``diagnose-rf`` through the CLI, the forests traversed on the card:
+    each fold's forest traversed again on the host path (the same trees,
+    f64 thresholds) gives the same probabilities and the same s(x) ranking;
+    no kernel runs; the planted length bias lifts blind accuracy above
+    chance. The fit's wall, and the traversal's time on the card and on the
+    host."""
+    from tst_torch import cli
+    from tst_torch.diagnose.score import bias_scores
+    from tst_torch.features import forest as tforest
+
+    folds = []
+    fit, full = tforest.RandomForest.fit, tforest.RandomForest.predict_proba_full
+
+    def timed_fit(self, x, y):
+        t0 = time.perf_counter()
+        out = fit(self, x, y)
+        folds.append({"fit_s": time.perf_counter() - t0, "n_train": len(y)})
+        return out
+
+    def recorded(self, x, n_classes, backend="jax"):
+        probs = full(self, x, n_classes, backend)
+        folds[-1].update(forest=self, x=x, n_classes=n_classes, backend=backend, probs=probs)
+        return probs
+
+    out_dir = tempfile.mkdtemp(prefix="tst_torch_rf_")
+    _zero_launch_counts()
+    tforest.RandomForest.fit, tforest.RandomForest.predict_proba_full = timed_fit, recorded
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(RF + ["--out", out_dir])
+        wall = time.perf_counter() - t0
+    finally:
+        tforest.RandomForest.fit, tforest.RandomForest.predict_proba_full = fit, full
+    counts = _launch_counts()
+    with open(os.path.join(out_dir, "report.json")) as f:
+        report = json.load(f)
+    rows = _read_jsonl(os.path.join(out_dir, "sx.jsonl"))
+    cfg, _ = cli._resolve_k(cli.build_parser().parse_args(RF))
+    ds = cli._load_dataset(cfg)
+    gold = np.array([s.answer_index for s in ds], np.int32)
+    n_opts = np.array([len(s.options) for s in ds], np.int32)
+    fold = np.array([r["fold"] for r in rows])
+    s_dev = np.array([np.nan if r["s_x"] is None else r["s_x"] for r in rows], np.float64)
+    probs_host = np.full((len(ds), folds[0]["n_classes"]), np.nan, np.float32)
+    err, host_s = 0.0, 0.0
+    for f, rec in enumerate(folds):
+        forest = rec["forest"]
+        if rec["backend"] != "jax" or forest.packed().feature.device.type != "cuda":
+            raise AssertionError(f"fold {f} was not traversed on the card: backend "
+                                 f"{rec['backend']}, device {forest.packed().feature.device}")
+        t0 = time.perf_counter()
+        host = forest.predict_proba_full(rec["x"], rec["n_classes"], backend="sklearn")
+        host_s += time.perf_counter() - t0
+        err = max(err, float(np.abs(host - rec["probs"]).max()))
+        probs_host[(fold == f) & (gold >= 0)] = host
+    s_host = bias_scores(np.nan_to_num(probs_host), gold, n_opts, rule=cfg.rf.score_rule)
+    s_host = np.where(np.isfinite(probs_host).all(-1), s_host, np.nan)
+    packed = folds[0]["forest"].packed()
+    xt = torch.as_tensor(folds[0]["x"], device=device)
+    dev_ms = median_ms(lambda: tforest.forest_predict_proba(packed, xt), samples=10, reps=3)
+    acc, chance = report["blind_accuracy"], report["chance_accuracy"]
+    zero = {key: 0 for key in counts}
+    print(f"[diagnose-rf] diagnose-rf synthetic:0.5 n=512 k={cfg.data.k} rc={rc}: "
+          f"blind_accuracy {acc:.4f} (chance {chance:.4f}), fold_accuracies "
+          f"{report['fold_accuracies']}, top features {list(report['top_features'])[:5]}; "
+          f"device vs host traversal of the same {len(folds)} forests of {cfg.rf.n_estimators} "
+          f"trees: max|dprob| {err:.3e} (<= {RF_TOL}), same s(x) ranking "
+          f"{same_ranking(s_dev, s_host)}; kernel launches {sum(counts.values())} (must be 0)")
+    print(f"[diagnose-rf] fit (the port's own CART forest, host numpy) "
+          f"{sum(r['fit_s'] for r in folds):.2f} s over {len(folds)} folds "
+          f"({[round(r['fit_s'], 3) for r in folds]} s at {[r['n_train'] for r in folds]} rows, "
+          f"{folds[0]['x'].shape[1]} features); traversal of fold 0 ({len(folds[0]['x'])} rows, "
+          f"max depth {packed.max_depth}, {packed.feature.shape[1]} nodes): card {dev_ms:.4f} ms "
+          f"(median of 10 x 3 calls), host {host_s / len(folds) * 1e3:.2f} ms a fold; CLI wall "
+          f"{wall:.2f} s")
+    if (rc != 0 or err > RF_TOL or not same_ranking(s_dev, s_host) or counts != zero
+            or not acc > chance or len(rows) != len(ds)):
+        raise AssertionError("diagnose-rf on the card failed its gates")
+    return {"fit_s": sum(r["fit_s"] for r in folds), "traverse_ms": dev_ms, "max_abs_err": err}
+
+
+def _ibp_artifacts(out_dir, n):
+    """The IBP run's report (strict JSON), audit and split, checked."""
+    from tst_torch.data.schema import BlindDataset
+
+    with open(os.path.join(out_dir, "ibp_report.json")) as f:
+        report = strict_json(f.read())
+    check_audit(report, n)
+    kept = [s.id for s in BlindDataset.load_jsonl(os.path.join(out_dir, "debiased.jsonl"))]
+    removed = [s.id for s in BlindDataset.load_jsonl(os.path.join(out_dir, "removed.jsonl"))]
+    check_split(n, kept, removed, _read_jsonl(os.path.join(out_dir, "sx.jsonl")))
+    return report, len(kept), len(removed)
+
+
+def ibp_round_plan(runner, alive, r):
+    """What an SFT round of IBP launches, from the round's own survivors:
+    its train steps (the batches it draws), its scorer chunks (each fold's
+    held-out MCQ rows in chunks of 32, per scoring pass) and its decode
+    prefill chunks (the surviving numeric rows, as the held-out decode
+    sizes them), as ``_SftRoundRunner.run_round`` builds them."""
+    from tst_torch.data.folds import kfold_assign
+    from tst_torch.train.sft import make_fold_batches
+
+    cfg, k, ds = runner.cfg, runner.k, runner.ds
+    sub_idx = np.flatnonzero(alive)
+    fold = np.full(len(ds), -1, np.int32)
+    fold[sub_idx] = kfold_assign(ds.subset(sub_idx), k, cfg.data.seed + 1000 * r)
+    seeds = max(int(cfg.optim.n_seeds), 1)
+    steps = sum(make_fold_batches(fold, k, cfg.optim.batch_size, cfg.optim.epochs,
+                                  cfg.data.seed + r + 31 * s, batch_multiple=cfg.mesh.data,
+                                  include_mask=alive).shape[0] for s in range(seeds))
+    mcq_fold = np.where(runner.tb.gold >= 0, fold, -1)
+    passes = seeds * (len(runner.score_after) + 1)
+    chunks = passes * k * math.ceil(max(int((mcq_fold == f).sum()) for f in range(k))
+                                    / SCORER_BATCH)
+    numeric = _numeric_rows(ds)
+    numeric = numeric[alive[numeric]]
+    dchunks = 0
+    if len(numeric):
+        dchunks = seeds * _decode_chunks(runner.spec, runner.params, runner.tokens.shape[1],
+                                         fold[numeric], k)[1]
+    return {"steps": steps, "scorer_chunks": chunks, "decode_chunks": dchunks}
+
+
+def phase_debias_ibp():
+    """``debias-ibp`` with the SFT diagnostic through the CLI: the rounds,
+    the audit and the split add up, the report is strict JSON, the attention
+    kernels launch as the rounds' own steps, scorer chunks and decode
+    prefills imply; round 0's final adapters re-score its held-out MCQ rows
+    through the plain attention, and the two s(x) agree in rank."""
+    from tst_torch import cli
+    from tst_torch.debias import ibp as tibp
+    from tst_torch.diagnose.score import bias_scores
+    from tst_torch.eval.parity import spearman
+
+    rounds = []
+    run_round, score = tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq
+
+    def recorded_round(self, r, alive):
+        rounds.append({"round": r, "alive": alive.copy(), "runner": self})
+        return run_round(self, r, alive)
+
+    def recorded_score(*args, **kw):
+        probs = score(*args, **kw)
+        if len(rounds) == 1:  # round 0: keep its last scoring pass's adapters
+            lora = {p: {n: t.clone() for n, t in ab.items()} for p, ab in args[1].items()}
+            rounds[0]["score"] = (args[:1] + (lora,) + args[2:], kw, probs)
+        return probs
+
+    out_dir = tempfile.mkdtemp(prefix="tst_torch_ibp_")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq = recorded_round, recorded_score
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(IBP + ["--out", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq = run_round, score
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    report, n_kept, n_removed = _ibp_artifacts(out_dir, N_SAMPLES)
+    for rec in rounds:
+        rec["plan"] = ibp_round_plan(rec["runner"], rec["alive"], rec["round"])
+    want = ibp_launches_want([r["plan"] for r in rounds])
+    if rc != 0 or report["rounds_run"] != IBP_ROUNDS or len(rounds) != IBP_ROUNDS:
+        raise AssertionError(f"debias-ibp rc={rc}, rounds_run {report['rounds_run']}, "
+                             f"rounds recorded {len(rounds)}")
+    check_launches(counts, want, "debias-ibp")
+    walls = [{key: v for key, v in row.items() if key.startswith("round_")}
+             for row in report["per_round"]]
+    print(f"[debias-ibp] debias-ibp synthetic-vsi:0.4 n=512 k=2, {IBP_ROUNDS} rounds rc=0: "
+          f"stop {report['stop_reason']}, n_alive {[r['n_alive'] for r in report['per_round']]}, "
+          f"pruned {[r['pruned_this_round'] for r in report['per_round']]}, n_debiased "
+          f"{report['n_debiased']} (debiased.jsonl {n_kept} + removed.jsonl {n_removed}; audit, "
+          f"split and kept column agree; strict JSON); blind accuracy by round "
+          f"{[round(r['blind_accuracy'], 4) for r in report['per_round']]} (chance "
+          f"{[round(r['chance'], 4) for r in report['per_round']]}), numeric MRA "
+          f"{[r.get('numeric_mra') for r in report['per_round']]}; rf_sft_spearman "
+          f"{report.get('rf_sft_spearman')}; rounds' plans {[r['plan'] for r in rounds]}; "
+          f"launches fwd {counts['fwd']} dkv {counts['dkv']} dq {counts['dq']} (as implied); "
+          f"CLI wall {wall:.2f} s; peak device memory {peak_gb:.2f} GB")
+    print(f"[debias-ibp] round walls (s): {json.dumps(walls)}")
+
+    # round 0's final adapters: its held-out MCQ rows through the plain attention
+    args, kw, probs_k = rounds[0]["score"]
+    runner = rounds[0]["runner"]
+    t0 = time.perf_counter()
+    probs_p = score(*args, **{**kw, "use_pallas": False})
+    plain_s = time.perf_counter() - t0
+    mcq = args[8] >= 0
+    gold, n_opts, rule = runner.tb.gold, runner.tb.n_options, runner.cfg.rf.score_rule
+    s_k, s_p = (bias_scores(p, gold, n_opts, rule=rule)[mcq] for p in (probs_k, probs_p))
+    rho = spearman(s_k, s_p)
+    print(f"[debias-ibp] round 0's held-out s(x) on its final adapters, {int(mcq.sum())} MCQ "
+          f"rows: kernels vs plain attention Spearman {rho:.6f} (>= {IBP_SPEARMAN}), "
+          f"max|dprob| {float(np.abs(probs_k - probs_p)[mcq].max()):.3e}; plain scoring "
+          f"{plain_s:.2f} s")
+    if not rho >= IBP_SPEARMAN:
+        raise AssertionError("IBP round 0's s(x) through the kernels disagrees in rank with "
+                             "the plain attention")
+    del rounds, runner, args
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_debias_ibp_rf():
+    """``debias-ibp --set ibp.diagnostic=rf`` through the CLI: two rounds,
+    each pruning prune_mask's budget, the audit and split adding up, and no
+    kernel launched."""
+    from tst_torch import cli
+
+    out_dir = tempfile.mkdtemp(prefix="tst_torch_ibp_rf_")
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(IBP_RF + ["--out", out_dir])
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    report, n_kept, n_removed = _ibp_artifacts(out_dir, N_SAMPLES)
+    cfg, _ = cli._resolve_k(cli.build_parser().parse_args(IBP_RF))
+    print(f"[debias-ibp-rf] debias-ibp ibp.diagnostic=rf synthetic:0.5 n=512 k={cfg.data.k} "
+          f"rc={rc}: rounds_run {report['rounds_run']}, n_alive "
+          f"{[r['n_alive'] for r in report['per_round']]}, pruned "
+          f"{[r.get('pruned_this_round') for r in report['per_round']]} (prune_rate "
+          f"{cfg.ibp.prune_rate}), n_debiased {report['n_debiased']} ({n_kept} + {n_removed}); "
+          f"blind accuracy by round {[round(r['blind_accuracy'], 4) for r in report['per_round']]}"
+          f"; round walls {[r['round_wall_s'] for r in report['per_round']]} s; kernel launches "
+          f"{sum(counts.values())} (must be 0); CLI wall {wall:.2f} s")
+    if (rc != 0 or report["rounds_run"] != IBP_RF_ROUNDS
+            or not pruned_as_implied(report, cfg.ibp.prune_rate)
+            or counts != {key: 0 for key in counts}):
+        raise AssertionError("debias-ibp with the RF diagnostic failed its gates")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["rank", "mlp-int4"], default=None,
                         help="rank: the attention kernels against the library at the train "
                              "shape; mlp-int4: K3 and K4 against their plain versions, timed "
-                             "(either runs on any build of tst_torch, so also a parent commit's)")
+                             "(either runs on any build of tst_torch, so also a parent "
+                             "commit's)")
     args = parser.parse_args(argv)
     device = phase_device()
     phase_build(sass=args.only is None)
@@ -1603,20 +1968,23 @@ def main(argv=None):
     mlp = phase_kernel_mlp(device)
     decode = phase_decode_slice()
     fused = phase_train_fused()
+    phase_diagnose_rf(device)
+    ibp = phase_debias_ibp()
+    phase_debias_ibp_rf()
     records = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
          "replaces": "tst/kernels/flash_attention.py:99",
-         "launches": counts["fwd"], "launches_eval_blind": blind_launches, **kern,
-         **bwd["fwd"]},
+         "launches": counts["fwd"], "launches_eval_blind": blind_launches,
+         "launches_debias_ibp": ibp["fwd"], **kern, **bwd["fwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:553",
-         "launches": counts["dkv"], **bwd["dkv"]},
+         "launches": counts["dkv"], "launches_debias_ibp": ibp["dkv"], **bwd["dkv"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:518",
-         "launches": counts["dq"], **bwd["dq"]},
+         "launches": counts["dq"], "launches_debias_ibp": ibp["dq"], **bwd["dq"]},
         {"name": "flash_attention_fwd_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
          "replaces": "tst/kernels/flash_attention.py:464",

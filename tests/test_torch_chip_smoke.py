@@ -8,6 +8,7 @@ import math
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -164,3 +165,103 @@ def test_fold_loss_bound_is_relative(loss_k, loss_p, ok):
     assert agree is ok
     if ok:
         assert gap <= chip_smoke.LOSS_RTOL == 1e-3
+
+
+# The gates of phases 15-17 (diagnose-rf, debias-ibp): each on a synthetic
+# input that passes and on one that must fail.
+
+def _ibp_report(n_alive, pruned, n_debiased):
+    rows = [{"round": r, "n_alive": a, "pruned_this_round": p}
+            for r, (a, p) in enumerate(zip(n_alive, pruned))]
+    return {"per_round": rows, "n_debiased": n_debiased}
+
+
+@pytest.mark.parametrize("n_alive,pruned,n_debiased,ok", [
+    ([512, 461, 415], [51, 46, 41], 374, True),
+    ([512, 461, 415], [51, 46, 41], 415, False),   # the last round's pruning left out
+    ([512, 460, 415], [51, 46, 41], 374, False),   # round 1 does not follow round 0
+    ([500, 450], [50, 45], 405, False),            # round 0 does not start from all rows
+])
+def test_ibp_audit_gate(n_alive, pruned, n_debiased, ok):
+    report = _ibp_report(n_alive, pruned, n_debiased)
+    if ok:
+        chip_smoke.check_audit(report, 512)
+    else:
+        with pytest.raises(AssertionError, match="does not add up"):
+            chip_smoke.check_audit(report, 512)
+
+
+def test_ibp_audit_gate_reads_a_stopped_round_as_no_pruning():
+    """A loop that stopped at its signals writes no pruned_this_round on the
+    last row: that round pruned nothing."""
+    report = _ibp_report([512, 461], [51], 461)
+    chip_smoke.check_audit(report, 512)
+
+
+@pytest.mark.parametrize("text,ok", [
+    ('{"sx_seed_spearman": 0.5, "rounds": [1, 2]}', True),
+    ('{"sx_seed_spearman": NaN}', False),
+    ('{"rf_sft_spearman": -Infinity}', False),
+])
+def test_strict_json_gate(text, ok):
+    if ok:
+        assert chip_smoke.strict_json(text)["sx_seed_spearman"] == 0.5
+    else:
+        with pytest.raises(ValueError, match="not strict JSON"):
+            chip_smoke.strict_json(text)
+
+
+@pytest.mark.parametrize("case", ["agree", "kept column off", "row in both", "row missing"])
+def test_ibp_split_gate(case):
+    ids = [f"r{i}" for i in range(6)]
+    kept, removed = ids[:4], ids[4:]
+    sx = [{"id": i, "kept": 1.0 if i in kept else 0.0} for i in ids]
+    if case == "kept column off":
+        sx[0]["kept"] = 0.0
+    elif case == "row in both":
+        removed = removed + ["r0"]
+    elif case == "row missing":
+        kept = kept[1:]
+    if case == "agree":
+        chip_smoke.check_split(6, kept, removed, sx)
+    else:
+        with pytest.raises(AssertionError, match="IBP split"):
+            chip_smoke.check_split(6, kept, removed, sx)
+
+
+#: three rounds of Qwen2.5-0.5B: train steps, scorer chunks, decode prefills
+IBP_PLAN = [{"steps": 51, "scorer_chunks": 14, "decode_chunks": 2},
+            {"steps": 48, "scorer_chunks": 14, "decode_chunks": 2},
+            {"steps": 42, "scorer_chunks": 12, "decode_chunks": 2}]
+
+
+def test_ibp_launch_arithmetic():
+    want = chip_smoke.ibp_launches_want(IBP_PLAN)
+    assert want == {"fwd": 24 * (141 + 40 + 6), "dkv": 24 * 141, "dq": 24 * 141,
+                    "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0}
+    chip_smoke.check_launches(dict(want), want, "debias-ibp")
+
+
+@pytest.mark.parametrize("key,delta", [("fwd", -24), ("dq", 24), ("fwd_seg", 24), ("int4", 1)])
+def test_ibp_launch_gate_fails_off_the_plan(key, delta):
+    """A round's scorer chunk not launched, a step too many, a segmented or
+    int4 launch that the run cannot have made: each fails."""
+    want = chip_smoke.ibp_launches_want(IBP_PLAN)
+    with pytest.raises(AssertionError, match="debias-ibp: launches"):
+        chip_smoke.check_launches({**want, key: want[key] + delta}, want, "debias-ibp")
+
+
+@pytest.mark.parametrize("s_dev,ok", [
+    ([0.9, 0.5, 0.5 + 1e-7, np.nan, 0.1], True),   # a tie the rounding breaks
+    ([0.9, 0.5, 0.6, np.nan, 0.1], False),         # rows 1 and 2 swap decisively
+    ([0.9, 0.5, 0.5, 0.3, 0.1], False),            # NaN in another row
+])
+def test_rf_ranking_gate(s_dev, ok):
+    s_host = np.array([0.9, 0.5, 0.5, np.nan, 0.1])
+    assert chip_smoke.same_ranking(np.array(s_dev), s_host) is ok
+
+
+@pytest.mark.parametrize("pruned,ok", [([51, 46], True), ([51, 45], False), ([50, 46], False)])
+def test_rf_ibp_pruning_gate(pruned, ok):
+    report = _ibp_report([512, 461], pruned, 461 - pruned[1])
+    assert chip_smoke.pruned_as_implied(report, 0.1) is ok

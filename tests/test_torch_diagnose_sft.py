@@ -49,7 +49,19 @@ CPU_TINY = ["--set", "model.name=tiny", "--set", "model.dtype=float32"]
 #: report fields that are wall-clock times
 WALLS = {"wall_seconds", "train_wall_seconds", "train_first_step_seconds",
          "train_samples_per_sec", "setup_wall_seconds", "score_mcq_wall_seconds",
-         "numeric_decode_wall_seconds", "open_decode_wall_seconds"}
+         "numeric_decode_wall_seconds", "open_decode_wall_seconds",
+         "rf_cross_check_wall_seconds"}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's tiny CPU runs issue many small ops: on one thread each they
+    do not spin against the other test workers' threads (under a loaded
+    host, eight threads a worker made such a run many times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _cfg(out_dir, n=48, *extra, config=tconfig):
@@ -65,8 +77,8 @@ def _jax_spec(tokenizer):
 
 
 def _bridge_port(monkeypatch, quantize=None):
-    """The port's model (plain, or quantized to ``quantize`` bits) and
-    initial adapters become the JAX package's."""
+    """The port's model (plain, or quantized to ``quantize`` bits) and initial
+    adapters become the JAX package's."""
 
     def bridged_model(cfg, tokenizer, device):
         spec = _jax_spec(tokenizer)
@@ -112,13 +124,17 @@ def _assert_close(got, want, key):
     (48, []),
     (24, ["optim.epochs=2", "optim.score_epochs=[1]", "optim.n_seeds=2"]),
     (48, ["optim.pack=true"]),
+    (48, ["rf.cross_check=true", "rf.n_estimators=30"]),
 ])
 def test_diagnose_sft_matches_reference(tmp_path, monkeypatch, n, extra):
     """The whole slice, same data, weights and initial adapters: the same
     report.json and sx.jsonl, wall times aside. The second case adds an
     earlier snapshot to s(x) and a second seed (sx_seed_spearman and
     sx_seed_top_jaccard); the third packs the train rows and the held-out
-    rows three samples to a row of 1024 (pack_len, pack_fill_fraction)."""
+    rows three samples to a row of 1024 (pack_len, pack_fill_fraction); the
+    fourth runs the RF cross-check, the default, with the port's own forest
+    fit against the reference's scikit-learn fit (rf_sft_spearman,
+    rf_blind_accuracy and its stage wall)."""
     ds = load_benchmark("synthetic:0.5", n=n, seed=0)
     want = jpipe.run_sft_diagnostic(ds, _cfg(tmp_path / "jax", n, "model.use_pallas=false",
                                              *extra, config=config_mod))
@@ -137,6 +153,7 @@ def test_diagnose_sft_matches_reference(tmp_path, monkeypatch, n, extra):
         assert "sx_seed_spearman" in got and "sx_seed_top_jaccard" in got
     if "optim.pack=true" in extra:
         assert got["pack_len"] == 1024 and 0.0 < got["pack_fill_fraction"] <= 1.0
+    assert ("rf_sft_spearman" in got) == ("rf.cross_check=true" in extra)
     got_sx, want_sx = _sx(out), _sx(tmp_path / "jax")
     assert [list(r) for r in got_sx] == [list(r) for r in want_sx]
     for g, w in zip(got_sx, want_sx):
@@ -151,6 +168,7 @@ def test_diagnose_sft_matches_reference(tmp_path, monkeypatch, n, extra):
     ("synthetic-vsi:0.4", 4, ["model.fused_mlp=true"]),
     ("synthetic-vsi:0.4", None, ["model.fused_mlp=true", 'lora.targets=["gate_proj","q_proj"]']),
     ("synthetic-open", None, []),
+    ("synthetic-numeric", None, ["rf.cross_check=true"]),
 ])
 def test_diagnose_sft_decode_slice_matches_reference(tmp_path, monkeypatch, bench, quantize,
                                                      extra):
@@ -176,6 +194,7 @@ def test_diagnose_sft_decode_slice_matches_reference(tmp_path, monkeypatch, benc
     decoded = {"synthetic-open": "open_decode_wall_seconds"}.get(bench,
                                                                  "numeric_decode_wall_seconds")
     assert decoded in got and got["n_samples"] == n
+    assert "rf_sft_spearman" not in got and "rf_cross_check_wall_seconds" not in got
     got_sx, want_sx = _sx(out), _sx(tmp_path / "jax")
     assert [list(r) for r in got_sx] == [list(r) for r in want_sx]
     for g, w in zip(got_sx, want_sx):
@@ -223,7 +242,7 @@ def test_spearman_and_per_category_accuracy_match_reference():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["rf.cross_check=true"], "item 10"), (["model.remat=true"], "item 7"), (["checkpoint_dir=ckpt"], "item 7"),
+    (["model.remat=true"], "item 7"), (["checkpoint_dir=ckpt"], "item 7"),
     (["mesh.data=2"], "item 16"), (["model.path=/nonexistent"], "item 3"),
     (["profile_dir=prof"], "item 17"), (["lora.dropout=0.1"], "item 5"),
     (["perf.spec_draft_model=tiny"], "item 15"),
@@ -253,11 +272,12 @@ def test_cli_subprocess_cpu(tmp_path):
         [sys.executable, "-m", "tst_torch", "diagnose-sft", "--platform", "cpu",
          "--bench", "synthetic:0.5", "--k", "2", "--set", "data.n=32",
          "--set", "optim.batch_size=4", "--set", "optim.epochs=1",
-         "--set", "rf.cross_check=false", *CPU_TINY, "--out", str(out)],
+         "--set", "rf.n_estimators=30", *CPU_TINY, "--out", str(out)],
         cwd=REPO, capture_output=True, text=True, timeout=120,
         env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert proc.returncode == 0, proc.stderr
     report = json.loads((out / "report.json").read_text())
     assert report["n_mcq"] == 32 and report["k"] == 2 and math.isfinite(report["final_loss"])
+    assert -1.0 <= report["rf_sft_spearman"] <= 1.0  # the default RF cross-check ran
     rows = _sx(out)
     assert len(rows) == 32 and all(0.0 <= r["s_x"] <= 1.0 for r in rows)

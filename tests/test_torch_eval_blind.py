@@ -225,9 +225,11 @@ def test_unported_subcommands_exit_nonzero(cmd, capsys):
 
 
 #: top-level packages the port and chip_smoke.py must not import: jax and
-#: its kin, and the JAX package tst (the port keeps its own copies of tst's
-#: jax-free host code, held to tst's by tests/test_torch_host.py)
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tst")
+#: its kin, the JAX package tst (the port keeps its own copies of tst's
+#: jax-free host code, held to tst's by tests/test_torch_host.py), and
+#: scikit-learn, which the card's installation lacks (the port fits its own
+#: forests)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tst", "sklearn")
 
 
 def _imports(path: Path):
@@ -246,23 +248,39 @@ def test_port_imports_no_jax():
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
-def test_port_runs_with_jax_blocked():
-    """Every module of the port imports in a process where neither jax nor
-    the JAX package tst can load, and no tst module is loaded after it."""
+def test_port_runs_with_jax_blocked(tmp_path):
+    """Every module of the port imports in a process where neither jax, the
+    JAX package tst nor scikit-learn can load, and no module of theirs is
+    loaded after it. In that process ``diagnose-rf`` and a tiny
+    ``diagnose-sft`` under the default RF cross-check run on the CPU: the
+    port runs where the card's installation has no scikit-learn."""
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   for p in (REPO / "tst_torch").rglob("*.py") if p.name != "__main__.py")
+    rf = ["diagnose-rf", "--platform", "cpu", "--bench", "synthetic:0.5", "--k", "3",
+          "--set", "data.n=60", "--set", "rf.n_estimators=20", "--out", str(tmp_path / "rf")]
+    sft = ["diagnose-sft", "--platform", "cpu", "--bench", "synthetic:0.5", "--k", "2",
+           "--set", "data.n=24", "--set", "optim.batch_size=4", "--set", "optim.epochs=1",
+           "--set", "rf.n_estimators=20", *CPU_TINY, "--out", str(tmp_path / "sft")]
     code = (
         "import importlib, importlib.abc, sys\n"
+        "BLOCKED = ('jax', 'jaxlib', 'tst', 'sklearn')\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'tst'):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(m.split('.')[0] in ('jax', 'tst') for m in sys.modules)\n"
+        "from tst_torch import cli\n"
+        f"assert cli.main({rf!r}) == 0\n"
+        f"assert cli.main({sft!r}) == 0\n"
+        "assert not any(m.split('.')[0] in BLOCKED for m in sys.modules)\n"
         "assert 'tst_torch' in sys.modules\n")
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=240,
+                   capture_output=True)
+    report = json.loads((tmp_path / "sft" / "report.json").read_text())
+    assert math.isfinite(report["rf_sft_spearman"]) and "rf_blind_accuracy" in report
+    assert json.loads((tmp_path / "rf" / "report.json").read_text())["n_samples"] == 60
 
 
 def test_cli_subprocess_cpu(tmp_path):

@@ -1,1 +1,1 @@
-"""Bias scores s(x) (counterpart of ``tst.diagnose``)."""
+"""Bias scores s(x) and the RF diagnostic (counterpart of ``tst.diagnose``)."""

@@ -34,6 +34,7 @@ from tst_torch.data.folds import kfold_assign
 from tst_torch.data.schema import NUMERIC, OPEN, BlindDataset
 from tst_torch.data.tokenize import ByteTokenizer, HFTokenizer, tokenize_dataset
 from tst_torch.data.packing import FoldPacked, make_packed_fold_batches, pack_fold_datasets
+from tst_torch.diagnose.rf import run_rf_diagnostic
 from tst_torch.diagnose.score import bias_scores
 from tst_torch.eval import metrics
 from tst_torch.eval.parity import spearman
@@ -211,8 +212,6 @@ def _check_sft_config(ds: BlindDataset, cfg: RunConfig) -> None:
     if cfg.profile_dir:
         _not_ported("profiling (profile_dir)", 17)
     _check_spec_decode(cfg)
-    if cfg.rf.cross_check:
-        _not_ported("the RF cross-check (rf.cross_check=true; set it false)", 10)
 
 
 class _SftRunState:
@@ -362,13 +361,14 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
 
     # numeric (NA) rows: held-out greedy decode, per-sample MRA as their s(x)
     gold_values = gold_values_of(ds).astype(np.float32)
+    decoded: Dict[str, Any] = {}
     if np.isfinite(gold_values).any():
         pred_values, s_num = timed("numeric_decode", lambda: score_heldout_numeric(
             params, lora, spec, lspec, st.tokens, st.answer_pos, gold_values, fold_id, k,
             tokenizer=st.tokenizer, use_pallas=use_pallas))
         s_x = np.where(np.isfinite(s_num), s_num, s_x)
-        report["numeric_blind_mra"] = float(metrics.mra(np.nan_to_num(pred_values), gold_values))
-        report["n_numeric"] = int(np.isfinite(gold_values).sum())
+        decoded["numeric_blind_mra"] = float(metrics.mra(np.nan_to_num(pred_values), gold_values))
+        decoded["n_numeric"] = int(np.isfinite(gold_values).sum())
     # open rows: held-out greedy decode, normalized exact match as their s(x)
     gold_texts = gold_texts_of(ds)
     if any(g is not None for g in gold_texts):
@@ -376,8 +376,18 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
             params, lora, spec, lspec, st.tokens, st.answer_pos, gold_texts, fold_id, k,
             tokenizer=st.tokenizer, use_pallas=use_pallas))
         s_x = np.where(np.isfinite(s_open), s_open, s_x)
-        report["open_blind_accuracy"] = round(float(np.nanmean(s_open)), 4)
-        report["n_open"] = int(sum(g is not None for g in gold_texts))
+        decoded["open_blind_accuracy"] = round(float(np.nanmean(s_open)), 4)
+        decoded["n_open"] = int(sum(g is not None for g in gold_texts))
+    # RF-vs-SFT agreement: the fast auditor and the SFT engine should rank
+    # the same samples as biased; the host-side backend, on the merged s(x)
+    if cfg.rf.cross_check and has_mcq:
+        rf_d = timed("rf_cross_check", lambda: run_rf_diagnostic(
+            ds, k=cfg.data.k, seed=cfg.data.seed, n_estimators=cfg.rf.n_estimators,
+            max_depth=cfg.rf.max_depth, backend="sklearn", score_rule=cfg.rf.score_rule,
+            device=device))
+        report["rf_sft_spearman"] = round(spearman(rf_d.s_x, s_x), 4)
+        report["rf_blind_accuracy"] = round(float(rf_d.blind_accuracy), 4)
+    report.update(decoded)
     report.update(
         n_samples=len(ds),
         n_mcq=int((tb.gold >= 0).sum()),
