@@ -120,7 +120,31 @@ Phases, each printing one line; any failure raises and exits non-zero:
  17. debias-ibp-rf — the same subcommand with ``ibp.diagnostic=rf``
                (synthetic:0.5, n=512, k=3, 2 rounds): each round prunes
                prune_mask's budget, the audit and split add up, no kernel
-               launches.
+               launches;
+ 18. checkpoint-qwen — phase 4's weights written as an HF safetensors
+               checkpoint under HF's names (Qwen2.5-0.5B's published
+               config.json: 24 layers, tied head, QKV biases) and loaded back
+               through ``eval-blind --set model.path=... model.tokenizer=byte``:
+               launches as implied, every loaded leaf bit-equal to what was
+               written, the letter probabilities equal to phase 4's; the
+               write and load walls and GB/s;
+ 19. llama — a checkpoint at Llama-3-8B's published width (config.json with
+               4 of its 32 layers, random weights from a seed, ~3.85 GB in a
+               temporary directory, deleted after): (a) ``diagnose-sft
+               --preset sft-mmmu-llama8b`` (k=5, batch 8, remat=True) with
+               model.path, the byte tokenizer, a mesh of one, synthetic:0.5,
+               n=200, one epoch: K1 at D=128 forward (twice a step under remat),
+               dK/dV and dQ launches as implied; one step with remat against
+               one without (the step gates; bit-equality reported), each one's
+               step time, peak memory and profile; the multi-token scorer on
+               synthetic [4, 3] option sequences, K1 against the plain path
+               (probabilities within 0.05); K1's forward and backward times at
+               the step's shape beside the plain version, the library and the
+               bound; (b) the checkpoint quantized to int4 on arrival
+               (``quantizing_put``), ``eval-blind`` on synthetic-vsi:0.4,
+               n=256: launches as implied (numeric rows decoded through K3 at
+               Llama's widths), the first decode step's logits against the
+               plain path (phase 13's gates).
 
 The second-to-last line is the per-kernel JSON record (launches on the
 main path, error, kernel, plain and library times, and the bound: the
@@ -132,10 +156,12 @@ package ``tst``, and neither does the port it drives.
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -243,6 +269,63 @@ IBP_RF = ["debias-ibp", "--bench", "synthetic:0.5", "--set", "data.n=512", "--k"
           "--set", "ibp.stop_epsilon=-1"]
 #: prune_mask's floor of survivors
 IBP_MIN_KEEP = 8
+#: Qwen/Qwen2.5-0.5B's published config.json (phase 18 writes it beside phase
+#: 4's weights)
+QWEN_CONFIG = {
+    "architectures": ["Qwen2ForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 151643, "eos_token_id": 151643, "hidden_act": "silu", "hidden_size": 896,
+    "initializer_range": 0.02, "intermediate_size": 4864, "max_position_embeddings": 32768,
+    "max_window_layers": 24, "model_type": "qwen2", "num_attention_heads": 14,
+    "num_hidden_layers": 24, "num_key_value_heads": 2, "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0, "sliding_window": 32768, "tie_word_embeddings": True,
+    "torch_dtype": "bfloat16", "use_cache": True, "use_sliding_window": False,
+    "vocab_size": 151936}
+#: meta-llama/Meta-Llama-3-8B's published config.json; phase 19 keeps
+#: LLAMA_LAYERS of its 32 layers
+LLAMA_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False, "attention_dropout": 0.0,
+    "bos_token_id": 128000, "eos_token_id": 128001, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336, "max_position_embeddings": 8192,
+    "model_type": "llama", "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "rope_theta": 500000.0, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 128256}
+LLAMA_LAYERS = 4
+#: phase 19a's attention call: 5 folds x 8 rows of 512 tokens, Llama-3-8B heads
+LLAMA_STEP_SHAPE = (40, 512, 32, 8, 128)
+#: phase 19a: the sft-mmmu-llama8b preset (k=5, batch 8, remat=True) from the
+#: checkpoint, cut to one chip, the synthetic benchmark and one epoch
+LLAMA_TRAIN = ["diagnose-sft", "--preset", "sft-mmmu-llama8b", "--bench", "synthetic:0.5",
+               "--set", "model.tokenizer=byte", "--set", "mesh.data=1", "--set", "mesh.tensor=1",
+               "--set", "data.n=200", "--set", "optim.epochs=1"]
+#: phase 19b: eval-blind int4 through quantizing_put, numeric rows decoded
+#: through K3 at Llama-3-8B's widths
+LLAMA_BLIND_INT4 = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=256",
+                    "--set", "model.name=llama3-8b", "--set", "model.tokenizer=byte",
+                    "--set", "model.quantize=int4"]
+#: phase 19c: synthetic [C, T] option sequences for the multi-token scorer,
+#: all of T=3 tokens (options of unequal length would let the shortest take
+#: nearly all the probability at random weights, about ln(vocab) nats a
+#: token, whatever the attention computed), and the rows it scores
+MULTI_OPTIONS = [[65, 66, 67], [66, 68, 69], [69, 70, 65], [70, 71, 72]]
+MULTI_ROWS = 16
+#: the multi-token scorer's rows a chunk (the reference's cap)
+MULTI_BATCH = 8
+#: safetensors' dtype names
+_ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
+              torch.int8: "I8", torch.uint8: "U8"}
+#: our parameter names → HF's (Llama / Qwen2), and whether HF stores them
+#: transposed ([out, in])
+_HF_LAYER = {"attn_norm": ("input_layernorm.weight", False),
+             "wq": ("self_attn.q_proj.weight", True), "wk": ("self_attn.k_proj.weight", True),
+             "wv": ("self_attn.v_proj.weight", True), "wo": ("self_attn.o_proj.weight", True),
+             "bq": ("self_attn.q_proj.bias", False), "bk": ("self_attn.k_proj.bias", False),
+             "bv": ("self_attn.v_proj.bias", False),
+             "mlp_norm": ("post_attention_layernorm.weight", False),
+             "w_gate": ("mlp.gate_proj.weight", True), "w_up": ("mlp.up_proj.weight", True),
+             "w_down": ("mlp.down_proj.weight", True)}
+_HF_TOP = {"embed": ("model.embed_tokens.weight", False),
+           "final_norm": ("model.norm.weight", False), "lm_head": ("lm_head.weight", True)}
 
 
 def median_ms(fn, samples=30, reps=10, warmup=3):
@@ -783,7 +866,7 @@ def phase_slice():
           f"{secs[False]:.3f} s plain")
     if diff > PROB_TOL or agree < ARGMAX_AGREE or abs(acc_k - acc) > 1.0 / N_SAMPLES:
         raise AssertionError("kernel path and plain path disagree on the slice")
-    return launches
+    return launches, pk, report
 
 
 def _launch_counts():
@@ -836,9 +919,7 @@ def phase_train():
     folds = np.array([r["fold"] for r in rows])
     k, steps = report["k"], report["train_steps"]
     chunks = k * math.ceil(max(int((folds == f).sum()) for f in range(k)) / SCORER_BATCH)
-    want = {"fwd": N_LAYERS * (steps + chunks), "dkv": N_LAYERS * steps,
-            "dq": N_LAYERS * steps, "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0,
-            "mlp": 0}
+    want = sft_launches_want(steps, chunks, N_LAYERS)
     loss = report["final_loss"]
     sx = np.array([r["s_x"] for r in rows], np.float64)
     rf_rho, rf_acc = report.get("rf_sft_spearman"), report.get("rf_blind_accuracy")
@@ -1470,7 +1551,6 @@ def phase_decode_slice():
     """Path A through the CLI, then K3 against the plain path on the same
     weights and caches, decode step times and a profile of the step."""
     from tst_torch import cli
-    from tst_torch.models.decode import chunk_logits, greedy_decode, prefill
     from tst_torch.train.pipeline import prepare_blind_eval
 
     out_dir = tempfile.mkdtemp(prefix="tst_torch_decode_")
@@ -1488,9 +1568,7 @@ def phase_decode_slice():
     rows = _numeric_rows(ds)
     mc, dchunks = _decode_chunks(spec, params, tokens.shape[1], np.zeros(len(rows)), 1)
     mcq_chunks = math.ceil(N_SAMPLES / SCORER_BATCH)
-    want = {"fwd": N_LAYERS * (mcq_chunks + dchunks), "dkv": 0, "dq": 0, "fwd_seg": 0,
-            "dkv_seg": 0, "dq_seg": 0, "int4": INT4_PROJ * N_LAYERS * (MAX_NEW - 1) * dchunks,
-            "mlp": 0}
+    want = blind_int4_launches_want(mcq_chunks, dchunks, N_LAYERS)
     mra = report.get("numeric_blind_mra")
     if (rc != 0 or counts != want or report.get("n_numeric") != N_NUMERIC_VSI
             or report["n_mcq"] != N_MCQ_VSI or mra is None or not math.isfinite(mra)):
@@ -1505,6 +1583,29 @@ def phase_decode_slice():
 
     # the first decode step of every numeric row, chunk by chunk, on the same
     # weights and caches: K3 vs plain
+    line, ok, state = first_decode_step_gate(params, spec, tokens, pos, rows)
+    print(f"[decode-slice] {line}")
+    if not ok:
+        raise AssertionError("the decode step through K3 disagrees with the plain path")
+
+    # step times and the device's idle share in the step
+    step = decode_step_profiles(state)
+    for up, name in ((True, "through K3"), (False, "plain path (dequantize, then product)")):
+        print(f"[decode-slice] decode step ({DECODE_ROWS} rows, 24 layers), {name}: "
+              f"{DECODE_ROWS / step[up]['wall_ms'] * 1e3:.1f} tokens/s; "
+              f"{_fmt_profile(step[up])}")
+    return counts
+
+
+def first_decode_step_gate(params, spec, tokens, pos, rows):
+    """The first decode step of each of ``rows``, chunk by chunk, on the same
+    weights and caches, through K3 against the plain path: (a line to print,
+    whether the logit bound holds with no decisive first-token
+    disagreement, the last chunk's state for decode_step_profiles). Greedy
+    continuations of both are compared too (reported, not gated)."""
+    from tst_torch.models.decode import chunk_logits, greedy_decode, prefill
+
+    device = tokens.device
     rels, differ, decisive, whole, per_tok, gaps = [], 0, 0, 0, 0.0, []
     for c0 in range(0, len(rows), DECODE_ROWS):
         sel = torch.as_tensor(rows[c0: c0 + DECODE_ROWS], device=device)
@@ -1525,22 +1626,14 @@ def phase_decode_slice():
                         for up in (True, False))
         whole += int((gen_k == gen_p).all(-1).sum().item())
         per_tok += (gen_k == gen_p).float().sum().item() / MAX_NEW
-    print(f"[decode-slice] first decode step of the {len(rows)} numeric rows ({DECODE_ROWS} a "
-          f"chunk), same caches: K3 vs plain max|dlogit|/max|logit| {max(rels):.3e} "
-          f"(<= {LOGIT_TOL}); argmax disagreements {differ} of {len(rows)} (the plain path's "
-          f"top-2 gap on each: {[round(g, 4) for g in gaps]}), decisive (gap > 2 x {LOGIT_TOL} "
-          f"x max|logit|) {decisive} (must be 0); greedy continuations ({MAX_NEW} tokens): "
-          f"whole-row agreement {whole / len(rows):.4f}, per-token {per_tok / len(rows):.4f}")
-    if max(rels) > LOGIT_TOL or decisive:
-        raise AssertionError("the decode step through K3 disagrees with the plain path")
-
-    # step times and the device's idle share in the step
-    step = decode_step_profiles((params, spec, tok0, plen, s, kc, vc, head, rope))
-    for up, name in ((True, "through K3"), (False, "plain path (dequantize, then product)")):
-        print(f"[decode-slice] decode step ({DECODE_ROWS} rows, 24 layers), {name}: "
-              f"{DECODE_ROWS / step[up]['wall_ms'] * 1e3:.1f} tokens/s; "
-              f"{_fmt_profile(step[up])}")
-    return counts
+    line = (f"first decode step of the {len(rows)} numeric rows ({DECODE_ROWS} a chunk), "
+            f"same caches: K3 vs plain max|dlogit|/max|logit| {max(rels):.3e} (<= {LOGIT_TOL}); "
+            f"argmax disagreements {differ} of {len(rows)} (the plain path's top-2 gap on each: "
+            f"{[round(g, 4) for g in gaps]}), decisive (gap > 2 x {LOGIT_TOL} x max|logit|) "
+            f"{decisive} (must be 0); greedy continuations ({MAX_NEW} tokens): whole-row "
+            f"agreement {whole / len(rows):.4f}, per-token {per_tok / len(rows):.4f}")
+    ok = max(rels) <= LOGIT_TOL and not decisive
+    return line, ok, (params, spec, tok0, plen, s, kc, vc, head, rope)
 
 
 def decode_state():
@@ -1588,7 +1681,7 @@ def step_timing(st, match="swiglu"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lora, opt, _ = st.trainer.step(st.params, lora, opt, st.tokens, st.loss_mask,
-                                       st.answer_pos, st.batches[t])
+                                       st.answer_pos, st.batches[t % st.batches.shape[0]])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1939,6 +2032,448 @@ def phase_debias_ibp_rf():
         raise AssertionError("debias-ibp with the RF diagnostic failed its gates")
 
 
+def hf_state_dict(params):
+    """Our parameter tree → HF's names and layout: name → tensor (views of
+    ``params``; transposed where HF stores [out, in])."""
+    out = {}
+    for key, t in params.items():
+        if key == "layers":
+            continue
+        name, transpose = _HF_TOP[key]
+        out[name] = t.T if transpose else t
+    for key, stack in params["layers"].items():
+        name, transpose = _HF_LAYER[key]
+        for i in range(stack.shape[0]):
+            out[f"model.layers.{i}.{name}"] = stack[i].T if transpose else stack[i]
+    return out
+
+
+def write_safetensors(path, tensors):
+    """A .safetensors file of ``tensors`` (name → tensor, any device): the
+    8-byte little-endian header length, the JSON header padded to 8 bytes,
+    then each tensor's bytes, moved to the host one tensor at a time.
+    Returns the bytes written."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    header["__metadata__"] = {"format": "pt"}
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            host = t.detach().contiguous().cpu().reshape(-1)
+            f.write(memoryview(host.view(torch.uint8).numpy()))
+    return 8 + len(head) + offset
+
+
+def write_checkpoint(path, params, config):
+    """An HF checkpoint directory: model.safetensors of ``params`` under HF
+    names, and ``config``. Returns (bytes written, seconds)."""
+    os.makedirs(path, exist_ok=True)
+    t0 = time.perf_counter()
+    n = write_safetensors(os.path.join(path, "model.safetensors"), hf_state_dict(params))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    return n, time.perf_counter() - t0
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], f"{prefix}{key}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def trees_equal(a, b):
+    """The leaf paths where two parameter trees differ (shape, dtype or any
+    bit); empty when they are equal."""
+    la, lb = dict(_leaves(a)), dict(_leaves(b))
+    return sorted(set(la) ^ set(lb)) + [
+        p for p in sorted(set(la) & set(lb))
+        if la[p].dtype != lb[p].dtype or not torch.equal(la[p], lb[p])]
+
+
+def sft_launches_want(steps, chunks, n_layers, remat=False):
+    """The attention kernels' launches of an unpacked diagnose-sft run: one
+    forward a layer for each train step and scorer chunk, and under full
+    remat a second for each step (the backward recomputes each layer, the
+    kernel's forward with it); one dK/dV and one dQ a layer for each step."""
+    fwd = steps * (2 if remat in (True, "full", "dots") else 1) + chunks
+    return {"fwd": n_layers * fwd, "dkv": n_layers * steps, "dq": n_layers * steps,
+            "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0}
+
+
+def blind_int4_launches_want(mcq_chunks, decode_chunks, n_layers):
+    """An int4 eval-blind's launches: one forward a layer for each MCQ chunk
+    and each decode chunk's prefill, and K3 on each of a layer's 7 int4
+    projections in each decode step after the prefill's."""
+    return {"fwd": n_layers * (mcq_chunks + decode_chunks), "dkv": 0, "dq": 0, "fwd_seg": 0,
+            "dkv_seg": 0, "dq_seg": 0,
+            "int4": INT4_PROJ * n_layers * (MAX_NEW - 1) * decode_chunks, "mlp": 0}
+
+
+def multitoken_launches_want(rows, options, n_layers, batch=MULTI_BATCH):
+    """The multi-token scorer's forward launches: one a layer for each
+    option of each chunk of ``batch`` rows."""
+    return n_layers * options * math.ceil(rows / batch)
+
+
+def _timed_build(cfg, device):
+    """(spec, params, seconds): build_model on the run's device, synchronized."""
+    from tst_torch.data.tokenize import ByteTokenizer
+    from tst_torch.train.pipeline import build_model
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec, params = build_model(cfg, ByteTokenizer(), device)
+    torch.cuda.synchronize()
+    return spec, params, time.perf_counter() - t0
+
+
+def same_report(got, want, skip=("wall_seconds",)):
+    """The keys where two run reports differ, apart from ``skip``; empty when
+    they agree (floats compared exactly)."""
+    keys = (set(got) | set(want)) - set(skip)
+    return sorted(key for key in keys if got.get(key, got) != want.get(key, want))
+
+
+def phase_checkpoint_qwen(slice_probs, slice_report):
+    """Phase 4's weights written as an HF checkpoint at Qwen2.5-0.5B's full
+    depth, loaded back through eval-blind (model.path, byte tokenizer): its
+    report equal to phase 4's, apart from the wall; the spec that the run
+    builds from config.json equal to phase 4's, apart from max_seq_len;
+    every leaf bit-equal to what was written; and the letter probabilities,
+    scored with that spec, equal to phase 4's in-memory run."""
+    from tst_torch import cli
+    from tst_torch.train.infer import score_all_mcq
+    from tst_torch.train.pipeline import prepare_blind_eval
+
+    cfg, device = cli._resolve(cli.build_parser().parse_args(SLICE))
+    tb, tokens, pos, spec, params = prepare_blind_eval(cli._load_dataset(cfg), cfg, device)
+    ckpt = tempfile.mkdtemp(prefix="tst_torch_qwen_ckpt_")
+    try:
+        nbytes, write_s = write_checkpoint(ckpt, params, QWEN_CONFIG)
+        argv = SLICE + ["--set", f"model.path={ckpt}", "--set", "model.tokenizer=byte"]
+        out_dir = tempfile.mkdtemp(prefix="tst_torch_qwen_run_")
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["--out", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        want = sft_launches_want(0, math.ceil(N_SAMPLES / SCORER_BATCH), N_LAYERS)
+        with open(os.path.join(out_dir, "blind_eval.json")) as f:
+            report = json.load(f)
+        cfg2, _ = cli._resolve(cli.build_parser().parse_args(argv))
+        spec2, loaded, load_s = _timed_build(cfg2, device)
+        differ = trees_equal(loaded, params)
+        probs = score_all_mcq(loaded, spec2, tokens, pos, tb.option_token_ids, tb.n_options,
+                              use_pallas=True)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    n_params = sum(t.numel() for _, t in _leaves(loaded))
+    same = bool(np.array_equal(probs, slice_probs))
+    report_differs = same_report(report, slice_report)
+    spec_differs = [f.name for f in dataclasses.fields(spec) if f.name != "max_seq_len"
+                    and getattr(spec2, f.name) != getattr(spec, f.name)]
+    print(f"[checkpoint-qwen] Qwen2.5-0.5B, {spec.n_layers} layers, {n_params / 1e6:.1f} M "
+          f"parameters: "
+          f"wrote {nbytes / 1e9:.3f} GB in {write_s:.2f} s; eval-blind model.path rc={rc}, "
+          f"launches fwd {counts['fwd']} (want {want['fwd']}), blind_accuracy "
+          f"{report['blind_accuracy']:.4f} (phase 4's {slice_report['blind_accuracy']:.4f}; "
+          f"report keys differing from phase 4's, the wall aside: {report_differs}), CLI wall "
+          f"{wall:.2f} s; spec from config.json: fields differing from phase 4's, max_seq_len "
+          f"aside: {spec_differs} (max_seq_len {spec2.max_seq_len} vs {spec.max_seq_len}); "
+          f"load {load_s:.3f} s ({nbytes / load_s / 1e9:.2f} GB/s, the file just written: the "
+          f"page cache); leaves differing from the written ones: {differ}; letter "
+          f"probabilities with that spec equal to phase 4's: {same} "
+          f"(max|d| {float(np.abs(probs - slice_probs).max()):.3e})")
+    if (rc != 0 or counts != want or differ or not same or report_differs or spec_differs
+            or report["n_mcq"] != N_SAMPLES):
+        raise AssertionError("the Qwen2.5-0.5B checkpoint round trip failed")
+    return {"fwd": counts["fwd"], "load_s": load_s, "gb": nbytes / 1e9}
+
+
+def _llama_argv(ckpt, base):
+    return base + ["--set", f"model.path={ckpt}"]
+
+
+def _llama_step_gates(ckpt):
+    """One step of phase 19a's state with remat (the preset's True) against
+    one without: the step gates, bit-equality, and each one's median step,
+    peak device memory and profile."""
+    out = {}
+    for remat in (True, False):
+        st = _train_state([f"model.remat={str(remat).lower()}"],
+                          base=_llama_argv(ckpt, LLAMA_TRAIN))
+        rng = torch.Generator(device=st.tokens.device).manual_seed(7)
+        for ab in st.lora.values():
+            ab["b"] = (B_SCALE * torch.randn(ab["b"].shape, generator=rng,
+                                          device=rng.device)).to(ab["b"].dtype)
+        idx = torch.as_tensor(st.batches[0], dtype=torch.long, device=st.tokens.device)
+        grads = st.trainer.loss_and_grads(st.params, st.lora, st.tokens[idx], st.loss_mask[idx],
+                                          st.answer_pos[idx])
+        out[remat] = (grads, step_timing(st, match="flash"))
+        rows = (int(np.prod(st.batches.shape[1:])), st.tokens.shape[1])
+        if remat:
+            multi = _multitoken_gate(st)
+        del st
+        torch.cuda.empty_cache()
+    (gr, tr), (gp, tp) = out[True], out[False]
+    line, ok = _step_gates(gr, gp)
+    bit_equal = bool(torch.equal(gr[0], gp[0]) and all(
+        torch.equal(gr[1][p][n], gp[1][p][n]) for p in gr[1] for n in gr[1][p]))
+    return line, ok, bit_equal, tr, tp, multi, rows
+
+
+def multitoken_agree(pk, pp, ll_k, ll_p):
+    """(ok, max|dprob|, max|dll|, the dll bound): the multi-token scorer's
+    letter probabilities (K1 ``pk``, plain ``pp``) within PROB_TOL, finite
+    and summing to 1, and its summed option log-probs within LOGIT_TOL of
+    the plain ones' largest magnitude."""
+    diff = float(np.abs(pk - pp).max())
+    ll_diff = float(np.abs(ll_k - ll_p).max())
+    ll_tol = LOGIT_TOL * float(np.abs(ll_p).max())
+    ok = bool(diff <= PROB_TOL and ll_diff <= ll_tol and np.isfinite(ll_k).all()
+              and np.isfinite(pk).all() and np.abs(pk.sum(-1) - 1).max() < 1e-4)
+    return ok, diff, ll_diff, ll_tol
+
+
+def _multitoken_gate(st):
+    """The multi-token scorer at Llama-3-8B's width on MULTI_OPTIONS for the
+    first MULTI_ROWS rows, K1 against the plain attention: the letter
+    probabilities through score_heldout_mcq within PROB_TOL, and the summed
+    option log-probs the scorer softmaxes within LOGIT_TOL of their largest
+    magnitude (the bf16 logit bound of phase 13, here on a sum of T
+    tokens' log-probs)."""
+    from tst_torch.train.infer import (heldout_index_grid, make_mcq_scorer_multitoken,
+                                       score_heldout_mcq)
+
+    opts = np.array(MULTI_OPTIONS, np.int32)
+    n = MULTI_ROWS
+    tokens, pos = st.tokens[:n], st.answer_pos[:n]
+    folds = np.zeros(n, np.int32)
+    args = (st.params, None, st.spec, None, tokens, pos, opts[:, 0], np.full(n, len(opts)),
+            folds, 1)
+    _zero_launch_counts()
+    pk = score_heldout_mcq(*args, use_pallas=True, option_seqs=opts)
+    launches = _launch_counts()["fwd"]
+    pp = score_heldout_mcq(*args, use_pallas=False, option_seqs=opts)
+    idx, _ = heldout_index_grid(folds, 1)
+    ll = {use: make_mcq_scorer_multitoken(st.spec, use_pallas=use, batch=MULTI_BATCH)(
+        st.params, None, tokens, pos, opts, idx)[0].cpu().numpy() for use in (True, False)}
+    ok, diff, ll_diff, ll_tol = multitoken_agree(pk, pp, ll[True], ll[False])
+    spread = ll[False].max(-1) - ll[False].min(-1)
+    want = multitoken_launches_want(n, len(opts), st.spec.n_layers)
+    line = (f"multi-token scorer ({n} rows, C={len(opts)} options of {opts.shape[1]} tokens, "
+            f"chunks of {MULTI_BATCH}): K1 vs plain max|dprob| {diff:.3e} (<= {PROB_TOL}), "
+            f"summed log-probs max|d| {ll_diff:.3e} nats (<= {ll_tol:.3e}: {LOGIT_TOL} x "
+            f"max|ll| {float(np.abs(ll[False]).max()):.3f}); the options' log-prob spread a "
+            f"row {float(spread.min()):.3f}-{float(spread.max()):.3f} nats, top probability "
+            f"a row median {float(np.median(pp.max(-1))):.4f}; fwd launches {launches} (want "
+            f"{want}), probabilities finite and summing to 1: {bool(np.isfinite(pk).all())}, "
+            f"{float(np.abs(pk.sum(-1) - 1).max()):.1e}")
+    return line, ok and launches == want
+
+
+def _llama_attention_times(device):
+    """K1's forward and backward pair at phase 19a's train step (5 folds x 8
+    rows of 512 tokens, Llama-3-8B heads): each kernel held against its
+    plain version (the forward at O_TOL; dK/dV and dQ, bit-equal on a
+    second call, against the f32 plain backward on the same o and lse at
+    GRAD_TOL, as phase 5 holds them), and timed against the plain version,
+    the library and the bound."""
+    import tst_torch.kernels.flash_attention as tfa
+
+    b, s, h, kvh, d = LLAMA_STEP_SHAPE
+    rng = np.random.default_rng(s + d + 3)
+    q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
+    k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
+    o, lse = tfa.flash_attention(q, k, v)
+    o_ref, _ = tfa.flash_attention_reference(q, k, v)
+    err = (o.float() - o_ref.float()).abs().max().item()
+    del o_ref
+    if err > O_TOL:
+        raise AssertionError(f"the forward kernel disagrees with its plain version at "
+                             f"{LLAMA_STEP_SHAPE}: {err:.3e}")
+    di = tfa.backward_row_stat(o, do)
+
+    def pair():
+        return (tfa._launch_bwd_dq(q, k, v, do, lse, di),
+                *tfa._launch_bwd_dkv(q, k, v, do, lse, di))
+
+    got = pair()
+    torch.cuda.synchronize()
+    _check_bitwise(pair, got)
+    want = tfa.flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float())
+    rel = [_rel_err(g, w) for g, w in zip(got, want)]
+    abs_err = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
+    finite = all(bool(torch.isfinite(g).all()) and g.abs().max().item() > 0 for g in got)
+    del got, want
+    torch.cuda.empty_cache()
+    if not finite or max(rel) > GRAD_TOL:
+        raise AssertionError(f"the backward kernels disagree with the plain backward at "
+                             f"{LLAMA_STEP_SHAPE}: max|d-ref|/max|ref| dq {rel[0]:.3e} "
+                             f"dk {rel[1]:.3e} dv {rel[2]:.3e} (each <= {GRAD_TOL}), "
+                             f"finite and nonzero: {finite}")
+    lib = _sdpa_yardstick(q, k, v, do, o)
+    bounds = _attention_bounds(q, k)
+    return {"shape": list(LLAMA_STEP_SHAPE), "fwd_max_abs_err": err,
+            "fwd": {"max_abs_err": err, "ms": median_ms(lambda: tfa._launch_fwd(q, k, v)),
+                    "plain_ms": median_ms(lambda: tfa.flash_attention_reference(q, k, v),
+                                          samples=5, reps=2),
+                    "library_ms": lib["fwd_ms"], **bounds["fwd"]},
+            "dkv": {"max_abs_err": max(abs_err[1:]), "max_rel_err": max(rel[1:]),
+                    "ms": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di)),
+                    **bounds["dkv"]},
+            "dq": {"max_abs_err": abs_err[0], "max_rel_err": rel[0],
+                   "ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di)),
+                   **bounds["dq"]},
+            "plain_bwd_ms": median_ms(lambda: tfa.flash_attention_backward_reference(
+                q, k, v, o, lse, do), samples=5, reps=2),
+            "library_bwd_ms": lib["bwd_ms"], "library": f"{lib['backend']}, {lib['gqa']}"}
+
+
+def phase_llama(device):
+    """Llama-3-8B's width, LLAMA_LAYERS of its 32 layers, from a checkpoint
+    written here: (a) diagnose-sft under the sft-mmmu-llama8b preset with
+    remat, K1 at D=128 forward and backward, the remat step against one
+    without and the multi-token scorer; (b) the same checkpoint quantized to
+    int4 on arrival, eval-blind with numeric rows decoded through K3."""
+    from tst_torch import cli
+    from tst_torch.models.decoder import init_params
+    from tst_torch.models.hf_load import spec_from_hf_config
+    from tst_torch.train.pipeline import prepare_blind_eval
+
+    config = {**LLAMA_CONFIG, "num_hidden_layers": LLAMA_LAYERS}
+    ckpt = tempfile.mkdtemp(prefix="tst_torch_llama_ckpt_")
+    try:
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(config, f)
+        spec = spec_from_hf_config(ckpt, name="llama3-8b")
+        params = init_params(torch.Generator(device=device).manual_seed(19), spec)
+        nbytes, write_s = write_checkpoint(ckpt, params, config)
+        n_params = sum(t.numel() for _, t in _leaves(params))
+        del params
+        torch.cuda.empty_cache()
+
+        # (a) the preset's diagnose-sft, remat=True
+        argv = _llama_argv(ckpt, LLAMA_TRAIN)
+        out_dir = tempfile.mkdtemp(prefix="tst_torch_llama_sft_")
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["--out", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sft_counts = _launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(out_dir, "report.json")) as f:
+            report = json.load(f)
+        rows = _read_jsonl(os.path.join(out_dir, "sx.jsonl"))
+        folds = np.array([r["fold"] for r in rows])
+        k, steps = report["k"], report["train_steps"]
+        chunks = k * math.ceil(max(int((folds == f).sum()) for f in range(k)) / SCORER_BATCH)
+        want = sft_launches_want(steps, chunks, spec.n_layers, remat=True)
+        cfg, _ = cli._resolve(cli.build_parser().parse_args(argv))
+        _, _, load_s = _timed_build(cfg, device)
+        torch.cuda.empty_cache()
+        sx = np.array([r["s_x"] for r in rows], np.float64)
+        loss, rho = report["final_loss"], report.get("rf_sft_spearman")
+        print(f"[llama] Llama-3-8B width, {spec.n_layers} of 32 layers, {n_params / 1e6:.1f} M "
+              f"parameters: wrote {nbytes / 1e9:.3f} GB in {write_s:.2f} s, load "
+              f"{load_s:.3f} s ({nbytes / load_s / 1e9:.2f} GB/s from the page cache)")
+        print(f"[llama] diagnose-sft --preset sft-mmmu-llama8b (k={k}, batch "
+              f"{cfg.optim.batch_size}, remat={cfg.model.remat}) rc={rc}: {steps} steps, "
+              f"{chunks} scorer chunks; launches fwd {sft_counts['fwd']} dkv {sft_counts['dkv']} "
+              f"dq {sft_counts['dq']} (want {want['fwd']}/{want['dkv']}/{want['dq']}: the "
+              f"forward twice a step under remat); final_loss {loss}, blind_accuracy "
+              f"{report['blind_accuracy']:.4f}, rf_sft_spearman {rho}; train "
+              f"{report['train_wall_seconds']} s ({report['train_samples_per_sec']} samples/s), "
+              f"CLI wall {wall:.2f} s; peak device memory {peak_gb:.2f} GB")
+        if (rc != 0 or sft_counts != want or report["n_mcq"] != cfg.data.n
+                or len(rows) != cfg.data.n
+                or not (loss is not None and math.isfinite(loss))
+                or not ((sx >= 0) & (sx <= 1)).all() or not isinstance(rho, float)
+                or not math.isfinite(rho)):
+            raise AssertionError(f"Llama-width diagnose-sft: rc={rc}, launches {sft_counts} "
+                                 f"(want {want}), report {report}")
+
+        line, ok, bit_equal, t_remat, t_plain, (mline, mok), rows = _llama_step_gates(ckpt)
+        print(f"[llama] one step remat=True vs remat=false: {line}; bit-equal: {bit_equal}")
+        for name, (ms, peak, prof) in (("remat=True", t_remat), ("remat=false", t_plain)):
+            print(f"[llama] step {name} ({rows[0]} rows of {rows[1]} tokens): median {ms:.2f} ms "
+                  f"over {STEP_SAMPLES} steps after the first, peak device memory {peak:.2f} GB; "
+                  f"{_fmt_profile(prof)}")
+        print(f"[llama] {mline}")
+        if not ok:
+            raise AssertionError("the remat step disagrees with the step without remat")
+        if not mok:
+            raise AssertionError("the multi-token scorer through K1 disagrees with the plain path")
+        times = _llama_attention_times(device)
+        print(f"[llama] K1 at the step's shape {LLAMA_STEP_SHAPE} (B, S, H, KVH, D): forward "
+              f"{times['fwd']['ms']:.4f} ms (max|o-ref| {times['fwd_max_abs_err']:.3e}, plain "
+              f"{times['fwd']['plain_ms']:.4f} ms, library {times['fwd']['library_ms']:.4f} ms, "
+              f"bound {times['fwd']['bound_ms']:.4f} ms); dK/dV {times['dkv']['ms']:.4f} ms "
+              f"(bound {times['dkv']['bound_ms']:.4f}; max|d-ref|/max|ref| "
+              f"{times['dkv']['max_rel_err']:.3e}) + dQ {times['dq']['ms']:.4f} ms (bound "
+              f"{times['dq']['bound_ms']:.4f}; {times['dq']['max_rel_err']:.3e}; each <= "
+              f"{GRAD_TOL} against the f32 plain backward, bit-equal on a second call) vs the "
+              f"plain backward "
+              f"{times['plain_bwd_ms']:.4f} ms and the library's {times['library_bwd_ms']:.4f} "
+              f"ms ({times['library']})")
+
+        # (b) the same checkpoint quantized to int4 on arrival; eval-blind
+        argv = _llama_argv(ckpt, LLAMA_BLIND_INT4)
+        out_dir = tempfile.mkdtemp(prefix="tst_torch_llama_int4_")
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["--out", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        int4_counts = _launch_counts()
+        with open(os.path.join(out_dir, "blind_eval.json")) as f:
+            report = json.load(f)
+        cfg, _ = cli._resolve(cli.build_parser().parse_args(argv))
+        ds = cli._load_dataset(cfg)
+        t0 = time.perf_counter()
+        tb, tokens, pos, qspec, qparams = prepare_blind_eval(ds, cfg, device)
+        torch.cuda.synchronize()
+        qload_s = time.perf_counter() - t0
+        nrows = _numeric_rows(ds)
+        mc, dchunks = _decode_chunks(qspec, qparams, tokens.shape[1], np.zeros(len(nrows)), 1)
+        want = blind_int4_launches_want(math.ceil(len(ds) / SCORER_BATCH), dchunks, spec.n_layers)
+        mra = report.get("numeric_blind_mra")
+        print(f"[llama] eval-blind int4 (quantizing_put) synthetic-vsi:0.4 n={len(ds)} rc={rc}: "
+              f"n_mcq {report['n_mcq']}, n_numeric {report.get('n_numeric')} in {dchunks} decode "
+              f"chunks of {mc} rows; launches fwd {int4_counts['fwd']} int4 {int4_counts['int4']} "
+              f"(want {want['fwd']}/{want['int4']}: K3 at {qspec.d_model} -> {qspec.q_dim}, "
+              f"{qspec.kv_dim}, {qspec.d_ff} and {qspec.d_ff} -> {qspec.d_model}); "
+              f"blind_accuracy {report['blind_accuracy']:.4f}, "
+              f"numeric_blind_mra {mra}; CLI wall {wall:.2f} s; tokenize + load + quantize "
+              f"{qload_s:.2f} s")
+        if (rc != 0 or int4_counts != want or mra is None or not math.isfinite(mra)
+                or not report.get("n_numeric")):
+            raise AssertionError(f"Llama-width eval-blind int4: rc={rc}, launches {int4_counts} "
+                                 f"(want {want}), report {report}")
+        line, ok, _ = first_decode_step_gate(qparams, qspec, tokens, pos, nrows)
+        print(f"[llama] {line}")
+        if not ok:
+            raise AssertionError("the Llama-width decode step through K3 disagrees with the "
+                                 "plain path")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return {"sft": sft_counts, "int4": int4_counts, "times": times, "load_s": load_s,
+            "gb": nbytes / 1e9}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["rank", "mlp-int4"], default=None,
@@ -1957,7 +2492,7 @@ def main(argv=None):
                           "mlp": phase_kernel_mlp(device), "steps": phase_steps()}))
         return
     kern = phase_kernel(device)
-    blind_launches = phase_slice()
+    blind_launches, slice_probs, slice_report = phase_slice()
     bwd = phase_kernel_bwd(device)
     counts = phase_train()
     phase_train_vs_plain()
@@ -1971,20 +2506,31 @@ def main(argv=None):
     phase_diagnose_rf(device)
     ibp = phase_debias_ibp()
     phase_debias_ibp_rf()
+    ckpt = phase_checkpoint_qwen(slice_probs, slice_report)
+    llama = phase_llama(device)
+    sft, times = llama["sft"], llama["times"]
     records = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
          "replaces": "tst/kernels/flash_attention.py:99",
          "launches": counts["fwd"], "launches_eval_blind": blind_launches,
-         "launches_debias_ibp": ibp["fwd"], **kern, **bwd["fwd"]},
+         "launches_debias_ibp": ibp["fwd"], "launches_checkpoint_qwen": ckpt["fwd"],
+         "launches_llama_sft": sft["fwd"], "launches_llama_int4": llama["int4"]["fwd"],
+         "llama_shape": {"shape": times["shape"], **times["fwd"]}, **kern, **bwd["fwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:553",
-         "launches": counts["dkv"], "launches_debias_ibp": ibp["dkv"], **bwd["dkv"]},
+         "launches": counts["dkv"], "launches_debias_ibp": ibp["dkv"],
+         "launches_llama_sft": sft["dkv"],
+         "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
+                         **times["dkv"]}, **bwd["dkv"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:518",
-         "launches": counts["dq"], "launches_debias_ibp": ibp["dq"], **bwd["dq"]},
+         "launches": counts["dq"], "launches_debias_ibp": ibp["dq"],
+         "launches_llama_sft": sft["dq"],
+         "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
+                         **times["dq"]}, **bwd["dq"]},
         {"name": "flash_attention_fwd_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
          "replaces": "tst/kernels/flash_attention.py:464",
@@ -1999,7 +2545,8 @@ def main(argv=None):
          "launches": packed["dq_seg"], **seg["dq"]},
         {"name": "int4_matmul", "route": "cuda", "source": "tst_torch/csrc/int4_matmul.cu",
          "replaces": "tst/kernels/quant_matmul.py:64", "launches": decode["int4"],
-         "launches_diagnose_sft": fused["int4"], **int4},
+         "launches_diagnose_sft": fused["int4"], "launches_llama_int4": llama["int4"]["int4"],
+         **int4},
         {"name": "fused_swiglu_mlp", "route": "cuda", "source": "tst_torch/csrc/fused_mlp.cu",
          "replaces": "tst/kernels/fused_mlp.py:44", "launches": fused["mlp"], **mlp},
     ]

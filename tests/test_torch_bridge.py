@@ -68,9 +68,14 @@ def test_quantized_leaves_cross_bit_exact(bits):
 
 
 def test_quantized_leaves_raise():
-    """Quantized leaves streamed from an HF checkpoint (``quantizing_put``)
-    wait for checkpoint loading; the bridge carries them (above)."""
+    """Quantized leaves streamed from an HF checkpoint (``quantizing_put``,
+    held bit-equal to the reference in tests/test_torch_hf_load.py): int4 on
+    a layer matrix, norms kept; a width other than 4 or 8 raises, as the
+    reference's quantize_leaf does."""
     from tst_torch.models import quant as tquant
 
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tquant.quantizing_put(bits=4)
+    put = tquant.quantizing_put(torch.float32, bits=4)
+    assert tquant.is_int4_leaf(put("layers.wq", torch.ones(1, 128, 64)))
+    assert put("layers.attn_norm", torch.ones(1, 64)).dtype == torch.float32
+    with pytest.raises(ValueError, match="bits must be 4 or 8"):
+        tquant.quantize_leaf(torch.ones(128, 64), bits=3)

@@ -1,8 +1,9 @@
 """The pure gates of chip_smoke.py, held on the CPU: the SASS gate (every
 attention kernel and both K4 kernels run their products on wgmma), the build
 log's per-kernel registers and spills, the K3 first-token gate (no decisive
-disagreement) and the relative per-fold loss bound. The phases that use them
-run only on a card."""
+disagreement) and the relative per-fold loss bound, phases 15-17's gates, and
+phases 18-19's checkpoint writer, HF-name exporter and launch arithmetic. The
+phases that use them run only on a card."""
 
 import math
 import sys
@@ -265,3 +266,156 @@ def test_rf_ranking_gate(s_dev, ok):
 def test_rf_ibp_pruning_gate(pruned, ok):
     report = _ibp_report([512, 461], pruned, 461 - pruned[1])
     assert chip_smoke.pruned_as_implied(report, 0.1) is ok
+
+
+# Phases 18-19: the checkpoint writer, the HF-name exporter and the launch
+# arithmetic of the Llama-width runs.
+
+def test_safetensors_writer_read_back_by_safetensors(tmp_path):
+    """write_safetensors's file, read by the safetensors package: every dtype
+    the port's reader takes, bit for bit, a 0-d and an empty tensor too."""
+    from safetensors.numpy import load_file
+
+    from tst_torch import bridge
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 5, generator=g)
+    tensors = {"bf16": x.bfloat16(), "f16": x.half(), "f32": x, "t": x.T,
+               "i8": torch.randint(-128, 128, (7,), generator=g, dtype=torch.int8),
+               "u8": torch.randint(0, 256, (2, 2, 3), generator=g, dtype=torch.uint8),
+               "scalar": torch.tensor(2.5), "empty": torch.zeros(0, 4)}
+    path = tmp_path / "w.safetensors"
+    n = chip_smoke.write_safetensors(str(path), tensors)
+    assert n == path.stat().st_size
+    got = load_file(str(path))
+    assert sorted(got) == sorted(tensors)
+    for name, t in tensors.items():
+        want = bridge.leaf_to_numpy(t.contiguous())
+        assert got[name].dtype == want.dtype and got[name].shape == want.shape, name
+        np.testing.assert_array_equal(got[name].reshape(-1).view(np.uint8),
+                                      want.reshape(-1).view(np.uint8), err_msg=name)
+
+
+def _config(spec, arch):
+    return {"architectures": [arch], "vocab_size": spec.vocab_size, "hidden_size": spec.d_model,
+            "num_hidden_layers": spec.n_layers, "num_attention_heads": spec.n_heads,
+            "num_key_value_heads": spec.n_kv_heads, "intermediate_size": spec.d_ff,
+            "head_dim": spec.d_head, "rope_theta": spec.rope_theta, "rms_norm_eps": spec.rms_eps,
+            "tie_word_embeddings": spec.tie_embeddings,
+            "max_position_embeddings": spec.max_seq_len}
+
+
+@pytest.mark.parametrize("name,arch", [("small", "Qwen2ForCausalLM"),
+                                       ("tiny", "LlamaForCausalLM")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_exporter_inverted_by_the_loader(tmp_path, name, arch, dtype):
+    """hf_state_dict + write_checkpoint, then the port's load_checkpoint:
+    every leaf bit-equal to the tree written (a tied head, QKV biases; an
+    untied head), and trees_equal names a leaf that differs."""
+    import dataclasses
+
+    from tst_torch.models.decoder import init_params
+    from tst_torch.models.hf_load import load_checkpoint, spec_from_hf_config
+    from tst_torch.models.spec import spec_by_name
+
+    spec = spec_by_name(name, dtype=dtype)
+    if arch.startswith("Qwen2"):
+        spec = dataclasses.replace(spec, qkv_bias=True)
+    else:
+        spec = dataclasses.replace(spec, tie_embeddings=False)
+    params = init_params(torch.Generator().manual_seed(1), spec)
+    if spec.qkv_bias:
+        params["layers"]["bq"] = torch.randn(params["layers"]["bq"].shape).to(dtype)
+    path = tmp_path / "ckpt"
+    nbytes, _ = chip_smoke.write_checkpoint(str(path), params, _config(spec, arch))
+    assert nbytes == (path / "model.safetensors").stat().st_size
+    loaded_spec = spec_from_hf_config(str(path), name=name)
+    assert dataclasses.replace(loaded_spec, dtype=dtype) == spec
+    loaded = load_checkpoint(str(path), spec, device=torch.device("cpu"))
+    assert chip_smoke.trees_equal(loaded, params) == []
+    assert ("lm_head" in loaded) != spec.tie_embeddings
+    loaded["layers"]["wq"][1, 2, 3] += 1
+    assert chip_smoke.trees_equal(loaded, params) == ["layers.wq"]
+    del loaded["final_norm"]
+    assert chip_smoke.trees_equal(loaded, params) == ["final_norm", "layers.wq"]
+
+
+def test_published_configs_give_the_specs(tmp_path):
+    """The config.json files phases 18 and 19 write give the port's named
+    specs: Qwen2.5-0.5B whole, Llama-3-8B cut to LLAMA_LAYERS."""
+    import dataclasses
+    import json
+
+    from tst_torch.models.hf_load import spec_from_hf_config
+    from tst_torch.models.spec import spec_by_name
+
+    for config, name, layers in ((chip_smoke.QWEN_CONFIG, "qwen2.5-0.5b", 24),
+                                 (chip_smoke.LLAMA_CONFIG, "llama3-8b", chip_smoke.LLAMA_LAYERS)):
+        (tmp_path / "config.json").write_text(json.dumps({**config, "num_hidden_layers": layers}))
+        got = spec_from_hf_config(str(tmp_path), name=name)
+        assert got == spec_by_name(name, n_layers=layers, max_seq_len=got.max_seq_len)
+
+
+def test_llama_launch_arithmetic():
+    """Phase 19's launches: full remat runs each layer's forward kernel twice
+    a step (the forward, then the backward's recomputation), "flash" once;
+    the int4 eval-blind's K3 launches; the multi-token scorer's forwards."""
+    plain = chip_smoke.sft_launches_want(20, 10, 4)
+    assert plain == {"fwd": 4 * 30, "dkv": 80, "dq": 80, "fwd_seg": 0, "dkv_seg": 0,
+                     "dq_seg": 0, "int4": 0, "mlp": 0}
+    assert chip_smoke.sft_launches_want(20, 10, 4, remat=True) == {**plain, "fwd": 4 * 50}
+    assert chip_smoke.sft_launches_want(20, 10, 4, remat="dots")["fwd"] == 4 * 50
+    assert chip_smoke.sft_launches_want(20, 10, 4, remat="flash") == plain
+    assert chip_smoke.blind_int4_launches_want(8, 2, 4) == {
+        "fwd": 40, "dkv": 0, "dq": 0, "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0,
+        "int4": 7 * 4 * 11 * 2, "mlp": 0}
+    assert chip_smoke.multitoken_launches_want(16, 4, 4) == 32
+    assert chip_smoke.multitoken_launches_want(17, 4, 4) == 48
+
+
+@pytest.mark.parametrize("case,ok", [("agree", True), ("wall only", True),
+                                     ("accuracy", False), ("missing key", False)])
+def test_checkpoint_report_gate(case, ok):
+    """Phase 18 holds the checkpoint run's report to phase 4's in every key
+    but the wall, floats exactly."""
+    want = {"blind_accuracy": 0.3125, "n_mcq": 512, "model": "qwen2.5-0.5b",
+            "wall_seconds": 9.1}
+    got = dict(want)
+    if case == "wall only":
+        got["wall_seconds"] = 3.2
+    elif case == "accuracy":
+        got["blind_accuracy"] = 0.3125 + 1 / 512
+    elif case == "missing key":
+        del got["n_mcq"]
+    assert (chip_smoke.same_report(got, want) == []) is ok
+
+
+def _multitoken_ll(rng, rows=16, options=4, tokens=3, vocab=128256):
+    """Summed log-probs of equal-length options at random weights: about
+    -ln(vocab) a token, a few nats apart."""
+    return -tokens * math.log(vocab) + rng.normal(0.0, 2.0, (rows, options))
+
+
+def _softmax(x):
+    e = np.exp(x - x.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+@pytest.mark.parametrize("cols,shift,ok", [([1], 0.05, True), ([1], 3.0, False),
+                                           ([0, 1, 2, 3], 3.0, False)],
+                         ids=["bf16-sized", "one option", "every option"])
+def test_multitoken_gate_fails_an_attention_error(cols, shift, ok):
+    """Equal-length options: a bf16-sized error in one option's summed
+    log-probs passes; an error of a few nats fails, also where it moves
+    every option alike and so leaves the probabilities as they were."""
+    ll_p = _multitoken_ll(np.random.default_rng(0))
+    ll_k = ll_p.copy()
+    ll_k[:, cols] += shift
+    got = chip_smoke.multitoken_agree(_softmax(ll_k), _softmax(ll_p), ll_k, ll_p)
+    assert got[0] is ok
+
+
+def test_multitoken_options_are_of_equal_length():
+    """No option is padded, so none wins on length alone."""
+    opts = np.array(chip_smoke.MULTI_OPTIONS)
+    assert (opts >= 0).all() and len({tuple(o) for o in opts}) == len(opts)

@@ -109,7 +109,6 @@ def test_init_params_shapes_and_seed():
 
 @pytest.mark.parametrize("kw,item", [
     ({"lora_rng": object()}, "item 5"), ({"ring_mesh": object()}, "item 16"),
-    ({"remat": True}, "item 7"),
 ])
 def test_unported_arguments_raise(kw, item):
     spec = _port_spec(SPECS["tiny"])

@@ -242,8 +242,7 @@ def test_spearman_and_per_category_accuracy_match_reference():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["model.remat=true"], "item 7"), (["checkpoint_dir=ckpt"], "item 7"),
-    (["mesh.data=2"], "item 16"), (["model.path=/nonexistent"], "item 3"),
+    (["checkpoint_dir=ckpt"], "item 7"), (["mesh.data=2"], "item 16"),
     (["profile_dir=prof"], "item 17"), (["lora.dropout=0.1"], "item 5"),
     (["perf.spec_draft_model=tiny"], "item 15"),
 ])

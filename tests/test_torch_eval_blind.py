@@ -198,8 +198,7 @@ def test_platform_gpu_raises_without_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["perf.spec_draft_model=tiny"], "item 15"), (["model.path=/nonexistent"], "item 3"),
-    (["mesh.data=2"], "item 16"),
+    (["perf.spec_draft_model=tiny"], "item 15"), (["mesh.data=2"], "item 16"),
 ])
 def test_unported_config_raises(tmp_path, extra, item):
     ds = tload_benchmark("synthetic:0.5", n=8, seed=0)
@@ -229,7 +228,7 @@ def test_unported_subcommands_exit_nonzero(cmd, capsys):
 #: jax-free host code, held to tst's by tests/test_torch_host.py), and
 #: scikit-learn, which the card's installation lacks (the port fits its own
 #: forests)
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tst", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tst", "sklearn", "safetensors")
 
 
 def _imports(path: Path):
@@ -250,10 +249,15 @@ def test_port_imports_no_jax():
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """Every module of the port imports in a process where neither jax, the
-    JAX package tst nor scikit-learn can load, and no module of theirs is
-    loaded after it. In that process ``diagnose-rf`` and a tiny
-    ``diagnose-sft`` under the default RF cross-check run on the CPU: the
-    port runs where the card's installation has no scikit-learn."""
+    JAX package tst, scikit-learn nor safetensors can load, and no module of
+    theirs is loaded after it. In that process ``diagnose-rf``, a tiny
+    ``diagnose-sft`` under the default RF cross-check and an ``eval-blind``
+    of a checkpoint (``model.path``, read by the port's own reader) run on
+    the CPU: the port runs where the card's installation has no
+    scikit-learn."""
+    from test_torch_hf_load import write_hf_checkpoint
+
+    ckpt = write_hf_checkpoint(tmp_path / "ckpt", "qwen", "BF16")
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   for p in (REPO / "tst_torch").rglob("*.py") if p.name != "__main__.py")
     rf = ["diagnose-rf", "--platform", "cpu", "--bench", "synthetic:0.5", "--k", "3",
@@ -261,9 +265,12 @@ def test_port_runs_with_jax_blocked(tmp_path):
     sft = ["diagnose-sft", "--platform", "cpu", "--bench", "synthetic:0.5", "--k", "2",
            "--set", "data.n=24", "--set", "optim.batch_size=4", "--set", "optim.epochs=1",
            "--set", "rf.n_estimators=20", *CPU_TINY, "--out", str(tmp_path / "sft")]
+    blind = ["eval-blind", "--platform", "cpu", "--bench", "synthetic:0.5", "--set", "data.n=16",
+             "--set", f"model.path={ckpt}", "--set", "model.dtype=float32",
+             "--out", str(tmp_path / "blind")]
     code = (
         "import importlib, importlib.abc, sys\n"
-        "BLOCKED = ('jax', 'jaxlib', 'tst', 'sklearn')\n"
+        "BLOCKED = ('jax', 'jaxlib', 'tst', 'sklearn', 'safetensors')\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path, target=None):\n"
         "        if name.split('.')[0] in BLOCKED:\n"
@@ -274,6 +281,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "from tst_torch import cli\n"
         f"assert cli.main({rf!r}) == 0\n"
         f"assert cli.main({sft!r}) == 0\n"
+        f"assert cli.main({blind!r}) == 0\n"
         "assert not any(m.split('.')[0] in BLOCKED for m in sys.modules)\n"
         "assert 'tst_torch' in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=240,
@@ -281,6 +289,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     report = json.loads((tmp_path / "sft" / "report.json").read_text())
     assert math.isfinite(report["rf_sft_spearman"]) and "rf_blind_accuracy" in report
     assert json.loads((tmp_path / "rf" / "report.json").read_text())["n_samples"] == 60
+    assert json.loads((tmp_path / "blind" / "blind_eval.json").read_text())["n_mcq"] == 16
 
 
 def test_cli_subprocess_cpu(tmp_path):

@@ -202,3 +202,86 @@ def test_jsonl_logger_equal_but_timestamps(tmp_path):
     for a, b in zip(lines["port"], lines["tst"]):
         assert isinstance(a.pop("t"), float) and isinstance(b.pop("t"), float)
         assert a == b
+
+
+def bpe_tokenizer_dir(path, letter_merges=True, chat=False):
+    """A byte-level BPE saved under ``path`` as an HF tokenizer: with
+    ``letter_merges`` " A".." J" are single tokens, as in Llama-3 and
+    Qwen2.5 vocabularies, else each is two tokens (the multi-token option
+    fallback); ``chat`` gives it a chat template. Built offline with
+    ``tokenizers``, as tests/test_hf_tokenizer.py builds one."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    alphabet = pre_tokenizers.ByteLevel.alphabet()
+    vocab = {ch: i for i, ch in enumerate(sorted(alphabet))}
+    merges = []
+    for letter in jschema.OPTION_LETTERS if letter_merges else ():
+        vocab["Ġ" + letter] = len(vocab)
+        merges.append(("Ġ", letter))
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=merges))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    fast = PreTrainedTokenizerFast(tokenizer_object=tok)
+    fast.add_special_tokens({"pad_token": "<pad>", "eos_token": "<eos>",
+                             "bos_token": "<bos>"})
+    if chat:
+        fast.chat_template = (
+            "{% for m in messages %}<|{{ m.role }}|>{{ m.content }}<|end|>"
+            "{% endfor %}{% if add_generation_prompt %}<|assistant|>{% endif %}")
+    fast.save_pretrained(str(path))
+    return str(path)
+
+
+@pytest.mark.parametrize("letter_merges", [True, False])
+@pytest.mark.parametrize("style", ["completion", "chat"])
+@pytest.mark.parametrize("bench", ["synthetic:0.5", "synthetic-vsi:0.4", "synthetic-open"])
+def test_hf_tokenize_bit_equal(tmp_path, letter_merges, style, bench):
+    """An HF tokenizer with a chat template, through build_tokenizer
+    (``model.tokenizer`` a path, ``data.prompt_style``) and tokenize_dataset:
+    the same tokens, masks, answer positions, option ids and multi-token
+    option sequences as tst, and the same decoded text and numbers."""
+    from tst.models.decode import decode_numeric as jdecode_numeric
+    from tst.models.decode import decode_text as jdecode_text
+    from tst.train.pipeline import build_tokenizer as jbuild
+    from tst_torch.models.decode import decode_numeric, decode_text
+    from tst_torch.train.pipeline import build_tokenizer as tbuild
+
+    path = bpe_tokenizer_dir(tmp_path / "tok", letter_merges, chat=True)
+    over = [f"model.tokenizer={path}", f"data.prompt_style={style}"]
+    ttok = tbuild(tconfig.resolve(None, None, over))
+    jtok = jbuild(jconfig.resolve(None, None, over))
+    assert ttok.chat == jtok.chat == (style == "chat")
+    # a chat prompt's answer is the bare letter, one byte-level token
+    single = letter_merges or style == "chat"
+    assert ttok.single_token_options == jtok.single_token_options == single
+    assert (ttok.vocab_size, ttok.pad_id, ttok.bos_id, ttok.eos_id) == (
+        jtok.vocab_size, jtok.pad_id, jtok.bos_id, jtok.eos_id)
+    got = ttokenize(tload(bench, n=16, seed=0), ttok)
+    want = jtokenize(jload(bench, n=16, seed=0), jtok)
+    for name in TOKEN_FIELDS + ("option_token_seqs",):
+        a, b = getattr(got, name), getattr(want, name)
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert (got.option_token_seqs is not None) == (not single and bench != "synthetic-open")
+    gen = np.concatenate([got.tokens[:, :6], np.full((16, 1), ttok.eos_id),
+                          got.tokens[:, 6:9]], axis=1)
+    assert decode_text(gen, ttok) == jdecode_text(gen, jtok)
+    np.testing.assert_array_equal(decode_numeric(gen, ttok), jdecode_numeric(gen, jtok))
+
+
+def test_chat_needs_a_template(tmp_path):
+    """``data.prompt_style=chat`` on a tokenizer without a chat template, or
+    on the byte tokenizer, raises in both packages."""
+    from tst.train.pipeline import build_tokenizer as jbuild
+    from tst_torch.train.pipeline import build_tokenizer as tbuild
+
+    path = bpe_tokenizer_dir(tmp_path / "tok", chat=False)
+    for tok in (path, "byte"):
+        over = [f"model.tokenizer={tok}", "data.prompt_style=chat"]
+        for build, config in ((tbuild, tconfig), (jbuild, jconfig)):
+            with pytest.raises(ValueError, match="chat template"):
+                build(config.resolve(None, None, over))

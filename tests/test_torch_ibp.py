@@ -255,8 +255,7 @@ def test_resume_after_failure_equals_one_run(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["model.remat=true"], "item 7"), (["checkpoint_dir=ckpt"], "item 7"),
-    (["mesh.data=2"], "item 16"), (["model.path=/nonexistent"], "item 3"),
+    (["checkpoint_dir=ckpt"], "item 7"), (["mesh.data=2"], "item 16"),
     (["perf.spec_draft_model=tiny"], "item 15"),
 ])
 def test_unported_config_raises(tmp_path, extra, item):

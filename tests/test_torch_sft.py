@@ -212,8 +212,7 @@ def test_init_state_and_ckpt_extra():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"remat": True}, "item 7"), ({"ring": True}, "item 16"),
-    ({"mesh": object()}, "item 16")])
+    ({"ring": True}, "item 16"), ({"mesh": object()}, "item 16")])
 def test_unported_trainer_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tsft.FoldTrainer(PORT_TINY, TLSPEC, 2, **kw)

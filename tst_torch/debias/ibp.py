@@ -408,8 +408,9 @@ class _SftRoundRunner:
             self.spec, self.lspec, self.k, lr=cfg.optim.lr,
             total_steps=self.total_steps0,  # the same schedule every round
             warmup_frac=cfg.optim.warmup_frac, weight_decay=cfg.optim.weight_decay,
-            use_pallas=self.use_pallas, t_max=self.t_max, b1=cfg.optim.b1, b2=cfg.optim.b2,
-            fused_mlp=cfg.model.fused_mlp, packed=bool(self.pack_len))
+            use_pallas=self.use_pallas, remat=cfg.model.remat, t_max=self.t_max,
+            b1=cfg.optim.b1, b2=cfg.optim.b2, fused_mlp=cfg.model.fused_mlp,
+            packed=bool(self.pack_len))
 
     def _batches(self, fold_global, alive, pack, seed):
         cfg = self.cfg

@@ -324,19 +324,36 @@ def flash_attention_backward(
     return _launch_bwd_dq(q, k, v, do, lse, di, seg), dk, dv
 
 
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                         seg_starts: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, seg_starts)
+    if q.device.type == "cuda":
+        check_kernel_args(q, k, v, causal)
+        return _launch_fwd(q, k, v, kernel_seg_starts(seg_starts, q, causal))
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+#: ``torch.ops.tst_torch.flash_attention_fwd(q, k, v, causal, seg_starts)``
+#: → (o, lse): the forward kernel for CUDA tensors, its plain version for CPU
+#: tensors. One operator, so that a selective-checkpoint policy can keep its
+#: two outputs (remat "flash", tst_torch.models.decoder) and the
+#: recomputation of a checkpointed layer does not run the kernel again.
+_LIB = torch.library.Library("tst_torch", "DEF")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, Tensor? seg_starts)"
+            " -> (Tensor, Tensor)")
+_LIB.impl("flash_attention_fwd", _flash_attention_fwd, "CompositeExplicitAutograd")
+flash_attention_fwd = torch.ops.tst_torch.flash_attention_fwd.default
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward saves (q, k, v, o, lse, seg_starts); backward takes the
-    kernels for CUDA tensors and the plain backward for CPU tensors."""
+    """Forward (``flash_attention_fwd``) saves (q, k, v, o, lse, seg_starts);
+    backward takes the kernels for CUDA tensors and the plain backward for
+    CPU tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, seg_starts):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_reference(q, k, v, causal, seg_starts)
-        elif q.device.type == "cuda":
-            check_kernel_args(q, k, v, causal)
-            o, lse = _launch_fwd(q, k, v, kernel_seg_starts(seg_starts, q, causal))
-        else:
-            raise ValueError(f"flash_attention: unsupported device {q.device}")
+        o, lse = flash_attention_fwd(q, k, v, causal, seg_starts)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, o, lse, seg_starts)
         ctx.mark_non_differentiable(lse)

@@ -20,15 +20,23 @@ kernel K4) when no adapter targets it, as in the reference.
 Weight leaves may be quantized (tst_torch.models.quant: int8, or packed
 int4 on the layer matrices): projections go through ``qdot``, the embedding
 gathers int8 rows and dequantizes only those, and the head is dequantized.
+
+``remat`` recomputes each layer in the backward instead of keeping its
+activations (``torch.utils.checkpoint``, non-reentrant, one region a layer
+or sub-layer regions): :func:`_remat_layer` maps the reference's seven
+modes. A mode changes what is saved, never a number.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from tst_torch.kernels.flash_attention import (flash_attention, masked_attention,
                                                 segment_mask, segment_starts_per_pos)
@@ -132,6 +140,91 @@ def _flash_attention(q, k, v, seg_starts=None):
 #: projection name → its bias key (Qwen2-style QKV biases)
 _BIAS_KEYS = {"q": "bq", "k": "bk", "v": "bv"}
 
+#: the products a "dots" mode keeps (the reference's ``dots_saveable``):
+#: every matmul the layer's projections, adapters and dense attention run
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default}
+#: the attention kernel's forward operator, whose (output, lse) are its residuals
+_FLASH_FWD = torch.ops.tst_torch.flash_attention_fwd.default
+#: selective-checkpoint modes → the operators whose outputs they keep
+_SAVED_OPS = {"flash": {_FLASH_FWD}, "dots": _DOTS, "dots_flash": _DOTS | {_FLASH_FWD},
+              "dots_attn": _DOTS | {_FLASH_FWD}}
+
+
+def check_remat(remat) -> None:
+    """Raise the reference's ValueError on an unknown ``remat`` mode."""
+    if remat is False or remat is None:
+        return
+    if remat is True or remat in ("full", "dots", "dots_attn", "dots_flash", "light", "attn",
+                                  "flash"):
+        return
+    raise ValueError(f"unknown remat mode {remat!r}; use True/'full', 'dots', 'dots_attn', "
+                     "'dots_flash', 'light', 'attn', or 'flash'")
+
+
+def _keep(saved_ops):
+    """A selective-checkpoint policy: keep the outputs of ``saved_ops``,
+    recompute every other operator."""
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved_ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _ckpt(fn: Callable, *args, context_fn=noop_context_fn):
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+
+def _remat_layer(remat, stages, x):
+    """One layer, (x_out, k, v), under ``remat``. ``stages`` are the layer's
+    parts: ``attn_in(x) → (q, k, v)`` (norm, projections, RoPE),
+    ``attend(q, k, v) → attn`` (the kernel or the dense path), ``rest(x,
+    attn) → x_out`` (o-projection and residual, then the MLP block), and
+    ``use_pallas``. Each mode against the reference's
+    (tst/models/decoder.py:274-319), which names what it saves:
+
+      * True / "full": one region a layer; the layer's input only.
+      * "flash": one region, and the kernel's (output, lse) kept by a
+        selective-checkpoint policy, so the backward does not run the
+        forward kernel again. The dense path has no kernel: "full".
+      * "dots": one region keeping every matmul's output; the kernel's
+        forward runs again in the backward, as in the reference.
+      * "dots_flash": "dots" and the kernel's (output, lse).
+      * "dots_attn": the reference keeps dots and the attention output and
+        still re-runs the kernel for its lse. The kernel's operator gives
+        both outputs at once, so the port keeps "dots_flash"'s set: the lse
+        adds 1/(2·D) of the output's bytes, and the kernel is not re-run.
+        On the dense path the attention output is a matmul's (P·V), which
+        "dots" keeps already.
+      * "attn": the post-RoPE q, k and v, the attention output and the
+        kernel's (output, lse): ``attn_in`` and ``rest`` are regions of
+        their own, the kernel between them keeps its inputs and outputs
+        for its backward (on the dense path the attention is a region
+        too, saving q, k and v and recomputing the softmax).
+      * "light": everything but the MLP's gate, up and activation:
+        ``rest`` runs its MLP's gate, up, activation and down product as
+        one region from the normed input (the down product runs again
+        in the backward, beside the reference's recomputed gate and up).
+    """
+    attn_in, attend, rest, use_pallas = stages
+    if remat in _SAVED_OPS:
+        return _ckpt(lambda t: _plain_layer(stages, t), x, context_fn=_keep(_SAVED_OPS[remat]))
+    if remat == "attn":
+        q, k, v = _ckpt(attn_in, x)
+        attn = attend(q, k, v) if use_pallas else _ckpt(attend, q, k, v)
+        return _ckpt(rest, x, attn), k, v
+    if remat == "light":
+        return _plain_layer(stages, x)  # the MLP's region is in ``rest``
+    return _ckpt(lambda t: _plain_layer(stages, t), x)  # True / "full"
+
+
+def _plain_layer(stages, x):
+    attn_in, attend, rest, _ = stages
+    q, k, v = attn_in(x)
+    return rest(x, attend(q, k, v)), k, v
+
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported to tst_torch yet ({item})")
@@ -177,8 +270,7 @@ def apply_model(
                          "for a fold-stacked adapter")
     if ring_mesh is not None:
         _not_ported("ring attention (ring_mesh=)", "ROADMAP item 16")
-    if remat:
-        _not_ported("remat", "ROADMAP item 7")
+    check_remat(remat)
     b, s = tokens.shape
     dt = spec.dtype
     x = embed_lookup(params, tokens, spec)  # [B, S, D]
@@ -200,9 +292,9 @@ def apply_model(
     layers = params["layers"]
     ks, vs = [], []
 
-    for i in range(spec.n_layers):
-        lw = {key: layer_of(w, i) for key, w in layers.items()}
-        la = layer_slice(lora, i) if lora else {}
+    def layer_stages(lw, la):
+        """The layer's stages over its weights ``lw`` and adapters ``la``, bound
+        here: a checkpointed stage runs again in the backward."""
 
         def proj(name, y, w_key):
             out = qdot(y, lw[w_key], dt)
@@ -213,32 +305,52 @@ def apply_model(
                 out = out + lw[bias_key].to(dt)
             return out
 
-        h = rms_norm(x, lw["attn_norm"], spec.rms_eps)
-        q = proj("q", h, "wq").reshape(b, s, spec.n_heads, spec.d_head)
-        k = proj("k", h, "wk").reshape(b, s, spec.n_kv_heads, spec.d_head)
-        v = proj("v", h, "wv").reshape(b, s, spec.n_kv_heads, spec.d_head)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        def attn_in(x_in):
+            h = rms_norm(x_in, lw["attn_norm"], spec.rms_eps)
+            q = proj("q", h, "wq").reshape(b, s, spec.n_heads, spec.d_head)
+            k = proj("k", h, "wk").reshape(b, s, spec.n_kv_heads, spec.d_head)
+            v = proj("v", h, "wv").reshape(b, s, spec.n_kv_heads, spec.d_head)
+            return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+        def attend(q, k, v):
+            if use_pallas:
+                attn = _flash_attention(q, k, v, seg_starts)
+            else:
+                attn = _dense_attention(q, k, v, causal)
+            return attn.reshape(b, s, spec.q_dim)
+
+        def swiglu(h):
+            act = F.silu(proj("gate", h, "w_gate").float()).to(dt) * proj("up", h, "w_up")
+            return proj("down", act, "w_down")
+
+        def rest(x_in, attn):
+            h_mid = x_in + proj("o", attn, "wo")
+            h = rms_norm(h_mid, lw["mlp_norm"], spec.rms_eps)
+            # the fused kernel only when no adapter targets the MLP (an adapter
+            # on gate/up changes the hidden nonlinearly), the reference's condition
+            mlp_lora = any(t in la for t in ("gate", "up", "down"))
+            if use_pallas is True and fused_mlp and not mlp_lora:
+                down = fused_swiglu_mlp(h, dequantize_leaf(lw["w_gate"], dt),
+                                        dequantize_leaf(lw["w_up"], dt),
+                                        dequantize_leaf(lw["w_down"], dt))
+            elif remat == "light":
+                down = _ckpt(swiglu, h)
+            else:
+                down = swiglu(h)
+            return h_mid + down
+
+        return attn_in, attend, rest, use_pallas
+
+    for i in range(spec.n_layers):
+        stages = layer_stages({key: layer_of(w, i) for key, w in layers.items()},
+                              layer_slice(lora, i) if lora else {})
+        if remat:
+            x, k, v = _remat_layer(remat, stages, x)
+        else:
+            x, k, v = _plain_layer(stages, x)
         if return_kv:
             ks.append(k)
             vs.append(v)
-        if use_pallas:
-            attn = _flash_attention(q, k, v, seg_starts)
-        else:
-            attn = _dense_attention(q, k, v, causal)
-        h_mid = x + proj("o", attn.reshape(b, s, spec.q_dim), "wo")
-        h = rms_norm(h_mid, lw["mlp_norm"], spec.rms_eps)
-        # the fused kernel only when no adapter targets the MLP (an adapter on
-        # gate/up changes the hidden nonlinearly), the reference's condition
-        mlp_lora = any(t in la for t in ("gate", "up", "down"))
-        if use_pallas is True and fused_mlp and not mlp_lora:
-            down = fused_swiglu_mlp(h, dequantize_leaf(lw["w_gate"], dt),
-                                    dequantize_leaf(lw["w_up"], dt),
-                                    dequantize_leaf(lw["w_down"], dt))
-        else:
-            act = F.silu(proj("gate", h, "w_gate").float()).to(dt) * proj("up", h, "w_up")
-            down = proj("down", act, "w_down")
-        x = h_mid + down
 
     x = rms_norm(x, params["final_norm"], spec.rms_eps)
     if return_kv:

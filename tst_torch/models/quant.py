@@ -20,8 +20,7 @@ reference quantizes a stacked ``[L, in, out]`` leaf under ``lax.map``, where
 XLA folds ``amax / 127`` (``/ 7``) into a product with the f32 reciprocal;
 a 2-D leaf is quantized eagerly and divides. The port does the same. Under ``bits=4`` the embedding
 and head stay int8 (gathered rows, fidelity-critical), as in the reference.
-Streaming quantization of an HF checkpoint (``quantizing_put``) waits for
-checkpoint loading (ROADMAP item 3).
+``quantizing_put`` quantizes an HF checkpoint's tensors as they stream in.
 """
 
 from __future__ import annotations
@@ -171,10 +170,21 @@ def quantize_params(params: Params, bits: int = 8) -> Params:
 
 
 def quantizing_put(dtype=torch.bfloat16, device=None, bits: int = 8):
-    """The reference's streaming-load callback: waits for HF checkpoint
-    loading."""
-    raise NotImplementedError("quantizing_put (streaming an HF checkpoint through "
-                              "quantization) is not ported to tst_torch yet (ROADMAP item 3)")
+    """A ``put`` for tst_torch.models.hf_load.load_checkpoint that quantizes
+    each streamed tensor on arrival, on ``device`` (default: where the
+    tensor already is): the model never exists in ``dtype`` at once. A layer
+    tensor arrives as a [1, in, out] slice and is quantized as one layer of
+    a stack, as the reference's ``lax.map`` quantizes it, so ``q`` and
+    ``scale`` are bit-equal to the reference's."""
+
+    def put(path: str, t: torch.Tensor) -> Any:
+        leaf_key = path.split(".")[-1]
+        x = t.to(device=device if device is not None else t.device, dtype=dtype)
+        if leaf_key in _QUANT_KEYS:
+            return quantize_leaf(x, bits=leaf_bits(leaf_key, bits))
+        return x
+
+    return put
 
 
 def _leaves(tree):

@@ -10,9 +10,12 @@ rows are padded to a common [k, M] grid and scored in fixed chunks of
 ``batch`` rows, so every chunk has the same shape; fold f's rows go through
 fold f's adapter when fold-stacked adapters ``lora_k`` are given, so each
 sample is scored by the model that never trained on it. Probabilities are a
-softmax over each sample's valid letters. The packed scorer packs each
-fold's held-out MCQ rows several to a row (tst_torch.data.packing) and reads
-every segment's answer slot from one segment-masked forward.
+softmax over each sample's valid letters. A tokenizer whose option letters
+are not single tokens takes the multi-token scorer instead: each option's
+token log-probs summed, teacher-forced, one forward an option. The packed
+scorer packs each fold's held-out MCQ rows several to a row
+(tst_torch.data.packing) and reads every segment's answer slot from one
+segment-masked forward.
 
 Numeric and open rows are greedy-decoded with each row's held-out fold
 model: the rows of all folds go through one decode per chunk, fold-major
@@ -61,6 +64,32 @@ def _fold_adapter(lora_k, f: int):
     return {p: {n: t[f] for n, t in ab.items()} for p, ab in lora_k.items()}
 
 
+def _chunked_fold_scorer(per_batch, batch: int):
+    """The fold and chunk loop the MCQ scorers share: ``score(base,
+    lora_k|None, tokens, answer_pos, opt, idx_kM)`` → f32 [k, M, C], each
+    fold's held-out rows padded (with row 0) to a multiple of ``batch`` and
+    scored chunk by chunk through ``per_batch(base, lora, tokens_bS, pos_b,
+    opt)`` → [b, C] with fold f's adapter (``lora_k``: fold-stacked, [k, L,
+    ...] leaves)."""
+
+    def score(base, lora_k, tokens, answer_pos, opt, idx_kM):
+        device = tokens.device
+        opt = torch.as_tensor(opt, dtype=torch.long, device=device)
+        idx = torch.as_tensor(idx_kM, dtype=torch.long, device=device)
+        k, m = idx.shape
+        idx = torch.nn.functional.pad(idx, (0, (-m) % batch))
+        out = []
+        with torch.inference_mode():
+            for f in range(k):
+                lora = _fold_adapter(lora_k, f)
+                chunks = [per_batch(base, lora, tokens[idx_b], answer_pos[idx_b].long(), opt)
+                          for idx_b in idx[f].split(batch)]
+                out.append(torch.cat(chunks)[:m])
+        return torch.stack(out)  # [k, M, C]
+
+    return score
+
+
 def make_mcq_scorer(
     spec: ModelSpec,
     lora_spec: Optional[LoraSpec] = None,
@@ -68,12 +97,8 @@ def make_mcq_scorer(
     batch: int = 32,
 ):
     """Returns ``score(base, lora_k|None, tokens, answer_pos, option_ids,
-    idx_kM)`` → letter logits f32 [k, M, C].
-
-    ``lora_k``: fold-stacked adapters ([k, L, ...] leaves); fold f's rows are
-    scored with fold f's adapter. Each fold's held-out rows are padded (with
-    row 0) to a multiple of ``batch`` and scored chunk by chunk in a Python
-    loop."""
+    idx_kM)`` → letter logits f32 [k, M, C], in chunks of ``batch`` rows,
+    fold f's rows through fold f's adapter."""
 
     def forward_logits(base, lora, tokens_bS, pos_b, option_ids):
         h = apply_model(base, tokens_bS, spec, lora=lora, lora_spec=lora_spec,
@@ -83,23 +108,51 @@ def make_mcq_scorer(
         # bf16 operands, f32 products and sums (an f32-out product)
         return h_at.float() @ head_cols.to(h.dtype).float()
 
-    def score(base, lora_k, tokens, answer_pos, option_ids, idx_kM):
-        device = tokens.device
-        option_ids = torch.as_tensor(option_ids, dtype=torch.long, device=device)
-        idx = torch.as_tensor(idx_kM, dtype=torch.long, device=device)
-        k, m = idx.shape
-        idx = torch.nn.functional.pad(idx, (0, (-m) % batch))
-        out = []
-        with torch.inference_mode():
-            for f in range(k):
-                lora = _fold_adapter(lora_k, f)
-                chunks = [forward_logits(base, lora, tokens[idx_b],
-                                         answer_pos[idx_b].long(), option_ids)
-                          for idx_b in idx[f].split(batch)]
-                out.append(torch.cat(chunks)[:m])
-        return torch.stack(out)  # [k, M, C]
+    return _chunked_fold_scorer(forward_logits, batch)
 
-    return score
+
+def make_mcq_scorer_multitoken(
+    spec: ModelSpec,
+    lora_spec: Optional[LoraSpec] = None,
+    use_pallas: bool = False,
+    batch: int = 8,
+):
+    """The multi-token fallback for tokenizers whose option letters are not
+    single tokens: each option scores the SUM of its tokens' log-probs,
+    teacher-forced after the answer marker (one forward per option and
+    chunk of ``batch`` rows). An option whose real tokens run past the
+    padded sequence cannot be scored and gets -1e30 (the gold target always
+    fits by tokenize's construction).
+
+    Returns ``score(base, lora_k|None, tokens, answer_pos, opt_seqs [C, T]
+    (-1 padded), idx_kM)`` → summed option log-probs f32 [k, M, C], as
+    :func:`make_mcq_scorer`."""
+
+    def option_logprobs(base, lora, tokens_bS, pos_b, opt_seqs):
+        b, s = tokens_bS.shape
+        t = opt_seqs.shape[1]
+        j_idx = torch.arange(s, device=tokens_bS.device)[None, :] - (pos_b[:, None] + 1)
+        in_window = (j_idx >= 0) & (j_idx < t)  # [b, S]: option-token slots
+        j_safe = j_idx.clamp(0, t - 1)
+        # predictor positions: the hidden state at pos + j predicts token j
+        gather_pos = pos_b[:, None] + torch.arange(t, device=tokens_bS.device)[None, :]
+        head = lm_head_weight(base, spec).to(spec.dtype).float()  # [D, V]
+        out = []
+        for opt_c in opt_seqs:  # [T]
+            opt_at = opt_c[j_safe]  # [b, S]
+            toks = torch.where(in_window & (opt_at >= 0), opt_at, tokens_bS)
+            h = apply_model(base, toks, spec, lora=lora, lora_spec=lora_spec,
+                            use_pallas=use_pallas, return_hidden=True)  # [b, S, D]
+            fits = ((opt_c[None, :] < 0) | (gather_pos <= s - 1)).all(1)  # [b]
+            h_at = h.gather(1, gather_pos.clamp(0, s - 1)[..., None].expand(-1, -1, h.shape[-1]))
+            # bf16 operands, f32 products and sums (an f32-out product)
+            logp = torch.log_softmax(h_at.float() @ head, dim=-1)  # [b, T, V]
+            tok_lp = logp.gather(2, opt_c.clamp_min(0)[None, :, None].expand(b, t, 1))[..., 0]
+            summed = torch.where(opt_c[None, :] >= 0, tok_lp, 0.0).sum(-1)
+            out.append(torch.where(fits, summed, -1e30))
+        return torch.stack(out, dim=1)  # [b, C]
+
+    return _chunked_fold_scorer(option_logprobs, batch)
 
 
 def letter_probs(
@@ -146,14 +199,16 @@ def score_heldout_mcq(
     option_seqs: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """End-to-end: held-out per-option probabilities [N, C]. Rows whose fold
-    id is outside [0, k) are never scored and keep prob 0."""
-    if option_seqs is not None and option_seqs.shape[-1] > 1:
-        raise NotImplementedError(
-            "multi-token option scoring (tokenizers without single-token "
-            "option letters) is not ported to tst_torch yet (ROADMAP item 3)")
+    id is outside [0, k) are never scored and keep prob 0. ``option_seqs``
+    ([C, T], -1 padded, T > 1) takes the multi-token scorer, in chunks of
+    at most 8 rows."""
     idx, valid = heldout_index_grid(fold_id, k, pad_to=pad_to)
-    scorer = make_mcq_scorer(spec, lora_spec, use_pallas, batch)
-    ll = scorer(base, lora_k, tokens, answer_pos, option_ids, idx)
+    if option_seqs is not None and option_seqs.shape[-1] > 1:
+        scorer = make_mcq_scorer_multitoken(spec, lora_spec, use_pallas, batch=min(batch, 8))
+        ll = scorer(base, lora_k, tokens, answer_pos, option_seqs, idx)
+    else:
+        scorer = make_mcq_scorer(spec, lora_spec, use_pallas, batch)
+        ll = scorer(base, lora_k, tokens, answer_pos, option_ids, idx)
     return letter_probs(ll.cpu().numpy(), n_options, idx, valid, tokens.shape[0])
 
 

@@ -22,6 +22,7 @@ ROADMAP item; nothing is silently skipped.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -40,8 +41,9 @@ from tst_torch.eval import metrics
 from tst_torch.eval.parity import spearman
 from tst_torch.io import outputs
 from tst_torch.models.decoder import Params, init_params
+from tst_torch.models.hf_load import load_checkpoint, spec_from_hf_config
 from tst_torch.models.lora import LoraSpec
-from tst_torch.models.quant import quantize_params
+from tst_torch.models.quant import quantize_params, quantizing_put
 from tst_torch.models.spec import ModelSpec, spec_by_name
 from tst_torch.train.infer import (score_all_mcq, score_heldout_mcq, score_heldout_mcq_packed,
                                    score_heldout_numeric, score_heldout_open)
@@ -75,15 +77,21 @@ def build_tokenizer(cfg: RunConfig):
 
 def build_model(cfg: RunConfig, tokenizer,
                 device: torch.device) -> Tuple[ModelSpec, Params]:
-    """ModelSpec + random-init params on ``device``, from a generator seeded
-    with ``data.seed``; ``model.quantize`` int8 / int4 quantizes the big
-    matrices after the init, leaf by leaf (tst_torch.models.quant)."""
+    """ModelSpec + params on ``device``: the HF checkpoint of ``model.path``,
+    streamed tensor by tensor (the spec from its config.json, in the run's
+    dtype; ``model.quantize`` int8 / int4 quantizes each tensor as it
+    arrives, through ``quantizing_put``), else a random init from a
+    generator seeded with ``data.seed``, quantized after the init, leaf by
+    leaf (tst_torch.models.quant)."""
     dtype = DTYPES[cfg.model.dtype]
     quant_bits = {"none": None, "int8": 8, "int4": 4}.get(cfg.model.quantize, -1)
     if quant_bits == -1:
         raise ValueError(f"unknown model.quantize {cfg.model.quantize!r}")
     if cfg.model.path:
-        _not_ported("loading a checkpoint (model.path)", 3)
+        spec = dataclasses.replace(spec_from_hf_config(cfg.model.path, name=cfg.model.name),
+                                   dtype=dtype)
+        put = quantizing_put(dtype, bits=quant_bits) if quant_bits is not None else None
+        return spec, load_checkpoint(cfg.model.path, spec, dtype=dtype, put=put, device=device)
     spec = spec_by_name(cfg.model.name, dtype=dtype)
     if spec.vocab_size < tokenizer.vocab_size:
         spec = spec_by_name(cfg.model.name, dtype=dtype, vocab_size=tokenizer.vocab_size)
@@ -205,8 +213,6 @@ def _check_sft_config(ds: BlindDataset, cfg: RunConfig) -> None:
     """Raise, before any work, on what the port's diagnose-sft does not have."""
     if cfg.mesh.fold * cfg.mesh.data * cfg.mesh.seq * cfg.mesh.tensor > 1:
         _not_ported("mesh sizes above 1", 16)
-    if cfg.model.remat:
-        _not_ported("remat (model.remat)", 7)
     if cfg.checkpoint_dir:
         _not_ported("training checkpoints (checkpoint_dir)", 7)
     if cfg.profile_dir:
@@ -238,8 +244,9 @@ def _build_sft_state(ds: BlindDataset, cfg: RunConfig, device: torch.device) -> 
     st.trainer = FoldTrainer(
         st.spec, st.lspec, k, lr=cfg.optim.lr, total_steps=st.batches.shape[0],
         warmup_frac=cfg.optim.warmup_frac, weight_decay=cfg.optim.weight_decay,
-        use_pallas=cfg.model.use_pallas, t_max=st.t_max, b1=cfg.optim.b1, b2=cfg.optim.b2,
-        fused_mlp=cfg.model.fused_mlp, packed=st.pack is not None)
+        use_pallas=cfg.model.use_pallas, remat=cfg.model.remat, t_max=st.t_max,
+        b1=cfg.optim.b1, b2=cfg.optim.b2, fused_mlp=cfg.model.fused_mlp,
+        packed=st.pack is not None)
     st.lora, st.opt_state = st.trainer.init_state(
         torch.Generator(device=device).manual_seed(cfg.data.seed + 1))
     st.tokens = torch.from_numpy(st.tb.tokens).to(device)

@@ -25,7 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tst_torch.models.decoder import apply_model, lm_head_weight
+from tst_torch.models.decoder import apply_model, check_remat, lm_head_weight
 from tst_torch.models.lora import DROPOUT_ITEM, LoraSpec, fold_count, init_lora
 from tst_torch.models.spec import ModelSpec
 
@@ -282,8 +282,7 @@ class FoldTrainer:
     ):
         if lora_spec.dropout > 0.0:
             _not_ported("training with LoRA dropout", DROPOUT_ITEM)
-        if remat:
-            _not_ported("remat", "ROADMAP item 7")
+        check_remat(remat)
         if ring or mesh is not None:
             _not_ported("meshes and ring attention", "ROADMAP item 16")
         self.spec = spec
@@ -291,6 +290,8 @@ class FoldTrainer:
         self.k = k
         self.tx = make_optimizer(lr, total_steps, warmup_frac, weight_decay, b1, b2)
         self.use_pallas = use_pallas
+        #: recompute each layer in the backward (tst_torch.models.decoder)
+        self.remat = remat
         #: the fused SwiGLU MLP kernel (with use_pallas, no adapter on the MLP)
         self.fused_mlp = fused_mlp
         #: answer-window length; None = full-sequence loss
@@ -332,11 +333,12 @@ class FoldTrainer:
             segs = segs.reshape(k * b, -1)
         if self.t_max is None:
             losses = sft_loss(base, params, tokens, mask, self.spec, self.lora_spec,
-                              self.use_pallas, fused_mlp=self.fused_mlp, seg_starts=segs)
+                              self.use_pallas, remat=self.remat, fused_mlp=self.fused_mlp,
+                              seg_starts=segs)
         else:
             losses = sft_loss_window(base, params, tokens, mask, pos, self.t_max, self.spec,
-                                     self.lora_spec, self.use_pallas, fused_mlp=self.fused_mlp,
-                                     seg_starts=segs)
+                                     self.lora_spec, self.use_pallas, remat=self.remat,
+                                     fused_mlp=self.fused_mlp, seg_starts=segs)
         leaves = tree_leaves(params)
         grads = torch.autograd.grad(losses.sum(), leaves)
         by_id = {id(leaf): g for leaf, g in zip(leaves, grads)}
