@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only rank      # phases 1-2, then the attention kernels vs the library
     python3 chip_smoke.py --only mlp-int4  # phases 1-2, 11-12 (K3, K4), the int4 decode
                                            # and fused train steps of phases 13-14
+    python3 chip_smoke.py --only serve     # phases 1-2 and 20
 
 Every step compared with the plain path (phases 7, 10, 14) holds its
 per-fold losses within 1e-3 of the plain loss, relative, and its LoRA
@@ -70,7 +71,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                losses (2 packed rows per fold) and the packed scorer's letter
                probabilities through the kernels against the plain path;
  11. kernel-int4 — the packed-int4 dequant-matmul (K3) against its plain
-               version at decode's M (32, 64) for each int4 leaf of
+               version at decode's M (32, 64), at speculative decode's verify
+               chunk (96: 32 rows x 3) and at M=37 for each int4 leaf of
                Qwen2.5-0.5B and of Llama-3-8B, layer 1 of a stacked [2, K, N/2]
                leaf, bit-equal on a second call, one kernel a call (the
                kernel nodes of a CUDA graph of one call);
@@ -144,7 +146,27 @@ Phases, each printing one line; any failure raises and exits non-zero:
                (``quantizing_put``), ``eval-blind`` on synthetic-vsi:0.4,
                n=256: launches as implied (numeric rows decoded through K3 at
                Llama's widths), the first decode step's logits against the
-               plain path (phase 13's gates).
+               plain path (phase 13's gates);
+ 20. serve — Qwen2.5-0.5B at full width, bf16, random weights from the
+               seed: (a) ``diagnose-sft`` at phase 6's geometry for one epoch
+               with ``checkpoint_dir`` (the seed_0_epoch_000 layout and its
+               stamp; K1 launches as implied), then in process a fit failed
+               after step 3 and resumed from its checkpoint against an
+               uninterrupted one (bit-equal adapters, AdamW state and fold
+               losses); (b) ``eval-blind --adapter --fold 0`` and ``--fold
+               mean`` (K1 launches 24 x the chunks; fold 0's letter
+               probabilities against the same adapter through the plain
+               attention, within 0.05); (c) ``generate --adapter`` on an int4
+               base, synthetic-vsi:0.4, n=128, 16 tokens (K1 and K3 launches
+               as implied; the first decode step through K3 against the plain
+               path, phase 13's gates; tokens/s); (d) the same with the
+               target's config as an int4 draft, gamma 2 (launches as
+               implied; the tokens equal (c)'s, a differing row allowed only
+               where the plain path's logit margin at its first divergence is
+               within the logit tolerance; rounds, acceptance, tokens/s), and
+               without the adapter, the draft then the target itself
+               (launches, rounds, acceptance, tokens/s); (e) ``warmup`` (the
+               kernels resolved, no launch).
 
 The second-to-last line is the per-kernel JSON record (launches on the
 main path, error, kernel, plain and library times, and the bound: the
@@ -219,6 +241,11 @@ MAX_SEGS, SEG_PAD = 8, 1 << 30
 PACKED_PLAIN_ROWS = 2
 #: K3 at decode's M: Path A's chunk of 32 rows; Path B's 2 folds x 32 rows
 INT4_M = (32, 64)
+#: K3 also held (not timed) at speculative decode's verify chunk, 32 rows x
+#: (gamma + 1) = 96 at phase 20's gamma of 2, and at an M that is no multiple
+#: of 8 or 32
+SPEC_GAMMA = 2
+INT4_CHECK_M = (32 * (SPEC_GAMMA + 1), 37)
 #: (K, N) of Qwen2.5-0.5B's seven int4 projections, in a layer's order
 QWEN_INT4 = {"wq": (896, 896), "wk": (896, 128), "wv": (896, 128), "wo": (896, 896),
              "w_gate": (896, 4864), "w_up": (896, 4864), "w_down": (4864, 896)}
@@ -311,6 +338,23 @@ MULTI_OPTIONS = [[65, 66, 67], [66, 68, 69], [69, 70, 65], [70, 71, 72]]
 MULTI_ROWS = 16
 #: the multi-token scorer's rows a chunk (the reference's cap)
 MULTI_BATCH = 8
+#: phase 20a: phase 6's training (k=2 x 16 rows, LoRA r16 q/k/v/o, n=512) for
+#: one epoch, checkpointed under checkpoint_dir (the RF cross-check, which
+#: phase 6 runs, is off)
+SERVE_TRAIN = ([a.replace("optim.epochs=3", "optim.epochs=1") for a in TRAIN]
+               + ["--set", "rf.cross_check=false"])
+SERVE_EPOCH_DIR = "seed_0_epoch_000"
+#: phase 20a's in-process resume: steps, the failure after step 3, a
+#: checkpoint every 2 steps; the fallback gate if the resume is not bit-equal
+RESUME_STEPS, RESUME_FAIL, RESUME_EVERY, RESUME_COSINE = 6, 3, 2, 0.999
+#: phase 20c-d: generate on an int4 base with the trained adapter, and again
+#: with the target's own config as an int4 draft
+GEN_MAX_NEW, GEN_ROWS = 16, 128
+SERVE_GEN = ["generate", "--bench", "synthetic-vsi:0.4", "--set", f"data.n={GEN_ROWS}",
+             "--set", "model.name=qwen2.5-0.5b", "--set", "model.quantize=int4",
+             "--max-new", str(GEN_MAX_NEW)]
+SERVE_SPEC = SERVE_GEN + ["--draft-model", "qwen2.5-0.5b", "--draft-quantize", "int4",
+                          "--gamma", str(SPEC_GAMMA)]
 #: safetensors' dtype names
 _ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
               torch.int8: "I8", torch.uint8: "U8"}
@@ -1403,7 +1447,7 @@ def phase_kernel_int4(device, strict=True):
         leaf = quantize_leaf(w, bits=4)
         q, sc = leaf["q"], leaf["scale"]
         del w, leaf
-        for m in INT4_M:
+        for m in INT4_M + INT4_CHECK_M:
             y = torch.randn(m, k, device=device, generator=g).to(torch.bfloat16)
             before = tqm.LAUNCHES
             got = tqm.int4_matmul_stacked(y, q, sc, 1)
@@ -1418,7 +1462,7 @@ def phase_kernel_int4(device, strict=True):
             _check_bitwise(lambda: (tqm.int4_matmul_stacked(y, q, sc, 1),), (got,), "K3")
             worst = max(worst, err)
             line = f"[kernel-int4] {name} M={m} K={k} N={n}: max|out-ref|/max|ref| {rel:.3e}"
-            if name in QWEN_INT4:
+            if name in QWEN_INT4 and m in INT4_M:
                 timed.append((y, q, sc))
                 dev = graph_us(lambda: tqm._launch(y, q, sc, 1))
                 host = host_us(lambda: tqm.int4_matmul_stacked(y, q, sc, 1))
@@ -1597,12 +1641,14 @@ def phase_decode_slice():
     return counts
 
 
-def first_decode_step_gate(params, spec, tokens, pos, rows):
+def first_decode_step_gate(params, spec, tokens, pos, rows, lora=None, lspec=None,
+                           max_new=MAX_NEW, continuations=True):
     """The first decode step of each of ``rows``, chunk by chunk, on the same
-    weights and caches, through K3 against the plain path: (a line to print,
-    whether the logit bound holds with no decisive first-token
-    disagreement, the last chunk's state for decode_step_profiles). Greedy
-    continuations of both are compared too (reported, not gated)."""
+    weights (and ``lora``, a single adapter) and caches, through K3 against
+    the plain path: (a line to print, whether the logit bound holds with no
+    decisive first-token disagreement, the last chunk's state for
+    decode_step_profiles). With ``continuations`` the greedy continuations
+    of both are compared too (reported, not gated)."""
     from tst_torch.models.decode import chunk_logits, greedy_decode, prefill
 
     device = tokens.device
@@ -1612,9 +1658,10 @@ def first_decode_step_gate(params, spec, tokens, pos, rows):
         tok, plen = tokens[sel], pos[sel].long() + 1
         s = tok.shape[1]
         with torch.inference_mode():
-            tok0, kc, vc, head, rope = prefill(params, tok, plen, MAX_NEW, spec, use_pallas=True)
+            tok0, kc, vc, head, rope = prefill(params, tok, plen, max_new, spec, lora=lora,
+                                               lora_spec=lspec, use_pallas=True)
             valid = torch.arange(kc.shape[2], device=device)[None, :] < plen[:, None]
-            lk, lp = (chunk_logits(params, None, None, spec, tok0[:, None], plen[:, None], s,
+            lk, lp = (chunk_logits(params, lora, lspec, spec, tok0[:, None], plen[:, None], s,
                                    valid, kc.clone(), vc.clone(), use_pallas=up, head=head,
                                    rope=rope)[0][:, 0] for up in (True, False))
         if not bool(torch.isfinite(lk).all()):
@@ -1622,16 +1669,20 @@ def first_decode_step_gate(params, spec, tokens, pos, rows):
         rels.append(((lk - lp).abs().max() / lp.abs().max()).item())
         n_differ, n_decisive, chunk_gaps = decisive_disagreements(lk, lp)
         differ, decisive, gaps = differ + n_differ, decisive + n_decisive, gaps + chunk_gaps
-        gen_k, gen_p = (greedy_decode(params, tok, plen, MAX_NEW, spec, use_pallas=up)
-                        for up in (True, False))
-        whole += int((gen_k == gen_p).all(-1).sum().item())
-        per_tok += (gen_k == gen_p).float().sum().item() / MAX_NEW
-    line = (f"first decode step of the {len(rows)} numeric rows ({DECODE_ROWS} a chunk), "
+        if continuations:
+            gen_k, gen_p = (greedy_decode(params, tok, plen, max_new, spec, lora=lora,
+                                          lora_spec=lspec, use_pallas=up)
+                            for up in (True, False))
+            whole += int((gen_k == gen_p).all(-1).sum().item())
+            per_tok += (gen_k == gen_p).float().sum().item() / max_new
+    line = (f"first decode step of the {len(rows)} rows ({DECODE_ROWS} a chunk), "
             f"same caches: K3 vs plain max|dlogit|/max|logit| {max(rels):.3e} (<= {LOGIT_TOL}); "
             f"argmax disagreements {differ} of {len(rows)} (the plain path's top-2 gap on each: "
             f"{[round(g, 4) for g in gaps]}), decisive (gap > 2 x {LOGIT_TOL} x max|logit|) "
-            f"{decisive} (must be 0); greedy continuations ({MAX_NEW} tokens): whole-row "
-            f"agreement {whole / len(rows):.4f}, per-token {per_tok / len(rows):.4f}")
+            f"{decisive} (must be 0)")
+    if continuations:
+        line += (f"; greedy continuations ({max_new} tokens): whole-row agreement "
+                 f"{whole / len(rows):.4f}, per-token {per_tok / len(rows):.4f}")
     ok = max(rels) <= LOGIT_TOL and not decisive
     return line, ok, (params, spec, tok0, plen, s, kc, vc, head, rope)
 
@@ -2124,6 +2175,54 @@ def multitoken_launches_want(rows, options, n_layers, batch=MULTI_BATCH):
     return n_layers * options * math.ceil(rows / batch)
 
 
+def generate_launches_want(chunks, max_new, n_layers):
+    """A greedy ``generate``'s launches on an int4 base: one forward a layer
+    for each chunk's prefill, and K3 on each of a layer's 7 projections in
+    each decode step after the prefill's token."""
+    return {"fwd": n_layers * chunks, "dkv": 0, "dq": 0, "fwd_seg": 0, "dkv_seg": 0,
+            "dq_seg": 0, "int4": INT4_PROJ * n_layers * (max_new - 1) * chunks, "mlp": 0}
+
+
+def spec_launches_want(chunks, rounds, gamma, n_layers):
+    """A speculative ``generate``'s launches, target and draft on int4
+    bases: two forwards a layer for each chunk (the target's prefill and the
+    draft's); in each round, gamma + 1 draft steps and the target's verify
+    chunk, each with K3 on a layer's 7 projections (``rounds`` summed over
+    the chunks)."""
+    return {"fwd": 2 * n_layers * chunks, "dkv": 0, "dq": 0, "fwd_seg": 0, "dkv_seg": 0,
+            "dq_seg": 0, "int4": INT4_PROJ * n_layers * (gamma + 2) * rounds, "mlp": 0}
+
+
+def first_divergence(a, b):
+    """Per row of two [rows, T] token arrays, the first column where they
+    differ; -1 where the rows are equal."""
+    differ = np.asarray(a) != np.asarray(b)
+    return np.where(differ.any(-1), differ.argmax(-1), -1)
+
+
+def spec_token_gate(greedy, spec, lp, tol=LOGIT_TOL):
+    """Speculative decode's tokens against greedy decode's: (rows that
+    differ, the decisive ones among them, each differing row's margin).
+    ``lp`` [rows that differ, vocab] holds the plain path's f32 logits at
+    each such row's first divergent position; the margin is the plain
+    logit of greedy's token less that of speculative decode's token there.
+    A divergence is decisive when its margin exceeds twice the error the
+    logit tolerance lets through, ``tol · max|lp|``, as in
+    decisive_disagreements: an error within the tolerance (the verify
+    chunk's products at another M) could not have flipped it."""
+    col = first_divergence(greedy, spec)
+    rows = np.flatnonzero(col >= 0)
+    if not len(rows):
+        return rows, 0, []
+    greedy, spec = np.asarray(greedy), np.asarray(spec)
+    lp = torch.as_tensor(lp, dtype=torch.float32)
+    idx = torch.arange(len(rows))
+    margin = (lp[idx, torch.as_tensor(greedy[rows, col[rows]])]
+              - lp[idx, torch.as_tensor(spec[rows, col[rows]])])
+    decisive = margin.abs() > 2 * tol * lp.abs().max()
+    return rows, int(decisive.sum()), margin.tolist()
+
+
 def _timed_build(cfg, device):
     """(spec, params, seconds): build_model on the run's device, synchronized."""
     from tst_torch.data.tokenize import ByteTokenizer
@@ -2474,18 +2573,286 @@ def phase_llama(device):
             "gb": nbytes / 1e9}
 
 
+def _cli_run(argv, out_dir, report_name):
+    """``python -m tst_torch`` through ``cli.main(argv --out out_dir)``, the
+    launch counts set to 0 just before it and read just after → (rc,
+    counts, the run's report, wall seconds)."""
+    from tst_torch import cli
+
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["--out", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    with open(os.path.join(out_dir, report_name)) as f:
+        return rc, counts, json.load(f), wall
+
+
+def _recording(module, name, store):
+    """Wrap ``module.name`` so that each call's token output is kept in
+    ``store``: the token ids a run generated (its text drops most of them);
+    returns the original to restore."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        store.append((out[0] if isinstance(out, tuple) else out).cpu().numpy())
+        return out
+
+    setattr(module, name, wrapped)
+    return fn
+
+
+def _resume_gate(st, root):
+    """Phase 20a in process: RESUME_STEPS steps of the run's trainer
+    uninterrupted, then from the same start with a checkpoint every
+    RESUME_EVERY steps and a failure injected after RESUME_FAIL, then
+    resumed from the checkpoint: (a line, whether the adapters, AdamW state
+    and the resumed steps' fold losses are bit-equal). Where they are not,
+    the gate falls back to the fold losses (fold_losses_agree) and each
+    LoRA leaf's cosine >= RESUME_COSINE, and prints the largest difference."""
+    trainer, batches = st.trainer, st.batches[:RESUME_STEPS]
+    args = (st.params, st.lora, st.opt_state, st.tokens, st.loss_mask, batches)
+    kw = dict(all_pos=st.answer_pos, log_every=1)
+    t0 = time.perf_counter()
+    ref_lora, ref_opt, ref_log = trainer.fit(*args, **kw)
+    path = os.path.join(root, "resume")
+    try:
+        trainer.fit(*args, checkpoint_dir=path, checkpoint_every=RESUME_EVERY,
+                    fail_after_step=RESUME_FAIL, **kw)
+        raise AssertionError("fail_after_step did not fail")
+    except RuntimeError as e:
+        if f"after step {RESUME_FAIL}" not in str(e):
+            raise
+    t1 = time.perf_counter()
+    lora, opt, log = trainer.fit(*args, checkpoint_dir=path, checkpoint_every=RESUME_EVERY, **kw)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t1
+    done = RESUME_FAIL - RESUME_FAIL % RESUME_EVERY  # the last checkpoint's step
+    differ = (trees_equal(lora, ref_lora) + trees_equal(opt.mu, ref_opt.mu)
+              + trees_equal(opt.nu, ref_opt.nu))
+    bitwise = (not differ and opt.count == ref_opt.count == RESUME_STEPS
+               and log.fold_losses == ref_log.fold_losses[done:])
+    line = (f"in process: {RESUME_STEPS} steps uninterrupted vs failed after step {RESUME_FAIL} "
+            f"(checkpoints every {RESUME_EVERY}) and resumed from step {done}: adapters, AdamW "
+            f"mu/nu, count and the resumed fold losses bit-equal {bitwise}; resume "
+            f"{resume_s:.2f} s for {RESUME_STEPS - done} steps (the three fits "
+            f"{time.perf_counter() - t0:.2f} s)")
+    if bitwise:
+        return line, True
+    worst = max((a - b).abs().max().item() for a, b in zip(
+        [t for ab in lora.values() for t in ab.values()],
+        [t for ab in ref_lora.values() for t in ab.values()]))
+    cos = min(torch.nn.functional.cosine_similarity(
+        lora[p][n].float().flatten(), ref_lora[p][n].float().flatten(), dim=0).item()
+        for p in lora for n in lora[p])
+    gap, loss_ok = fold_losses_agree(log.fold_losses[-1], ref_log.fold_losses[-1])
+    line += (f"; not bit-equal (leaves differing: {differ}): largest |d| {worst:.3e}, LoRA "
+             f"cosine min {cos:.6f} (>= {RESUME_COSINE}), final fold-loss gap {gap:.3e}")
+    return line, loss_ok and cos >= RESUME_COSINE
+
+
+def _plain_logits_at(params, spec, lora, lspec, tokens, plen, prefix, rows, cols):
+    """The plain path's f32 logits [len(rows), vocab] after each row's prompt
+    and its first ``cols[i]`` generated tokens (``prefix``), one dense
+    forward a row."""
+    from tst_torch.models.decoder import apply_model, lm_head_weight
+
+    head = lm_head_weight(params, spec).to(spec.dtype).float()
+    out = []
+    with torch.inference_mode():
+        for r, c in zip(rows, cols):
+            seq = torch.cat([tokens[r, : int(plen[r])],
+                             torch.as_tensor(prefix[r, :c], device=tokens.device).to(tokens.dtype)])
+            h = apply_model(params, seq[None], spec, lora=lora, lora_spec=lspec,
+                            use_pallas=False, return_hidden=True)[0, -1]
+            out.append(h.float() @ head)
+    return torch.stack(out).cpu()
+
+
+def phase_serve():
+    """Phase 20: train with checkpoints and resume, serve the adapter
+    (eval-blind --adapter, fold 0 and mean), generate on an int4 base with
+    it, the same by exact speculative decode with an int4 draft, and
+    warmup. Every CLI run's launches counted from 0 and held to what it
+    implies; returns the launches of each kernel over phase 20's runs."""
+    import tst_torch.train.pipeline as tpipe
+    from tst_torch import cli
+    from tst_torch.train.infer import score_heldout_mcq
+    from tst_torch.train.pipeline import load_adapter_lora, prepare_blind_eval
+
+    root = tempfile.mkdtemp(prefix="tst_torch_serve_")
+    ck = os.path.join(root, "ck")
+    adapter = os.path.join(ck, SERVE_EPOCH_DIR)
+    total = dict.fromkeys(("fwd", "dkv", "dq", "int4"), 0)
+
+    def add(counts):
+        for key in total:
+            total[key] += counts[key]
+
+    try:
+        # (a) train one epoch with checkpoints, then resume in process
+        out = os.path.join(root, "sft")
+        rc, counts, report, wall = _cli_run(SERVE_TRAIN + ["--set", f"checkpoint_dir={ck}"], out,
+                                            "report.json")
+        add(counts)
+        folds = np.array([json.loads(line)["fold"]
+                          for line in open(os.path.join(out, "sx.jsonl"))])
+        k, steps = report["k"], report["train_steps"]
+        chunks = k * math.ceil(max(int((folds == f).sum()) for f in range(k)) / SCORER_BATCH)
+        want = sft_launches_want(steps, chunks, N_LAYERS)
+        stamp = {"k": 2, "model_name": report["model"], "lora_rank": 16, "lora_alpha": 32.0,
+                 "lora_targets": ["q_proj", "k_proj", "v_proj", "o_proj"], "step": steps}
+        with open(os.path.join(adapter, "extra.json")) as f:
+            extra = json.load(f)
+        files = sorted(os.listdir(adapter)) if os.path.isdir(adapter) else []
+        if (rc != 0 or counts != want or sorted(os.listdir(ck)) != [SERVE_EPOCH_DIR]
+                or files != ["extra.json", "state.safetensors"] or extra != stamp):
+            raise AssertionError(f"diagnose-sft with checkpoint_dir rc={rc}, launches {counts} "
+                                 f"(want {want}), layout {os.listdir(ck)} {files}, stamp {extra}")
+        size = os.path.getsize(os.path.join(adapter, "state.safetensors")) / 1e6
+        print(f"[serve] (a) diagnose-sft one epoch with checkpoint_dir rc=0: {steps} steps x {k} "
+              f"folds, launches fwd {counts['fwd']} dkv {counts['dkv']} dq {counts['dq']} (as "
+              f"implied); {SERVE_EPOCH_DIR}/ with state.safetensors ({size:.2f} MB) and its stamp "
+              f"{extra}; final_loss {report['final_loss']:.4f}; CLI wall {wall:.2f} s")
+        st = _train_state(base=SERVE_TRAIN)
+        line, ok = _resume_gate(st, root)
+        print(f"[serve] (a) {line}")
+        if not ok:
+            raise AssertionError("a resumed fit disagrees with the uninterrupted one")
+
+        # (b) serve the adapter through eval-blind, fold 0 and the mean
+        for fold in ("0", "mean"):
+            rc, counts, rep, wall = _cli_run(SLICE + ["--adapter", adapter, "--fold", fold],
+                                             os.path.join(root, f"blind_{fold}"),
+                                             "blind_eval.json")
+            add(counts)
+            want = {**dict.fromkeys(counts, 0),
+                    "fwd": N_LAYERS * math.ceil(N_SAMPLES / SCORER_BATCH)}
+            if (rc != 0 or counts != want or rep["zero_shot"] is not False
+                    or rep["adapter"] != adapter or rep["adapter_fold"] != fold
+                    or rep["n_mcq"] != N_SAMPLES or not math.isfinite(rep["blind_accuracy"])):
+                raise AssertionError(f"eval-blind --adapter --fold {fold} rc={rc}, launches "
+                                     f"{counts} (want {want}), report {rep}")
+            print(f"[serve] (b) eval-blind --adapter {SERVE_EPOCH_DIR} --fold {fold} rc=0: "
+                  f"launches fwd {counts['fwd']} ({N_LAYERS} x {want['fwd'] // max(N_LAYERS, 1)} "
+                  f"chunks, as implied), blind_accuracy "
+                  f"{rep['blind_accuracy']:.4f}, zero_shot false, adapter_fold {fold}; CLI wall "
+                  f"{wall:.2f} s")
+            if fold == "0":
+                acc0 = rep["blind_accuracy"]
+        cfg, device = cli._resolve(cli.build_parser().parse_args(SLICE))
+        one, lspec = load_adapter_lora(adapter, cfg, st.spec, fold="0", device=device)
+        zeros = np.zeros(st.tb.n, np.int32)
+        probs = {up: score_heldout_mcq(st.params, one, st.spec, lspec, st.tokens, st.answer_pos,
+                                       st.tb.option_token_ids, st.tb.n_options, zeros, 1,
+                                       use_pallas=up) for up in (True, False)}
+        diff = float(np.abs(probs[True] - probs[False]).max())
+        acc_k = float((probs[True].argmax(-1) == st.tb.gold).mean())
+        print(f"[serve] (b) fold 0's adapter served in process, kernel vs plain attention: "
+              f"max|dprob| {diff:.3e} (<= {PROB_TOL}); rescored accuracy {acc_k:.4f} (CLI "
+              f"{acc0:.4f})")
+        if diff > PROB_TOL or abs(acc_k - acc0) > 1.0 / N_SAMPLES:
+            raise AssertionError("the served adapter's probabilities disagree with the plain path")
+        del st, probs
+
+        # (c) generate on an int4 base with the adapter; (d) the same with an
+        # int4 draft of the target's own config, gamma 2; then without the
+        # adapter, where the draft is the target
+        ids, served = {}, ["--adapter", adapter, "--fold", "0"]
+        for name, argv, fn in (("greedy", SERVE_GEN + served, "greedy_decode"),
+                               ("spec", SERVE_SPEC + served, "speculative_greedy_decode"),
+                               ("self", SERVE_SPEC, "speculative_greedy_decode")):
+            ids[name] = []
+            original = _recording(tpipe, fn, ids[name])
+            try:
+                rc, counts, rep, wall = _cli_run(argv, os.path.join(root, name),
+                                                 "generate_report.json")
+            finally:
+                setattr(tpipe, fn, original)
+            add(counts)
+            chunks = math.ceil(GEN_ROWS / rep["chunk_rows"])
+            want = (generate_launches_want(chunks, GEN_MAX_NEW, N_LAYERS) if name == "greedy"
+                    else spec_launches_want(chunks, rep["spec_rounds"], SPEC_GAMMA, N_LAYERS))
+            ids[name] = np.concatenate(ids[name])[:GEN_ROWS]
+            if rc != 0 or counts != want or ids[name].shape != (GEN_ROWS, GEN_MAX_NEW):
+                raise AssertionError(f"generate ({name}) rc={rc}, launches {counts} (want "
+                                     f"{want}), tokens {ids[name].shape}")
+            tps = rep["tokens_generated"] / rep["decode_seconds"]
+            what = {"greedy": "greedy int4 + adapter", "spec": "speculative int4 + adapter",
+                    "self": "speculative int4, no adapter (the draft is the target)"}[name]
+            line = (f"[serve] ({'c' if name == 'greedy' else 'd'}) generate {what} "
+                    f"rc=0: {GEN_ROWS} rows x {GEN_MAX_NEW} tokens in {chunks} chunks of "
+                    f"{rep['chunk_rows']}; launches fwd {counts['fwd']} int4 {counts['int4']} (as "
+                    f"implied); decode {rep['decode_seconds']:.3f} s, {tps:.1f} tokens/s; CLI "
+                    f"wall {wall:.2f} s")
+            if name != "greedy":
+                line += (f"; spec_rounds {rep['spec_rounds']}, committed_per_round "
+                         f"{rep['committed_per_round']}, draft_acceptance "
+                         f"{rep['draft_acceptance']} (gamma {SPEC_GAMMA}); tokens/s "
+                         f"{tps:.1f} vs greedy {greedy_tps:.1f}")
+            else:
+                greedy_tps = tps
+            print(line)
+
+        cfg, device = cli._resolve(cli.build_parser().parse_args(SERVE_GEN))
+        tb, tokens, pos, spec, params = prepare_blind_eval(cli._load_dataset(cfg), cfg, device)
+        one, lspec = load_adapter_lora(adapter, cfg, spec, fold="0", keep_fold_axis=False,
+                                       device=device)
+        line, ok, _ = first_decode_step_gate(params, spec, tokens, pos, np.arange(GEN_ROWS),
+                                             lora=one, lspec=lspec, max_new=GEN_MAX_NEW,
+                                             continuations=False)
+        print(f"[serve] (c) {line}")
+        if not ok:
+            raise AssertionError("generate's first decode step through K3 disagrees with the "
+                                 "plain path")
+        col = first_divergence(ids["greedy"], ids["spec"])
+        rows = np.flatnonzero(col >= 0)
+        lp = (_plain_logits_at(params, spec, one, lspec, tokens, pos.long() + 1, ids["greedy"],
+                               rows, col[rows]) if len(rows) else None)
+        rows, decisive, margins = spec_token_gate(ids["greedy"], ids["spec"], lp)
+        bound = 2 * LOGIT_TOL * float(lp.abs().max()) if lp is not None else 0.0
+        print(f"[serve] (d) speculative vs greedy tokens, with the adapter: rows differing "
+              f"{len(rows)} of {GEN_ROWS} (first divergent columns {col[rows].tolist()}, the "
+              f"plain path's logit margin greedy - speculative there "
+              f"{[round(m, 4) for m in margins]}); decisive (|margin| > 2 x {LOGIT_TOL} x "
+              f"max|logit| = {bound:.4f}) {decisive} (must be 0)")
+        if decisive:
+            raise AssertionError("speculative decode's tokens differ decisively from greedy's")
+        del params, tokens
+
+        # (e) warmup
+        warmup = ["warmup", "--bench", "synthetic:0.5", "--set", "data.n=512", "--set",
+                  "model.name=qwen2.5-0.5b", "--k", "2"]
+        rc, counts, rep, wall = _cli_run(warmup, os.path.join(root, "warmup"),
+                                         "warmup_report.json")
+        want_k = tpipe.warmup_entries(cli._resolve(cli.build_parser().parse_args(warmup))[0])
+        if rc != 0 or any(counts.values()) or rep["kernels"] != want_k:
+            raise AssertionError(f"warmup rc={rc}, launches {counts}, report {rep}")
+        print(f"[serve] (e) warmup rc=0: resolved {rep['kernels']} in {rep['library']} (nvcc "
+              f"{rep['build_seconds']} s: built earlier in this run), no launches; CLI wall "
+              f"{wall:.2f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["rank", "mlp-int4"], default=None,
+    parser.add_argument("--only", choices=["rank", "mlp-int4", "serve"], default=None,
                         help="rank: the attention kernels against the library at the train "
                              "shape; mlp-int4: K3 and K4 against their plain versions, timed "
                              "(either runs on any build of tst_torch, so also a parent "
-                             "commit's)")
+                             "commit's); serve: phase 20 alone")
     args = parser.parse_args(argv)
     device = phase_device()
     phase_build(sass=args.only is None)
     if args.only == "rank":
         phase_rank(device)
+        return
+    if args.only == "serve":
+        print(json.dumps({"launches_serve": phase_serve()}))
         return
     if args.only == "mlp-int4":
         print(json.dumps({"int4": phase_kernel_int4(device, strict=False),
@@ -2508,6 +2875,7 @@ def main(argv=None):
     phase_debias_ibp_rf()
     ckpt = phase_checkpoint_qwen(slice_probs, slice_report)
     llama = phase_llama(device)
+    serve = phase_serve()
     sft, times = llama["sft"], llama["times"]
     records = [
         {"name": "flash_attention_fwd", "route": "cuda",
@@ -2516,19 +2884,20 @@ def main(argv=None):
          "launches": counts["fwd"], "launches_eval_blind": blind_launches,
          "launches_debias_ibp": ibp["fwd"], "launches_checkpoint_qwen": ckpt["fwd"],
          "launches_llama_sft": sft["fwd"], "launches_llama_int4": llama["int4"]["fwd"],
+         "launches_serve": serve["fwd"],
          "llama_shape": {"shape": times["shape"], **times["fwd"]}, **kern, **bwd["fwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:553",
          "launches": counts["dkv"], "launches_debias_ibp": ibp["dkv"],
-         "launches_llama_sft": sft["dkv"],
+         "launches_llama_sft": sft["dkv"], "launches_serve": serve["dkv"],
          "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
                          **times["dkv"]}, **bwd["dkv"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:518",
          "launches": counts["dq"], "launches_debias_ibp": ibp["dq"],
-         "launches_llama_sft": sft["dq"],
+         "launches_llama_sft": sft["dq"], "launches_serve": serve["dq"],
          "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
                          **times["dq"]}, **bwd["dq"]},
         {"name": "flash_attention_fwd_seg", "route": "cuda",
@@ -2546,7 +2915,7 @@ def main(argv=None):
         {"name": "int4_matmul", "route": "cuda", "source": "tst_torch/csrc/int4_matmul.cu",
          "replaces": "tst/kernels/quant_matmul.py:64", "launches": decode["int4"],
          "launches_diagnose_sft": fused["int4"], "launches_llama_int4": llama["int4"]["int4"],
-         **int4},
+         "launches_serve": serve["int4"], **int4},
         {"name": "fused_swiglu_mlp", "route": "cuda", "source": "tst_torch/csrc/fused_mlp.cu",
          "replaces": "tst/kernels/fused_mlp.py:44", "launches": fused["mlp"], **mlp},
     ]

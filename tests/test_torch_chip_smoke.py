@@ -2,8 +2,9 @@
 attention kernel and both K4 kernels run their products on wgmma), the build
 log's per-kernel registers and spills, the K3 first-token gate (no decisive
 disagreement) and the relative per-fold loss bound, phases 15-17's gates, and
-phases 18-19's checkpoint writer, HF-name exporter and launch arithmetic. The
-phases that use them run only on a card."""
+phases 18-19's checkpoint writer, HF-name exporter and launch arithmetic, and
+phase 20's launch arithmetic of generate and speculative decode and its
+token gate. The phases that use them run only on a card."""
 
 import math
 import sys
@@ -419,3 +420,46 @@ def test_multitoken_options_are_of_equal_length():
     """No option is padded, so none wins on length alone."""
     opts = np.array(chip_smoke.MULTI_OPTIONS)
     assert (opts >= 0).all() and len({tuple(o) for o in opts}) == len(opts)
+
+
+def test_generate_launch_arithmetic():
+    """Greedy generate on an int4 base: 128 rows in 4 chunks of 32, 16
+    tokens: a prefill forward a layer a chunk, K3 on 7 projections a layer
+    in each of the 15 steps after the prefill's token."""
+    want = chip_smoke.generate_launches_want(4, 16, 24)
+    assert want["fwd"] == 24 * 4 and want["int4"] == 7 * 24 * 15 * 4
+    assert want["dkv"] == want["dq"] == want["mlp"] == want["fwd_seg"] == 0
+
+
+def test_spec_launch_arithmetic():
+    """Speculative decode: two prefills a chunk (target and draft); a round
+    is gamma + 1 draft steps and one verify chunk, each with K3 on 7
+    projections a layer."""
+    want = chip_smoke.spec_launches_want(4, 30, 2, 24)
+    assert want["fwd"] == 2 * 24 * 4 and want["int4"] == 7 * 24 * 4 * 30
+    assert set(want) == set(chip_smoke.generate_launches_want(1, 2, 1))
+    assert chip_smoke.spec_launches_want(1, 0, 4, 2)["int4"] == 0  # max_new = 1: no round
+
+
+def test_first_divergence():
+    a = np.array([[1, 2, 3], [1, 2, 3], [4, 5, 6]])
+    b = np.array([[1, 2, 3], [1, 9, 3], [0, 5, 7]])
+    np.testing.assert_array_equal(chip_smoke.first_divergence(a, b), [-1, 1, 0])
+
+
+@pytest.mark.parametrize("margin,decisive", [(0.0, 0), (0.5, 0), (1.9, 0), (2.1, 1), (-3.0, 1)])
+def test_spec_token_gate(margin, decisive):
+    """A row whose speculative tokens differ from greedy's passes only when
+    the plain path's logit margin between the two tokens at the first
+    divergence is within 2 x LOGIT_TOL x max|logit| (here 2 x 0.02 x 50 =
+    2); equal rows need no logits."""
+    greedy = np.array([[5, 6, 7], [1, 2, 3]])
+    spec = np.array([[5, 6, 7], [1, 4, 3]])
+    lp = torch.zeros(1, 10)
+    lp[0, 9] = 50.0  # sets max|logit|
+    lp[0, 2], lp[0, 4] = 10.0 + margin, 10.0  # greedy's token 2, speculative's 4
+    rows, n_decisive, margins = chip_smoke.spec_token_gate(greedy, spec, lp)
+    assert rows.tolist() == [1] and n_decisive == decisive
+    assert margins == pytest.approx([margin], abs=1e-5)
+    rows, n_decisive, margins = chip_smoke.spec_token_gate(greedy, greedy, None)
+    assert len(rows) == 0 and n_decisive == 0 and margins == []

@@ -202,11 +202,18 @@ def test_heldout_numeric_and_open_match_reference(quant):
     np.testing.assert_array_equal(got_o[1], want_o[1])
 
 
-def test_speculative_decode_raises():
-    _, tparams = _params(None)
-    tokens, prompt_len = _prompts(2, s=16)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tinfer.score_heldout_numeric(
-            tparams, None, _port_spec(WIDE), None, torch.from_numpy(tokens),
-            torch.from_numpy(prompt_len - 1), np.ones(2, np.float32), np.zeros(2, np.int32), 1,
-            tokenizer=ByteTokenizer(), draft=(None, None))
+def test_speculative_decode_legs_match_plain():
+    """The held-out numeric leg with a draft (``draft=(spec, params)``) on an
+    int4 base, fold-stacked adapters, the verify chunk's int4 projections
+    through the K3 wrapper's plain version: the plain leg's predictions."""
+    _, tparams = _params(4)
+    _, dparams = _params(None)
+    tokens, prompt_len = _prompts(2 * K, s=16)
+    args = (tparams, bridge.to_torch(_fold_adapters(seed=9)), _port_spec(WIDE), TLSPEC,
+            torch.from_numpy(tokens), torch.from_numpy(prompt_len - 1),
+            np.ones(2 * K, np.float32), np.arange(2 * K, dtype=np.int32) % K, K)
+    kw = dict(tokenizer=ByteTokenizer(), max_new=6, use_pallas=True)
+    want = tinfer.score_heldout_numeric(*args, **kw)
+    got = tinfer.score_heldout_numeric(*args, draft=(_port_spec(WIDE), dparams), gamma=3, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -17,6 +17,7 @@ import torch
 from tst.models import decoder as jdec
 from tst_torch import bridge
 from tst_torch.models import decoder as tdec
+from tst_torch.models import lora as tlora
 from tst_torch.models.spec import ModelSpec
 
 #: narrow Qwen2.5-shaped spec: QKV biases, tied head, GQA 7:1, theta 1e6
@@ -107,14 +108,34 @@ def test_init_params_shapes_and_seed():
     assert a["layers"]["wq"].std().item() == pytest.approx(1 / np.sqrt(56), rel=0.05)
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"lora_rng": object()}, "item 5"), ({"ring_mesh": object()}, "item 16"),
-])
+@pytest.mark.parametrize("kw,item", [({"ring_mesh": object()}, "item 16")])
 def test_unported_arguments_raise(kw, item):
     spec = _port_spec(SPECS["tiny"])
     params = tdec.init_params(torch.Generator().manual_seed(0), spec)
     with pytest.raises(NotImplementedError, match=item):
         tdec.apply_model(params, torch.zeros(1, 8, dtype=torch.long), spec, **kw)
+
+
+def test_lora_rng_drops_only_with_dropout():
+    """``lora_rng``: ignored at dropout 0 (as the reference); with dropout it
+    moves the logits, the same way every time."""
+    spec = _port_spec(SPECS["tiny"])
+    g = torch.Generator().manual_seed(0)
+    params = tdec.init_params(g, spec)
+    lspec = tlora.LoraSpec(rank=4, dtype=torch.float32, dropout=0.3)
+    lora = tlora.init_lora(g, spec, lspec)
+    for ab in lora.values():
+        ab["b"] = 0.3 * torch.randn(ab["b"].shape, generator=g)
+    tokens = torch.randint(0, 256, (2, 16), generator=g)
+    key = tlora.DropoutKey((0,), 1)
+    off = dataclasses.replace(lspec, dropout=0.0)
+    plain = tdec.apply_model(params, tokens, spec, lora=lora, lora_spec=off)
+    assert torch.equal(tdec.apply_model(params, tokens, spec, lora=lora, lora_spec=off,
+                                        lora_rng=key), plain)
+    dropped = tdec.apply_model(params, tokens, spec, lora=lora, lora_spec=lspec, lora_rng=key)
+    assert not torch.allclose(dropped, plain)
+    assert torch.equal(dropped, tdec.apply_model(params, tokens, spec, lora=lora,
+                                                 lora_spec=lspec, lora_rng=key))
 
 
 @pytest.mark.parametrize("name", ["qwen", "llama"])

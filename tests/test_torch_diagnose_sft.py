@@ -35,7 +35,6 @@ from tst.train import sft as jsft
 from tst_torch import bridge, cli
 from tst_torch import config as tconfig
 from tst_torch.data.adapters import load_benchmark as tload_benchmark
-from tst_torch.data.schema import BlindDataset, Sample
 from tst_torch.diagnose import score as tscore
 from tst_torch.eval import metrics as tmetrics
 from tst_torch.eval import parity as tparity
@@ -94,10 +93,19 @@ def _bridge_port(monkeypatch, quantize=None):
         lora, _ = jsft.FoldTrainer(spec, lspec, self.k).init_state(
             jax.random.key(rng.initial_seed()))
         lora = bridge.to_torch(jax.tree.map(np.asarray, lora), rng.device)
+        self.dropout_masks = reference_masks  # the reference's dropout masks
         return lora, self.tx.init(lora)
 
     monkeypatch.setattr(tpipe, "build_model", bridged_model)
     monkeypatch.setattr(tsft.FoldTrainer, "init_state", bridged_init_state)
+
+
+def reference_masks(fold, step, layer, proj, shape, keep, device):
+    """The LoRA dropout mask tst draws for (fold, optimizer count, layer,
+    projection) (tst/train/sft.py:340, tst/models/decoder.py:444, 516)."""
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.key(0x10A0), fold), step)
+    rng = jax.random.fold_in(jax.random.split(key, TINY.n_layers)[layer], jdec._PROJ_IDS[proj])
+    return torch.from_numpy(np.array(jax.random.bernoulli(rng, keep, shape))).to(device)
 
 
 def _sx(path):
@@ -125,6 +133,8 @@ def _assert_close(got, want, key):
     (24, ["optim.epochs=2", "optim.score_epochs=[1]", "optim.n_seeds=2"]),
     (48, ["optim.pack=true"]),
     (48, ["rf.cross_check=true", "rf.n_estimators=30"]),
+    (24, ["data.max_len=128", "lora.dropout=0.1", 'lora.targets=["q_proj","v_proj","up_proj"]']),
+    (24, ["data.max_len=128", "optim.epochs=2", "checkpoint_dir={ckpt}"]),
 ])
 def test_diagnose_sft_matches_reference(tmp_path, monkeypatch, n, extra):
     """The whole slice, same data, weights and initial adapters: the same
@@ -134,14 +144,18 @@ def test_diagnose_sft_matches_reference(tmp_path, monkeypatch, n, extra):
     rows three samples to a row of 1024 (pack_len, pack_fill_fraction); the
     fourth runs the RF cross-check, the default, with the port's own forest
     fit against the reference's scikit-learn fit (rf_sft_spearman,
-    rf_blind_accuracy and its stage wall)."""
+    rf_blind_accuracy and its stage wall); the fifth trains with LoRA
+    dropout, the reference's masks injected into the port's trainer; the
+    sixth checkpoints every epoch (each package its own format)."""
     ds = load_benchmark("synthetic:0.5", n=n, seed=0)
     want = jpipe.run_sft_diagnostic(ds, _cfg(tmp_path / "jax", n, "model.use_pallas=false",
-                                             *extra, config=config_mod))
+                                             *[e.format(ckpt=tmp_path / "jck") for e in extra],
+                                             config=config_mod))
     _bridge_port(monkeypatch)
     out = tmp_path / "port"
     got = tpipe.run_sft_diagnostic(tload_benchmark("synthetic:0.5", n=n, seed=0),
-                                   _cfg(out, n, *extra), torch.device("cpu"))
+                                   _cfg(out, n, *[e.format(ckpt=tmp_path / "tck") for e in extra]),
+                                   torch.device("cpu"))
     assert list(got) == list(want)
     with open(out / "report.json") as f:
         assert json.load(f) == got
@@ -154,6 +168,9 @@ def test_diagnose_sft_matches_reference(tmp_path, monkeypatch, n, extra):
     if "optim.pack=true" in extra:
         assert got["pack_len"] == 1024 and 0.0 < got["pack_fill_fraction"] <= 1.0
     assert ("rf_sft_spearman" in got) == ("rf.cross_check=true" in extra)
+    if any(e.startswith("checkpoint_dir") for e in extra):
+        assert sorted(os.listdir(tmp_path / "tck")) == sorted(os.listdir(tmp_path / "jck")) \
+            == ["seed_0_epoch_000", "seed_0_epoch_001"]
     got_sx, want_sx = _sx(out), _sx(tmp_path / "jax")
     assert [list(r) for r in got_sx] == [list(r) for r in want_sx]
     for g, w in zip(got_sx, want_sx):
@@ -241,23 +258,40 @@ def test_spearman_and_per_category_accuracy_match_reference():
         assert math.isnan(got[4].item())
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["checkpoint_dir=ckpt"], "item 7"), (["mesh.data=2"], "item 16"),
-    (["profile_dir=prof"], "item 17"), (["lora.dropout=0.1"], "item 5"),
-    (["perf.spec_draft_model=tiny"], "item 15"),
-])
+@pytest.mark.parametrize("extra,item", [(["mesh.data=2"], "item 16"),
+                                        (["profile_dir=prof"], "item 17")])
 def test_unported_config_raises(tmp_path, extra, item):
     ds = tload_benchmark("synthetic:0.5", n=8, seed=0)
     with pytest.raises(NotImplementedError, match=item):
         tpipe.run_sft_diagnostic(ds, _cfg(tmp_path, 8, *extra), torch.device("cpu"))
 
 
-def test_decode_scored_rows_raise(tmp_path):
-    numeric = BlindDataset("n", [Sample(id=str(i), question="how far?", options=[],
-                                        answer="3", answer_type="numeric") for i in range(4)])
-    with pytest.raises(NotImplementedError, match="item 15"):  # speculative decode
-        tpipe.run_sft_diagnostic(numeric, _cfg(tmp_path, 4, "perf.spec_draft_path=/draft"),
-                                 torch.device("cpu"))
+def test_spec_draft_run_is_trajectory_neutral(tmp_path):
+    """perf.spec_draft_*: the numeric rows decoded by exact speculative
+    decode with a draft of another geometry leave s(x) and the report as
+    the plain run's."""
+    numeric = tload_benchmark("synthetic-numeric", n=16, seed=3)
+    reports = [tpipe.run_sft_diagnostic(numeric, _cfg(tmp_path / name, 16, "data.max_len=128",
+                                                      *extra), torch.device("cpu"))
+               for name, extra in (("plain", []), ("spec", ["perf.spec_draft_model=small",
+                                                            "perf.spec_draft_quantize=none"]))]
+    for r in reports:
+        for key in WALLS & set(r):
+            r.pop(key)
+    assert reports[0] == reports[1] and reports[0]["n_numeric"] == 16
+    assert _sx(tmp_path / "plain") == _sx(tmp_path / "spec")
+
+
+def test_rerun_resumes_from_its_checkpoints(tmp_path):
+    """A second run over the same checkpoint_dir resumes every epoch from
+    its final checkpoint: no step runs, and s(x) is the first run's."""
+    ds = tload_benchmark("synthetic:0.5", n=16, seed=0)
+    extra = ("data.max_len=128", f"checkpoint_dir={tmp_path / 'ck'}")
+    first = tpipe.run_sft_diagnostic(ds, _cfg(tmp_path / "a", 16, *extra), torch.device("cpu"))
+    again = tpipe.run_sft_diagnostic(ds, _cfg(tmp_path / "b", 16, *extra), torch.device("cpu"))
+    assert first["final_loss"] is not None and again["final_loss"] is None
+    assert again["train_steps"] == first["train_steps"]
+    assert _sx(tmp_path / "a") == _sx(tmp_path / "b")
 
 
 def test_cli_unported_flags_raise(tmp_path):

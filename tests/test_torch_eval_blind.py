@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tst import cli as jcli
 from tst import config as config_mod
 from tst.data.adapters import load_benchmark
 from tst.data.tokenize import ByteTokenizer, tokenize_dataset
@@ -29,7 +30,6 @@ from tst.train import pipeline as jpipe
 from tst_torch import bridge, cli
 from tst_torch import config as tconfig
 from tst_torch.data.adapters import load_benchmark as tload_benchmark
-from tst_torch.data.schema import BlindDataset, Sample
 from tst_torch.data.tokenize import ByteTokenizer as TByteTokenizer
 from tst_torch.eval import metrics as tmetrics
 from tst_torch.models.spec import ModelSpec
@@ -197,30 +197,55 @@ def test_platform_gpu_raises_without_cuda(tmp_path):
         cli.main(["eval-blind", "--out", str(tmp_path), *CPU_TINY])
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["perf.spec_draft_model=tiny"], "item 15"), (["mesh.data=2"], "item 16"),
-])
+@pytest.mark.parametrize("extra,item", [(["mesh.data=2"], "item 16")])
 def test_unported_config_raises(tmp_path, extra, item):
     ds = tload_benchmark("synthetic:0.5", n=8, seed=0)
     with pytest.raises(NotImplementedError, match=item):
         tpipe.run_blind_eval(ds, _cfg(tmp_path, 8, *extra), torch.device("cpu"))
 
 
-def test_unported_rows_and_adapter_raise(tmp_path):
+def test_spec_draft_rows_equal_plain(tmp_path):
+    """perf.spec_draft_*: the numeric rows decoded by exact speculative
+    decode with a draft of another geometry give the plain run's report."""
+    ds = tload_benchmark("synthetic-numeric", n=12, seed=0)
+    reports = [tpipe.run_blind_eval(ds, _cfg(tmp_path / name, 12, *extra), torch.device("cpu"))
+               for name, extra in (("plain", []), ("spec", ["perf.spec_draft_model=small",
+                                                            "perf.spec_draft_quantize=none",
+                                                            "perf.spec_gamma=3"]))]
+    for r in reports:
+        r.pop("wall_seconds")
+    assert reports[0] == reports[1] and reports[0]["n_numeric"] == 12
+
+
+def test_missing_adapter_raises(tmp_path):
     ds = tload_benchmark("synthetic:0.5", n=8, seed=0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tpipe.run_blind_eval(ds, _cfg(tmp_path), torch.device("cpu"), adapter_dir="x")
-    numeric = BlindDataset("n", [Sample(id="0", question="how far?", options=[],
-                                        answer="3", answer_type="numeric")])
-    with pytest.raises(NotImplementedError, match="item 15"):  # speculative decode
-        tpipe.run_blind_eval(numeric, _cfg(tmp_path, 8, "perf.spec_draft_path=/draft"),
-                             torch.device("cpu"))
+    with pytest.raises(FileNotFoundError):
+        tpipe.run_blind_eval(ds, _cfg(tmp_path), torch.device("cpu"),
+                             adapter_dir=str(tmp_path / "none"))
 
 
-@pytest.mark.parametrize("cmd", sorted(cli.NOT_PORTED))
-def test_unported_subcommands_exit_nonzero(cmd, capsys):
-    assert cli.main([cmd, "--bench", "synthetic:0.5", "x"]) == 2
-    assert f"not yet ported (ROADMAP item {cli.NOT_PORTED[cmd]})" in capsys.readouterr().err
+#: a CPU drive of each subcommand the port gained last, and its artifact
+SUBCOMMAND_DRIVES = {
+    "generate": (["--bench", "synthetic-vsi:0.4", "--max-new", "4", "--draft-model", "tiny",
+                  "--gamma", "2"], "generate_report.json"),
+    "train-transfer": (["--bench", "synthetic-vsi:0.4", "--train-bench", "synthetic:0.5",
+                        "--set", "optim.batch_size=4", "--set", "optim.epochs=1"],
+                       "transfer_report.json"),
+    "warmup": (["--bench", "synthetic:0.5", "--k", "2"], "warmup_report.json"),
+}
+
+
+@pytest.mark.parametrize("cmd", sorted(SUBCOMMAND_DRIVES))
+def test_ported_subcommands_run_on_cpu(cmd, tmp_path):
+    assert cli.NOT_PORTED == {}
+    choices = [p._subparsers._group_actions[0].choices
+               for p in (jcli.build_parser(), cli.build_parser())]
+    assert set(choices[0]) == set(choices[1])  # every subcommand of tst
+    extra, artifact = SUBCOMMAND_DRIVES[cmd]
+    assert cli.main([cmd, "--platform", "cpu", "--set", "data.n=8", "--set",
+                     "data.max_len=128", *CPU_TINY, "--out", str(tmp_path), *extra]) == 0
+    report = json.loads((tmp_path / artifact).read_text())
+    assert report["n_samples" if cmd != "train-transfer" else "n_eval"] == 8
 
 
 #: top-level packages the port and chip_smoke.py must not import: jax and
@@ -251,10 +276,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
     """Every module of the port imports in a process where neither jax, the
     JAX package tst, scikit-learn nor safetensors can load, and no module of
     theirs is loaded after it. In that process ``diagnose-rf``, a tiny
-    ``diagnose-sft`` under the default RF cross-check and an ``eval-blind``
-    of a checkpoint (``model.path``, read by the port's own reader) run on
-    the CPU: the port runs where the card's installation has no
-    scikit-learn."""
+    ``diagnose-sft`` under the default RF cross-check, checkpointing its
+    adapters, an ``eval-blind`` of a checkpoint (``model.path``, read by the
+    port's own reader) and one serving those adapters run on the CPU: the
+    port runs where the card's installation has no scikit-learn."""
     from test_torch_hf_load import write_hf_checkpoint
 
     ckpt = write_hf_checkpoint(tmp_path / "ckpt", "qwen", "BF16")
@@ -264,10 +289,14 @@ def test_port_runs_with_jax_blocked(tmp_path):
           "--set", "data.n=60", "--set", "rf.n_estimators=20", "--out", str(tmp_path / "rf")]
     sft = ["diagnose-sft", "--platform", "cpu", "--bench", "synthetic:0.5", "--k", "2",
            "--set", "data.n=24", "--set", "optim.batch_size=4", "--set", "optim.epochs=1",
-           "--set", "rf.n_estimators=20", *CPU_TINY, "--out", str(tmp_path / "sft")]
+           "--set", "rf.n_estimators=20", "--set", f"checkpoint_dir={tmp_path / 'ck'}",
+           *CPU_TINY, "--out", str(tmp_path / "sft")]
     blind = ["eval-blind", "--platform", "cpu", "--bench", "synthetic:0.5", "--set", "data.n=16",
              "--set", f"model.path={ckpt}", "--set", "model.dtype=float32",
              "--out", str(tmp_path / "blind")]
+    serve = ["eval-blind", "--platform", "cpu", "--bench", "synthetic:0.5", "--set", "data.n=16",
+             "--adapter", str(tmp_path / "ck" / "seed_0_epoch_000"), "--fold", "mean",
+             *CPU_TINY, "--out", str(tmp_path / "serve")]
     code = (
         "import importlib, importlib.abc, sys\n"
         "BLOCKED = ('jax', 'jaxlib', 'tst', 'sklearn', 'safetensors')\n"
@@ -282,12 +311,15 @@ def test_port_runs_with_jax_blocked(tmp_path):
         f"assert cli.main({rf!r}) == 0\n"
         f"assert cli.main({sft!r}) == 0\n"
         f"assert cli.main({blind!r}) == 0\n"
+        f"assert cli.main({serve!r}) == 0\n"
         "assert not any(m.split('.')[0] in BLOCKED for m in sys.modules)\n"
         "assert 'tst_torch' in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=240,
                    capture_output=True)
     report = json.loads((tmp_path / "sft" / "report.json").read_text())
     assert math.isfinite(report["rf_sft_spearman"]) and "rf_blind_accuracy" in report
+    served = json.loads((tmp_path / "serve" / "blind_eval.json").read_text())
+    assert served["zero_shot"] is False and served["adapter_fold"] == "mean"
     assert json.loads((tmp_path / "rf" / "report.json").read_text())["n_samples"] == 60
     assert json.loads((tmp_path / "blind" / "blind_eval.json").read_text())["n_mcq"] == 16
 

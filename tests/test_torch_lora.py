@@ -173,10 +173,16 @@ def test_bridge_carries_fold_stacked_adapters_both_ways():
             np.testing.assert_array_equal(back[proj][name].view(np.int16), x.view(np.int16))
 
 
-def test_dropout_raises_at_training():
-    lspec = tlora.LoraSpec(rank=4, dropout=0.1)
-    x = torch.zeros(1, 4, 56)
-    ab = {"a": torch.zeros(4, 56), "b": torch.zeros(24, 4)}
-    tlora.apply_lora_delta(ab, x, lspec)  # no rng: inference, no dropout
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tlora.apply_lora_delta(ab, x, lspec, rng=torch.Generator())
+def test_dropout_at_training_only():
+    """A dropout key drops the adapter's input in training; without one
+    (inference, serving) the delta is the no-dropout delta."""
+    lspec = tlora.LoraSpec(rank=4, dropout=0.5, dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 16, 56, generator=g)
+    ab = {"a": torch.randn(4, 56, generator=g), "b": torch.randn(24, 4, generator=g)}
+    plain = tlora.apply_lora_delta(ab, x, dataclasses.replace(lspec, dropout=0.0))
+    assert torch.equal(tlora.apply_lora_delta(ab, x, lspec), plain)
+    key = tlora.DropoutKey((0,), 2).at(0, "q")
+    dropped = tlora.apply_lora_delta(ab, x, lspec, rng=key)
+    assert not torch.allclose(dropped, plain)
+    assert torch.equal(dropped, tlora.apply_lora_delta(ab, x, lspec, rng=key))

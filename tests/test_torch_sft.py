@@ -267,13 +267,12 @@ def test_fused_mlp_trainer_matches_reference(data, windowed, monkeypatch):
 
 def test_unported_fit_and_loss_options_raise(data):
     params, tokens, mask, pos, t_max = data
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsft.FoldTrainer(PORT_TINY, tlora.LoraSpec(rank=4, dropout=0.1), 2)
+    for kw in ({"ring": True}, {"mesh": object()}):
+        with pytest.raises(NotImplementedError, match="item 16"):
+            tsft.FoldTrainer(PORT_TINY, TLSPEC, 2, **kw)
     trainer = tsft.FoldTrainer(PORT_TINY, TLSPEC, 2, t_max=t_max)
     lora, state = trainer.init_state(torch.Generator().manual_seed(0))
     args = (bridge.to_torch(params), lora, state, torch.from_numpy(tokens),
             torch.from_numpy(mask), np.zeros((1, 2, 2), np.int32))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trainer.fit(*args, all_pos=torch.from_numpy(pos), checkpoint_dir="ckpt")
     with pytest.raises(ValueError, match="needs all_pos"):
         trainer.fit(*args)

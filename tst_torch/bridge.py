@@ -11,12 +11,14 @@ cannot be reproduced in torch. Quantized ``{"q", "scale"}`` leaves
 as the two tensors they are, bit for bit. bf16 leaves keep their bits: ``np.asarray`` of
 a bf16 JAX array has the ``bfloat16`` dtype of ml_dtypes, which
 ``torch.from_numpy`` refuses, so its raw 16-bit words are reinterpreted.
-Neither jax nor ml_dtypes is imported here.
+:func:`save_adapter_checkpoint` writes a JAX adapter checkpoint, read
+back as numpy, in the port's checkpoint format. Neither jax nor ml_dtypes
+is imported here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -52,3 +54,18 @@ def to_numpy(tree: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     return leaf_to_numpy(tree)
+
+
+def save_adapter_checkpoint(path: str, lora: Tree, mu: Tree, nu: Tree, count: int,
+                            extra: Optional[Dict[str, Any]] = None) -> None:
+    """A JAX package adapter checkpoint, given as numpy trees (its fold-stacked
+    adapters and AdamW moments, the optimizer's step ``count`` and its
+    ``extra.json`` stamp, as ``tst.aux.ckpt.load_train_state`` restores
+    them), written in the port's checkpoint format
+    (``tst_torch.aux.ckpt.save_train_state``), bit for bit, so the port
+    serves or resumes it."""
+    from tst_torch.aux.ckpt import save_train_state
+    from tst_torch.train.sft import AdamWState
+
+    save_train_state(path, to_torch(lora), AdamWState(int(count), to_torch(mu), to_torch(nu)),
+                     extra=extra)

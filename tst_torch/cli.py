@@ -1,20 +1,26 @@
 """``tst_torch`` command-line interface (counterpart of ``tst/cli.py``).
 
-Ported subcommands:
+Subcommands, every one of ``tst``'s:
 
-  * ``diagnose-rf``  — lightweight Random-Forest shortcut audit
-  * ``diagnose-sft`` — k-fold blind LoRA SFT diagnostic (the core method)
-  * ``debias-ibp``   — Iterative Bias Pruning → debiased split
-  * ``eval-blind``   — zero-shot blind evaluation (vision-blind-gap leg)
-  * ``export``       — re-emit artifacts from a previous run directory
-  * ``compare``      — ranking parity of a run's s(x) vs a reference split
+  * ``diagnose-rf``    — lightweight Random-Forest shortcut audit
+  * ``diagnose-sft``   — k-fold blind LoRA SFT diagnostic (the core method)
+  * ``warmup``         — build every CUDA kernel a config's run would launch
+  * ``debias-ibp``     — Iterative Bias Pruning → debiased split
+  * ``eval-blind``     — blind evaluation, zero-shot or of a trained adapter
+                         (``--adapter DIR --fold i|mean``)
+  * ``train-transfer`` — fine-tune on a training set, blind-evaluate a test set
+  * ``generate``       — greedy continuations (serving; exact speculative
+                         decoding with ``--draft-model``)
+  * ``export``         — re-emit artifacts from a previous run directory
+  * ``compare``        — ranking parity of a run's s(x) vs a reference split
 
 They take the flags of their ``tst`` counterparts and read the same
 ``RunConfig`` and presets; ``--platform`` is ``gpu`` (the default, also for
 ``diagnose-rf``: the CUDA device, and an error without one) or ``cpu``;
-``export`` and ``compare`` run on the host. ``--set perf.*`` has no effect
-here: those are TPU kernel knobs. Every other subcommand of ``tst`` exits
-non-zero with the ROADMAP item that ports it.
+``export`` and ``compare`` run on the host. Of ``--set perf.*`` only
+``perf.spec_draft_*`` and ``perf.spec_gamma`` apply here; the others are TPU
+kernel knobs. ``--profile-dir`` and ``--debug-nans`` raise, naming ROADMAP
+item 17.
 
 Run as ``python -m tst_torch <subcommand> ...``.
 """
@@ -32,11 +38,8 @@ from tst_torch.config import RunConfig
 from tst_torch.runtime.device import PLATFORMS, select_device
 
 #: subcommands of ``tst`` that the port does not have yet → ROADMAP item
-NOT_PORTED = {
-    "warmup": 15,
-    "train-transfer": 15,
-    "generate": 15,
-}
+#: (none since every subcommand is ported)
+NOT_PORTED: dict = {}
 
 
 def _common_flags(p: argparse.ArgumentParser) -> None:
@@ -82,7 +85,7 @@ def cmd_eval_blind(args) -> int:
 
     cfg, device = _resolve(args)
     ds = _load_dataset(cfg)
-    report = run_blind_eval(ds, cfg, device, adapter_dir=args.adapter,
+    report = run_blind_eval(ds, cfg, device, adapter_dir=args.adapter, fold=args.fold,
                             full_accuracy=args.full_accuracy)
     print(json.dumps(report, indent=2, default=float))
     return 0
@@ -141,6 +144,51 @@ def cmd_debias_ibp(args) -> int:
     cfg, device = _resolve_k(args)
     ds = _load_dataset(cfg)
     report = run_ibp(ds, cfg, device)
+    print(json.dumps(report, indent=2, default=float))
+    return 0
+
+
+def cmd_warmup(args) -> int:
+    """Build every CUDA kernel a diagnose-sft (``--ibp``: debias-ibp) run of
+    this config would launch, so the run itself does not pay the build."""
+    from tst_torch.train.pipeline import run_warmup
+
+    cfg, device = _resolve_k(args)
+    ds = _load_dataset(cfg)
+    report = run_warmup(ds, cfg, device, ibp=args.ibp)
+    print(json.dumps(report, indent=2, default=float))
+    return 0
+
+
+def cmd_train_transfer(args) -> int:
+    """Fine-tune on a training set, blind-evaluate the test set."""
+    from tst_torch.data.adapters import load_benchmark
+    from tst_torch.train.transfer import run_train_transfer
+
+    cfg, device = _resolve_k(args)
+    eval_ds = _load_dataset(cfg)
+    train_ds = load_benchmark(
+        args.train_bench, source=args.train_source,
+        **({"n": cfg.data.n, "seed": cfg.data.seed + 99}
+           if args.train_bench.startswith("synthetic") else {}),
+    )
+    report = run_train_transfer(train_ds, eval_ds, cfg, device)
+    print(json.dumps(report, indent=2, default=float))
+    return 0
+
+
+def cmd_generate(args) -> int:
+    """Greedy continuations of every sample's blind prompt (the serving
+    surface); ``--draft-model`` / ``--draft-path`` switch to exact
+    speculative decoding, the same tokens with the acceptance reported."""
+    from tst_torch.train.pipeline import run_generate
+
+    cfg, device = _resolve_k(args)
+    ds = _load_dataset(cfg)
+    report = run_generate(
+        ds, cfg, device, max_new=args.max_new, draft_model=args.draft_model,
+        draft_path=args.draft_path, draft_quantize=args.draft_quantize, gamma=args.gamma,
+        adapter_dir=args.adapter, fold=args.fold)
     print(json.dumps(report, indent=2, default=float))
     return 0
 
@@ -229,10 +277,13 @@ def cmd_compare(args) -> int:
     return 0
 
 
-def _cmd_not_ported(args) -> int:
-    print(f"tst_torch {args.cmd}: not yet ported (ROADMAP item {NOT_PORTED[args.cmd]})",
-          file=sys.stderr)
-    return 2
+def _adapter_flags(sp: argparse.ArgumentParser) -> None:
+    sp.add_argument("--adapter", default=None,
+                    help="LoRA checkpoint dir to serve, as diagnose-sft writes it under "
+                         "checkpoint_dir (default: zero-shot base model)")
+    sp.add_argument("--fold", default="0",
+                    help="which fold's adapter serves: an index, or 'mean' to average "
+                         "adapters across folds")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -241,20 +292,40 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
     sp = sub.add_parser("eval-blind")
     _common_flags(sp)
-    sp.add_argument("--adapter", default=None,
-                    help="LoRA checkpoint dir to serve (not ported yet: ROADMAP item 5)")
+    _adapter_flags(sp)
     sp.add_argument("--full-accuracy", type=float, default=None,
                     help="externally measured WITH-vision accuracy; "
                          "adds the vision_blind_gap to the report")
     sp.set_defaults(fn=cmd_eval_blind)
     for name, fn in (("diagnose-rf", cmd_diagnose_rf), ("diagnose-sft", cmd_diagnose_sft),
-                     ("debias-ibp", cmd_debias_ibp)):
+                     ("warmup", cmd_warmup), ("debias-ibp", cmd_debias_ibp),
+                     ("train-transfer", cmd_train_transfer), ("generate", cmd_generate)):
         sp = sub.add_parser(name)
         _common_flags(sp)
         sp.add_argument("--k", type=int, default=None, help="number of folds (shorthand)")
         sp.add_argument("--profile-dir", default=None, help="not ported yet (ROADMAP item 17)")
         sp.add_argument("--debug-nans", action="store_true",
                         help="not ported yet (ROADMAP item 17)")
+        if name == "warmup":
+            sp.add_argument("--ibp", action="store_true",
+                            help="the kernels of a debias-ibp run instead of diagnose-sft's")
+        if name == "train-transfer":
+            sp.add_argument("--train-bench", required=True,
+                            help="training benchmark (e.g. a VSI-Train-10k jsonl)")
+            sp.add_argument("--train-source", default=None)
+        if name == "generate":
+            sp.add_argument("--max-new", type=int, default=16)
+            sp.add_argument("--draft-model", default=None,
+                            help="draft geometry name for speculative decoding (must share "
+                                 "the tokenizer, e.g. llama3.2-1b for llama3-8b)")
+            sp.add_argument("--draft-path", default=None,
+                            help="local HF checkpoint dir for the draft")
+            sp.add_argument("--draft-quantize", default=None,
+                            choices=["none", "int8", "int4"],
+                            help="draft weight storage (int4 through the K3 kernel)")
+            sp.add_argument("--gamma", type=int, default=4,
+                            help="draft tokens proposed per verify round")
+            _adapter_flags(sp)
         sp.set_defaults(fn=fn)
     sp = sub.add_parser("export")
     sp.add_argument("run_dir")
@@ -273,18 +344,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--reference-sx", default=None,
                     help="optional jsonl with a reference s_x column for Spearman")
     sp.set_defaults(fn=cmd_compare)
-    for name in NOT_PORTED:
-        sp = sub.add_parser(name, help=f"not yet ported (ROADMAP item {NOT_PORTED[name]})")
-        sp.set_defaults(fn=_cmd_not_ported)
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    parser = build_parser()
-    # a subcommand that is not ported takes any arguments and reports itself
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.fn is not _cmd_not_ported:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -45,8 +45,8 @@ from tst_torch.eval.parity import spearman
 from tst_torch.io import outputs
 from tst_torch.train.infer import (score_heldout_mcq, score_heldout_mcq_packed,
                                    score_heldout_numeric, score_heldout_open)
-from tst_torch.train.pipeline import (_check_sft_config, build_model, build_tokenizer,
-                                      lora_spec_from_cfg)
+from tst_torch.train.pipeline import (_check_sft_config, build_draft_model, build_model,
+                                      build_tokenizer, lora_spec_from_cfg)
 from tst_torch.train.sft import FoldTrainer, make_fold_batches
 
 
@@ -411,6 +411,9 @@ class _SftRoundRunner:
             use_pallas=self.use_pallas, remat=cfg.model.remat, t_max=self.t_max,
             b1=cfg.optim.b1, b2=cfg.optim.b2, fused_mlp=cfg.model.fused_mlp,
             packed=bool(self.pack_len))
+        #: perf.spec_draft_*: exact speculative decode of the numeric and open
+        #: rows (the same tokens), built once for every round
+        self.draft = build_draft_model(cfg, self.tokenizer, device)
 
     def _batches(self, fold_global, alive, pack, seed):
         cfg = self.cfg
@@ -503,13 +506,14 @@ class _SftRoundRunner:
                 _, s_num_i = timed("numeric_decode_s", lambda: score_heldout_numeric(
                     self.params, lora, self.spec, self.lspec, self.tokens, self.answer_pos,
                     np.where(alive, gold_values, np.nan), fold_global, self.k,
-                    tokenizer=self.tokenizer, use_pallas=self.use_pallas))
+                    tokenizer=self.tokenizer, use_pallas=self.use_pallas, draft=self.draft,
+                    gamma=cfg.perf.spec_gamma))
                 seed_s_num.append(s_num_i)
             if has_open:
                 _, s_open_i = timed("open_decode_s", lambda: score_heldout_open(
                     self.params, lora, self.spec, self.lspec, self.tokens, self.answer_pos,
                     gold_texts, fold_global, self.k, tokenizer=self.tokenizer,
-                    use_pallas=self.use_pallas))
+                    use_pallas=self.use_pallas, draft=self.draft, gamma=cfg.perf.spec_gamma))
                 seed_s_open.append(s_open_i)
         probs = np.mean(seed_probs, axis=0) if len(seed_probs) > 1 else seed_probs[0]
         probs_sub = probs[sub_idx]

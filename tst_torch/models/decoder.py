@@ -41,7 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from tst_torch.kernels.flash_attention import (flash_attention, masked_attention,
                                                 segment_mask, segment_starts_per_pos)
 from tst_torch.kernels.fused_mlp import fused_swiglu_mlp
-from tst_torch.models.lora import DROPOUT_ITEM, apply_lora_delta, fold_count, layer_slice
+from tst_torch.models.lora import DropoutKey, apply_lora_delta, fold_count, layer_slice
 from tst_torch.models.quant import dequantize_leaf, is_quantized_leaf, qdot
 from tst_torch.models.spec import ModelSpec
 
@@ -243,7 +243,7 @@ def apply_model(
     fused_mlp: bool = False,
     ring_mesh=None,
     ring_axis: str = "seq",
-    lora_rng=None,
+    lora_rng: Optional[DropoutKey] = None,
     seg_starts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Forward pass → logits f32 [B, S, V], or with ``return_hidden=True``
@@ -261,9 +261,16 @@ def apply_model(
     ``lora``: an adapter tree (tst_torch.models.lora) added to its
     projections before their biases. A fold-stacked tree (``[k, L, ...]``
     leaves) takes fold-major tokens ``[k·B, S]``: row block f goes through
-    fold f's adapter, the base weights once for all rows."""
-    if lora_rng is not None:
-        _not_ported("LoRA dropout (lora_rng=)", DROPOUT_ITEM)
+    fold f's adapter, the base weights once for all rows.
+
+    ``lora_rng``: a :class:`~tst_torch.models.lora.DropoutKey` (the fold of
+    each row block, the optimizer step) turns on the adapters' train-time
+    dropout when ``lora_spec.dropout > 0``. Each projection of each layer
+    draws its own mask from (fold, step, layer, projection), so a
+    recomputing backward (``remat``) draws the same masks. Ignored at
+    dropout 0, as in the reference."""
+    drop = (lora_rng if lora_rng is not None and lora_spec is not None
+            and lora_spec.dropout > 0.0 else None)
     n_folds = fold_count(lora)
     if n_folds is not None and tokens.shape[0] % n_folds:
         raise ValueError(f"{tokens.shape[0]} rows do not split into {n_folds} fold blocks "
@@ -292,14 +299,15 @@ def apply_model(
     layers = params["layers"]
     ks, vs = [], []
 
-    def layer_stages(lw, la):
-        """The layer's stages over its weights ``lw`` and adapters ``la``, bound
-        here: a checkpointed stage runs again in the backward."""
+    def layer_stages(i, lw, la):
+        """Layer ``i``'s stages over its weights ``lw`` and adapters ``la``,
+        bound here: a checkpointed stage runs again in the backward."""
 
         def proj(name, y, w_key):
             out = qdot(y, lw[w_key], dt)
             if name in la:
-                out = out + apply_lora_delta(la[name], y, lora_spec)
+                rng = drop.at(i, name) if drop is not None else None
+                out = out + apply_lora_delta(la[name], y, lora_spec, rng=rng)
             bias_key = _BIAS_KEYS.get(name)
             if bias_key in lw:
                 out = out + lw[bias_key].to(dt)
@@ -342,7 +350,7 @@ def apply_model(
         return attn_in, attend, rest, use_pallas
 
     for i in range(spec.n_layers):
-        stages = layer_stages({key: layer_of(w, i) for key, w in layers.items()},
+        stages = layer_stages(i, {key: layer_of(w, i) for key, w in layers.items()},
                               layer_slice(lora, i) if lora else {})
         if remat:
             x, k, v = _remat_layer(remat, stages, x)

@@ -72,7 +72,8 @@ class SafetensorsFile:
                 raise ValueError(f"{path}: header of {n} bytes runs past the file's {size}")
             header = json.loads(f.read(n))
         self.data_start = 8 + n
-        header.pop("__metadata__", None)
+        #: the header's string-to-string ``__metadata__`` (empty when absent)
+        self.metadata: Dict[str, str] = header.pop("__metadata__", None) or {}
         self.entries: Dict[str, Tuple[torch.dtype, Tuple[int, ...], int, int]] = {}
         for name, e in header.items():
             if e["dtype"] not in SAFETENSORS_DTYPES:

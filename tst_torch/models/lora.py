@@ -9,12 +9,21 @@ on all of them and the adapters as a product batched over the fold axis, so
 the frozen base exists once. B starts at zero, so a new adapter leaves the
 base model's output unchanged. The delta is computed as ``(x·Aᵀ)·Bᵀ`` and
 never as a dense ``Aᵀ·Bᵀ``.
+
+LoRA dropout (``LoraSpec.dropout``) is inverted dropout on the adapter
+input, in training only: the base path is untouched, and serving passes no
+:class:`DropoutKey`, so it never drops. A mask is a function of (fold,
+optimizer step, layer, projection) alone, drawn from a ``torch.Generator``
+on the run's device seeded from that tuple (:func:`dropout_mask`). The
+reference folds the same tuple into a ``jax.random`` key; its threefry
+stream is not reproduced here, so tests inject its masks through
+``DropoutKey.masks``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +48,11 @@ PROJ_TO_TARGET = {
 }
 _TARGET_TO_PROJ = {t: p for p, t in PROJ_TO_TARGET.items()}
 
-#: where LoRA dropout is still to be ported
-DROPOUT_ITEM = "ROADMAP item 5"
+#: the reference's stable projection ids for dropout masks
+#: (tst/models/decoder.py:131)
+PROJ_IDS = {n: i for i, n in enumerate(("q", "k", "v", "o", "gate", "up", "down"))}
+#: the reference's root key of the dropout masks (tst/train/sft.py:340)
+DROPOUT_ROOT = 0x10A0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +61,7 @@ class LoraSpec:
     alpha: float = 32.0
     targets: Tuple[str, ...] = ("q_proj", "k_proj", "v_proj", "o_proj")
     dtype: torch.dtype = torch.bfloat16
-    #: train-time inverted dropout on the adapter input (the reference's);
-    #: training with dropout > 0 is not ported yet and raises
+    #: train-time inverted dropout on the adapter input (the reference's)
     dropout: float = 0.0
 
     def __post_init__(self):
@@ -63,21 +74,29 @@ def lora_scale(spec: LoraSpec) -> float:
     return spec.alpha / spec.rank
 
 
+def lora_shapes(model_spec, spec: LoraSpec) -> Dict[str, Dict[str, Tuple[int, ...]]]:
+    """``{proj: {"a": (L, r, in), "b": (L, out, r)}}`` in ``spec.targets``'
+    order: the shapes of one adapter."""
+    out: Dict[str, Dict[str, Tuple[int, ...]]] = {}
+    for target in spec.targets:
+        in_attr, out_attr = _TARGET_DIMS[target]
+        d_in, d_out = getattr(model_spec, in_attr), getattr(model_spec, out_attr)
+        out[_TARGET_TO_PROJ[target]] = {"a": (model_spec.n_layers, spec.rank, d_in),
+                                        "b": (model_spec.n_layers, d_out, spec.rank)}
+    return out
+
+
 def init_lora(rng: torch.Generator, model_spec, spec: LoraSpec) -> Params:
     """Adapter tree ``{proj: {"a": [L, r, in], "b": [L, out, r]}}`` on
     ``rng.device``: A ~ N(0, 1)/sqrt(in), B = 0. The numbers differ from the
     JAX package's (another generator); tests carry JAX adapters across
     through tst_torch.bridge instead."""
-    n_layers = model_spec.n_layers
     out: Params = {}
-    for target in spec.targets:
-        in_attr, out_attr = _TARGET_DIMS[target]
-        d_in, d_out = getattr(model_spec, in_attr), getattr(model_spec, out_attr)
-        a = torch.randn((n_layers, spec.rank, d_in), generator=rng, device=rng.device)
-        out[_TARGET_TO_PROJ[target]] = {
-            "a": (a / np.sqrt(d_in)).to(spec.dtype),
-            "b": torch.zeros((n_layers, d_out, spec.rank), dtype=spec.dtype,
-                             device=rng.device),
+    for proj, shapes in lora_shapes(model_spec, spec).items():
+        a = torch.randn(shapes["a"], generator=rng, device=rng.device)
+        out[proj] = {
+            "a": (a / np.sqrt(shapes["a"][-1])).to(spec.dtype),
+            "b": torch.zeros(shapes["b"], dtype=spec.dtype, device=rng.device),
         }
     return out
 
@@ -96,17 +115,79 @@ def layer_slice(lora: Params, i: int) -> Params:
     return {p: {n: t.select(t.ndim - 3, i) for n, t in ab.items()} for p, ab in lora.items()}
 
 
+def _mix64(z: int) -> int:
+    """splitmix64's finalizer: a well-spread 64-bit value of ``z``."""
+    z &= (1 << 64) - 1
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
+    return z ^ (z >> 31)
+
+
+def dropout_seed(fold: int, step: int, layer: int, proj: str) -> int:
+    """The generator seed of one mask: the tuple (root, fold, step, layer,
+    projection id) mixed into 63 bits."""
+    z = DROPOUT_ROOT
+    for part in (fold, step, layer, PROJ_IDS[proj]):
+        z = _mix64(z * 0x9E3779B97F4A7C15 + int(part) + 1)
+    return z >> 1
+
+
+def dropout_mask(fold: int, step: int, layer: int, proj: str, shape, keep: float,
+                 device) -> torch.Tensor:
+    """Bool keep-mask of ``shape``: uniform draws below ``keep`` from a
+    generator on ``device`` seeded by :func:`dropout_seed`, so the same
+    tuple gives the same mask wherever it is drawn again (a recomputing
+    backward included)."""
+    g = torch.Generator(device=device).manual_seed(dropout_seed(fold, step, layer, proj))
+    return torch.rand(shape, generator=g, device=device) < keep
+
+
+#: ``(fold, step, layer, proj, shape, keep, device) -> bool mask``
+MaskFn = Callable[..., torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutKey:
+    """The seed of one train step's LoRA dropout (the port's ``lora_rng``):
+    the fold of each fold-major row block and the optimizer step; the
+    decoder adds the layer and the projection (:meth:`at`). ``masks``
+    draws a block's mask; :func:`dropout_mask` unless a caller injects
+    another (the parity tests inject the reference's)."""
+
+    folds: Tuple[int, ...]
+    step: int
+    masks: MaskFn = dropout_mask
+    layer: Optional[int] = None
+    proj: Optional[str] = None
+
+    def at(self, layer: int, proj: str) -> "DropoutKey":
+        return dataclasses.replace(self, layer=layer, proj=proj)
+
+    def mask(self, shape, keep: float, device) -> torch.Tensor:
+        """The keep-mask of an input of ``shape`` [k·B, ..., in], fold
+        block by fold block."""
+        blocks = len(self.folds)
+        if shape[0] % blocks:
+            raise ValueError(f"{shape[0]} rows do not split into {blocks} fold blocks")
+        block = (shape[0] // blocks,) + tuple(shape[1:])
+        return torch.cat([self.masks(f, self.step, self.layer, self.proj, block, keep, device)
+                          for f in self.folds])
+
+
 def apply_lora_delta(layer_lora: Params, x: torch.Tensor, spec: LoraSpec,
-                     rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                     rng: Optional[DropoutKey] = None) -> torch.Tensor:
     """Per-layer delta ``scale · (x·Aᵀ)·Bᵀ`` in x's dtype. x: [B, S, in] →
     [B, S, out].
 
     ``layer_lora`` holds this layer's slices: a [r, in], b [out, r], or
     fold-stacked a [k, r, in], b [k, out, r] with x's rows fold-major
-    (B = k·B_fold). ``rng`` (train-time dropout) raises: LoRA dropout is not
-    ported yet."""
+    (B = k·B_fold). ``rng`` (a :class:`DropoutKey` at this layer and
+    projection) with ``spec.dropout > 0`` drops the adapter's input:
+    ``where(mask, x / keep, 0)`` in x's dtype. Without it, no dropout."""
     if rng is not None and spec.dropout > 0.0:
-        raise NotImplementedError(f"LoRA dropout is not ported to tst_torch yet ({DROPOUT_ITEM})")
+        keep = 1.0 - spec.dropout
+        mask = rng.mask(x.shape, keep, x.device)
+        x = torch.where(mask, x / torch.tensor(keep, dtype=x.dtype), torch.zeros((), dtype=x.dtype))
     a, b = layer_lora["a"].to(x.dtype), layer_lora["b"].to(x.dtype)
     xs = x.reshape(a.shape[0], -1, x.shape[-1]) if a.ndim == 3 else x
     d = (xs @ a.mT) @ b.mT

@@ -21,7 +21,9 @@ Numeric and open rows are greedy-decoded with each row's held-out fold
 model: the rows of all folds go through one decode per chunk, fold-major
 ``[k·chunk]``, with the fold-stacked adapters (the reference vmaps the fold
 axis instead); numeric answers are scored by per-sample MRA, open ones by
-normalized exact match.
+normalized exact match. With a draft model (``perf.spec_draft_*``) the
+decode is exact speculative decoding (tst_torch.models.spec_decode): the
+same tokens, the draft base-weighted and shared by every fold.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from tst_torch.models.decoder import apply_model, lm_head_weight
 from tst_torch.models.lora import LoraSpec
 from tst_torch.models.quant import quantized_bytes
 from tst_torch.models.spec import ModelSpec
+from tst_torch.models.spec_decode import speculative_greedy_decode
 
 
 def heldout_index_grid(fold_id: np.ndarray, k: int,
@@ -359,10 +362,9 @@ def _decode_heldout_rows(
     ``chunk`` rows per fold; a chunk's rows of all folds go through one
     decode as fold-major ``[k·chunk]`` rows with the fold-stacked adapters
     ``lora_k`` (or the base model when None), so each projection runs once
-    for every fold."""
-    if draft is not None:
-        raise NotImplementedError("speculative decode (perf.spec_draft_*) is not ported to "
-                                  "tst_torch yet (ROADMAP item 15)")
+    for every fold. ``draft`` = (draft_spec, draft_params) decodes each
+    chunk by exact speculative decoding with ``gamma`` proposals a round:
+    the same tokens; the chunk is sized for both models' caches."""
     rows_by_fold = [rows[fold_id[rows] == f] for f in range(k)]
     m = pad_to or max(max((len(r) for r in rows_by_fold), default=1), 1)
     if max((len(r) for r in rows_by_fold), default=0) > m:
@@ -373,8 +375,9 @@ def _decode_heldout_rows(
         idx[f, : len(r)] = r
         valid[f, : len(r)] = True
     if chunk is None:
-        chunk = decode_chunk_rows(spec, tokens.shape[1], max_new, k,
-                                  base_bytes=quantized_bytes(base))
+        bb = quantized_bytes(base) + (quantized_bytes(draft[1]) if draft is not None else 0)
+        chunk = decode_chunk_rows(spec, tokens.shape[1], max_new, k, base_bytes=bb,
+                                  draft_spec=draft[0] if draft is not None else None)
     mc = min(m, max(int(chunk), 1))
     idx_p = np.pad(idx, ((0, 0), (0, (-m) % mc)))
     prompt_len = answer_pos.long() + 1  # decode continues right after the marker
@@ -382,8 +385,13 @@ def _decode_heldout_rows(
     for c0 in range(0, idx_p.shape[1], mc):
         sel = torch.from_numpy(idx_p[:, c0: c0 + mc].reshape(-1).astype(np.int64)).to(
             tokens.device)  # fold-major [k·mc]
-        gen = greedy_decode(base, tokens[sel], prompt_len[sel], max_new, spec, lora=lora_k,
-                            lora_spec=lora_spec, use_pallas=use_pallas)
+        if draft is not None:
+            gen = speculative_greedy_decode(draft[1], draft[0], base, spec, tokens[sel],
+                                            prompt_len[sel], max_new, gamma=gamma, lora=lora_k,
+                                            lora_spec=lora_spec, use_pallas=use_pallas)
+        else:
+            gen = greedy_decode(base, tokens[sel], prompt_len[sel], max_new, spec, lora=lora_k,
+                                lora_spec=lora_spec, use_pallas=use_pallas)
         outs.append(gen.reshape(k, mc, max_new))
     gen = torch.cat(outs, dim=1)[:, :m].cpu().numpy()
     return gen, idx, valid

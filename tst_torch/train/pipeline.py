@@ -1,20 +1,25 @@
-"""Run pipelines of the port (counterpart of ``tst/train/pipeline.py``).
+"""Run pipelines of the port (counterpart of ``tst/train/pipeline.py``):
 
-Ported so far:
-
-  * the zero-shot blind evaluation (``eval-blind``): load → blind-render →
-    tokenize → model → single-forward MCQ scoring, greedy-decoded numeric
-    (MRA) and open (exact match) rows → metrics → ``blind_eval.json``;
+  * the blind evaluation (``eval-blind``): load → blind-render → tokenize →
+    model → single-forward MCQ scoring, greedy-decoded numeric (MRA) and
+    open (exact match) rows → metrics → ``blind_eval.json``; zero-shot, or
+    serving a trained adapter (``--adapter DIR --fold i|mean``);
   * the core diagnostic (``diagnose-sft``), unpacked or packed
     (``optim.pack``): tokenize → stratified k folds → fold-parallel LoRA SFT
-    → held-out scoring with each fold's adapter (MCQ rows by one forward,
-    numeric and open rows by greedy decode) → s(x) → metrics →
-    ``report.json``, ``sx.jsonl``, ``dataset.jsonl``, ``config.json``,
-    ``events.jsonl``.
+    (checkpointed under ``checkpoint_dir``, resumed from it) → held-out
+    scoring with each fold's adapter (MCQ rows by one forward, numeric and
+    open rows by greedy decode) → s(x) → metrics → ``report.json``,
+    ``sx.jsonl``, ``dataset.jsonl``, ``config.json``, ``events.jsonl``;
+  * ``generate``: greedy continuations of every prompt, from the base or a
+    served adapter, plain or by exact speculative decoding with a draft
+    model → ``generations.jsonl``, ``generate_report.json``;
+  * ``warmup``: builds every CUDA extension a diagnose-sft run of the config
+    would launch.
 
-Both take a quantized base (``model.quantize`` int8 / int4, decoded through
-the int4 kernel K3) and ``model.fused_mlp`` (the fused SwiGLU kernel K4 in
-training).
+They take a quantized base (``model.quantize`` int8 / int4, decoded through
+the int4 kernel K3), ``model.fused_mlp`` (the fused SwiGLU kernel K4 in
+training), LoRA dropout and ``perf.spec_draft_*`` (exact speculative decode
+of the numeric and open rows).
 
 What the port does not have yet raises NotImplementedError naming its
 ROADMAP item; nothing is silently skipped.
@@ -23,12 +28,15 @@ ROADMAP item; nothing is silently skipped.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tst_torch.aux.ckpt import EXTRA_FILE, load_train_state
 from tst_torch.aux.log import JsonlLogger
 from tst_torch.config import RunConfig
 from tst_torch.data.folds import kfold_assign
@@ -40,13 +48,16 @@ from tst_torch.diagnose.score import bias_scores
 from tst_torch.eval import metrics
 from tst_torch.eval.parity import spearman
 from tst_torch.io import outputs
+from tst_torch.models.decode import decode_numeric, decode_text, greedy_decode
 from tst_torch.models.decoder import Params, init_params
 from tst_torch.models.hf_load import load_checkpoint, spec_from_hf_config
-from tst_torch.models.lora import LoraSpec
-from tst_torch.models.quant import quantize_params, quantizing_put
+from tst_torch.models.lora import LoraSpec, lora_shapes
+from tst_torch.models.quant import quantize_params, quantized_bytes, quantizing_put
 from tst_torch.models.spec import ModelSpec, spec_by_name
-from tst_torch.train.infer import (score_all_mcq, score_heldout_mcq, score_heldout_mcq_packed,
-                                   score_heldout_numeric, score_heldout_open)
+from tst_torch.models.spec_decode import speculative_greedy_decode
+from tst_torch.train.infer import (decode_chunk_rows, score_all_mcq, score_heldout_mcq,
+                                   score_heldout_mcq_packed, score_heldout_numeric,
+                                   score_heldout_open)
 from tst_torch.train.sft import FoldTrainer, TrainLog, make_fold_batches
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -54,6 +65,12 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def _not_ported(what: str, item: int):
     raise NotImplementedError(f"{what} is not ported to tst_torch yet (ROADMAP item {item})")
+
+
+def check_mesh(cfg: RunConfig) -> None:
+    """Raise on a mesh above one card (ROADMAP item 16)."""
+    if cfg.mesh.fold * cfg.mesh.data * cfg.mesh.seq * cfg.mesh.tensor > 1:
+        _not_ported("mesh sizes above 1", 16)
 
 
 def build_tokenizer(cfg: RunConfig):
@@ -75,6 +92,19 @@ def build_tokenizer(cfg: RunConfig):
     return HFTokenizer(t, chat=chat)  # explicit tokenizer path
 
 
+def model_spec(cfg: RunConfig, tokenizer) -> ModelSpec:
+    """The run's ModelSpec in its dtype: from ``model.path``'s config.json,
+    else the named geometry, its vocabulary widened to the tokenizer's."""
+    dtype = DTYPES[cfg.model.dtype]
+    if cfg.model.path:
+        return dataclasses.replace(spec_from_hf_config(cfg.model.path, name=cfg.model.name),
+                                   dtype=dtype)
+    spec = spec_by_name(cfg.model.name, dtype=dtype)
+    if spec.vocab_size < tokenizer.vocab_size:
+        spec = spec_by_name(cfg.model.name, dtype=dtype, vocab_size=tokenizer.vocab_size)
+    return spec
+
+
 def build_model(cfg: RunConfig, tokenizer,
                 device: torch.device) -> Tuple[ModelSpec, Params]:
     """ModelSpec + params on ``device``: the HF checkpoint of ``model.path``,
@@ -87,14 +117,10 @@ def build_model(cfg: RunConfig, tokenizer,
     quant_bits = {"none": None, "int8": 8, "int4": 4}.get(cfg.model.quantize, -1)
     if quant_bits == -1:
         raise ValueError(f"unknown model.quantize {cfg.model.quantize!r}")
+    spec = model_spec(cfg, tokenizer)
     if cfg.model.path:
-        spec = dataclasses.replace(spec_from_hf_config(cfg.model.path, name=cfg.model.name),
-                                   dtype=dtype)
         put = quantizing_put(dtype, bits=quant_bits) if quant_bits is not None else None
         return spec, load_checkpoint(cfg.model.path, spec, dtype=dtype, put=put, device=device)
-    spec = spec_by_name(cfg.model.name, dtype=dtype)
-    if spec.vocab_size < tokenizer.vocab_size:
-        spec = spec_by_name(cfg.model.name, dtype=dtype, vocab_size=tokenizer.vocab_size)
     rng = torch.Generator(device=device).manual_seed(cfg.data.seed)
     params = init_params(rng, spec)
     if quant_bits is not None:
@@ -102,9 +128,21 @@ def build_model(cfg: RunConfig, tokenizer,
     return spec, params
 
 
-def _check_spec_decode(cfg: RunConfig) -> None:
-    if cfg.perf.spec_draft_model or cfg.perf.spec_draft_path:
-        _not_ported("speculative decode (perf.spec_draft_model / perf.spec_draft_path)", 15)
+def build_draft_model(cfg: RunConfig, tokenizer, device: torch.device):
+    """(draft_spec, draft_params) for ``perf.spec_draft_*``, or None. The
+    draft shares the target's tokenizer (exact speculative decoding needs
+    it) and is base-weighted: it never sees adapters."""
+    if not (cfg.perf.spec_draft_model or cfg.perf.spec_draft_path):
+        return None
+    dcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, name=cfg.perf.spec_draft_model or cfg.model.name,
+        path=cfg.perf.spec_draft_path, quantize=cfg.perf.spec_draft_quantize))
+    return build_model(dcfg, tokenizer, device)
+
+
+def _has_decoded_rows(ds: BlindDataset) -> bool:
+    return (np.isfinite(gold_values_of(ds)).any()
+            or any(g is not None for g in gold_texts_of(ds)))
 
 
 def gold_values_of(ds: BlindDataset) -> np.ndarray:
@@ -130,29 +168,38 @@ def prepare_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device):
 
 
 def run_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device,
-                   adapter_dir: Optional[str] = None,
+                   adapter_dir: Optional[str] = None, fold: str = "0",
                    full_accuracy: Optional[float] = None) -> Dict[str, Any]:
-    """Blind scoring of every sample with the base model, the zero-shot
-    baseline leg of the vision-blind gap. ``full_accuracy`` (the with-vision
-    accuracy, measured elsewhere) adds ``vision_blind_gap`` to the report.
-    Attention goes through the flash kernel when ``model.use_pallas`` is on
-    (its plain version for CPU tensors) and the dense path otherwise; numeric
-    and open rows are greedy-decoded (int4 weights through K3)."""
+    """Blind scoring of every sample: with the base model, the zero-shot
+    baseline leg of the vision-blind gap, or with ``adapter_dir`` a trained
+    LoRA checkpoint (the serving leg: adapters trained once are evaluated
+    anywhere). ``fold`` picks the adapter that serves: a fold index, or
+    ``"mean"`` for the mean of the folds' adapters. ``full_accuracy`` (the
+    with-vision accuracy, measured elsewhere) adds ``vision_blind_gap`` to
+    the report. Attention goes through the flash kernel when
+    ``model.use_pallas`` is on (its plain version for CPU tensors) and the
+    dense path otherwise; numeric and open rows are greedy-decoded through
+    the same adapter (int4 weights through K3), by exact speculative decode
+    with ``perf.spec_draft_*``."""
     t_start = time.time()
-    if adapter_dir:
-        _not_ported("serving a LoRA checkpoint (--adapter)", 5)
-    if cfg.mesh.fold * cfg.mesh.data * cfg.mesh.seq * cfg.mesh.tensor > 1:
-        _not_ported("mesh sizes above 1", 16)
-    _check_spec_decode(cfg)
+    check_mesh(cfg)
     tb, tokens, answer_pos, spec, params = prepare_blind_eval(ds, cfg, device)
     use_pallas = cfg.model.use_pallas
+    one = lspec = None
+    if adapter_dir:
+        one, lspec = load_adapter_lora(adapter_dir, cfg, spec, fold=fold, device=device)
+    zero_folds = np.zeros(tb.n, np.int32)
     # the MCQ leg only when the set has options (an all-numeric or all-open
     # set has none)
     if int(np.max(tb.n_options, initial=0)) > 0:
-        probs = score_all_mcq(
-            params, spec, tokens, answer_pos, tb.option_token_ids, tb.n_options,
-            use_pallas=use_pallas, option_seqs=tb.option_token_seqs,
-        )
+        if adapter_dir:
+            probs = score_heldout_mcq(params, one, spec, lspec, tokens, answer_pos,
+                                      tb.option_token_ids, tb.n_options, zero_folds, 1,
+                                      use_pallas=use_pallas, option_seqs=tb.option_token_seqs)
+        else:
+            probs = score_all_mcq(params, spec, tokens, answer_pos, tb.option_token_ids,
+                                  tb.n_options, use_pallas=use_pallas,
+                                  option_seqs=tb.option_token_seqs)
         pred = probs.argmax(-1).astype(np.int32)
         blind_acc = float(metrics.accuracy(pred, tb.gold))
         chance = float(metrics.chance_accuracy(tb.n_options))
@@ -162,27 +209,89 @@ def run_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device,
                                   name=ds.name)
     report["n_mcq"] = int((np.asarray(tb.n_options) > 0).sum())
     tokenizer = build_tokenizer(cfg)
-    zero_folds = np.zeros(tb.n, np.int32)
+    draft = build_draft_model(cfg, tokenizer, device) if _has_decoded_rows(ds) else None
+    decode_kw = dict(tokenizer=tokenizer, use_pallas=use_pallas, draft=draft,
+                     gamma=cfg.perf.spec_gamma)
     gold_texts = gold_texts_of(ds)
     if any(g is not None for g in gold_texts):
-        _, s_open = score_heldout_open(params, None, spec, None, tokens, answer_pos, gold_texts,
-                                       zero_folds, 1, tokenizer=tokenizer, use_pallas=use_pallas)
+        _, s_open = score_heldout_open(params, one, spec, lspec, tokens, answer_pos, gold_texts,
+                                       zero_folds, 1, **decode_kw)
         report["open_blind_accuracy"] = round(float(np.nanmean(s_open)), 4)
         report["n_open"] = int(sum(g is not None for g in gold_texts))
     # numeric (NA) rows: greedy decode → MRA, the VSI-Bench numeric metric
     gold_values = gold_values_of(ds)
     if np.isfinite(gold_values).any():
-        pred_values, _ = score_heldout_numeric(params, None, spec, None, tokens, answer_pos,
-                                               gold_values, zero_folds, 1, tokenizer=tokenizer,
-                                               use_pallas=use_pallas)
+        pred_values, _ = score_heldout_numeric(params, one, spec, lspec, tokens, answer_pos,
+                                               gold_values, zero_folds, 1, **decode_kw)
         report["numeric_blind_mra"] = round(
             float(metrics.mra(np.nan_to_num(pred_values), gold_values)), 4)
         report["n_numeric"] = int(np.isfinite(gold_values).sum())
-    report.update(n_samples=len(ds), model=spec.name, zero_shot=True,
-                  adapter=None, adapter_fold=None,
+    report.update(n_samples=len(ds), model=spec.name, zero_shot=adapter_dir is None,
+                  adapter=adapter_dir, adapter_fold=fold if adapter_dir else None,
                   wall_seconds=round(time.time() - t_start, 2))
     outputs.write_report(cfg.out_dir, report, name="blind_eval.json")
     return report
+
+
+def _read_adapter_meta(adapter_dir: str, cfg: RunConfig, dtype: torch.dtype
+                       ) -> Tuple[int, LoraSpec]:
+    """(k, LoraSpec) of a served checkpoint, from its extra.json stamp
+    (``FoldTrainer.ckpt_extra``), so an adapter trained with any k is read
+    whatever the serving config says. A checkpoint without the stamp, or a
+    legacy stamp without ``k``, falls back to the serving config. A stamp
+    naming another model than the serving config's raises."""
+    meta_path = os.path.join(adapter_dir, EXTRA_FILE)
+    if not os.path.exists(meta_path):
+        return cfg.data.k, lora_spec_from_cfg(cfg, dtype)
+    with open(meta_path) as f:
+        extra = json.load(f)
+    if "k" not in extra:  # a legacy stamp with only {"step": N}
+        return cfg.data.k, lora_spec_from_cfg(cfg, dtype)
+    if extra.get("model_name") and cfg.model.name != extra["model_name"]:
+        raise ValueError(
+            f"adapter {adapter_dir} was trained on model {extra['model_name']!r} but serving "
+            f"config says {cfg.model.name!r} — pass the matching --set model.name")
+    lspec = LoraSpec(rank=int(extra["lora_rank"]), alpha=float(extra["lora_alpha"]),
+                     targets=tuple(extra["lora_targets"]), dtype=dtype)
+    return int(extra["k"]), lspec
+
+
+def fold_mean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean(x, 0, keepdims=True)`` as XLA computes it on the CPU, bit
+    for bit in bf16 and f32: the fold slices summed one after another in
+    f32, times the f32 reciprocal of k, cast back to x's dtype."""
+    acc = x[0].float()
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i].float()
+    return (acc * torch.tensor(1.0 / x.shape[0], dtype=torch.float32)).to(x.dtype)[None]
+
+
+def load_adapter_lora(adapter_dir: str, cfg: RunConfig, spec: ModelSpec, fold: str = "0",
+                      keep_fold_axis: bool = True, device: torch.device | str = "cpu"):
+    """A fold-stacked LoRA checkpoint (tst_torch.aux.ckpt) read for serving
+    → (adapter, lspec), on ``device``.
+
+    k and the LoRA geometry come from the checkpoint's own stamp
+    (:func:`_read_adapter_meta`). ``fold`` picks the adapter that serves: an
+    index, or ``"mean"`` for the mean of the folds' adapters in the
+    adapter's dtype (all folds share the zero-init-B parametrization).
+    ``keep_fold_axis``: True gives a [1, ...] fold axis (the k=1 scorers'
+    shape), False none (the decoders' shape)."""
+    k_ckpt, lspec = _read_adapter_meta(adapter_dir, cfg, spec.dtype)
+    like = {proj: {n: torch.empty((k_ckpt,) + shape, dtype=lspec.dtype, device=device)
+                   for n, shape in shapes.items()}
+            for proj, shapes in lora_shapes(spec, lspec).items()}
+    lora_k, _, _ = load_train_state(adapter_dir, like)
+    if fold == "mean":
+        one = {p: {n: fold_mean(t) for n, t in ab.items()} for p, ab in lora_k.items()}
+    else:
+        f = int(fold)
+        if not 0 <= f < k_ckpt:
+            raise ValueError(f"--fold {f} out of range: checkpoint has k={k_ckpt}")
+        one = {p: {n: t[f: f + 1] for n, t in ab.items()} for p, ab in lora_k.items()}
+    if not keep_fold_axis:
+        one = {p: {n: t[0] for n, t in ab.items()} for p, ab in one.items()}
+    return one, lspec
 
 
 def lora_spec_from_cfg(cfg: RunConfig, dtype: torch.dtype) -> LoraSpec:
@@ -211,13 +320,9 @@ def _merge_logs(a: Optional[TrainLog], b: TrainLog) -> TrainLog:
 
 def _check_sft_config(ds: BlindDataset, cfg: RunConfig) -> None:
     """Raise, before any work, on what the port's diagnose-sft does not have."""
-    if cfg.mesh.fold * cfg.mesh.data * cfg.mesh.seq * cfg.mesh.tensor > 1:
-        _not_ported("mesh sizes above 1", 16)
-    if cfg.checkpoint_dir:
-        _not_ported("training checkpoints (checkpoint_dir)", 7)
+    check_mesh(cfg)
     if cfg.profile_dir:
         _not_ported("profiling (profile_dir)", 17)
-    _check_spec_decode(cfg)
 
 
 class _SftRunState:
@@ -289,7 +394,10 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     (their plain versions for CPU tensors) and the dense path otherwise;
     with ``model.fused_mlp`` the train step's MLP goes through the fused
     kernel. Numeric and open rows are greedy-decoded with each fold's
-    adapter after training (int4 weights through K3)."""
+    adapter after training (int4 weights through K3; by exact speculative
+    decode with ``perf.spec_draft_*``). With ``checkpoint_dir`` each epoch
+    of each seed checkpoints into ``{checkpoint_dir}/seed_{s}_epoch_{e:03d}``
+    (the reference's layout), and a run that finds one resumes from it."""
     t_start = time.time()
     _check_sft_config(ds, cfg)
     k = cfg.data.k
@@ -353,7 +461,9 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
             lora, opt_state, elog = trainer.fit(
                 params, lora, opt_state, batches=chunk, log_every=cfg.log_every,
                 log_fn=lambda step, loss: logger.log(event="train", seed=s_i, epoch=e,
-                                                     step=step, loss=loss), **train_data)
+                                                     step=step, loss=loss),
+                checkpoint_dir=(f"{cfg.checkpoint_dir}/seed_{s_i}_epoch_{e:03d}"
+                                if cfg.checkpoint_dir else None), **train_data)
             tlog = _merge_logs(tlog, elog)
             if (e + 1) in score_after:
                 epoch_probs.append(score_now(lora))
@@ -369,10 +479,14 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     # numeric (NA) rows: held-out greedy decode, per-sample MRA as their s(x)
     gold_values = gold_values_of(ds).astype(np.float32)
     decoded: Dict[str, Any] = {}
+    # perf.spec_draft_*: built only when a decode leg runs
+    draft = build_draft_model(cfg, st.tokenizer, device) if _has_decoded_rows(ds) else None
+    decode_kw = dict(tokenizer=st.tokenizer, use_pallas=use_pallas, draft=draft,
+                     gamma=cfg.perf.spec_gamma)
     if np.isfinite(gold_values).any():
         pred_values, s_num = timed("numeric_decode", lambda: score_heldout_numeric(
             params, lora, spec, lspec, st.tokens, st.answer_pos, gold_values, fold_id, k,
-            tokenizer=st.tokenizer, use_pallas=use_pallas))
+            **decode_kw))
         s_x = np.where(np.isfinite(s_num), s_num, s_x)
         decoded["numeric_blind_mra"] = float(metrics.mra(np.nan_to_num(pred_values), gold_values))
         decoded["n_numeric"] = int(np.isfinite(gold_values).sum())
@@ -381,7 +495,7 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     if any(g is not None for g in gold_texts):
         _, s_open = timed("open_decode", lambda: score_heldout_open(
             params, lora, spec, lspec, st.tokens, st.answer_pos, gold_texts, fold_id, k,
-            tokenizer=st.tokenizer, use_pallas=use_pallas))
+            **decode_kw))
         s_x = np.where(np.isfinite(s_open), s_open, s_x)
         decoded["open_blind_accuracy"] = round(float(np.nanmean(s_open)), 4)
         decoded["n_open"] = int(sum(g is not None for g in gold_texts))
@@ -457,4 +571,182 @@ def _sft_report(ds: BlindDataset, cfg: RunConfig, tb, pred: np.ndarray,
         if len(mcq_rows):
             report["sx_seed_top_jaccard"] = {"0.1": round(top_jaccard(0.1), 4),
                                              "0.2": round(top_jaccard(0.2), 4)}
+    return report
+
+
+def run_generate(ds: BlindDataset, cfg: RunConfig, device: torch.device, max_new: int = 16,
+                 draft_model: Optional[str] = None, draft_path: Optional[str] = None,
+                 draft_quantize: Optional[str] = None, gamma: int = 4,
+                 adapter_dir: Optional[str] = None, fold: str = "0") -> Dict[str, Any]:
+    """Greedy continuations of every sample's blind prompt (``generate``),
+    the serving surface of the decode stack.
+
+    With a draft model (``draft_model`` / ``draft_path``, stored as
+    ``draft_quantize``) the run uses exact speculative decoding
+    (tst_torch.models.spec_decode): the same tokens as the plain run, and
+    the report carries the measured acceptance. The draft must share the
+    target's tokenizer. With ``adapter_dir`` the target serves a trained
+    LoRA checkpoint, ``fold`` picking the adapter as eval-blind's ``--fold``
+    does; the draft stays base-weighted.
+
+    Rows are decoded in chunks of ``decode_chunk_rows`` rows, the tail chunk
+    padded with copies of its last row, as in the reference. Artifacts:
+    ``generations.jsonl`` (id, answer_type, text, the parsed value of
+    numeric rows) and ``generate_report.json``: the reference's fields, and
+    ``decode_seconds``, the synchronized wall of the decode chunks alone
+    (the tokens/s the serving path delivers, set-up left out)."""
+    t_start = time.time()
+    check_mesh(cfg)
+    tokenizer = build_tokenizer(cfg)
+    tb = tokenize_dataset(ds, tokenizer, max_len=cfg.data.max_len,
+                          include_context=cfg.data.include_context)
+    spec, params = build_model(cfg, tokenizer, device)
+    use_pallas = cfg.model.use_pallas
+    base_bytes = quantized_bytes(params)
+    dspec = dparams = None
+    if draft_model or draft_path:
+        dcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, name=draft_model or cfg.model.name, path=draft_path,
+            quantize=draft_quantize or "none"))
+        dspec, dparams = build_model(dcfg, tokenizer, device)
+        base_bytes += quantized_bytes(dparams)
+    lora = lspec = None
+    if adapter_dir:
+        lora, lspec = load_adapter_lora(adapter_dir, cfg, spec, fold=fold, keep_fold_axis=False,
+                                        device=device)
+    chunk = min(decode_chunk_rows(spec, tb.seq_len, max_new, k=1, base_bytes=base_bytes), tb.n)
+    tokens = torch.from_numpy(tb.tokens).to(device)
+    prompt_len = torch.from_numpy(tb.answer_pos).to(device).long() + 1
+
+    gen = np.zeros((tb.n, max_new), np.int32)
+    rounds_total = 0
+    committed_total = 0.0  # tokens committed through rounds, real rows
+    round_rows = 0  # over chunks: real rows x that chunk's rounds
+    t_first = None
+    t_decode = time.time()
+    for lo in range(0, tb.n, chunk):
+        n_real = min(lo + chunk, tb.n) - lo
+        rows = np.arange(lo, lo + n_real)
+        if rows.size < chunk:  # pad the tail chunk with its last row
+            rows = np.pad(rows, (0, chunk - rows.size), mode="edge")
+        sel = torch.from_numpy(rows).to(device)
+        t0 = time.time()
+        if dparams is not None:
+            out, stats = speculative_greedy_decode(
+                dparams, dspec, params, spec, tokens[sel], prompt_len[sel], max_new,
+                gamma=gamma, lora=lora, lora_spec=lspec, use_pallas=use_pallas,
+                return_stats=True)
+            rounds_total += stats["rounds"]
+            # a full row keeps counting, so committed - 1 over the real rows
+            # is the unbiased tokens-a-round count
+            committed_total += float(stats["committed"][:n_real].sum().item() - n_real)
+            round_rows += n_real * stats["rounds"]
+        else:
+            out = greedy_decode(params, tokens[sel], prompt_len[sel], max_new, spec, lora=lora,
+                                lora_spec=lspec, use_pallas=use_pallas)
+        out = out.cpu().numpy()
+        if t_first is None:
+            t_first = time.time() - t0
+        gen[lo: lo + chunk] = out[: tb.n - lo]
+    decode_seconds = time.time() - t_decode
+
+    texts = decode_text(gen, tokenizer)
+    values = decode_numeric(gen, tokenizer)
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    with open(f"{cfg.out_dir}/generations.jsonl", "w") as f:
+        for sample, text, val in zip(ds, texts, values):
+            row = {"id": sample.id, "answer_type": sample.answer_type, "text": text}
+            if sample.answer_type == NUMERIC:
+                row["value"] = None if np.isnan(val) else float(val)
+            f.write(json.dumps(row) + "\n")
+
+    report: Dict[str, Any] = {
+        "n_samples": len(ds), "model": spec.name, "max_new": max_new,
+        "chunk_rows": int(chunk),
+        "first_call_seconds": round(t_first or 0.0, 2),
+        "tokens_generated": int(tb.n * max_new),
+        "decode_seconds": round(decode_seconds, 4),
+        "wall_seconds": round(time.time() - t_start, 2),
+        "adapter": adapter_dir,
+        "adapter_fold": fold if adapter_dir else None,
+    }
+    if dparams is not None:
+        # tokens a row commits a round (1: the bonus only; gamma + 1: all
+        # proposals accepted)
+        per_round = committed_total / max(round_rows, 1)
+        report.update(draft=dspec.name, gamma=gamma, spec_rounds=int(rounds_total),
+                      committed_per_round=round(per_round, 3),
+                      draft_acceptance=round(max(per_round - 1.0, 0.0) / gamma, 3))
+    outputs.write_report(cfg.out_dir, report, name="generate_report.json")
+    return report
+
+
+#: the CUDA entry points of tst_torch/csrc each kind of launch needs
+_K1 = ("tst_flash_attention_fwd", "tst_flash_attention_bwd_dkv", "tst_flash_attention_bwd_dq")
+_K1_SEG = tuple(e + "_seg" for e in _K1)
+_K3 = ("tst_int4_matmul",)
+_K4 = ("tst_swiglu_gate_up", "tst_swiglu_down")
+
+
+def warmup_entries(cfg: RunConfig) -> list:
+    """The CUDA entry points a diagnose-sft (or debias-ibp) run of ``cfg``
+    would launch: K1's forward, dK/dV and dQ with ``model.use_pallas``, and
+    their segmented variants with ``optim.pack``; K3 with an int4 base; K4
+    with ``model.fused_mlp`` when no adapter targets the MLP."""
+    if not cfg.model.use_pallas:
+        return []
+    entries = list(_K1)
+    if cfg.optim.pack:
+        entries += _K1_SEG
+    if cfg.model.quantize == "int4":
+        entries += _K3
+    mlp_lora = any(t in cfg.lora.targets for t in ("gate_proj", "up_proj", "down_proj"))
+    if cfg.model.fused_mlp and not mlp_lora:
+        entries += _K4
+    return entries
+
+
+def run_warmup(ds: BlindDataset, cfg: RunConfig, device: torch.device,
+               ibp: bool = False) -> Dict[str, Any]:
+    """Build, or find already built, every CUDA kernel a ``diagnose-sft``
+    run of this config would launch (``debias-ibp`` with ``ibp``), and
+    resolve each entry point (``warmup``).
+
+    The reference AOT-compiles the run's XLA programs into its compilation
+    cache; eager torch compiles no programs, so what a first run pays for
+    here is the kernels' ``nvcc`` build (tst_torch.kernels._build, one
+    library keyed by a hash of the sources). The report keeps the
+    reference's keys that still mean something: ``model``, ``k``,
+    ``seq_len``, ``n_samples``, ``target`` and ``wall_seconds``. Its
+    ``train_step_compile_s``, ``scorer_compile_s`` and
+    ``decode_{numeric,open}_compile_s`` have no counterpart; in their place
+    ``kernels`` lists the entry points resolved, ``build_seconds`` the nvcc
+    wall (0.0 when the library was built already) and ``library`` its file.
+    ``--platform cpu`` builds nothing (CPU tensors take the plain
+    versions), and the report says so."""
+    t_start = time.time()
+    _check_sft_config(ds, cfg)
+    tokenizer = build_tokenizer(cfg)
+    tb = tokenize_dataset(ds, tokenizer, max_len=cfg.data.max_len,
+                          include_context=cfg.data.include_context)
+    spec = model_spec(cfg, tokenizer)
+    report: Dict[str, Any] = {"model": spec.name, "k": cfg.data.k, "seq_len": tb.seq_len,
+                              "n_samples": len(ds),
+                              "target": "debias-ibp" if ibp else "diagnose-sft"}
+    entries = warmup_entries(cfg)
+    if device.type != "cuda":
+        report.update(kernels=[], build_seconds=0.0, library=None,
+                      note="--platform cpu: nothing to build; CPU tensors take the kernels' "
+                           "plain versions")
+    else:
+        from tst_torch.kernels import _build
+
+        res = _build.build()
+        lib = _build.library()
+        for entry in entries:
+            getattr(lib, entry)  # resolves the symbol, or raises AttributeError
+        report.update(kernels=entries, build_seconds=round(res.seconds, 2),
+                      library=res.path.name)
+    report["wall_seconds"] = round(time.time() - t_start, 2)
+    outputs.write_report(cfg.out_dir, report, name="warmup_report.json")
     return report

@@ -12,21 +12,27 @@ from its own packed split ``[k, Np, L]``, with segment starts.
 
 The loss is cross-entropy on the answer tokens only, in f32 off bf16
 activations; AdamW with a warmup-cosine schedule mirrors optax's
-``adamw(warmup_cosine_decay_schedule(...))`` step for step.
+``adamw(warmup_cosine_decay_schedule(...))`` step for step. With
+``lora.dropout > 0`` each step drops the adapters' inputs with masks drawn
+from (fold, optimizer step, layer, projection) (tst_torch.models.lora).
+``fit`` checkpoints the adapters and the optimizer state
+(tst_torch.aux.ckpt) and resumes from the last checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tst_torch.aux import ckpt as ckpt_mod
 from tst_torch.models.decoder import apply_model, check_remat, lm_head_weight
-from tst_torch.models.lora import DROPOUT_ITEM, LoraSpec, fold_count, init_lora
+from tst_torch.models.lora import DropoutKey, LoraSpec, MaskFn, dropout_mask, fold_count, init_lora
 from tst_torch.models.spec import ModelSpec
 
 Params = Dict[str, Any]
@@ -279,9 +285,8 @@ class FoldTrainer:
         b2: float = 0.999,
         fused_mlp: bool = False,
         packed: bool = False,
+        dropout_masks: MaskFn = dropout_mask,
     ):
-        if lora_spec.dropout > 0.0:
-            _not_ported("training with LoRA dropout", DROPOUT_ITEM)
         check_remat(remat)
         if ring or mesh is not None:
             _not_ported("meshes and ring attention", "ROADMAP item 16")
@@ -299,6 +304,9 @@ class FoldTrainer:
         #: packed rows (tst_torch.data.packing): ``step``/``fit`` take per-fold
         #: arrays [k, Np, ...] with segment starts, and answer_pos [k, Np, G]
         self.packed = packed
+        #: draws one fold block's LoRA dropout mask (with lora_spec.dropout >
+        #: 0); the parity tests inject the reference's masks here
+        self.dropout_masks = dropout_masks
 
     def ckpt_extra(self, **kw) -> Dict[str, Any]:
         """Host metadata for a checkpoint's extra.json: k and the LoRA
@@ -321,11 +329,17 @@ class FoldTrainer:
 
     def loss_and_grads(self, base: Params, lora: Params, tokens: torch.Tensor,
                        mask: torch.Tensor, pos: torch.Tensor,
-                       segs: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Params]:
+                       segs: Optional[torch.Tensor] = None,
+                       step: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
         """Per-fold losses [k] and the adapters' gradients for one batch
         ``[k, B, S]`` (packed: ``pos`` and ``segs`` [k, B, G]): one forward
-        and one backward over all folds."""
+        and one backward over all folds. ``step`` (the optimizer's count)
+        seeds the dropout masks when ``lora_spec.dropout > 0``; without it
+        nothing is dropped."""
         k, b, s = tokens.shape
+        lora_rng = None
+        if step is not None and self.lora_spec.dropout > 0.0:
+            lora_rng = DropoutKey(tuple(range(k)), int(step), self.dropout_masks)
         params = tree_map(lambda t: t.detach().requires_grad_(True), lora)
         tokens, mask = tokens.reshape(k * b, s), mask.reshape(k * b, s)
         pos = pos.reshape(k * b, *pos.shape[2:])
@@ -334,11 +348,12 @@ class FoldTrainer:
         if self.t_max is None:
             losses = sft_loss(base, params, tokens, mask, self.spec, self.lora_spec,
                               self.use_pallas, remat=self.remat, fused_mlp=self.fused_mlp,
-                              seg_starts=segs)
+                              lora_rng=lora_rng, seg_starts=segs)
         else:
             losses = sft_loss_window(base, params, tokens, mask, pos, self.t_max, self.spec,
                                      self.lora_spec, self.use_pallas, remat=self.remat,
-                                     fused_mlp=self.fused_mlp, seg_starts=segs)
+                                     fused_mlp=self.fused_mlp, lora_rng=lora_rng,
+                                     seg_starts=segs)
         leaves = tree_leaves(params)
         grads = torch.autograd.grad(losses.sum(), leaves)
         by_id = {id(leaf): g for leaf, g in zip(leaves, grads)}
@@ -351,14 +366,16 @@ class FoldTrainer:
         """One fold-parallel step on rows ``idx_kb`` [k, B], gathered on the
         device → (adapters, optimizer state, per-fold losses [k]). Packed:
         the arrays are per fold ([k, Np, ...], ``all_segs`` the starts) and
-        fold f's rows come from its own split."""
+        fold f's rows come from its own split. The dropout masks (with
+        ``lora_spec.dropout > 0``) follow the optimizer's count, which the
+        checkpoint restores."""
         idx = torch.as_tensor(idx_kb, dtype=torch.long).to(all_tokens.device)
         if self.packed:
             ka = torch.arange(idx.shape[0], device=idx.device)[:, None]
             idx = (ka, idx)
         segs = None if all_segs is None else all_segs[idx]
         losses, grads = self.loss_and_grads(base, lora, all_tokens[idx], all_mask[idx],
-                                            all_pos[idx], segs)
+                                            all_pos[idx], segs, step=opt_state.count)
         updates, opt_state = self.tx.update(grads, opt_state, lora)
         return apply_updates(lora, updates), opt_state, losses
 
@@ -374,11 +391,19 @@ class FoldTrainer:
         log_every: int = 10,
         log_fn: Optional[Callable[[int, float], None]] = None,
         checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 50,
+        fail_after_step: Optional[int] = None,  # fault injection for resume tests
         all_segs: Optional[torch.Tensor] = None,  # int32 [k, Np, MAX_SEGS] (packed)
         n_segs: Optional[np.ndarray] = None,  # int [k, Np] samples per row (packed)
     ) -> Tuple[Params, AdamWState, TrainLog]:
-        if checkpoint_dir is not None:
-            _not_ported("training checkpoints (checkpoint_dir)", "ROADMAP item 7")
+        """Run the steps of ``batches`` → (adapters, optimizer state, log).
+
+        ``checkpoint_dir``: when it holds a checkpoint (its ``extra.json``),
+        the adapters and optimizer state are restored from it and training
+        resumes at its ``step``; a checkpoint is written every
+        ``checkpoint_every`` steps and after the last. ``fail_after_step``
+        raises after that step, its checkpoint written (fault injection).
+        The log of a resumed fit holds the steps it ran."""
         if self.packed:
             if all_segs is None or all_pos is None:
                 raise ValueError("packed mode needs all_segs and all_pos "
@@ -391,14 +416,19 @@ class FoldTrainer:
                 raise ValueError("windowed loss (t_max set) needs all_pos")
             all_pos = torch.zeros(all_tokens.shape[0], dtype=torch.long,
                                   device=all_tokens.device)
+        start_step = 0
+        if checkpoint_dir is not None and os.path.exists(
+                os.path.join(checkpoint_dir, ckpt_mod.EXTRA_FILE)):
+            lora, opt_state, extra = ckpt_mod.load_train_state(checkpoint_dir, lora, opt_state)
+            start_step = int((extra or {}).get("step", 0))
         log = TrainLog()
         t0 = time.time()
         pending: List[torch.Tensor] = []
-        for t in range(batches.shape[0]):
+        for t in range(start_step, batches.shape[0]):
             lora, opt_state, loss = self.step(base, lora, opt_state, all_tokens, all_mask,
                                               all_pos, batches[t], all_segs)
             pending.append(loss)
-            if t == 0:
+            if t == start_step:
                 _sync(loss)
                 log.first_step_seconds = time.time() - t0
             if (t + 1) % log_every == 0 or t == batches.shape[0] - 1:
@@ -409,7 +439,15 @@ class FoldTrainer:
                 if log_fn:
                     log_fn(t + 1, mean)
                 pending.clear()
+            if checkpoint_dir is not None and (t + 1) % checkpoint_every == 0:
+                ckpt_mod.save_train_state(checkpoint_dir, lora, opt_state,
+                                          extra=self.ckpt_extra(step=t + 1))
+            if fail_after_step is not None and t + 1 >= fail_after_step:
+                raise RuntimeError(f"injected failure after step {t + 1}")
         _sync(all_tokens)
+        if checkpoint_dir is not None:
+            ckpt_mod.save_train_state(checkpoint_dir, lora, opt_state,
+                                      extra=self.ckpt_extra(step=int(batches.shape[0])))
         log.steps = int(batches.shape[0])
         log.wall_seconds = time.time() - t0
         if self.packed and n_segs is not None:
