@@ -5,7 +5,7 @@
     python3 chip_smoke.py --only rank      # phases 1-2, then the attention kernels vs the library
     python3 chip_smoke.py --only mlp-int4  # phases 1-2, 11-12 (K3, K4), the int4 decode
                                            # and fused train steps of phases 13-14
-    python3 chip_smoke.py --only serve     # phases 1-2 and 20
+    python3 chip_smoke.py --only serve     # phases 1-2, the decode attention kernel and 20
 
 Every step compared with the plain path (phases 7, 10, 14) holds its
 per-fold losses within 1e-3 of the plain loss, relative, and its LoRA
@@ -111,8 +111,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                (the benchmark plants a length bias); the fit's wall and the
                traversal's time on the card;
  16. debias-ibp — ``python -m tst_torch debias-ibp`` (Qwen2.5-0.5B at full
-               width, bf16, synthetic-vsi:0.4, n=512, phase 6's training, 3
-               rounds, stop_epsilon -1) through the CLI: 3 rounds; the audit
+               width, bf16, synthetic-vsi:0.4, n=512, phase 6's training, 2
+               rounds, stop_epsilon -1) through the CLI: 2 rounds; the audit
                rows, debiased.jsonl + removed.jsonl and sx.jsonl's kept column
                add up; ibp_report.json is strict JSON; the three attention
                kernels launch as the rounds' own steps, scorer chunks and
@@ -135,7 +135,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                temporary directory, deleted after): (a) ``diagnose-sft
                --preset sft-mmmu-llama8b`` (k=5, batch 8, remat=True) with
                model.path, the byte tokenizer, a mesh of one, synthetic:0.5,
-               n=200, one epoch: K1 at D=128 forward (twice a step under remat),
+               n=120, one epoch: K1 at D=128 forward (twice a step under remat),
                dK/dV and dQ launches as implied; one step with remat against
                one without (the step gates; bit-equality reported), each one's
                step time, peak memory and profile; the multi-token scorer on
@@ -157,16 +157,42 @@ Phases, each printing one line; any failure raises and exits non-zero:
                mean`` (K1 launches 24 x the chunks; fold 0's letter
                probabilities against the same adapter through the plain
                attention, within 0.05); (c) ``generate --adapter`` on an int4
-               base, synthetic-vsi:0.4, n=128, 16 tokens (K1 and K3 launches
+               base, synthetic-vsi:0.4, n=64, 16 tokens (K1, K3 and decode
+               attention launches
                as implied; the first decode step through K3 against the plain
                path, phase 13's gates; tokens/s); (d) the same with the
                target's config as an int4 draft, gamma 2 (launches as
-               implied; the tokens equal (c)'s, a differing row allowed only
-               where the plain path's logit margin at its first divergence is
-               within the logit tolerance; rounds, acceptance, tokens/s), and
-               without the adapter, the draft then the target itself
-               (launches, rounds, acceptance, tokens/s); (e) ``warmup`` (the
-               kernels resolved, no launch).
+               implied; every row's tokens equal to (c)'s; rounds, acceptance,
+               tokens/s), and without the adapter, the draft then the target
+               itself (launches, rounds, acceptance, tokens/s; every row equal
+               to greedy decode without the adapter); on a bf16 target,
+               greedy against speculative decode with the adapter and a bf16
+               draft of other weights, and without it and the target as its
+               own draft, at gamma 2 and 4 and 32 and 27 rows a call, 8
+               tokens a row (every row equal); (e)
+               ``warmup`` (the kernels resolved, no launch);
+ 21. long — the flash kernels' forward, dK/dV and dQ at S=16384 (one KV
+               head and its GQA group of 7) and S=32768 (one query head)
+               against their plain versions, at the S=512 gates' tolerances;
+               the ring's arithmetic at S=16384 (4 blocks, the ranks' step in
+               one process, tst_torch.kernels.ring_attention) against the
+               kernels, output within the forward gate and gradients at cosine
+               >= 0.999; the kernels timed at the preset's call q [10, 16384,
+               14, 64] beside scaled_dot_product_attention and the bound;
+               ``diagnose-sft --preset sft-videomme-long`` (max_len 16384, k=5,
+               batch 2 a fold, model.remat=true, the byte tokenizer) on 8
+               synthetic rows of ~16,000 bytes through the CLI with
+               ``--profile-dir``: launches as implied, finite fold losses, every
+               row's s(x), the step's median ms, samples/s, peak memory and the
+               trace's top ops.
+
+Phase 11 also holds K3's rows at M=96 and M=37 bit-equal to the same rows
+of an M=32 call, and the decode step's attention kernel (after phase 11)
+against its plain version at the greedy step's and the verify chunk's
+shapes, Llama-3-8B's heads and a cache of 16,512 slots, bit-equal query by
+query and in a longer cache with masked slots between the keys; its device
+time from a CUDA graph beside the library's and the bound (the keys and
+values of the slots a row's queries see).
 
 The second-to-last line is the per-kernel JSON record (launches on the
 main path, error, kernel, plain and library times, and the bound: the
@@ -245,6 +271,14 @@ INT4_M = (32, 64)
 #: (gamma + 1) = 96 at phase 20's gamma of 2, and at an M that is no multiple
 #: of 8 or 32
 SPEC_GAMMA = 2
+#: the decode attention kernel's checks (B, T, H, KVH, D, S): a greedy step
+#: of 32 rows at Qwen2.5-0.5B's heads (timed), the verify chunk, Llama-3-8B's
+#: heads, and a cache of the long preset (16384 slots and a generation pad)
+DATTN_CASES = [(32, 1, 14, 2, 64, 640), (32, SPEC_GAMMA + 1, 14, 2, 64, 640),
+               (8, SPEC_GAMMA + 1, 32, 8, 128, 640), (2, SPEC_GAMMA + 1, 14, 2, 64, 16512)]
+#: phase 20d on a bf16 target: speculative decode's gammas, rows a call (a
+#: full decode chunk, and a count that is no multiple of 8) and tokens a row
+BF16_SPEC_GAMMAS, BF16_SPEC_ROWS, BF16_SPEC_MAX_NEW = (2, 4), (32, 27), 8
 INT4_CHECK_M = (32 * (SPEC_GAMMA + 1), 37)
 #: (K, N) of Qwen2.5-0.5B's seven int4 projections, in a layer's order
 QWEN_INT4 = {"wq": (896, 896), "wk": (896, 128), "wv": (896, 128), "wo": (896, 896),
@@ -272,7 +306,10 @@ MAX_NEW, INT4_PROJ, DECODE_ROWS = 12, 7, 32
 #: (decisive_disagreements): the logits are near-tied, so argmax agreement
 #: alone fails correct code
 LOGIT_TOL = 2e-2
-TRAIN_FUSED = ([a.replace("synthetic:0.5", "synthetic-vsi:0.4") for a in TRAIN]
+#: phase 14: one epoch of phase 6's geometry (17 steps)
+TRAIN_FUSED = ([a.replace("synthetic:0.5", "synthetic-vsi:0.4").replace("optim.epochs=3",
+                                                                         "optim.epochs=1")
+                for a in TRAIN]
                + ["--set", "model.quantize=int4", "--set", "model.fused_mlp=true"])
 #: the RF auditor on the planted-bias benchmark (forests traversed on the card)
 RF = ["diagnose-rf", "--bench", "synthetic:0.5", "--set", "data.n=512", "--k", "5"]
@@ -282,7 +319,7 @@ RF_TOL = 1e-6
 #: IBP with the SFT diagnostic on phase 14's mix, the train geometry of phase
 #: 6; stop_epsilon -1, so the loop at random weights (blind accuracy near
 #: chance) still prunes every round
-IBP_ROUNDS = 3
+IBP_ROUNDS = 2
 IBP = ["debias-ibp", "--bench", "synthetic-vsi:0.4", "--set", "data.n=512", "--k", "2",
        "--set", "optim.batch_size=16", "--set", "optim.epochs=3",
        "--set", f"ibp.rounds={IBP_ROUNDS}", "--set", "ibp.stop_epsilon=-1",
@@ -324,7 +361,7 @@ LLAMA_STEP_SHAPE = (40, 512, 32, 8, 128)
 #: checkpoint, cut to one chip, the synthetic benchmark and one epoch
 LLAMA_TRAIN = ["diagnose-sft", "--preset", "sft-mmmu-llama8b", "--bench", "synthetic:0.5",
                "--set", "model.tokenizer=byte", "--set", "mesh.data=1", "--set", "mesh.tensor=1",
-               "--set", "data.n=200", "--set", "optim.epochs=1"]
+               "--set", "data.n=120", "--set", "optim.epochs=1"]
 #: phase 19b: eval-blind int4 through quantizing_put, numeric rows decoded
 #: through K3 at Llama-3-8B's widths
 LLAMA_BLIND_INT4 = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=256",
@@ -349,12 +386,30 @@ SERVE_EPOCH_DIR = "seed_0_epoch_000"
 RESUME_STEPS, RESUME_FAIL, RESUME_EVERY, RESUME_COSINE = 6, 3, 2, 0.999
 #: phase 20c-d: generate on an int4 base with the trained adapter, and again
 #: with the target's own config as an int4 draft
-GEN_MAX_NEW, GEN_ROWS = 16, 128
+GEN_MAX_NEW, GEN_ROWS = 16, 64
 SERVE_GEN = ["generate", "--bench", "synthetic-vsi:0.4", "--set", f"data.n={GEN_ROWS}",
              "--set", "model.name=qwen2.5-0.5b", "--set", "model.quantize=int4",
              "--max-new", str(GEN_MAX_NEW)]
 SERVE_SPEC = SERVE_GEN + ["--draft-model", "qwen2.5-0.5b", "--draft-quantize", "int4",
                           "--gamma", str(SPEC_GAMMA)]
+#: phase 21: K1 held to its plain version at long S (q [1, S, h, 64], one KV
+#: head: its GQA group of 7 at 16384, one query head at 32768, as far as the
+#: plain version's [S, S] f32 tensors fit) and timed at the preset's full
+#: call, k=5 folds x batch 2 rows of 16384 tokens at Qwen2.5-0.5B's heads
+LONG_CHECKS = ((16384, 7), (32768, 1))
+LONG_SHAPE = (10, 16384, 14, 2, 64)
+#: the ring's arithmetic at S=16384: 4 blocks of 4096, the ranks' step in one
+#: process; its gradients against K1's at this cosine
+LONG_RING_BLOCKS, LONG_RING_COSINE = 4, 0.999
+#: the preset through the CLI (BASELINE config 4): synthetic rows with
+#: ~16,000-byte transcripts, the byte tokenizer (the preset's HF tokenizer
+#: needs a download) and remat (one layer's saves at 163,840 tokens would be
+#: ~6.5 GB, ~157 GB over 24 layers); 8 rows, one epoch: 4 steps of 2 rows a
+#: fold; the RF cross-check off (2 held-out rows a fold)
+LONG_ROWS, LONG_CONTEXT_BYTES = 8, 16000
+LONG_TRAIN = ["diagnose-sft", "--preset", "sft-videomme-long", "--set", "model.tokenizer=byte",
+              "--set", "model.remat=true", "--set", "optim.epochs=1",
+              "--set", "rf.cross_check=false"]
 #: safetensors' dtype names
 _ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
               torch.int8: "I8", torch.uint8: "U8"}
@@ -526,11 +581,14 @@ def ibp_launches_want(plan, n_layers=N_LAYERS):
     ``plan`` given as its train steps, scorer chunks and decode prefill
     chunks (summed over the round's seeds and scoring passes): one forward a
     layer for each step, chunk and prefill, one dK/dV and one dQ a layer for
-    each step, and nothing else."""
+    each step, the decode attention a layer in each decode step after a
+    prefill's (MAX_NEW tokens), and nothing else."""
     steps = sum(p["steps"] for p in plan)
     fwd = steps + sum(p["scorer_chunks"] + p["decode_chunks"] for p in plan)
+    decode = sum(p["decode_chunks"] for p in plan)
     return {"fwd": n_layers * fwd, "dkv": n_layers * steps, "dq": n_layers * steps,
-            "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0}
+            "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0,
+            "dattn": n_layers * (MAX_NEW - 1) * decode}
 
 
 def check_launches(counts, want, what):
@@ -675,7 +733,7 @@ def _attention_bounds(q, k, seg=None):
             "dq": _bound(6 * d * pairs, 3 * qb + kvb + 2 * stat + segb)}
 
 
-def _sdpa_yardstick(q, k, v, do, o, mask=None):
+def _sdpa_yardstick(q, k, v, do, o, mask=None, samples=30, reps=10):
     """library_ms of the attention function: one call of torch's
     scaled_dot_product_attention on [B, H, S, D] views of the same q, k, v
     (causal, or the boolean [B, 1, S, S] segment mask), and its backward
@@ -709,9 +767,9 @@ def _sdpa_yardstick(q, k, v, do, o, mask=None):
                 continue
             with sdpa_kernel(backend):
                 with torch.no_grad():
-                    fwd_ms = median_ms(lambda: sdpa(qh, kh, vh, **kw))
+                    fwd_ms = median_ms(lambda: sdpa(qh, kh, vh, **kw), samples, reps)
                 bwd_ms = median_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
-                                                               retain_graph=True))
+                                                               retain_graph=True), samples, reps)
             err = (oh.detach().transpose(1, 2).float() - o.float()).abs().max().item()
             if err > O_TOL:
                 raise AssertionError(f"scaled_dot_product_attention disagrees with the kernel's "
@@ -914,23 +972,26 @@ def phase_slice():
 
 
 def _launch_counts():
+    import tst_torch.kernels.decode_attention as tda
     import tst_torch.kernels.flash_attention as tfa
     import tst_torch.kernels.fused_mlp as tfm
     import tst_torch.kernels.quant_matmul as tqm
 
     return {"fwd": tfa.LAUNCHES, "dkv": tfa.LAUNCHES_BWD_DKV, "dq": tfa.LAUNCHES_BWD_DQ,
             "fwd_seg": tfa.LAUNCHES_SEG, "dkv_seg": tfa.LAUNCHES_SEG_BWD_DKV,
-            "dq_seg": tfa.LAUNCHES_SEG_BWD_DQ, "int4": tqm.LAUNCHES, "mlp": tfm.LAUNCHES}
+            "dq_seg": tfa.LAUNCHES_SEG_BWD_DQ, "int4": tqm.LAUNCHES, "mlp": tfm.LAUNCHES,
+            "dattn": tda.LAUNCHES}
 
 
 def _zero_launch_counts():
+    import tst_torch.kernels.decode_attention as tda
     import tst_torch.kernels.flash_attention as tfa
     import tst_torch.kernels.fused_mlp as tfm
     import tst_torch.kernels.quant_matmul as tqm
 
     tfa.LAUNCHES = tfa.LAUNCHES_BWD_DKV = tfa.LAUNCHES_BWD_DQ = 0
     tfa.LAUNCHES_SEG = tfa.LAUNCHES_SEG_BWD_DKV = tfa.LAUNCHES_SEG_BWD_DQ = 0
-    tqm.LAUNCHES = tfm.LAUNCHES = 0
+    tqm.LAUNCHES = tfm.LAUNCHES = tda.LAUNCHES = 0
 
 
 def _train_state(overrides=(), base=TRAIN):
@@ -1212,7 +1273,8 @@ def phase_train_packed():
     held_out_rows = pack_heldout_mcq(st.tb, st.fold_id, k, st.pack.pack_len, batch)[0].shape[1]
     chunks = k * held_out_rows // batch
     want = {"fwd": 0, "dkv": 0, "dq": 0, "fwd_seg": N_LAYERS * (steps + chunks),
-            "dkv_seg": N_LAYERS * steps, "dq_seg": N_LAYERS * steps, "int4": 0, "mlp": 0}
+            "dkv_seg": N_LAYERS * steps, "dq_seg": N_LAYERS * steps, "int4": 0, "mlp": 0,
+            "dattn": 0}
     loss = report["final_loss"]
     sx = np.array([r["s_x"] for r in rows], np.float64)
     if (rc != 0 or counts != want or report.get("pack_len") != 1024
@@ -1462,6 +1524,13 @@ def phase_kernel_int4(device, strict=True):
             _check_bitwise(lambda: (tqm.int4_matmul_stacked(y, q, sc, 1),), (got,), "K3")
             worst = max(worst, err)
             line = f"[kernel-int4] {name} M={m} K={k} N={n}: max|out-ref|/max|ref| {rel:.3e}"
+            if m > INT4_M[0]:
+                # a row's bits do not depend on the rows beside it (F1)
+                head = tqm.int4_matmul_stacked(y[: INT4_M[0]].contiguous(), q, sc, 1)
+                if not torch.equal(got[: INT4_M[0]], head):
+                    raise AssertionError(f"K3's first {INT4_M[0]} rows at M={m} differ from "
+                                         f"the same rows at M={INT4_M[0]} (K={k} N={n})")
+                line += f"; rows 0-{INT4_M[0] - 1} bit-equal to an M={INT4_M[0]} call"
             if name in QWEN_INT4 and m in INT4_M:
                 timed.append((y, q, sc))
                 dev = graph_us(lambda: tqm._launch(y, q, sc, 1))
@@ -1498,6 +1567,131 @@ def phase_kernel_int4(device, strict=True):
             "host_us_a_call": {str(mm): layer[mm]["host_us"] / INT4_PROJ for mm in INT4_M},
             "timed": f"device time summed over one Qwen2.5-0.5B layer's 7 projections at M={m} "
                      f"(CUDA graph); host_ms the same sum on the host"}
+
+
+def _dattn_case(device, b, t, h, kvh, d, s, seed):
+    """q [b, t, h, d], a cache [b, s, kvh, d] and a decode mask [b, t, s]:
+    prompts of 5/32 to 25/32 of s slots (100-499 at s=640), 3 generated
+    slots from s - 128, then query j's chunk slots up to its own (the verify
+    chunk's triangle)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (_randn(rng, shape, device) for shape in
+               ((b, t, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+    plen = torch.as_tensor(rng.integers(s * 5 // 32, s * 25 // 32, size=b), device=device)
+    gen = s - 128
+    ar = torch.arange(s, device=device)
+    valid = (ar[None] < plen[:, None]) | ((ar[None] >= gen) & (ar[None] < gen + 3))
+    tri = (ar[None] >= gen + 3) & (ar[None] - gen - 3 <= torch.arange(t, device=device)[:, None])
+    return q, k, v, (valid[:, None] | tri[None]).contiguous()
+
+
+def dattn_bound(q, k, mask):
+    """The decode attention's bound: 4·D operations a (query, head, visible
+    slot); bytes of q, the output and the mask, and of the keys and values of
+    the slots some query of the row may see (the kernel reads no other)."""
+    b, t, h, d = q.shape
+    seen = int(mask.any(1).sum().item())  # over rows: slots a query of the row sees
+    nbytes = 2 * q.numel() * 2 + mask.numel() + 2 * seen * k.shape[2] * d * 2
+    return _bound(4 * d * h * int(mask.sum().item()), nbytes)
+
+
+def phase_kernel_decode_attention(device):
+    """The decode step's attention kernel against its plain version at the
+    greedy step's shape (Qwen2.5-0.5B heads, 32 rows, T=1), the verify
+    chunk's (T = gamma + 1), Llama-3-8B heads and a cache of the long
+    preset's length; bit-equal on a second call; a verify chunk's query t
+    bit-equal to the same query alone (T=1), and to the same keys in a cache
+    130 slots longer with masked slots between them (F1); device times from a
+    CUDA graph beside scaled_dot_product_attention with the boolean mask and
+    the bound, and the same back to back with the host."""
+    import tst_torch.kernels.decode_attention as tda
+
+    worst, rec = 0.0, None
+    for b, t, h, kvh, d, s in DATTN_CASES:
+        q, k, v, mask = _dattn_case(device, b, t, h, kvh, d, s, seed=b * t + d)
+        before = tda.LAUNCHES
+        got = tda.cache_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        want = tda.cache_attention_reference(q, k, v, mask)
+        err = (got.float() - want.float()).abs().max().item()
+        if tda.LAUNCHES != before + 1 or err > O_TOL * want.float().abs().max().item():
+            raise AssertionError(f"decode attention disagrees with its plain version at "
+                                 f"{(b, t, h, kvh, d, s)}: {err:.3e}")
+        _check_bitwise(lambda: (tda.cache_attention(q, k, v, mask),), (got,), "decode attention")
+        worst = max(worst, err)
+        # a query alone, and its keys in a longer cache with masked slots inserted
+        for j in range(t):
+            alone = tda.cache_attention(q[:, j: j + 1].contiguous(), k, v,
+                                        mask[:, j: j + 1].contiguous())
+            if not torch.equal(alone, got[:, j: j + 1]):
+                raise AssertionError(f"decode attention: query {j} of a T={t} call differs "
+                                     f"from the same query alone")
+        gap, gen = 2, s - 128
+
+        def widen(x, fill, seed):
+            return torch.cat([x[:, :gen], fill(seed), x[:, gen:], torch.zeros(
+                (b, 128) + tuple(x.shape[2:]), dtype=x.dtype, device=device)], 1)
+
+        def noise(seed):
+            return _randn(np.random.default_rng(seed), (b, gap, kvh, d), device)
+
+        k2, v2 = widen(k, noise, 1), widen(v, noise, 2)
+        m2 = torch.cat([mask[..., :gen], torch.zeros((b, t, gap), dtype=torch.bool, device=device),
+                        mask[..., gen:], torch.zeros((b, t, 128), dtype=torch.bool,
+                                                     device=device)], -1)
+        if not torch.equal(tda.cache_attention(q, k2, v2, m2.contiguous()), got):
+            raise AssertionError("decode attention depends on the cache's length or on where "
+                                 "masked slots sit")
+        line = (f"[kernel-dattn] B={b} T={t} H={h} KVH={kvh} D={d} S={s}: max|out-ref| "
+                f"{err:.3e}; bit-equal on a second call, query by query alone, and in a cache "
+                f"of {s + gap + 128} slots with masked slots inserted")
+        if rec is None:  # the greedy step's shape: timed
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            def kernel():
+                return tda.cache_attention(q, k, v, mask)
+
+            def plain():
+                return tda.cache_attention_reference(q, k, v, mask)
+
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qh, kh, vh, mh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
+
+            def library():
+                return sdpa(qh, kh, vh, attn_mask=mh, enable_gqa=True)
+
+            ms = graph_us(kernel) / 1e3
+            plain_ms = graph_us(plain, calls=2, replays=10) / 1e3
+            library_ms = backend = None
+            for choice in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                           SDPBackend.MATH):
+                try:
+                    with sdpa_kernel(choice):
+                        library()
+                        torch.cuda.synchronize()
+                        library_ms = graph_us(library) / 1e3
+                        lib_b2b = median_ms(library)
+                    backend = choice.name
+                    break
+                except RuntimeError:
+                    continue
+            back_to_back = {"ms": median_ms(kernel), "plain_ms": median_ms(plain, samples=10),
+                            "library_ms": lib_b2b if backend else None}
+            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   **dattn_bound(q, k, mask), "back_to_back": back_to_back,
+                   "timed": f"q [{b}, {t}, {h}, {d}] over a cache of {s} slots (a greedy step's "
+                            f"layer), device time a call from a CUDA graph; library: "
+                            f"scaled_dot_product_attention with the mask ({backend}); "
+                            f"back_to_back: CUDA events around 10 calls, the host's launch "
+                            f"overhead included"}
+            line += (f"; device ms: kernel {ms:.5f}, plain {plain_ms:.5f}, library "
+                     f"{library_ms if library_ms is None else round(library_ms, 5)} "
+                     f"({backend}), bound {rec['bound_ms']:.5f} ({rec['bound_by']}); back to "
+                     f"back: " + ", ".join(f"{key} {val if val is None else round(val, 5)}"
+                                          for key, val in back_to_back.items()))
+        print(line)
+    rec["max_abs_err"] = worst
+    return rec
 
 
 def phase_kernel_mlp(device):
@@ -1704,7 +1898,7 @@ def decode_state():
     return params, spec, tok0, plen, tok.shape[1], kc, vc, head, rope
 
 
-def decode_step_profiles(state, steps=10):
+def decode_step_profiles(state, steps=5):
     """One greedy decode step through K3 and through the plain path on
     ``state`` (decode_state): _profile of each, K3's kernels matched."""
     from tst_torch.models.decode import _decode_step
@@ -1784,7 +1978,8 @@ def phase_train_fused():
     mc, dchunks = _decode_chunks(st.spec, st.params, st.tokens.shape[1], st.fold_id[rows], k)
     want = {"fwd": N_LAYERS * (steps + chunks + dchunks), "dkv": N_LAYERS * steps,
             "dq": N_LAYERS * steps, "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0,
-            "int4": INT4_PROJ * N_LAYERS * (MAX_NEW - 1) * dchunks, "mlp": N_LAYERS * steps}
+            "int4": INT4_PROJ * N_LAYERS * (MAX_NEW - 1) * dchunks, "mlp": N_LAYERS * steps,
+            "dattn": N_LAYERS * (MAX_NEW - 1) * dchunks}
     loss = report["final_loss"]
     sx = np.array([r["s_x"] for r in sx_rows], np.float64)
     mra = report.get("numeric_blind_mra")
@@ -2157,16 +2352,18 @@ def sft_launches_want(steps, chunks, n_layers, remat=False):
     kernel's forward with it); one dK/dV and one dQ a layer for each step."""
     fwd = steps * (2 if remat in (True, "full", "dots") else 1) + chunks
     return {"fwd": n_layers * fwd, "dkv": n_layers * steps, "dq": n_layers * steps,
-            "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0}
+            "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0, "dattn": 0}
 
 
 def blind_int4_launches_want(mcq_chunks, decode_chunks, n_layers):
     """An int4 eval-blind's launches: one forward a layer for each MCQ chunk
     and each decode chunk's prefill, and K3 on each of a layer's 7 int4
-    projections in each decode step after the prefill's."""
+    projections and the decode attention a layer in each decode step after
+    the prefill's."""
     return {"fwd": n_layers * (mcq_chunks + decode_chunks), "dkv": 0, "dq": 0, "fwd_seg": 0,
             "dkv_seg": 0, "dq_seg": 0,
-            "int4": INT4_PROJ * n_layers * (MAX_NEW - 1) * decode_chunks, "mlp": 0}
+            "int4": INT4_PROJ * n_layers * (MAX_NEW - 1) * decode_chunks, "mlp": 0,
+            "dattn": n_layers * (MAX_NEW - 1) * decode_chunks}
 
 
 def multitoken_launches_want(rows, options, n_layers, batch=MULTI_BATCH):
@@ -2178,19 +2375,22 @@ def multitoken_launches_want(rows, options, n_layers, batch=MULTI_BATCH):
 def generate_launches_want(chunks, max_new, n_layers):
     """A greedy ``generate``'s launches on an int4 base: one forward a layer
     for each chunk's prefill, and K3 on each of a layer's 7 projections in
-    each decode step after the prefill's token."""
+    each decode step after the prefill's token, and the decode attention a
+    layer in each step."""
     return {"fwd": n_layers * chunks, "dkv": 0, "dq": 0, "fwd_seg": 0, "dkv_seg": 0,
-            "dq_seg": 0, "int4": INT4_PROJ * n_layers * (max_new - 1) * chunks, "mlp": 0}
+            "dq_seg": 0, "int4": INT4_PROJ * n_layers * (max_new - 1) * chunks, "mlp": 0,
+            "dattn": n_layers * (max_new - 1) * chunks}
 
 
 def spec_launches_want(chunks, rounds, gamma, n_layers):
     """A speculative ``generate``'s launches, target and draft on int4
     bases: two forwards a layer for each chunk (the target's prefill and the
     draft's); in each round, gamma + 1 draft steps and the target's verify
-    chunk, each with K3 on a layer's 7 projections (``rounds`` summed over
-    the chunks)."""
+    chunk, each with K3 on a layer's 7 projections and the decode attention
+    a layer (``rounds`` summed over the chunks)."""
     return {"fwd": 2 * n_layers * chunks, "dkv": 0, "dq": 0, "fwd_seg": 0, "dkv_seg": 0,
-            "dq_seg": 0, "int4": INT4_PROJ * n_layers * (gamma + 2) * rounds, "mlp": 0}
+            "dq_seg": 0, "int4": INT4_PROJ * n_layers * (gamma + 2) * rounds, "mlp": 0,
+            "dattn": n_layers * (gamma + 2) * rounds}
 
 
 def first_divergence(a, b):
@@ -2671,6 +2871,50 @@ def _plain_logits_at(params, spec, lora, lspec, tokens, plen, prefix, rows, cols
     return torch.stack(out).cpu()
 
 
+def bf16_spec_gate(adapter):
+    """Speculative decode on a bf16 target, whose every product but the
+    cache attention (LoRA deltas, projections, head) goes through the
+    library, not K3: greedy decode with fold 0's adapter against speculative
+    decode with a bf16 draft of other weights (rejections: masked slots
+    between committed ones), and greedy decode without the adapter against
+    speculative decode whose draft is the target (every draft token
+    accepted), at each of BF16_SPEC_GAMMAS and BF16_SPEC_ROWS rows a call
+    (M = rows · (gamma + 1) in the verify chunk), BF16_SPEC_MAX_NEW tokens
+    a row. Every row must be greedy's;
+    returns the printout."""
+    from tst_torch import cli
+    from tst_torch.models.decode import greedy_decode
+    from tst_torch.models.decoder import init_params
+    from tst_torch.models.spec_decode import speculative_greedy_decode
+    from tst_torch.train.pipeline import load_adapter_lora, prepare_blind_eval
+
+    cfg, device = cli._resolve(cli.build_parser().parse_args(
+        SERVE_GEN + ["--set", "model.quantize=none"]))
+    _, tokens, pos, spec, params = prepare_blind_eval(cli._load_dataset(cfg), cfg, device)
+    one, lspec = load_adapter_lora(adapter, cfg, spec, fold="0", keep_fold_axis=False,
+                                   device=device)
+    other = init_params(torch.Generator(device=device).manual_seed(cfg.data.seed + 1), spec)
+    plen, runs = pos.long() + 1, []
+    for rows in BF16_SPEC_ROWS:
+        for name, draft, lora in (("adapter, other draft", other, one),
+                                  ("no adapter, the target as draft", params, None)):
+            with torch.inference_mode():
+                want = greedy_decode(params, tokens[:rows], plen[:rows], BF16_SPEC_MAX_NEW, spec,
+                                     lora=lora, lora_spec=lspec, use_pallas=True)
+            for gamma in BF16_SPEC_GAMMAS:
+                got, stats = speculative_greedy_decode(
+                    draft, spec, params, spec, tokens[:rows], plen[:rows], BF16_SPEC_MAX_NEW,
+                    gamma=gamma, lora=lora, lora_spec=lspec, use_pallas=True, return_stats=True)
+                differ = int((got != want).any(1).sum().item())
+                runs.append(f"{rows} rows, {name}, gamma {gamma}: {stats['rounds']} rounds, "
+                            f"{differ} differing")
+                if differ:
+                    raise AssertionError(f"bf16 speculative decode differs from greedy in "
+                                         f"{differ} of {rows} rows ({name}, gamma {gamma})")
+    return (f"bf16 target, bf16 drafts: speculative vs greedy tokens, every row equal (must "
+            f"be): " + "; ".join(runs))
+
+
 def phase_serve():
     """Phase 20: train with checkpoints and resume, serve the adapter
     (eval-blind --adapter, fold 0 and mean), generate on an int4 base with
@@ -2679,13 +2923,14 @@ def phase_serve():
     implies; returns the launches of each kernel over phase 20's runs."""
     import tst_torch.train.pipeline as tpipe
     from tst_torch import cli
+    from tst_torch.models.decode import greedy_decode
     from tst_torch.train.infer import score_heldout_mcq
     from tst_torch.train.pipeline import load_adapter_lora, prepare_blind_eval
 
     root = tempfile.mkdtemp(prefix="tst_torch_serve_")
     ck = os.path.join(root, "ck")
     adapter = os.path.join(ck, SERVE_EPOCH_DIR)
-    total = dict.fromkeys(("fwd", "dkv", "dq", "int4"), 0)
+    total = dict.fromkeys(("fwd", "dkv", "dq", "int4", "dattn"), 0)
 
     def add(counts):
         for key in total:
@@ -2807,20 +3052,30 @@ def phase_serve():
         if not ok:
             raise AssertionError("generate's first decode step through K3 disagrees with the "
                                  "plain path")
-        col = first_divergence(ids["greedy"], ids["spec"])
-        rows = np.flatnonzero(col >= 0)
-        lp = (_plain_logits_at(params, spec, one, lspec, tokens, pos.long() + 1, ids["greedy"],
-                               rows, col[rows]) if len(rows) else None)
-        rows, decisive, margins = spec_token_gate(ids["greedy"], ids["spec"], lp)
-        bound = 2 * LOGIT_TOL * float(lp.abs().max()) if lp is not None else 0.0
-        print(f"[serve] (d) speculative vs greedy tokens, with the adapter: rows differing "
-              f"{len(rows)} of {GEN_ROWS} (first divergent columns {col[rows].tolist()}, the "
-              f"plain path's logit margin greedy - speculative there "
-              f"{[round(m, 4) for m in margins]}); decisive (|margin| > 2 x {LOGIT_TOL} x "
-              f"max|logit| = {bound:.4f}) {decisive} (must be 0)")
-        if decisive:
-            raise AssertionError("speculative decode's tokens differ decisively from greedy's")
+        greedy_plain = []
+        with torch.inference_mode():
+            for c0 in range(0, GEN_ROWS, DECODE_ROWS):
+                greedy_plain.append(greedy_decode(params, tokens[c0: c0 + DECODE_ROWS],
+                                                  pos[c0: c0 + DECODE_ROWS].long() + 1,
+                                                  GEN_MAX_NEW, spec, use_pallas=True).cpu())
+        greedy_plain = np.concatenate(greedy_plain)
+        for name, greedy in (("spec", ids["greedy"]), ("self", greedy_plain)):
+            col = first_divergence(greedy, ids[name])
+            rows = np.flatnonzero(col >= 0)
+            adapter_on = name == "spec"
+            lp = (_plain_logits_at(params, spec, one if adapter_on else None, lspec, tokens,
+                                   pos.long() + 1, greedy, rows, col[rows])
+                  if len(rows) else None)
+            rows, decisive, margins = spec_token_gate(greedy, ids[name], lp)
+            print(f"[serve] (d) speculative vs greedy tokens, "
+                  f"{'with the adapter' if adapter_on else 'without it'}: rows differing "
+                  f"{len(rows)} of {GEN_ROWS} (must be 0; first divergent columns "
+                  f"{col[rows].tolist()}, the plain path's logit margin there "
+                  f"{[round(m, 4) for m in margins]}, decisive {decisive})")
+            if len(rows):
+                raise AssertionError("speculative decode's tokens differ from greedy's")
         del params, tokens
+        print(f"[serve] (d) {bf16_spec_gate(adapter)}")
 
         # (e) warmup
         warmup = ["warmup", "--bench", "synthetic:0.5", "--set", "data.n=512", "--set",
@@ -2838,13 +3093,224 @@ def phase_serve():
     return total
 
 
+def long_rows(path, n=LONG_ROWS, nbytes=LONG_CONTEXT_BYTES, seed=0):
+    """``n`` four-option rows whose blind input carries a transcript of about
+    ``nbytes`` bytes of random words (VideoMME's subtitle channel), written as
+    a BlindDataset jsonl."""
+    from tst_torch.data.schema import BlindDataset, Sample
+
+    rng = np.random.default_rng(seed)
+    words = ["the", "speaker", "shows", "a", "red", "box", "near", "window", "then", "moves",
+             "it", "to", "table", "while", "camera", "pans", "left", "and", "right", "again"]
+    samples = []
+    for i in range(n):
+        text, size = [], 0
+        while size < nbytes:
+            w = words[int(rng.integers(len(words)))]
+            text.append(w)
+            size += len(w) + 1
+        samples.append(Sample(id=f"long-{i}", question=f"What is in clip {i}?",
+                              options=["a box", "a cup", "a lamp", "a book"],
+                              answer="ABCD"[i % 4], category="long", context=" ".join(text)))
+    BlindDataset("video_mme_synthetic", samples).save_jsonl(path)
+    return path
+
+
+def _cosine(a, b):
+    a, b = a.float().flatten(), b.float().flatten()
+    return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-30))
+
+
+def phase_long(device):
+    """Phase 21: long context on one card. (a) K1's forward, dK/dV and dQ at
+    S=16384 and S=32768 against their plain versions; (b) their times at the
+    preset's full call beside scaled_dot_product_attention and the bound;
+    (c) the ring's arithmetic at S=16384 (4 blocks, the ranks' step in one
+    process) against K1, forward and backward; (d) ``diagnose-sft --preset
+    sft-videomme-long`` at max_len 16384 (k=5, batch 2, remat) through the
+    CLI with --profile-dir: launches as implied, finite fold losses, s(x)
+    of every row, the step time, samples/s and peak memory, and the trace's
+    top ops. Returns the K1 rows' long-S timings and this run's launches."""
+    import tst_torch.kernels.flash_attention as tfa
+    import tst_torch.train.sft as tsft
+    from tst_torch.kernels.ring_attention import local_rotate, ring_blocks
+
+    out = {"checks": {}}
+    ring_in = None
+    for s, h in LONG_CHECKS:
+        rng = np.random.default_rng(s)
+        q, do = (_randn(rng, (1, s, h, 64), device) for _ in range(2))
+        k, v = (_randn(rng, (1, s, 1, 64), device) for _ in range(2))
+        o, lse = tfa.flash_attention(q, k, v)
+        got = tfa.flash_attention_backward(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = tfa.flash_attention_reference(q, k, v)
+        o_err = (o.float() - o_ref.float()).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        del o_ref, lse_ref
+        t0 = time.perf_counter()
+        want = tfa.flash_attention_backward_reference(q.float(), k.float(), v.float(), o.float(),
+                                                      lse, do.float())
+        torch.cuda.synchronize()
+        plain_bwd_ms = (time.perf_counter() - t0) * 1e3
+        errs = [_rel_err(g, w) for g, w in zip(got, want)]
+        del want
+        t0 = time.perf_counter()
+        tfa.flash_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.empty_cache()
+        finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, *got))
+        print(f"[long] K1 at S={s}, q [1, {s}, {h}, 64], one KV head: max|o-ref| {o_err:.3e} "
+              f"(<= {O_TOL}), max|lse-ref| {lse_err:.3e} (<= {LSE_TOL}); backward "
+              f"max|d-ref|/max|ref| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} "
+              f"(<= {GRAD_TOL}); plain forward {plain_ms:.1f} ms, plain backward "
+              f"{plain_bwd_ms:.1f} ms (one call)")
+        if not finite or o_err > O_TOL or lse_err > LSE_TOL or max(errs) > GRAD_TOL:
+            raise AssertionError(f"K1 disagrees with its plain version at S={s}")
+        out["checks"][str(s)] = {"o_err": o_err, "lse_err": lse_err, "grad_rel_errs": errs,
+                                 "plain_ms": plain_ms, "plain_bwd_ms": plain_bwd_ms}
+        if s == LONG_CHECKS[0][0]:
+            ring_in = (q, k, v, do, o, got)
+        else:
+            del q, k, v, do, o, lse, got
+        torch.cuda.empty_cache()
+
+    # (c) the ring's arithmetic: the ranks' step over 4 blocks in one process
+    q, k, v, do, o, got = ring_in
+    n, s = LONG_RING_BLOCKS, q.shape[1]
+    blk = s // n
+    blocks = [[t[:, i * blk: (i + 1) * blk].detach().clone().requires_grad_(True)
+               for i in range(n)] for t in (q, k, v)]
+    t0 = time.perf_counter()
+    ring_o = torch.cat(ring_blocks(*blocks, list(range(n)), n, local_rotate), 1)
+    leaves = [t for group in blocks for t in group]
+    ring_g = torch.autograd.grad(ring_o, leaves, do)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    ring_g = [torch.cat(ring_g[j * n: (j + 1) * n], 1) for j in range(3)]
+    ring_err = (ring_o.float() - o.float()).abs().max().item()
+    cos = [_cosine(a, b) for a, b in zip(ring_g, got)]
+    rel = [_rel_err(a, b) for a, b in zip(ring_g, got)]
+    print(f"[long] the ring's arithmetic at S={s}: {n} blocks of {blk}, the ranks' step "
+          f"(partial, combine, rotate) in one process: max|o_ring - o_K1| {ring_err:.3e} "
+          f"(<= {O_TOL}); gradients against K1's backward: cosine dq {cos[0]:.6f} dk "
+          f"{cos[1]:.6f} dv {cos[2]:.6f} (>= {LONG_RING_COSINE}), max|d|/max|K1| "
+          f"{rel[0]:.3e} {rel[1]:.3e} {rel[2]:.3e} (<= {GRAD_TOL}); forward and backward "
+          f"{ring_s:.2f} s")
+    if ring_err > O_TOL or min(cos) < LONG_RING_COSINE or max(rel) > GRAD_TOL:
+        raise AssertionError("the ring's blockwise arithmetic disagrees with K1")
+    out["ring"] = {"max_abs_o_err": ring_err, "grad_cosine": cos, "grad_rel_err": rel}
+    del ring_in, q, k, v, do, o, got, blocks, leaves, ring_o, ring_g
+    torch.cuda.empty_cache()
+
+    # (b) times at the preset's full call
+    b, s, h, kvh, d = LONG_SHAPE
+    rng = np.random.default_rng(1)
+    q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
+    k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
+    o, lse = tfa.flash_attention(q, k, v)
+    di = tfa.backward_row_stat(o, do)
+    times = {"fwd": median_ms(lambda: tfa.flash_attention(q, k, v), 5, 3),
+             "dkv": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di), 5, 3),
+             "dq": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di), 5, 3)}
+    lib = _sdpa_yardstick(q, k, v, do, o, samples=5, reps=3)
+    bounds = _attention_bounds(q, k)
+    plain = out["checks"][str(LONG_CHECKS[0][0])]
+    timed = (f"q {list(q.shape)}, the preset's call; plain_ms at the check shape q [1, "
+             f"{LONG_CHECKS[0][0]}, {LONG_CHECKS[0][1]}, 64] (the full call's [S, S] f32 "
+             "tensors do not fit)")
+    out["shape"] = list(q.shape)
+    for key in ("fwd", "dkv", "dq"):
+        out[key] = {"ms": times[key], **bounds[key],
+                    "library_ms": lib["fwd_ms"] if key == "fwd" else lib["bwd_ms"],
+                    "plain_ms": plain["plain_ms"] if key == "fwd" else plain["plain_bwd_ms"],
+                    "timed": timed}
+    print(f"[long] K1 at the preset's call q {list(q.shape)}: forward {times['fwd']:.3f} ms "
+          f"(bound {bounds['fwd']['bound_ms']:.3f}, {bounds['fwd']['bound_by']}; library "
+          f"{lib['fwd_ms']:.3f}), dK/dV {times['dkv']:.3f} ms (bound "
+          f"{bounds['dkv']['bound_ms']:.3f}) + dQ {times['dq']:.3f} ms (bound "
+          f"{bounds['dq']['bound_ms']:.3f}) against the library's backward {lib['bwd_ms']:.3f} "
+          f"ms ({lib['backend']}, {lib['gqa']}); median of 5 x 3 calls")
+    del q, k, v, do, o, lse, di
+    torch.cuda.empty_cache()
+
+    # (d) the preset through the CLI, profiled
+    root = tempfile.mkdtemp(prefix="tst_torch_long_")
+    try:
+        bench = long_rows(os.path.join(root, "long.jsonl"))
+        prof_dir = os.path.join(root, "prof")
+        step_ms, fold_losses = [], []
+        real_step = tsft.FoldTrainer.step
+
+        def timed_step(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = real_step(self, *args, **kw)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            fold_losses.append(result[2].float().cpu().tolist())
+            return result
+
+        torch.cuda.reset_peak_memory_stats()
+        tsft.FoldTrainer.step = timed_step
+        try:
+            rc, counts, report, wall = _cli_run(
+                LONG_TRAIN + ["--bench", bench, "--profile-dir", prof_dir],
+                os.path.join(root, "run"), "report.json")
+        finally:
+            tsft.FoldTrainer.step = real_step
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(root, "run", "sx.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(os.path.join(prof_dir, "op_summary.json")) as f:
+            summary = json.load(f)
+        from tst_torch.train.infer import scorer_batch
+
+        folds = np.array([r["fold"] for r in rows])
+        k, steps = report["k"], report["train_steps"]
+        chunk_rows = scorer_batch(16384)
+        chunks = k * math.ceil(max(int((folds == f).sum()) for f in range(k)) / chunk_rows)
+        want = sft_launches_want(steps, chunks, N_LAYERS, remat=True)
+        sx = [r["s_x"] for r in rows]
+        finite = all(math.isfinite(x) for fl in fold_losses for x in fl)
+        if (rc != 0 or counts != want or steps < 3 or len(rows) != LONG_ROWS or not finite
+                or not all(0.0 <= x <= 1.0 for x in sx) or not summary["top_ops"]
+                or not os.path.exists(os.path.join(prof_dir, "trace.json"))):
+            raise AssertionError(f"diagnose-sft --preset sft-videomme-long rc={rc}, launches "
+                                 f"{counts} (want {want}), steps {steps}, rows {len(rows)}, "
+                                 f"fold losses {fold_losses}, s(x) {sx}")
+        median_step = statistics.median(step_ms[1:])
+        rows_per_step = k * 2
+        top = [f"{op['name'][:60]} {op['total_us'] / 1e3:.1f} ms x{op['calls']}"
+               for op in summary["top_ops"][:8]]
+        print(f"[long] diagnose-sft --preset sft-videomme-long (max_len 16384, k={k}, batch 2 "
+              f"a fold, remat, the byte tokenizer) rc=0 on {LONG_ROWS} rows of "
+              f"~{LONG_CONTEXT_BYTES} bytes: {steps} steps, {chunks} scorer chunks of {chunk_rows} "
+              f"row(s); launches "
+              f"fwd {counts['fwd']} dkv {counts['dkv']} dq {counts['dq']} (as implied: full "
+              f"remat runs the forward kernel twice a step); fold losses {fold_losses} "
+              f"(finite); s(x) {[round(x, 4) for x in sx]}; step median {median_step:.1f} ms "
+              f"after the first ({step_ms[0]:.1f} ms), {rows_per_step / median_step * 1e3:.2f} "
+              f"samples/s ({rows_per_step} rows x 16384 tokens a step; report "
+              f"train_samples_per_sec {report['train_samples_per_sec']}, the first step "
+              f"included); peak device memory {peak_gb:.2f} GB; scoring "
+              f"{report['score_mcq_wall_seconds']} s; CLI wall {wall:.2f} s under the profiler")
+        print(f"[long] --profile-dir: trace.json and op_summary.json ({summary['time']} time); "
+              f"top ops by total time: {'; '.join(top)}")
+        out.update(launches=counts, step_ms=median_step, peak_gb=peak_gb)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["rank", "mlp-int4", "serve"], default=None,
+    parser.add_argument("--only", choices=["rank", "mlp-int4", "serve", "long"], default=None,
                         help="rank: the attention kernels against the library at the train "
                              "shape; mlp-int4: K3 and K4 against their plain versions, timed "
                              "(either runs on any build of tst_torch, so also a parent "
-                             "commit's); serve: phase 20 alone")
+                             "commit's); serve: phase 20 alone; long: phase 21 alone")
     args = parser.parse_args(argv)
     device = phase_device()
     phase_build(sass=args.only is None)
@@ -2852,31 +3318,47 @@ def main(argv=None):
         phase_rank(device)
         return
     if args.only == "serve":
+        phase_kernel_decode_attention(device)
         print(json.dumps({"launches_serve": phase_serve()}))
+        return
+    if args.only == "long":
+        print(json.dumps({"long": phase_long(device)}, default=float))
         return
     if args.only == "mlp-int4":
         print(json.dumps({"int4": phase_kernel_int4(device, strict=False),
                           "mlp": phase_kernel_mlp(device), "steps": phase_steps()}))
         return
-    kern = phase_kernel(device)
-    blind_launches, slice_probs, slice_report = phase_slice()
-    bwd = phase_kernel_bwd(device)
-    counts = phase_train()
-    phase_train_vs_plain()
-    seg = phase_kernel_seg(device)
-    packed = phase_train_packed()
-    phase_train_packed_vs_plain()
-    int4 = phase_kernel_int4(device)
-    mlp = phase_kernel_mlp(device)
-    decode = phase_decode_slice()
-    fused = phase_train_fused()
-    phase_diagnose_rf(device)
-    ibp = phase_debias_ibp()
-    phase_debias_ibp_rf()
-    ckpt = phase_checkpoint_qwen(slice_probs, slice_report)
-    llama = phase_llama(device)
-    serve = phase_serve()
+    walls = {}
+
+    def run(name, fn, *a):
+        t0 = time.perf_counter()
+        result = fn(*a)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return result
+
+    kern = run("kernel", phase_kernel, device)
+    blind_launches, slice_probs, slice_report = run("slice", phase_slice)
+    bwd = run("kernel-bwd", phase_kernel_bwd, device)
+    counts = run("train", phase_train)
+    run("train-vs-plain", phase_train_vs_plain)
+    seg = run("kernel-seg", phase_kernel_seg, device)
+    packed = run("train-packed", phase_train_packed)
+    run("train-packed-vs-plain", phase_train_packed_vs_plain)
+    int4 = run("kernel-int4", phase_kernel_int4, device)
+    dattn = run("kernel-dattn", phase_kernel_decode_attention, device)
+    mlp = run("kernel-mlp", phase_kernel_mlp, device)
+    decode = run("decode-slice", phase_decode_slice)
+    fused = run("train-fused", phase_train_fused)
+    run("diagnose-rf", phase_diagnose_rf, device)
+    ibp = run("debias-ibp", phase_debias_ibp)
+    run("debias-ibp-rf", phase_debias_ibp_rf)
+    ckpt = run("checkpoint-qwen", phase_checkpoint_qwen, slice_probs, slice_report)
+    llama = run("llama", phase_llama, device)
+    serve = run("serve", phase_serve)
+    long = run("long", phase_long, device)
+    print(f"[walls] seconds a phase: {json.dumps(walls)}")
     sft, times = llama["sft"], llama["times"]
+    long_shape = {key: {"shape": long["shape"], **long[key]} for key in ("fwd", "dkv", "dq")}
     records = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
@@ -2884,22 +3366,25 @@ def main(argv=None):
          "launches": counts["fwd"], "launches_eval_blind": blind_launches,
          "launches_debias_ibp": ibp["fwd"], "launches_checkpoint_qwen": ckpt["fwd"],
          "launches_llama_sft": sft["fwd"], "launches_llama_int4": llama["int4"]["fwd"],
-         "launches_serve": serve["fwd"],
-         "llama_shape": {"shape": times["shape"], **times["fwd"]}, **kern, **bwd["fwd"]},
+         "launches_serve": serve["fwd"], "launches_long": long["launches"]["fwd"],
+         "llama_shape": {"shape": times["shape"], **times["fwd"]},
+         "long_shape": long_shape["fwd"], **kern, **bwd["fwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:553",
          "launches": counts["dkv"], "launches_debias_ibp": ibp["dkv"],
          "launches_llama_sft": sft["dkv"], "launches_serve": serve["dkv"],
+         "launches_long": long["launches"]["dkv"],
          "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
-                         **times["dkv"]}, **bwd["dkv"]},
+                         **times["dkv"]}, "long_shape": long_shape["dkv"], **bwd["dkv"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:518",
          "launches": counts["dq"], "launches_debias_ibp": ibp["dq"],
          "launches_llama_sft": sft["dq"], "launches_serve": serve["dq"],
+         "launches_long": long["launches"]["dq"],
          "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
-                         **times["dq"]}, **bwd["dq"]},
+                         **times["dq"]}, "long_shape": long_shape["dq"], **bwd["dq"]},
         {"name": "flash_attention_fwd_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
          "replaces": "tst/kernels/flash_attention.py:464",
@@ -2918,6 +3403,12 @@ def main(argv=None):
          "launches_serve": serve["int4"], **int4},
         {"name": "fused_swiglu_mlp", "route": "cuda", "source": "tst_torch/csrc/fused_mlp.cu",
          "replaces": "tst/kernels/fused_mlp.py:44", "launches": fused["mlp"], **mlp},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "tst_torch/csrc/decode_attention.cu",
+         "replaces": "tst/models/decode.py:196 (jnp, no pallas_call)",
+         "launches": decode["dattn"], "launches_diagnose_sft": fused["dattn"],
+         "launches_debias_ibp": ibp["dattn"], "launches_llama_int4": llama["int4"]["dattn"],
+         "launches_serve": serve["dattn"], **dattn},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

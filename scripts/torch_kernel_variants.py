@@ -91,7 +91,7 @@ def k3(libs, device):
         q, sc = leaf["q"], leaf["scale"]
         for m in chip_smoke.INT4_M:
             y = torch.randn(m, k, device=device, generator=g).to(torch.bfloat16)
-            plan = tqm.split_plan(m, k, n // 2)[0]
+            plan = tqm.split_plan(k, n // 2)[0]
             for name, lib in libs.items():
                 fn = lib.tst_int4_matmul
                 fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]

@@ -57,7 +57,7 @@ def _args(out_dir, bench="synthetic-vsi:0.4", *extra):
             "rf.cross_check=false", f"out_dir={out_dir}", *extra]
 
 
-def _bridged_model(cfg, tokenizer, device):
+def _bridged_model(cfg, tokenizer, device, mesh=None):
     """The port's build_model giving the JAX package's weights."""
     spec, params = jpipe.build_model(config_mod.resolve(None, None, [
         f"model.name={cfg.model.name}", f"model.dtype={cfg.model.dtype}",

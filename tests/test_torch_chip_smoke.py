@@ -240,7 +240,8 @@ IBP_PLAN = [{"steps": 51, "scorer_chunks": 14, "decode_chunks": 2},
 def test_ibp_launch_arithmetic():
     want = chip_smoke.ibp_launches_want(IBP_PLAN)
     assert want == {"fwd": 24 * (141 + 40 + 6), "dkv": 24 * 141, "dq": 24 * 141,
-                    "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0}
+                    "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0,
+                    "dattn": 24 * 11 * 6}
     chip_smoke.check_launches(dict(want), want, "debias-ibp")
 
 
@@ -363,13 +364,13 @@ def test_llama_launch_arithmetic():
     the int4 eval-blind's K3 launches; the multi-token scorer's forwards."""
     plain = chip_smoke.sft_launches_want(20, 10, 4)
     assert plain == {"fwd": 4 * 30, "dkv": 80, "dq": 80, "fwd_seg": 0, "dkv_seg": 0,
-                     "dq_seg": 0, "int4": 0, "mlp": 0}
+                     "dq_seg": 0, "int4": 0, "mlp": 0, "dattn": 0}
     assert chip_smoke.sft_launches_want(20, 10, 4, remat=True) == {**plain, "fwd": 4 * 50}
     assert chip_smoke.sft_launches_want(20, 10, 4, remat="dots")["fwd"] == 4 * 50
     assert chip_smoke.sft_launches_want(20, 10, 4, remat="flash") == plain
     assert chip_smoke.blind_int4_launches_want(8, 2, 4) == {
         "fwd": 40, "dkv": 0, "dq": 0, "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0,
-        "int4": 7 * 4 * 11 * 2, "mlp": 0}
+        "int4": 7 * 4 * 11 * 2, "mlp": 0, "dattn": 4 * 11 * 2}
     assert chip_smoke.multitoken_launches_want(16, 4, 4) == 32
     assert chip_smoke.multitoken_launches_want(17, 4, 4) == 48
 
@@ -428,6 +429,7 @@ def test_generate_launch_arithmetic():
     in each of the 15 steps after the prefill's token."""
     want = chip_smoke.generate_launches_want(4, 16, 24)
     assert want["fwd"] == 24 * 4 and want["int4"] == 7 * 24 * 15 * 4
+    assert want["dattn"] == 24 * 15 * 4
     assert want["dkv"] == want["dq"] == want["mlp"] == want["fwd_seg"] == 0
 
 
@@ -437,6 +439,7 @@ def test_spec_launch_arithmetic():
     projections a layer."""
     want = chip_smoke.spec_launches_want(4, 30, 2, 24)
     assert want["fwd"] == 2 * 24 * 4 and want["int4"] == 7 * 24 * 4 * 30
+    assert want["dattn"] == 24 * 4 * 30
     assert set(want) == set(chip_smoke.generate_launches_want(1, 2, 1))
     assert chip_smoke.spec_launches_want(1, 0, 4, 2)["int4"] == 0  # max_new = 1: no round
 
@@ -463,3 +466,24 @@ def test_spec_token_gate(margin, decisive):
     assert margins == pytest.approx([margin], abs=1e-5)
     rows, n_decisive, margins = chip_smoke.spec_token_gate(greedy, greedy, None)
     assert len(rows) == 0 and n_decisive == 0 and margins == []
+
+
+def test_decode_attention_case_and_bound_count_the_visible_slots():
+    """The decode attention's case: prompts of 100-499 slots, 3 generated
+    slots at 512 and the chunk's triangle at S=640; its bound moves the keys
+    and values of the slots a row's queries see, not of the whole cache."""
+    b, t, h, kvh, d, s = 4, 3, 14, 2, 64, 640
+    q, k, v, mask = chip_smoke._dattn_case(torch.device("cpu"), b, t, h, kvh, d, s, seed=0)
+    plen = mask[:, 0, :512].sum(-1)
+    assert ((plen >= 100) & (plen < 500)).all()
+    assert mask[:, :, 512:515].all() and not mask[:, :, 518:].any()
+    assert mask[:, :, 515:518].sum().item() == b * t * (t + 1) // 2
+    seen = int(plen.sum()) + b * (3 + t)
+    want_bytes = 2 * q.numel() * 2 + mask.numel() + 2 * seen * kvh * d * 2
+    rec = chip_smoke.dattn_bound(q, k, mask)
+    flops = 4 * d * h * int(mask.sum())
+    assert rec["bound_ms"] == pytest.approx(max(flops / chip_smoke.PEAK_BF16_FLOPS,
+                                                want_bytes / chip_smoke.PEAK_BYTES_PER_S) * 1e3)
+    assert rec["bound_by"] == "bytes"
+    whole = 2 * q.numel() * 2 + 2 * k.numel() * 2 + mask.numel()
+    assert rec["bound_ms"] < 0.6 * whole / chip_smoke.PEAK_BYTES_PER_S * 1e3

@@ -108,12 +108,25 @@ def test_init_params_shapes_and_seed():
     assert a["layers"]["wq"].std().item() == pytest.approx(1 / np.sqrt(56), rel=0.05)
 
 
-@pytest.mark.parametrize("kw,item", [({"ring_mesh": object()}, "item 16")])
+@pytest.mark.parametrize("kw,item", [({"ring_mesh": "one rank"}, "item 16")])
 def test_unported_arguments_raise(kw, item):
+    """``ring_mesh`` raised until item 16 was ported; a ring of one rank is
+    now one partial (tst_torch.kernels.ring_attention), the dense path's
+    numbers, and packed rows with a ring of several ranks raise, as in the
+    reference."""
+    from tst_torch.runtime import mesh as tmesh
+
     spec = _port_spec(SPECS["tiny"])
     params = tdec.init_params(torch.Generator().manual_seed(0), spec)
-    with pytest.raises(NotImplementedError, match=item):
-        tdec.apply_model(params, torch.zeros(1, 8, dtype=torch.long), spec, **kw)
+    tokens = torch.randint(0, 250, (2, 16), generator=torch.Generator().manual_seed(1))
+    one = tmesh.make_mesh()
+    got = tdec.apply_model(params, tokens, spec, ring_mesh=one)
+    torch.testing.assert_close(got, tdec.apply_model(params, tokens, spec), atol=1e-5,
+                               rtol=1e-5)
+    two = tmesh.Mesh(np.arange(2).reshape(1, 1, 2, 1), 0, {})
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tdec.apply_model(params, tokens, spec, ring_mesh=two,
+                         seg_starts=torch.zeros(2, 8, dtype=torch.int32))
 
 
 def test_lora_rng_drops_only_with_dropout():

@@ -79,7 +79,7 @@ def _bridge_port(monkeypatch, quantize=None):
     """The port's model (plain, or quantized to ``quantize`` bits) and initial
     adapters become the JAX package's."""
 
-    def bridged_model(cfg, tokenizer, device):
+    def bridged_model(cfg, tokenizer, device, mesh=None):
         spec = _jax_spec(tokenizer)
         params = jdec.init_params(jax.random.key(cfg.data.seed), spec,
                                   quantize=quantize is not None, bits=quantize or 8)
@@ -261,9 +261,17 @@ def test_spearman_and_per_category_accuracy_match_reference():
 @pytest.mark.parametrize("extra,item", [(["mesh.data=2"], "item 16"),
                                         (["profile_dir=prof"], "item 17")])
 def test_unported_config_raises(tmp_path, extra, item):
+    """Both raised ``item`` until ported. A mesh above one rank now stops at
+    the rank count in one process, before any work; ``profile_dir`` traces
+    the training and scoring (tests/test_torch_profile.py)."""
     ds = tload_benchmark("synthetic:0.5", n=8, seed=0)
-    with pytest.raises(NotImplementedError, match=item):
-        tpipe.run_sft_diagnostic(ds, _cfg(tmp_path, 8, *extra), torch.device("cpu"))
+    if item == "item 16":
+        with pytest.raises(ValueError, match="mesh 1x2x1x1 needs 2 ranks, have 1"):
+            tpipe.run_sft_diagnostic(ds, _cfg(tmp_path, 8, *extra), torch.device("cpu"))
+        return
+    cfg = _cfg(tmp_path, 8, "data.max_len=128", f"profile_dir={tmp_path / 'prof'}")
+    assert tpipe.run_sft_diagnostic(ds, cfg, torch.device("cpu"))["train_steps"] > 0
+    assert json.loads((tmp_path / "prof" / "op_summary.json").read_text())["top_ops"]
 
 
 def test_spec_draft_run_is_trajectory_neutral(tmp_path):
@@ -295,8 +303,18 @@ def test_rerun_resumes_from_its_checkpoints(tmp_path):
 
 
 def test_cli_unported_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cli.main(["diagnose-sft", "--platform", "cpu", "--profile-dir", str(tmp_path)])
+    """``--profile-dir`` and ``--debug-nans`` are ported (item 17): a run with
+    both writes the trace and its op summary, and a finite run passes the
+    check."""
+    prof = tmp_path / "prof"
+    assert cli.main(["diagnose-sft", "--platform", "cpu", "--bench", "synthetic:0.5", "--k", "2",
+                     "--set", "data.n=16", "--set", "optim.batch_size=4",
+                     "--set", "optim.epochs=1", "--set", "data.max_len=128",
+                     "--set", "rf.cross_check=false", *CPU_TINY, "--profile-dir", str(prof),
+                     "--debug-nans", "--out", str(tmp_path / "run")]) == 0
+    tsft.set_debug_nans(False)
+    assert json.loads((prof / "op_summary.json").read_text())["top_ops"]
+    assert (prof / "trace.json").exists() and (tmp_path / "run" / "report.json").exists()
 
 
 def test_cli_subprocess_cpu(tmp_path):

@@ -114,7 +114,7 @@ def test_blind_eval_slice_matches_reference(tmp_path, monkeypatch):
     want = jpipe.run_blind_eval(ds, _cfg(tmp_path / "jax", 48, "model.use_pallas=false",
                                           config=config_mod))
 
-    def bridged_model(cfg, tokenizer, device):
+    def bridged_model(cfg, tokenizer, device, mesh=None):
         spec = dataclasses.replace(TINY, vocab_size=max(TINY.vocab_size, tokenizer.vocab_size))
         params = jdec.init_params(jax.random.key(cfg.data.seed), spec)
         return _port_spec(spec), bridge.to_torch(jax.tree.map(np.asarray, params), device)
@@ -135,7 +135,7 @@ def test_blind_eval_slice_matches_reference(tmp_path, monkeypatch):
 
 
 def _bridged_model(quantize):
-    def bridged_model(cfg, tokenizer, device):
+    def bridged_model(cfg, tokenizer, device, mesh=None):
         spec = dataclasses.replace(TINY, vocab_size=max(TINY.vocab_size, tokenizer.vocab_size))
         params = jdec.init_params(jax.random.key(cfg.data.seed), spec,
                                   quantize=quantize is not None, bits=quantize or 8)
@@ -199,8 +199,10 @@ def test_platform_gpu_raises_without_cuda(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [(["mesh.data=2"], "item 16")])
 def test_unported_config_raises(tmp_path, extra, item):
+    """A mesh above one rank raised ``item`` until meshes were ported; in one
+    process it now stops at the rank count, before any work."""
     ds = tload_benchmark("synthetic:0.5", n=8, seed=0)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="mesh 1x2x1x1 needs 2 ranks, have 1"):
         tpipe.run_blind_eval(ds, _cfg(tmp_path, 8, *extra), torch.device("cpu"))
 
 
@@ -285,6 +287,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
     ckpt = write_hf_checkpoint(tmp_path / "ckpt", "qwen", "BF16")
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   for p in (REPO / "tst_torch").rglob("*.py") if p.name != "__main__.py")
+    # the sweep covers the mesh, ring, decode-attention and profiling modules
+    assert {"tst_torch.runtime.mesh", "tst_torch.kernels.ring_attention",
+            "tst_torch.kernels.decode_attention", "tst_torch.aux.profile",
+            "tst_torch.aux.flops"} <= set(mods)
     rf = ["diagnose-rf", "--platform", "cpu", "--bench", "synthetic:0.5", "--k", "3",
           "--set", "data.n=60", "--set", "rf.n_estimators=20", "--out", str(tmp_path / "rf")]
     sft = ["diagnose-sft", "--platform", "cpu", "--bench", "synthetic:0.5", "--k", "2",

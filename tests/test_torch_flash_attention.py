@@ -85,7 +85,8 @@ def test_nvcc_command_targets_sm90a(tmp_path):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
     assert "-shared" in cmd and "-O3" in cmd
-    assert [p.name for p in _build.sources()] == ["flash_attention_bwd.cu",
+    assert [p.name for p in _build.sources()] == ["decode_attention.cu",
+                                                  "flash_attention_bwd.cu",
                                                   "flash_attention_fwd.cu", "fused_mlp.cu",
                                                   "int4_matmul.cu"]
     assert "-c" in _build.nvcc_command("nvcc", _build.sources()[:1], tmp_path / "a.o",

@@ -50,7 +50,7 @@ def _args(out_dir):
             f"data.n={N}", "data.max_len=128", "data.k=2", f"out_dir={out_dir}"]
 
 
-def _bridged_model(cfg, tokenizer, device):
+def _bridged_model(cfg, tokenizer, device, mesh=None):
     """The port's build_model giving the JAX package's weights (the draft's
     too: its config names its geometry)."""
     spec, params = jpipe.build_model(config_mod.resolve(None, None, [

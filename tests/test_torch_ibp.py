@@ -62,7 +62,7 @@ def _bridge_port(monkeypatch):
     """The port's model and every round's initial adapters become the JAX
     package's."""
 
-    def bridged_model(cfg, tokenizer, device):
+    def bridged_model(cfg, tokenizer, device, mesh=None):
         spec = dataclasses.replace(TINY, vocab_size=max(TINY.vocab_size, tokenizer.vocab_size))
         params = jdec.init_params(jax.random.key(cfg.data.seed), spec)
         port_spec = ModelSpec(**{**dataclasses.asdict(spec), "dtype": torch.float32})
@@ -256,9 +256,11 @@ def test_resume_after_failure_equals_one_run(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [(["mesh.data=2"], "item 16")])
 def test_unported_config_raises(tmp_path, extra, item):
+    """A mesh above one rank raised ``item`` until meshes were ported; in one
+    process it now stops at the rank count, before any work."""
     ds = tload_benchmark("synthetic:0.5", n=8, seed=0)
     cfg = _ibp_cfg(tconfig, tmp_path, "synthetic:0.5", 8, *extra)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="mesh 1x2x1x1 needs 2 ranks, have 1"):
         tibp.run_ibp(ds, cfg, CPU)
 
 
@@ -289,14 +291,27 @@ def test_spec_draft_and_checkpoint_dir_leave_the_rounds_alone(tmp_path):
 @pytest.mark.parametrize("cmd", ["diagnose-rf", "debias-ibp"])
 @pytest.mark.parametrize("flag", [["--profile-dir", "prof"], ["--debug-nans"]])
 def test_cli_unported_flags_raise_on_rf_and_ibp(tmp_path, cmd, flag):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cli.main([cmd, "--platform", "cpu", *flag, "--out", str(tmp_path)])
+    """The flags are ported (item 17) and taken by every subcommand, as the
+    reference's are: the RF paths train nothing, so the runs pass, and, as
+    in the reference, only diagnose-sft writes a trace."""
+    args = ["--bench", "synthetic:0.5", "--set", "data.n=60", "--k", "3",
+            "--set", "rf.n_estimators=10"]
+    if cmd == "debias-ibp":
+        args += ["--set", "ibp.diagnostic=rf", "--set", "ibp.rounds=1"]
+    flag = [f if f != "prof" else str(tmp_path / "prof") for f in flag]
+    try:
+        assert cli.main([cmd, "--platform", "cpu", *args, *flag,
+                         "--out", str(tmp_path / "run")]) == 0
+    finally:
+        tsft.set_debug_nans(False)
+    assert not (tmp_path / "prof").exists()
 
 
 def test_ibp_preset_raises_its_items(tmp_path):
-    """The ibp-vsibench preset (Llama-3-8B, remat, a 4 x 4 mesh) stops at the
-    first thing the port does not have, and names its item."""
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """The ibp-vsibench preset (Llama-3-8B, remat, a 4 x 4 mesh) raised item
+    16 until meshes were ported; in one process it now stops at the mesh's
+    16 ranks, before any work (torchrun gives them; tests/test_torch_mesh_cli.py)."""
+    with pytest.raises(ValueError, match=r"mesh 1x4x1x4 needs 16 ranks, have 1"):
         cli.main(["debias-ibp", "--platform", "cpu", "--preset", "ibp-vsibench",
                   "--bench", "synthetic-vsi:0.4", "--set", "data.n=8", "--out", str(tmp_path)])
 

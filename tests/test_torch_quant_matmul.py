@@ -13,8 +13,10 @@ jax is imported inside the fixtures, so those collect where jax is missing:
     python -m pytest --noconftest -m cuda tests/test_torch_quant_matmul.py
 """
 
+import inspect
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -124,26 +126,38 @@ CARD_SHAPES = [(896, 896), (896, 128), (896, 4864), (4864, 896),
 def test_split_plan_covers_k(m, k, n):
     """The groups of K go to at most MAX_SPLITS blocks of one cluster, none
     empty, covering K exactly and once; more splits only where the column
-    blocks alone leave the card short of TARGET_BLOCKS."""
-    splits, per = tqm.split_plan(m, k, n // 2)
+    blocks of one row tile leave the card short of TARGET_BLOCKS. The plan
+    takes no M, so every M of a leaf sums K in one order (speculative
+    decode's verify chunk gets the bits of a greedy step's rows)."""
+    assert list(inspect.signature(tqm.split_plan.__wrapped__).parameters) == ["k", "n_half"]
+    splits, per = tqm.split_plan(k, n // 2)
     groups = k // tqm.GROUP
     assert 1 <= splits <= tqm.MAX_SPLITS and splits <= groups
     ranges = [range(s * per, min((s + 1) * per, groups)) for s in range(splits)]
     assert all(len(r) > 0 for r in ranges)
     assert [g for r in ranges for g in r] == list(range(groups))
-    blocks = (n // 2 // tqm.NH_MULTIPLE) * -(-m // tqm.BLOCK_M)
+    blocks = n // 2 // tqm.NH_MULTIPLE
     if splits > 1:
         assert blocks * (splits - 1) < tqm.TARGET_BLOCKS
-    assert tqm.split_plan(m, k, n // 2) == (splits, per)
+    assert tqm.split_plan(k, n // 2) == (splits, per)
+    # the kernel's entry gets the plan's splits at any M
+    calls = []
+    with mock.patch.object(tqm, "_entry", return_value=lambda *a: calls.append(a) or 0):
+        y = torch.zeros(m, k, dtype=torch.bfloat16, device="meta")
+        q = torch.zeros(1, k, n // 2, dtype=torch.int8, device="meta")
+        s = torch.zeros(1, k // tqm.GROUP, 1, n, device="meta")
+        with mock.patch.object(tqm._build, "current_stream", return_value=0):
+            tqm._launch(y, q, s, 0)
+    assert calls[0][8] == splits
 
 
 def test_split_plan_of_the_decode_step():
-    """Qwen2.5-0.5B at decode's M=32: 7 splits of one group on the narrow
+    """Qwen2.5-0.5B's leaves, at every M: 7 splits of one group on the narrow
     leaves, 4 on gate/up (38 column blocks), 8 of up to 5 groups on w_down."""
-    assert tqm.split_plan(32, 896, 64) == (7, 1)
-    assert tqm.split_plan(32, 896, 448) == (7, 1)
-    assert tqm.split_plan(32, 896, 2432) == (4, 2)
-    assert tqm.split_plan(32, 4864, 448) == (8, 5)
+    assert tqm.split_plan(896, 64) == (7, 1)
+    assert tqm.split_plan(896, 448) == (7, 1)
+    assert tqm.split_plan(896, 2432) == (4, 2)
+    assert tqm.split_plan(4864, 448) == (8, 5)
 
 
 @pytest.mark.cuda

@@ -212,10 +212,23 @@ def test_init_state_and_ckpt_extra():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"ring": True}, "item 16"), ({"mesh": object()}, "item 16")])
+    ({"ring": True}, "item 16"), ({"mesh": "one rank"}, "item 16")])
 def test_unported_trainer_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tsft.FoldTrainer(PORT_TINY, TLSPEC, 2, **kw)
+    """``ring`` and ``mesh`` raised until item 16 was ported. A ring without
+    a mesh is no ring (the reference's ``ring_mesh``), and a mesh of one rank
+    is the one-process trainer; k that the fold axis does not divide
+    raises."""
+    from tst_torch.runtime import mesh as tmesh
+
+    if "mesh" in kw:
+        kw = {"mesh": tmesh.make_mesh(), "ring": True}
+    trainer = tsft.FoldTrainer(PORT_TINY, TLSPEC, 2, **kw)
+    assert trainer.mesh is None and trainer.ring_mesh is None
+    assert trainer.folds == range(2)
+    two = tmesh.Mesh(np.arange(2).reshape(2, 1, 1, 1), 1, {})
+    assert tsft.FoldTrainer(PORT_TINY, TLSPEC, 4, mesh=two).folds == range(2, 4)
+    with pytest.raises(ValueError, match="k=3 folds do not split"):
+        tsft.FoldTrainer(PORT_TINY, TLSPEC, 3, mesh=two)
 
 
 @pytest.mark.parametrize("windowed", [True, False])
@@ -266,10 +279,9 @@ def test_fused_mlp_trainer_matches_reference(data, windowed, monkeypatch):
 
 
 def test_unported_fit_and_loss_options_raise(data):
+    """The fit's own refusals (the mesh and ring options, which raised here
+    until item 16 was ported, are tested in tests/test_torch_mesh.py)."""
     params, tokens, mask, pos, t_max = data
-    for kw in ({"ring": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            tsft.FoldTrainer(PORT_TINY, TLSPEC, 2, **kw)
     trainer = tsft.FoldTrainer(PORT_TINY, TLSPEC, 2, t_max=t_max)
     lora, state = trainer.init_state(torch.Generator().manual_seed(0))
     args = (bridge.to_torch(params), lora, state, torch.from_numpy(tokens),

@@ -55,7 +55,7 @@ def _args(out_dir, *extra):
 def _bridge_port(monkeypatch):
     """The port's model and initial adapter become the JAX package's."""
 
-    def bridged_model(cfg, tokenizer, device):
+    def bridged_model(cfg, tokenizer, device, mesh=None):
         spec, params = jpipe.build_model(config_mod.resolve(None, None, [
             f"model.name={cfg.model.name}", "model.dtype=float32",
             f"data.seed={cfg.data.seed}"]), tokenizer)

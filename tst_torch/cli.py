@@ -19,8 +19,10 @@ They take the flags of their ``tst`` counterparts and read the same
 ``diagnose-rf``: the CUDA device, and an error without one) or ``cpu``;
 ``export`` and ``compare`` run on the host. Of ``--set perf.*`` only
 ``perf.spec_draft_*`` and ``perf.spec_gamma`` apply here; the others are TPU
-kernel knobs. ``--profile-dir`` and ``--debug-nans`` raise, naming ROADMAP
-item 17.
+kernel knobs. ``--profile-dir`` traces diagnose-sft's training and scoring
+(tst_torch.aux.profile); ``--debug-nans`` raises FloatingPointError at the
+first non-finite train loss or adapter gradient (the reference's
+``jax_debug_nans``, reached by a finite check on the card).
 
 Run as ``python -m tst_torch <subcommand> ...``.
 """
@@ -36,6 +38,8 @@ from typing import List, Optional
 from tst_torch import config as config_mod
 from tst_torch.config import RunConfig
 from tst_torch.runtime.device import PLATFORMS, select_device
+from tst_torch.runtime.mesh import init_distributed, is_main
+from tst_torch.train.sft import set_debug_nans
 
 #: subcommands of ``tst`` that the port does not have yet → ROADMAP item
 #: (none since every subcommand is ported)
@@ -53,12 +57,24 @@ def _common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--source", default=None, help="local dataset dir/jsonl (shorthand)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--out", default=None, help="output directory (shorthand for out_dir)")
+    p.add_argument("--profile-dir", default=None,
+                   help="torch.profiler trace of diagnose-sft's training and scoring here "
+                        "(trace.json, op_summary.json)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError at the first non-finite train loss or "
+                        "adapter gradient, naming the step and the fold")
 
 
 def _resolve(args):
-    """(RunConfig, torch.device) from the parsed flags."""
+    """(RunConfig, torch.device) from the parsed flags. A launch over several
+    ranks (``torchrun --nproc-per-node N python -m tst_torch ...``) joins
+    its process group first, so each rank takes its own card."""
+    init_distributed()
     device = select_device(args.platform)
     cfg = config_mod.resolve(args.preset, args.config, args.overrides)
+    set_debug_nans(bool(getattr(args, "debug_nans", False)))
+    if getattr(args, "profile_dir", None):
+        cfg.profile_dir = args.profile_dir
     if args.bench is not None:
         cfg.data.bench = args.bench
     if args.source is not None:
@@ -91,14 +107,7 @@ def cmd_eval_blind(args) -> int:
     return 0
 
 
-def _check_flags(args) -> None:
-    if args.profile_dir or args.debug_nans:
-        raise NotImplementedError("--profile-dir and --debug-nans are not ported to "
-                                  "tst_torch yet (ROADMAP item 17)")
-
-
 def _resolve_k(args):
-    _check_flags(args)
     cfg, device = _resolve(args)
     if args.k is not None:
         cfg.data.k = args.k
@@ -120,10 +129,11 @@ def cmd_diagnose_rf(args) -> int:
     report = d.report()
     report["wall_seconds"] = round(time.time() - t0, 2)
     report["n_samples"] = len(ds)
-    outputs.write_sx_table(cfg.out_dir, ds, d.s_x, d.fold_id, pred=d.pred)
-    outputs.write_report(cfg.out_dir, report)
-    ds.save_jsonl(f"{cfg.out_dir}/dataset.jsonl")
-    cfg.save(f"{cfg.out_dir}/config.json")
+    if is_main():  # rank 0 of a launch over several ranks writes
+        outputs.write_sx_table(cfg.out_dir, ds, d.s_x, d.fold_id, pred=d.pred)
+        outputs.write_report(cfg.out_dir, report)
+        ds.save_jsonl(f"{cfg.out_dir}/dataset.jsonl")
+        cfg.save(f"{cfg.out_dir}/config.json")
     print(json.dumps(report, indent=2, default=float))
     return 0
 
@@ -303,9 +313,6 @@ def build_parser() -> argparse.ArgumentParser:
         sp = sub.add_parser(name)
         _common_flags(sp)
         sp.add_argument("--k", type=int, default=None, help="number of folds (shorthand)")
-        sp.add_argument("--profile-dir", default=None, help="not ported yet (ROADMAP item 17)")
-        sp.add_argument("--debug-nans", action="store_true",
-                        help="not ported yet (ROADMAP item 17)")
         if name == "warmup":
             sp.add_argument("--ibp", action="store_true",
                             help="the kernels of a debias-ibp run instead of diagnose-sft's")

@@ -43,10 +43,11 @@ from tst_torch.diagnose.score import bias_scores
 from tst_torch.eval import metrics
 from tst_torch.eval.parity import spearman
 from tst_torch.io import outputs
+from tst_torch.runtime.mesh import is_main
 from tst_torch.train.infer import (score_heldout_mcq, score_heldout_mcq_packed,
                                    score_heldout_numeric, score_heldout_open)
-from tst_torch.train.pipeline import (_check_sft_config, build_draft_model, build_model,
-                                      build_tokenizer, lora_spec_from_cfg)
+from tst_torch.train.pipeline import (build_draft_model, build_model, build_tokenizer,
+                                      lora_spec_from_cfg, run_mesh)
 from tst_torch.train.sft import FoldTrainer, make_fold_batches
 
 
@@ -229,12 +230,13 @@ def run_ibp(ds: BlindDataset, cfg: RunConfig, device: torch.device) -> Dict[str,
                 report["rf_blind_accuracy"] = round(float(rf_d.blind_accuracy), 4)
             except ValueError as e:
                 report["rf_cross_check_skipped"] = str(e)
-    outputs.write_debiased_split(cfg.out_dir, ds, alive,
-                                 audit={"rounds": audit, "config": cfg.to_json()})
-    outputs.write_sx_table(cfg.out_dir, ds, last_sx, fold_id=last_fold,
-                           extra={"kept": alive.astype(np.float32)})
-    outputs.write_report(cfg.out_dir, report, name="ibp_report.json")
-    _clear_ibp_state(cfg)  # run completed: the resume point is obsolete
+    if is_main():
+        outputs.write_debiased_split(cfg.out_dir, ds, alive,
+                                     audit={"rounds": audit, "config": cfg.to_json()})
+        outputs.write_sx_table(cfg.out_dir, ds, last_sx, fold_id=last_fold,
+                               extra={"kept": alive.astype(np.float32)})
+        outputs.write_report(cfg.out_dir, report, name="ibp_report.json")
+        _clear_ibp_state(cfg)  # run completed: the resume point is obsolete
     return report
 
 
@@ -259,7 +261,10 @@ def _ibp_config_hash(ds: BlindDataset, cfg: RunConfig) -> str:
 def _save_ibp_state(ds, cfg, *, next_round, alive, audit, last_sx, last_fold,
                     last_scored) -> None:
     """Persist the loop's resume point after a completed round; an atomic
-    rename, so a crash mid-write leaves the previous round's state."""
+    rename, so a crash mid-write leaves the previous round's state. Rank 0
+    writes it."""
+    if not is_main():
+        return
     os.makedirs(cfg.out_dir, exist_ok=True)
     path = _ibp_state_path(cfg)
     state = {
@@ -377,7 +382,7 @@ class _SftRoundRunner:
     survivor masks."""
 
     def __init__(self, ds: BlindDataset, cfg: RunConfig, device: torch.device):
-        _check_sft_config(ds, cfg)
+        self.mesh = run_mesh(cfg)
         self.ds = ds
         self.cfg = cfg
         self.k = cfg.data.k
@@ -385,7 +390,7 @@ class _SftRoundRunner:
         self.tokenizer = build_tokenizer(cfg)
         self.tb = tokenize_dataset(ds, self.tokenizer, max_len=cfg.data.max_len,
                                    include_context=cfg.data.include_context)
-        self.spec, self.params = build_model(cfg, self.tokenizer, device)
+        self.spec, self.params = build_model(cfg, self.tokenizer, device, mesh=self.mesh)
         self.lspec = lora_spec_from_cfg(cfg, self.spec.dtype)
         #: mid-training epochs whose held-out probs average into s(x)
         self.score_after = {int(e) for e in cfg.optim.score_epochs
@@ -408,12 +413,12 @@ class _SftRoundRunner:
             self.spec, self.lspec, self.k, lr=cfg.optim.lr,
             total_steps=self.total_steps0,  # the same schedule every round
             warmup_frac=cfg.optim.warmup_frac, weight_decay=cfg.optim.weight_decay,
-            use_pallas=self.use_pallas, remat=cfg.model.remat, t_max=self.t_max,
-            b1=cfg.optim.b1, b2=cfg.optim.b2, fused_mlp=cfg.model.fused_mlp,
-            packed=bool(self.pack_len))
+            use_pallas=self.use_pallas, remat=cfg.model.remat, mesh=self.mesh,
+            t_max=self.t_max, ring=cfg.mesh.seq > 1, b1=cfg.optim.b1, b2=cfg.optim.b2,
+            fused_mlp=cfg.model.fused_mlp, packed=bool(self.pack_len))
         #: perf.spec_draft_*: exact speculative decode of the numeric and open
         #: rows (the same tokens), built once for every round
-        self.draft = build_draft_model(cfg, self.tokenizer, device)
+        self.draft = build_draft_model(cfg, self.tokenizer, device, mesh=self.mesh)
 
     def _batches(self, fold_global, alive, pack, seed):
         cfg = self.cfg
@@ -469,11 +474,12 @@ class _SftRoundRunner:
             if self.use_packed_scorer:
                 return score_heldout_mcq_packed(
                     self.params, lora_now, self.spec, self.lspec, self.tb, mcq_fold, self.k,
-                    pack_len=self.pack_len, use_pallas=self.use_pallas)
+                    pack_len=self.pack_len, use_pallas=self.use_pallas, mesh=self.mesh)
             return score_heldout_mcq(
                 self.params, lora_now, self.spec, self.lspec, self.tokens, self.answer_pos,
                 self.tb.option_token_ids, self.tb.n_options, mcq_fold, self.k,
-                use_pallas=self.use_pallas, option_seqs=self.tb.option_token_seqs)
+                use_pallas=self.use_pallas, option_seqs=self.tb.option_token_seqs,
+                mesh=self.mesh)
 
         def timed(key, thunk):
             t = time.time()
@@ -507,13 +513,14 @@ class _SftRoundRunner:
                     self.params, lora, self.spec, self.lspec, self.tokens, self.answer_pos,
                     np.where(alive, gold_values, np.nan), fold_global, self.k,
                     tokenizer=self.tokenizer, use_pallas=self.use_pallas, draft=self.draft,
-                    gamma=cfg.perf.spec_gamma))
+                    gamma=cfg.perf.spec_gamma, mesh=self.mesh))
                 seed_s_num.append(s_num_i)
             if has_open:
                 _, s_open_i = timed("open_decode_s", lambda: score_heldout_open(
                     self.params, lora, self.spec, self.lspec, self.tokens, self.answer_pos,
                     gold_texts, fold_global, self.k, tokenizer=self.tokenizer,
-                    use_pallas=self.use_pallas, draft=self.draft, gamma=cfg.perf.spec_gamma))
+                    use_pallas=self.use_pallas, draft=self.draft, gamma=cfg.perf.spec_gamma,
+                    mesh=self.mesh))
                 seed_s_open.append(s_open_i)
         probs = np.mean(seed_probs, axis=0) if len(seed_probs) > 1 else seed_probs[0]
         probs_sub = probs[sub_idx]

@@ -19,7 +19,8 @@ multiple of 8, N/2 a multiple of 128) do not apply: the CUDA kernel takes
 any M, K a multiple of 128 and N/2 a multiple of 64. Inference only.
 
 One call is one launch. K is split over the blocks of a thread-block
-cluster by :func:`split_plan`, computed once a shape; the entry point is
+cluster by :func:`split_plan`, computed once a leaf shape and the same at
+every M; the entry point is
 typed once, and the wrapper allocates only the output: the decode step makes
 168 of these calls, and their host cost is most of the step.
 """
@@ -92,14 +93,19 @@ def check_kernel_args(y: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def split_plan(m: int, k: int, n_half: int) -> Tuple[int, int]:
-    """(splits, groups per split) of K's 128-row groups for a call: enough
-    splits that the column blocks times the row tiles times the splits come
-    near TARGET_BLOCKS, at most MAX_SPLITS (one cluster) and at most one
-    split a group; split s takes groups [s·per, min((s + 1)·per, groups)),
-    and none is empty."""
+def split_plan(k: int, n_half: int) -> Tuple[int, int]:
+    """(splits, groups per split) of K's 128-row groups for a leaf: enough
+    splits that the column blocks of one row tile times the splits come near
+    TARGET_BLOCKS, at most MAX_SPLITS (one cluster) and at most one split a
+    group; split s takes groups [s·per, min((s + 1)·per, groups)), and none
+    is empty.
+
+    The plan takes no M: a row's sum over K runs in the same order whatever
+    the number of rows beside it, so a row of speculative decode's verify
+    chunk (M = rows · (gamma + 1)) gets the bits of the same row in a greedy
+    step (M = rows)."""
     groups = k // GROUP
-    blocks = (n_half // NH_MULTIPLE) * -(-m // BLOCK_M)
+    blocks = n_half // NH_MULTIPLE
     want = max(1, min(MAX_SPLITS, groups, -(-TARGET_BLOCKS // blocks)))
     per = -(-groups // want)
     return -(-groups // per), per
@@ -122,7 +128,7 @@ def _launch(y, q, scale, layer: int) -> torch.Tensor:
     device = y.device
     out = torch.empty((m, 2 * n_half), dtype=torch.float32, device=device)
     err = _entry()(y.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n_half,
-                   layer, split_plan(m, k, n_half)[0], device.index,
+                   layer, split_plan(k, n_half)[0], device.index,
                    _build.current_stream(device))
     if err != 0:
         raise RuntimeError(f"{_ENTRY} failed with cudaError_t {err} (y {tuple(y.shape)}, "

@@ -29,6 +29,7 @@ modes. A mode changes what is saved, never a number.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -44,6 +45,7 @@ from tst_torch.kernels.fused_mlp import fused_swiglu_mlp
 from tst_torch.models.lora import DropoutKey, apply_lora_delta, fold_count, layer_slice
 from tst_torch.models.quant import dequantize_leaf, is_quantized_leaf, qdot
 from tst_torch.models.spec import ModelSpec
+from tst_torch.runtime import mesh as mesh_mod
 
 Params = Dict[str, Any]
 
@@ -226,8 +228,70 @@ def _plain_layer(stages, x):
     return rest(x, attend(q, k, v)), k, v
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to tst_torch yet ({item})")
+#: projection name → its weight key
+_W_KEYS = {"q": "wq", "k": "wk", "v": "wv", "o": "wo", "gate": "w_gate", "up": "w_up",
+           "down": "w_down"}
+
+
+def make_proj(lw, la, i: int, lora_spec, dtype: torch.dtype, mesh=None,
+              drop: Optional[DropoutKey] = None, base_dot: Optional[Callable] = None,
+              lora_delta: Optional[Callable] = None) -> Callable:
+    """``proj(name, y)``: layer ``i``'s projection ``name`` of ``y``, its
+    adapter's delta added before its bias, in ``dtype``. The one place the
+    tensor and FSDP projections are written; :func:`apply_model` and the
+    decode step (tst_torch.models.decode) both call it.
+
+    ``lw`` / ``la`` are the layer's weights and adapters as this rank holds
+    them (``mesh``, tst_torch.runtime.mesh). Under ``data`` each weight is
+    an FSDP shard, gathered for the product and freed after
+    (``fsdp_apply``). Under ``tensor`` q, k, v, gate and up are
+    column-parallel (local heads, local ffn; the caller passes ``y``
+    through ``to_tensor``) and o and down row-parallel: the local input
+    columns against the weight's local rows and A's local columns, the
+    partial sums added over the axis (``from_tensor``). ``base_dot(y,
+    leaf)`` is the base product (``qdot`` by default), ``lora_delta(ab, y,
+    rng)`` the adapter's (``apply_lora_delta`` by default)."""
+    if base_dot is None:
+        def base_dot(y, leaf):
+            return qdot(y, leaf, dtype)
+    if lora_delta is None:
+        def lora_delta(ab, y, rng):
+            return apply_lora_delta(ab, y, lora_spec, rng=rng)
+    split = mesh is not None and mesh.size("tensor") > 1
+
+    def proj(name: str, y: torch.Tensor) -> torch.Tensor:
+        w_key = _W_KEYS[name]
+        leaf = lw[w_key]
+        out = mesh_mod.fsdp_apply(base_dot, y, leaf,
+                                  mesh_mod.leaf_pspec(f"layers.{w_key}", leaf), mesh)
+        if name in la:
+            ab = la[name]
+            rng = drop.at(i, name) if drop is not None else None
+            if split and name in mesh_mod.ROW_PARALLEL:
+                c0 = mesh.index("tensor") * y.shape[-1]
+                ab = {"a": ab["a"][..., c0: c0 + y.shape[-1]], "b": ab["b"]}
+                if rng is not None:
+                    rng = dataclasses.replace(
+                        rng, cols=(c0, y.shape[-1] * mesh.size("tensor")))
+            out = out + lora_delta(ab, y, rng)
+        if split and name in mesh_mod.ROW_PARALLEL:
+            out = mesh_mod.from_tensor(out, mesh)
+        bias_key = _BIAS_KEYS.get(name)
+        if bias_key in lw:
+            out = out + lw[bias_key].to(dtype)
+        return out
+
+    return proj
+
+
+def check_tensor_widths(spec: ModelSpec, tensor: int) -> None:
+    """Raise, naming the width, when the tensor axis does not divide the
+    heads, the KV heads, the ffn or the vocabulary."""
+    for what, width in (("n_heads", spec.n_heads), ("n_kv_heads", spec.n_kv_heads),
+                        ("d_ff", spec.d_ff), ("vocab_size", spec.vocab_size)):
+        if width % tensor:
+            raise ValueError(f"{spec.name}: {what}={width} does not split over the {tensor} "
+                             "ranks of the 'tensor' axis")
 
 
 def apply_model(
@@ -245,6 +309,7 @@ def apply_model(
     ring_axis: str = "seq",
     lora_rng: Optional[DropoutKey] = None,
     seg_starts: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Forward pass → logits f32 [B, S, V], or with ``return_hidden=True``
     the final-norm hidden states [B, S, D] in ``spec.dtype`` (callers that
@@ -268,21 +333,49 @@ def apply_model(
     dropout when ``lora_spec.dropout > 0``. Each projection of each layer
     draws its own mask from (fold, step, layer, projection), so a
     recomputing backward (``remat``) draws the same masks. Ignored at
-    dropout 0, as in the reference."""
+    dropout 0, as in the reference.
+
+    ``mesh`` (tst_torch.runtime.mesh): ``params`` and ``lora`` are this
+    rank's shards (``shard_tree``, ``local_lora``); the projections follow
+    :func:`make_proj`, the embedding and the head split the vocabulary over
+    ``tensor``, and the result is whole (every rank gets the same logits).
+    ``ring_mesh`` with ``ring_axis`` of size n > 1: the sequence is split
+    into n blocks, this rank runs its block through every layer, attention
+    goes around the ring (tst_torch.kernels.ring_attention), and the final
+    hidden states are gathered; packed rows and the ring exclude each
+    other, as in the reference."""
     drop = (lora_rng if lora_rng is not None and lora_spec is not None
             and lora_spec.dropout > 0.0 else None)
     n_folds = fold_count(lora)
     if n_folds is not None and tokens.shape[0] % n_folds:
         raise ValueError(f"{tokens.shape[0]} rows do not split into {n_folds} fold blocks "
                          "for a fold-stacked adapter")
-    if ring_mesh is not None:
-        _not_ported("ring attention (ring_mesh=)", "ROADMAP item 16")
+    ring = ring_mesh is not None and ring_mesh.size(ring_axis) > 1
+    if ring and seg_starts is not None:
+        raise ValueError("packed sequences (seg_starts) and ring attention are mutually "
+                         "exclusive: packing is for short rows, the ring for long ones")
+    if ring and return_kv:
+        raise ValueError("the ring gives no KV cache: decode runs without the seq axis")
+    if mesh is None and ring:
+        mesh = ring_mesh
     check_remat(remat)
-    b, s = tokens.shape
+    b, s_full = tokens.shape
+    s, pos0 = s_full, 0
+    if ring:
+        n = ring_mesh.size(ring_axis)
+        if s_full % n:
+            raise ValueError(f"sequence length {s_full} does not split over the {n} ranks of "
+                             f"the {ring_axis!r} axis")
+        s = s_full // n
+        pos0 = ring_mesh.index(ring_axis) * s
+        tokens = tokens[:, pos0: pos0 + s]
+        if drop is not None:  # this rank's positions of the dropout masks
+            drop = dataclasses.replace(drop, seq=(pos0, s_full))
     dt = spec.dtype
-    x = embed_lookup(params, tokens, spec)  # [B, S, D]
-    cos, sin = rope_tables(s, spec.d_head, spec.rope_theta, spec.rope_scaling,
+    x = embed_lookup(params, tokens, spec, mesh=mesh)  # [B, S, D]
+    cos, sin = rope_tables(s_full, spec.d_head, spec.rope_theta, spec.rope_scaling,
                            device=x.device)
+    cos, sin = cos[pos0: pos0 + s], sin[pos0: pos0 + s]
     if seg_starts is not None:
         seg_starts = torch.as_tensor(seg_starts, dtype=torch.int32, device=x.device)
         # per-segment positions: RoPE sees each sample from offset 0
@@ -290,7 +383,7 @@ def apply_model(
                      - segment_starts_per_pos(seg_starts, s).long())  # [B, S]
         cos, sin = cos[positions], sin[positions]  # [B, S, dh/2]
     # the dense path's mask; the kernels take the starts themselves
-    if use_pallas:
+    if use_pallas or ring:
         causal = None
     elif seg_starts is not None:
         causal = segment_mask(seg_starts, s)  # [B, S, S]
@@ -302,45 +395,42 @@ def apply_model(
     def layer_stages(i, lw, la):
         """Layer ``i``'s stages over its weights ``lw`` and adapters ``la``,
         bound here: a checkpointed stage runs again in the backward."""
-
-        def proj(name, y, w_key):
-            out = qdot(y, lw[w_key], dt)
-            if name in la:
-                rng = drop.at(i, name) if drop is not None else None
-                out = out + apply_lora_delta(la[name], y, lora_spec, rng=rng)
-            bias_key = _BIAS_KEYS.get(name)
-            if bias_key in lw:
-                out = out + lw[bias_key].to(dt)
-            return out
+        proj = make_proj(lw, la, i, lora_spec, dt, mesh=mesh, drop=drop)
 
         def attn_in(x_in):
-            h = rms_norm(x_in, lw["attn_norm"], spec.rms_eps)
-            q = proj("q", h, "wq").reshape(b, s, spec.n_heads, spec.d_head)
-            k = proj("k", h, "wk").reshape(b, s, spec.n_kv_heads, spec.d_head)
-            v = proj("v", h, "wv").reshape(b, s, spec.n_kv_heads, spec.d_head)
+            h = mesh_mod.to_tensor(rms_norm(x_in, lw["attn_norm"], spec.rms_eps), mesh)
+            q = proj("q", h).reshape(b, s, -1, spec.d_head)
+            k = proj("k", h).reshape(b, s, -1, spec.d_head)
+            v = proj("v", h).reshape(b, s, -1, spec.d_head)
             return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
         def attend(q, k, v):
-            if use_pallas:
+            if ring:
+                from tst_torch.kernels.ring_attention import ring_attention
+
+                attn = ring_attention(q, k, v, ring_mesh, seq_axis=ring_axis, causal=True)
+            elif use_pallas:
                 attn = _flash_attention(q, k, v, seg_starts)
             else:
                 attn = _dense_attention(q, k, v, causal)
-            return attn.reshape(b, s, spec.q_dim)
+            return attn.reshape(b, s, -1)
 
         def swiglu(h):
-            act = F.silu(proj("gate", h, "w_gate").float()).to(dt) * proj("up", h, "w_up")
-            return proj("down", act, "w_down")
+            act = F.silu(proj("gate", h).float()).to(dt) * proj("up", h)
+            return proj("down", act)
 
         def rest(x_in, attn):
-            h_mid = x_in + proj("o", attn, "wo")
-            h = rms_norm(h_mid, lw["mlp_norm"], spec.rms_eps)
+            h_mid = x_in + proj("o", attn)
+            h = mesh_mod.to_tensor(rms_norm(h_mid, lw["mlp_norm"], spec.rms_eps), mesh)
             # the fused kernel only when no adapter targets the MLP (an adapter
             # on gate/up changes the hidden nonlinearly), the reference's condition
             mlp_lora = any(t in la for t in ("gate", "up", "down"))
             if use_pallas is True and fused_mlp and not mlp_lora:
-                down = fused_swiglu_mlp(h, dequantize_leaf(lw["w_gate"], dt),
-                                        dequantize_leaf(lw["w_up"], dt),
-                                        dequantize_leaf(lw["w_down"], dt))
+                w = {key: dequantize_leaf(mesh_mod.gather_data(
+                    lw[key], mesh_mod.leaf_pspec(f"layers.{key}", lw[key]), mesh), dt)
+                    for key in ("w_gate", "w_up", "w_down")}
+                down = mesh_mod.from_tensor(
+                    fused_swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"]), mesh)
             elif remat == "light":
                 down = _ckpt(swiglu, h)
             else:
@@ -361,12 +451,32 @@ def apply_model(
             vs.append(v)
 
     x = rms_norm(x, params["final_norm"], spec.rms_eps)
+    if ring:
+        x = mesh_mod.gather_seq(x, ring_mesh)
     if return_kv:
         return x, torch.stack(ks), torch.stack(vs)
     if return_hidden:
         return x
-    # bf16 operands, f32 products and sums (the reference's f32-out einsum)
-    return x.float() @ lm_head_weight(params, spec).to(dt).float()
+    return head_logits(x, params, spec, mesh=mesh)
+
+
+def head_logits(h: torch.Tensor, params: Params, spec: ModelSpec, mesh=None) -> torch.Tensor:
+    """f32 logits [..., V] of hidden rows h [..., D]: bf16 operands, f32
+    products and sums (the reference's f32-out einsum). Under ``tensor``
+    each rank projects onto its vocabulary slice and the logits are
+    gathered; under ``data`` the head is an FSDP shard, gathered for the
+    product."""
+    key = "embed" if spec.tie_embeddings else "lm_head"
+    leaf = params[key]
+
+    def product(y, w):
+        return y.float() @ _head_of(w, spec).float()
+
+    if not mesh_mod.active(mesh):
+        return product(h, leaf)
+    local = mesh_mod.fsdp_apply(product, mesh_mod.to_tensor(h, mesh), leaf,
+                                mesh_mod.leaf_pspec(key, leaf), mesh)
+    return mesh_mod.gather_tensor(local, mesh)
 
 
 def layer_of(w, i: int):
@@ -376,14 +486,40 @@ def layer_of(w, i: int):
     return w[i]
 
 
-def embed_lookup(params: Params, tokens: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
+def embed_lookup(params: Params, tokens: torch.Tensor, spec: ModelSpec,
+                 mesh=None) -> torch.Tensor:
     """Token embedding gather in ``spec.dtype``; int8 rows are gathered
-    first and only the gathered rows dequantized (f32 product, then cast)."""
+    first and only the gathered rows dequantized (f32 product, then cast).
+    Under ``tensor`` each rank holds a vocabulary slice: it looks up the
+    tokens in its slice, zeros elsewhere, and the ranks' rows are summed
+    (exact: one term is not zero); under ``data`` the embedding's columns
+    are gathered first."""
     embed = params["embed"]
+    if not mesh_mod.active(mesh):
+        return _lookup(embed, tokens.long(), spec)
+    embed = mesh_mod.gather_data(embed, mesh_mod.leaf_pspec("embed", embed), mesh)
+    if mesh.size("tensor") == 1:
+        return _lookup(embed, tokens.long(), spec)
+    rows = (embed["q"] if is_quantized_leaf(embed) else embed).shape[0]
+    ids = tokens.long() - mesh.index("tensor") * rows
+    inside = (ids >= 0) & (ids < rows)
+    x = _lookup(embed, ids.clamp(0, rows - 1), spec) * inside[..., None].to(spec.dtype)
+    return mesh_mod.from_tensor(x, mesh)
+
+
+def _lookup(embed, ids: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
     if is_quantized_leaf(embed):
-        x = embed["q"][tokens.long()].float() * embed["scale"][0]
-        return x.to(spec.dtype)
-    return F.embedding(tokens.long(), embed).to(spec.dtype)
+        return (embed["q"][ids].float() * embed["scale"][0]).to(spec.dtype)
+    return F.embedding(ids, embed).to(spec.dtype)
+
+
+def _head_of(w, spec: ModelSpec) -> torch.Tensor:
+    """The [D, V] head of the embedding or lm_head leaf ``w`` in
+    ``spec.dtype`` (a quantized leaf dequantized)."""
+    if is_quantized_leaf(w):
+        w = dequantize_leaf(w, spec.dtype)
+    w = w.to(spec.dtype)
+    return w.T if spec.tie_embeddings else w
 
 
 def lm_head_weight(params: Params, spec: ModelSpec) -> torch.Tensor:

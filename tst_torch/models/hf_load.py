@@ -154,6 +154,7 @@ def convert_state_dict(
     put: Optional[Callable[[str, torch.Tensor], Any]] = None,
     *,
     device,
+    mesh=None,
 ) -> Params:
     """An HF state dict (name → tensor) → the parameter tree on ``device``,
     streamed: each tensor moves to ``device`` as it arrives, is transposed
@@ -163,9 +164,20 @@ def convert_state_dict(
     the rank of the stacked leaf, and is copied into a ``[L, ...]`` buffer
     allocated on the device at the family's first layer. A tied head and
     any tensor outside the name maps (rotary buffers) are skipped. Raises
-    unless every layer of every family the spec needs arrived."""
+    unless every layer of every family the spec needs arrived. ``mesh``
+    (tst_torch.runtime.mesh): each tensor is cut to this rank's slice as it
+    arrives (``shard_leaf``), so a rank holds only its shard; the widths are
+    then checked by the cut."""
     dt = dtype or spec.dtype
     put = put or (lambda path, t: t.to(dtype=dt))
+    from tst_torch.runtime import mesh as mesh_mod
+
+    if mesh_mod.active(mesh):
+        whole_put = put
+
+        def put(path, t):
+            leaf = whole_put(path, t)
+            return mesh_mod.shard_leaf(leaf, mesh_mod.leaf_pspec(path, leaf), mesh, path)
     device = torch.device(device)
     n_layers = spec.n_layers
     layers: Dict[str, Any] = {}
@@ -199,7 +211,7 @@ def convert_state_dict(
             _write_slice(layers[key], sl, i)
             written.setdefault(key, set()).add(i)
     params["layers"] = {key: layers[key] for key in sorted(layers)}
-    _check_shapes(params, spec, written)
+    _check_shapes(params, spec, written, widths=not mesh_mod.active(mesh))
     return params
 
 
@@ -213,22 +225,24 @@ def _contiguous(leaf):
 _LAYER_FAMILIES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
 
 
-def _check_shapes(params: Params, spec: ModelSpec, written: Mapping[str, set]) -> None:
+def _check_shapes(params: Params, spec: ModelSpec, written: Mapping[str, set],
+                  widths: bool = True) -> None:
     """Raises where ``params`` does not fit ``spec``, or where a layer of a
     family the spec needs never arrived (``written``: family → the layer
     indices copied into its buffer, which holds uninitialized memory
-    elsewhere)."""
+    elsewhere). ``widths=False`` (a rank's shards) checks the families
+    only."""
     expect = {"embed": (spec.vocab_size, spec.d_model), "final_norm": (spec.d_model,)}
     for key, shape in expect.items():
         if key not in params:
             raise ValueError(f"checkpoint has no {key}")
         got = leaf_logical_shape(params[key])
-        if got != shape:
+        if widths and got != shape:
             raise ValueError(f"{key}: shape {got} != spec {shape}")
     if "wq" not in params["layers"]:
         raise ValueError("checkpoint has no layers")
     wq = leaf_logical_shape(params["layers"]["wq"])
-    if wq != (spec.n_layers, spec.d_model, spec.q_dim):
+    if widths and wq != (spec.n_layers, spec.d_model, spec.q_dim):
         raise ValueError(f"wq: {wq} != {(spec.n_layers, spec.d_model, spec.q_dim)}")
     if spec.qkv_bias and "bq" not in params["layers"]:
         raise ValueError("spec expects qkv biases but checkpoint has none")
@@ -249,13 +263,14 @@ def load_checkpoint(
     put: Optional[Callable[[str, torch.Tensor], Any]] = None,
     *,
     device,
+    mesh=None,
 ) -> Params:
     """Stream a safetensors checkpoint directory (one file, or the sharded
     ``model.safetensors.index.json`` layout) into the parameter tree on
-    ``device`` (:func:`convert_state_dict`); raises on a checkpoint that
-    does not read or does not fit ``spec``."""
+    ``device`` (:func:`convert_state_dict`; ``mesh``: this rank's shards);
+    raises on a checkpoint that does not read or does not fit ``spec``."""
     return convert_state_dict(LazyStateDict(ckpt_dir), spec, dtype=dtype, put=put,
-                              device=device)
+                              device=device, mesh=mesh)
 
 
 def spec_from_hf_config(ckpt_dir: str, name: str = "custom") -> ModelSpec:

@@ -152,26 +152,47 @@ class DropoutKey:
     the fold of each fold-major row block and the optimizer step; the
     decoder adds the layer and the projection (:meth:`at`). ``masks``
     draws a block's mask; :func:`dropout_mask` unless a caller injects
-    another (the parity tests inject the reference's)."""
+    another (the parity tests inject the reference's).
+
+    Under a mesh a rank's input is a window of the one-process input, and
+    its mask the same window of the one-process mask: ``rows`` (share,
+    shares) of each fold block's rows over ``data``, ``seq`` (start, full
+    length) of the sequence under the ring, ``cols`` (start, full width)
+    of a row-parallel projection's input over ``tensor``."""
 
     folds: Tuple[int, ...]
     step: int
     masks: MaskFn = dropout_mask
     layer: Optional[int] = None
     proj: Optional[str] = None
+    rows: Optional[Tuple[int, int]] = None
+    seq: Optional[Tuple[int, int]] = None
+    cols: Optional[Tuple[int, int]] = None
 
     def at(self, layer: int, proj: str) -> "DropoutKey":
         return dataclasses.replace(self, layer=layer, proj=proj)
 
     def mask(self, shape, keep: float, device) -> torch.Tensor:
-        """The keep-mask of an input of ``shape`` [k·B, ..., in], fold
-        block by fold block."""
+        """The keep-mask of an input of ``shape`` [k·B, S, in], fold block by
+        fold block (and, under a mesh, this rank's window of it)."""
         blocks = len(self.folds)
         if shape[0] % blocks:
             raise ValueError(f"{shape[0]} rows do not split into {blocks} fold blocks")
-        block = (shape[0] // blocks,) + tuple(shape[1:])
-        return torch.cat([self.masks(f, self.step, self.layer, self.proj, block, keep, device)
-                          for f in self.folds])
+        rows = shape[0] // blocks
+        share, shares = self.rows or (0, 1)
+        s0, s_full = self.seq or (0, shape[1])
+        c0, c_full = self.cols or (0, shape[-1])
+        block = (rows * shares,) + tuple(shape[1:-1]) + (c_full,)
+        if len(block) > 2:
+            block = (block[0], s_full) + block[2:]
+        out = []
+        for f in self.folds:
+            m = self.masks(f, self.step, self.layer, self.proj, block, keep, device)
+            m = m[share * rows: (share + 1) * rows]
+            if m.ndim > 2:
+                m = m[:, s0: s0 + shape[1]]
+            out.append(m[..., c0: c0 + shape[-1]])
+        return torch.cat(out)
 
 
 def apply_lora_delta(layer_lora: Params, x: torch.Tensor, spec: LoraSpec,

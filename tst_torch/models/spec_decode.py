@@ -29,7 +29,12 @@ target's tokens clipped to its vocabulary, a draft whose vocabulary is
 wider than the target's is refused, and the draft never carries adapters.
 Attention over the cache and the projections are the greedy decode's
 (int4 weights through K3 with ``use_pallas``: the verify chunk's M is
-rows · (gamma + 1)); the prefills go through the flash kernel K1.
+rows · (gamma + 1)); the prefills go through the flash kernel K1. A row's
+logits in the verify chunk are the bits of greedy decode's steps
+(tst_torch.models.decode: K3's rows do not depend on M, the attention
+kernel sums by the visible slots' ranks, and every other product runs a
+chunk position at a time, at a greedy step's shape), so the tokens are
+greedy decode's on the card too.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 from tst_torch.models.decode import _chunk_step, prefill
 from tst_torch.models.lora import LoraSpec
 from tst_torch.models.spec import ModelSpec
+from tst_torch.runtime import mesh as mesh_mod
 
 
 def speculative_greedy_decode(
@@ -56,6 +62,7 @@ def speculative_greedy_decode(
     lora_spec: Optional[LoraSpec] = None,
     use_pallas: bool = False,
     return_stats: bool = False,
+    mesh=None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, dict]]:
     """Greedy continuation of each prompt → int32 [B, max_new], equal to
     ``greedy_decode(target_params, ...)``.
@@ -64,7 +71,9 @@ def speculative_greedy_decode(
     to the target (single, or fold-stacked with fold-major rows); the draft
     runs its base weights. ``return_stats`` also returns ``{"rounds": int,
     "committed": int [B]}``: the rounds run, and the tokens each row
-    committed (>= max_new at the end; a row keeps counting once full)."""
+    committed (>= max_new at the end; a row keeps counting once full).
+    ``mesh``: target and draft weights are this rank's shards (the decode
+    step's projections under tensor and FSDP)."""
     if gamma < 1:
         raise ValueError(f"gamma must be >= 1, got {gamma}")
     if draft_spec.vocab_size > target_spec.vocab_size:
@@ -81,9 +90,9 @@ def speculative_greedy_decode(
     with torch.inference_mode():
         first, tk, tv, thead, trope = prefill(
             target_params, tokens, prompt_len, max_new, target_spec, lora=lora,
-            lora_spec=lora_spec, use_pallas=use_pallas, pad_to=s_max)
+            lora_spec=lora_spec, use_pallas=use_pallas, pad_to=s_max, mesh=mesh)
         _, dk, dv, dhead, drope = prefill(draft_params, tokens, prompt_len, max_new, draft_spec,
-                                          use_pallas=use_pallas, pad_to=s_max)
+                                          use_pallas=use_pallas, pad_to=s_max, mesh=mesh)
         ar = torch.arange(s_max, device=device)[None, :]
         jpos = torch.arange(chunk, device=device)[None, :]
         rows = torch.arange(b, device=device)[:, None].expand(b, chunk)
@@ -94,7 +103,7 @@ def speculative_greedy_decode(
         valid = ar < prompt_len[:, None]  # [B, S_max]: committed slots
         base, rounds = s, 0
         while (max_new > 1 and base + chunk <= s_max
-               and int(n_out.min()) < max_new):
+               and mesh_mod.any_over(int(n_out.min()) < max_new, mesh, ("data",))):
             # the draft: gamma + 1 single steps over this round's slots
             cur, fed = x_last, []
             for j in range(chunk):
@@ -103,7 +112,7 @@ def speculative_greedy_decode(
                 nxt, dk, dv = _chunk_step(
                     draft_params, None, None, draft_spec, cur_d[:, None],
                     (pos_last + j)[:, None], base + j, vmask, dk, dv,
-                    use_pallas=use_pallas, head=dhead, rope=drope)
+                    use_pallas=use_pallas, head=dhead, rope=drope, mesh=mesh)
                 fed.append(cur)  # the true token: the target verifies it
                 cur = nxt[:, 0]
             chunk_tok = torch.stack(fed, dim=1)  # [B, chunk]: [x_last, d_1..d_gamma]
@@ -112,7 +121,7 @@ def speculative_greedy_decode(
             tgt, tk, tv = _chunk_step(
                 target_params, lora, lora_spec, target_spec, chunk_tok,
                 pos_last[:, None] + jpos, base, valid, tk, tv, use_pallas=use_pallas,
-                head=thead, rope=trope)
+                head=thead, rope=trope, mesh=mesh)
             # acceptance: the longest prefix where the draft matched
             acc = (d == tgt[:, :gamma]).long().cumprod(dim=1).sum(dim=1)  # [B] in 0..gamma
             bonus = tgt.gather(1, acc[:, None])[:, 0]

@@ -21,8 +21,11 @@ the int4 kernel K3), ``model.fused_mlp`` (the fused SwiGLU kernel K4 in
 training), LoRA dropout and ``perf.spec_draft_*`` (exact speculative decode
 of the numeric and open rows).
 
-What the port does not have yet raises NotImplementedError naming its
-ROADMAP item; nothing is silently skipped.
+Every pipeline runs under the mesh of ``cfg.mesh`` (tst_torch.runtime.mesh):
+launched by ``torchrun`` with one rank a card, each rank builds or loads
+only its shards, trains its folds and its rows, and scores and decodes its
+share; the numbers every rank ends with are the whole run's, and only rank
+0 writes artifacts and logs.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 
 from tst_torch.aux.ckpt import EXTRA_FILE, load_train_state
 from tst_torch.aux.log import JsonlLogger
+from tst_torch.aux.profile import trace
 from tst_torch.config import RunConfig
 from tst_torch.data.folds import kfold_assign
 from tst_torch.data.schema import NUMERIC, OPEN, BlindDataset
@@ -49,12 +53,13 @@ from tst_torch.eval import metrics
 from tst_torch.eval.parity import spearman
 from tst_torch.io import outputs
 from tst_torch.models.decode import decode_numeric, decode_text, greedy_decode
-from tst_torch.models.decoder import Params, init_params
+from tst_torch.models.decoder import Params, check_tensor_widths, init_params
 from tst_torch.models.hf_load import load_checkpoint, spec_from_hf_config
 from tst_torch.models.lora import LoraSpec, lora_shapes
 from tst_torch.models.quant import quantize_params, quantized_bytes, quantizing_put
 from tst_torch.models.spec import ModelSpec, spec_by_name
 from tst_torch.models.spec_decode import speculative_greedy_decode
+from tst_torch.runtime import mesh as mesh_mod
 from tst_torch.train.infer import (decode_chunk_rows, score_all_mcq, score_heldout_mcq,
                                    score_heldout_mcq_packed, score_heldout_numeric,
                                    score_heldout_open)
@@ -63,14 +68,24 @@ from tst_torch.train.sft import FoldTrainer, TrainLog, make_fold_batches
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported to tst_torch yet (ROADMAP item {item})")
+def run_mesh(cfg: RunConfig):
+    """The run's mesh: joins the process group of a launch over several
+    ranks (torchrun's variables; a no-op for one process), then builds
+    ``cfg.mesh`` over its ranks; None for a mesh of one. Raises when the
+    mesh needs more ranks than the launch has."""
+    mesh_mod.init_distributed()
+    mesh = mesh_mod.from_config(cfg.mesh)
+    return mesh if mesh_mod.active(mesh) else None
 
 
-def check_mesh(cfg: RunConfig) -> None:
-    """Raise on a mesh above one card (ROADMAP item 16)."""
-    if cfg.mesh.fold * cfg.mesh.data * cfg.mesh.seq * cfg.mesh.tensor > 1:
-        _not_ported("mesh sizes above 1", 16)
+class _NoLog:
+    """The event log of a rank that does not write."""
+
+    def log(self, **fields: Any) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def build_tokenizer(cfg: RunConfig):
@@ -105,39 +120,48 @@ def model_spec(cfg: RunConfig, tokenizer) -> ModelSpec:
     return spec
 
 
-def build_model(cfg: RunConfig, tokenizer,
-                device: torch.device) -> Tuple[ModelSpec, Params]:
+def build_model(cfg: RunConfig, tokenizer, device: torch.device,
+                mesh=None) -> Tuple[ModelSpec, Params]:
     """ModelSpec + params on ``device``: the HF checkpoint of ``model.path``,
     streamed tensor by tensor (the spec from its config.json, in the run's
     dtype; ``model.quantize`` int8 / int4 quantizes each tensor as it
     arrives, through ``quantizing_put``), else a random init from a
     generator seeded with ``data.seed``, quantized after the init, leaf by
-    leaf (tst_torch.models.quant)."""
+    leaf (tst_torch.models.quant). ``mesh``: this rank's shards only (a
+    checkpoint's tensors are cut as they arrive; a random init keeps the
+    rank's slice of each leaf); a width the tensor axis does not divide
+    raises."""
     dtype = DTYPES[cfg.model.dtype]
     quant_bits = {"none": None, "int8": 8, "int4": 4}.get(cfg.model.quantize, -1)
     if quant_bits == -1:
         raise ValueError(f"unknown model.quantize {cfg.model.quantize!r}")
     spec = model_spec(cfg, tokenizer)
+    if mesh is not None:
+        check_tensor_widths(spec, mesh.size("tensor"))
     if cfg.model.path:
         put = quantizing_put(dtype, bits=quant_bits) if quant_bits is not None else None
-        return spec, load_checkpoint(cfg.model.path, spec, dtype=dtype, put=put, device=device)
+        return spec, load_checkpoint(cfg.model.path, spec, dtype=dtype, put=put, device=device,
+                                     mesh=mesh)
     rng = torch.Generator(device=device).manual_seed(cfg.data.seed)
     params = init_params(rng, spec)
     if quant_bits is not None:
         params = quantize_params(params, bits=quant_bits)
+    if mesh is not None:
+        params = mesh_mod.shard_tree(params, mesh_mod.param_pspec_tree(params), mesh)
     return spec, params
 
 
-def build_draft_model(cfg: RunConfig, tokenizer, device: torch.device):
+def build_draft_model(cfg: RunConfig, tokenizer, device: torch.device, mesh=None):
     """(draft_spec, draft_params) for ``perf.spec_draft_*``, or None. The
     draft shares the target's tokenizer (exact speculative decoding needs
-    it) and is base-weighted: it never sees adapters."""
+    it) and is base-weighted: it never sees adapters. Sharded as the
+    target under ``mesh``."""
     if not (cfg.perf.spec_draft_model or cfg.perf.spec_draft_path):
         return None
     dcfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, name=cfg.perf.spec_draft_model or cfg.model.name,
         path=cfg.perf.spec_draft_path, quantize=cfg.perf.spec_draft_quantize))
-    return build_model(dcfg, tokenizer, device)
+    return build_model(dcfg, tokenizer, device, mesh=mesh)
 
 
 def _has_decoded_rows(ds: BlindDataset) -> bool:
@@ -156,13 +180,14 @@ def gold_texts_of(ds: BlindDataset) -> list:
     return [s.answer if s.answer_type == OPEN else None for s in ds]
 
 
-def prepare_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device):
+def prepare_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device, mesh=None):
     """(TokenBatch, tokens, answer_pos, spec, params): the tokenized set with
-    its tokens and answer positions on ``device``, and the model."""
+    its tokens and answer positions on ``device``, and the model (this
+    rank's shards under ``mesh``)."""
     tokenizer = build_tokenizer(cfg)
     tb = tokenize_dataset(ds, tokenizer, max_len=cfg.data.max_len,
                           include_context=cfg.data.include_context)
-    spec, params = build_model(cfg, tokenizer, device)
+    spec, params = build_model(cfg, tokenizer, device, mesh=mesh)
     return (tb, torch.from_numpy(tb.tokens).to(device),
             torch.from_numpy(tb.answer_pos).to(device), spec, params)
 
@@ -182,12 +207,13 @@ def run_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device,
     the same adapter (int4 weights through K3), by exact speculative decode
     with ``perf.spec_draft_*``."""
     t_start = time.time()
-    check_mesh(cfg)
-    tb, tokens, answer_pos, spec, params = prepare_blind_eval(ds, cfg, device)
+    mesh = run_mesh(cfg)
+    tb, tokens, answer_pos, spec, params = prepare_blind_eval(ds, cfg, device, mesh=mesh)
     use_pallas = cfg.model.use_pallas
     one = lspec = None
     if adapter_dir:
         one, lspec = load_adapter_lora(adapter_dir, cfg, spec, fold=fold, device=device)
+        one = mesh_mod.local_lora(one, mesh, folds=False)
     zero_folds = np.zeros(tb.n, np.int32)
     # the MCQ leg only when the set has options (an all-numeric or all-open
     # set has none)
@@ -195,11 +221,12 @@ def run_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device,
         if adapter_dir:
             probs = score_heldout_mcq(params, one, spec, lspec, tokens, answer_pos,
                                       tb.option_token_ids, tb.n_options, zero_folds, 1,
-                                      use_pallas=use_pallas, option_seqs=tb.option_token_seqs)
+                                      use_pallas=use_pallas, option_seqs=tb.option_token_seqs,
+                                      mesh=mesh)
         else:
             probs = score_all_mcq(params, spec, tokens, answer_pos, tb.option_token_ids,
                                   tb.n_options, use_pallas=use_pallas,
-                                  option_seqs=tb.option_token_seqs)
+                                  option_seqs=tb.option_token_seqs, mesh=mesh)
         pred = probs.argmax(-1).astype(np.int32)
         blind_acc = float(metrics.accuracy(pred, tb.gold))
         chance = float(metrics.chance_accuracy(tb.n_options))
@@ -209,9 +236,10 @@ def run_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device,
                                   name=ds.name)
     report["n_mcq"] = int((np.asarray(tb.n_options) > 0).sum())
     tokenizer = build_tokenizer(cfg)
-    draft = build_draft_model(cfg, tokenizer, device) if _has_decoded_rows(ds) else None
+    draft = (build_draft_model(cfg, tokenizer, device, mesh=mesh) if _has_decoded_rows(ds)
+             else None)
     decode_kw = dict(tokenizer=tokenizer, use_pallas=use_pallas, draft=draft,
-                     gamma=cfg.perf.spec_gamma)
+                     gamma=cfg.perf.spec_gamma, mesh=mesh)
     gold_texts = gold_texts_of(ds)
     if any(g is not None for g in gold_texts):
         _, s_open = score_heldout_open(params, one, spec, lspec, tokens, answer_pos, gold_texts,
@@ -229,7 +257,8 @@ def run_blind_eval(ds: BlindDataset, cfg: RunConfig, device: torch.device,
     report.update(n_samples=len(ds), model=spec.name, zero_shot=adapter_dir is None,
                   adapter=adapter_dir, adapter_fold=fold if adapter_dir else None,
                   wall_seconds=round(time.time() - t_start, 2))
-    outputs.write_report(cfg.out_dir, report, name="blind_eval.json")
+    if mesh_mod.is_main():
+        outputs.write_report(cfg.out_dir, report, name="blind_eval.json")
     return report
 
 
@@ -318,17 +347,10 @@ def _merge_logs(a: Optional[TrainLog], b: TrainLog) -> TrainLog:
     return a
 
 
-def _check_sft_config(ds: BlindDataset, cfg: RunConfig) -> None:
-    """Raise, before any work, on what the port's diagnose-sft does not have."""
-    check_mesh(cfg)
-    if cfg.profile_dir:
-        _not_ported("profiling (profile_dir)", 17)
-
-
 class _SftRunState:
     """Everything a diagnose-sft run constructs before its first step."""
 
-    __slots__ = ("tokenizer", "tb", "fold_id", "spec", "params", "lspec", "batches",
+    __slots__ = ("tokenizer", "tb", "fold_id", "mesh", "spec", "params", "lspec", "batches",
                  "t_max", "trainer", "lora", "opt_state", "tokens", "loss_mask",
                  "answer_pos", "pack", "ptokens", "pmask", "ppos", "psegs")
 
@@ -340,7 +362,8 @@ def _build_sft_state(ds: BlindDataset, cfg: RunConfig, device: torch.device) -> 
     st.tb = tokenize_dataset(ds, st.tokenizer, max_len=cfg.data.max_len,
                              include_context=cfg.data.include_context)
     st.fold_id = kfold_assign(ds, k, cfg.data.seed)
-    st.spec, st.params = build_model(cfg, st.tokenizer, device)
+    st.mesh = run_mesh(cfg)
+    st.spec, st.params = build_model(cfg, st.tokenizer, device, mesh=st.mesh)
     st.lspec = lora_spec_from_cfg(cfg, st.spec.dtype)
     st.pack = _pack_train_data(st.tb, st.fold_id, cfg) if cfg.optim.pack else None
     st.batches = _fold_batches(st, cfg, cfg.data.seed)
@@ -349,9 +372,9 @@ def _build_sft_state(ds: BlindDataset, cfg: RunConfig, device: torch.device) -> 
     st.trainer = FoldTrainer(
         st.spec, st.lspec, k, lr=cfg.optim.lr, total_steps=st.batches.shape[0],
         warmup_frac=cfg.optim.warmup_frac, weight_decay=cfg.optim.weight_decay,
-        use_pallas=cfg.model.use_pallas, remat=cfg.model.remat, t_max=st.t_max,
-        b1=cfg.optim.b1, b2=cfg.optim.b2, fused_mlp=cfg.model.fused_mlp,
-        packed=st.pack is not None)
+        use_pallas=cfg.model.use_pallas, remat=cfg.model.remat, mesh=st.mesh, t_max=st.t_max,
+        ring=cfg.mesh.seq > 1, b1=cfg.optim.b1, b2=cfg.optim.b2,
+        fused_mlp=cfg.model.fused_mlp, packed=st.pack is not None)
     st.lora, st.opt_state = st.trainer.init_state(
         torch.Generator(device=device).manual_seed(cfg.data.seed + 1))
     st.tokens = torch.from_numpy(st.tb.tokens).to(device)
@@ -399,14 +422,14 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     of each seed checkpoints into ``{checkpoint_dir}/seed_{s}_epoch_{e:03d}``
     (the reference's layout), and a run that finds one resumes from it."""
     t_start = time.time()
-    _check_sft_config(ds, cfg)
     k = cfg.data.k
     st = _build_sft_state(ds, cfg, device)
     setup_wall = time.time() - t_start
     tb, fold_id, spec, params, lspec = st.tb, st.fold_id, st.spec, st.params, st.lspec
     batches, trainer, lora, opt_state = st.batches, st.trainer, st.lora, st.opt_state
     use_pallas = cfg.model.use_pallas
-    logger = JsonlLogger(cfg.out_dir)
+    mesh = st.mesh
+    logger = JsonlLogger(cfg.out_dir) if mesh_mod.is_main() else _NoLog()
     stage_walls: Dict[str, float] = {}
 
     def timed(name, fn):
@@ -427,10 +450,12 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
             return np.zeros((tb.n, 1), np.float32)
         if st.pack is not None and single_token_opts and cfg.optim.packed_scorer:
             return score_heldout_mcq_packed(params, lora_now, spec, lspec, tb, mcq_fold_id, k,
-                                            pack_len=st.pack.pack_len, use_pallas=use_pallas)
+                                            pack_len=st.pack.pack_len, use_pallas=use_pallas,
+                                            mesh=mesh)
         return score_heldout_mcq(params, lora_now, spec, lspec, st.tokens, st.answer_pos,
                                  tb.option_token_ids, tb.n_options, mcq_fold_id, k,
-                                 use_pallas=use_pallas, option_seqs=tb.option_token_seqs)
+                                 use_pallas=use_pallas, option_seqs=tb.option_token_seqs,
+                                 mesh=mesh)
 
     def score_now(lora_now):
         return timed("score_mcq", lambda: score_mcq(lora_now))
@@ -447,29 +472,30 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     else:
         train_data = dict(all_tokens=st.tokens, all_mask=st.loss_mask, all_pos=st.answer_pos)
     tlog = None
-    for s_i in range(n_seeds):
-        if s_i > 0:  # fresh adapters and batch order, same folds
-            lora, opt_state = trainer.init_state(
-                torch.Generator(device=device).manual_seed(cfg.data.seed + 1 + 7919 * s_i))
-            batches = _fold_batches(st, cfg, cfg.data.seed + s_i)
-        for e in range(cfg.optim.epochs):
-            chunk = batches[e * steps_per_epoch: (e + 1) * steps_per_epoch]
-            if e == cfg.optim.epochs - 1:  # the last epoch takes any remainder
-                chunk = batches[e * steps_per_epoch:]
-            if chunk.shape[0] == 0:
-                continue
-            lora, opt_state, elog = trainer.fit(
-                params, lora, opt_state, batches=chunk, log_every=cfg.log_every,
-                log_fn=lambda step, loss: logger.log(event="train", seed=s_i, epoch=e,
-                                                     step=step, loss=loss),
-                checkpoint_dir=(f"{cfg.checkpoint_dir}/seed_{s_i}_epoch_{e:03d}"
-                                if cfg.checkpoint_dir else None), **train_data)
-            tlog = _merge_logs(tlog, elog)
-            if (e + 1) in score_after:
-                epoch_probs.append(score_now(lora))
-        final = score_now(lora)
-        epoch_probs.append(final)
-        seed_final_probs.append(final)
+    with trace(cfg.profile_dir):
+        for s_i in range(n_seeds):
+            if s_i > 0:  # fresh adapters and batch order, same folds
+                lora, opt_state = trainer.init_state(
+                    torch.Generator(device=device).manual_seed(cfg.data.seed + 1 + 7919 * s_i))
+                batches = _fold_batches(st, cfg, cfg.data.seed + s_i)
+            for e in range(cfg.optim.epochs):
+                chunk = batches[e * steps_per_epoch: (e + 1) * steps_per_epoch]
+                if e == cfg.optim.epochs - 1:  # the last epoch takes any remainder
+                    chunk = batches[e * steps_per_epoch:]
+                if chunk.shape[0] == 0:
+                    continue
+                lora, opt_state, elog = trainer.fit(
+                    params, lora, opt_state, batches=chunk, log_every=cfg.log_every,
+                    log_fn=lambda step, loss: logger.log(event="train", seed=s_i, epoch=e,
+                                                         step=step, loss=loss),
+                    checkpoint_dir=(f"{cfg.checkpoint_dir}/seed_{s_i}_epoch_{e:03d}"
+                                    if cfg.checkpoint_dir else None), **train_data)
+                tlog = _merge_logs(tlog, elog)
+                if (e + 1) in score_after:
+                    epoch_probs.append(score_now(lora))
+            final = score_now(lora)
+            epoch_probs.append(final)
+            seed_final_probs.append(final)
 
     probs = np.mean(epoch_probs, axis=0) if len(epoch_probs) > 1 else epoch_probs[0]
     s_x = bias_scores(probs, tb.gold, tb.n_options, rule=cfg.rf.score_rule)
@@ -480,9 +506,10 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     gold_values = gold_values_of(ds).astype(np.float32)
     decoded: Dict[str, Any] = {}
     # perf.spec_draft_*: built only when a decode leg runs
-    draft = build_draft_model(cfg, st.tokenizer, device) if _has_decoded_rows(ds) else None
+    draft = (build_draft_model(cfg, st.tokenizer, device, mesh=mesh) if _has_decoded_rows(ds)
+             else None)
     decode_kw = dict(tokenizer=st.tokenizer, use_pallas=use_pallas, draft=draft,
-                     gamma=cfg.perf.spec_gamma)
+                     gamma=cfg.perf.spec_gamma, mesh=mesh)
     if np.isfinite(gold_values).any():
         pred_values, s_num = timed("numeric_decode", lambda: score_heldout_numeric(
             params, lora, spec, lspec, st.tokens, st.answer_pos, gold_values, fold_id, k,
@@ -529,10 +556,11 @@ def run_sft_diagnostic(ds: BlindDataset, cfg: RunConfig,
     if st.pack is not None:
         report["pack_len"] = st.pack.pack_len
         report["pack_fill_fraction"] = round(st.pack.fill_fraction, 4)
-    outputs.write_sx_table(cfg.out_dir, ds, s_x, fold_id, pred=pred)
-    outputs.write_report(cfg.out_dir, report)
-    ds.save_jsonl(f"{cfg.out_dir}/dataset.jsonl")
-    cfg.save(f"{cfg.out_dir}/config.json")
+    if mesh_mod.is_main():
+        outputs.write_sx_table(cfg.out_dir, ds, s_x, fold_id, pred=pred)
+        outputs.write_report(cfg.out_dir, report)
+        ds.save_jsonl(f"{cfg.out_dir}/dataset.jsonl")
+        cfg.save(f"{cfg.out_dir}/config.json")
     logger.log(event="done", **{key: v for key, v in report.items()
                                 if isinstance(v, (int, float, str))})
     logger.close()
@@ -596,11 +624,11 @@ def run_generate(ds: BlindDataset, cfg: RunConfig, device: torch.device, max_new
     ``decode_seconds``, the synchronized wall of the decode chunks alone
     (the tokens/s the serving path delivers, set-up left out)."""
     t_start = time.time()
-    check_mesh(cfg)
+    mesh = run_mesh(cfg)
     tokenizer = build_tokenizer(cfg)
     tb = tokenize_dataset(ds, tokenizer, max_len=cfg.data.max_len,
                           include_context=cfg.data.include_context)
-    spec, params = build_model(cfg, tokenizer, device)
+    spec, params = build_model(cfg, tokenizer, device, mesh=mesh)
     use_pallas = cfg.model.use_pallas
     base_bytes = quantized_bytes(params)
     dspec = dparams = None
@@ -608,13 +636,16 @@ def run_generate(ds: BlindDataset, cfg: RunConfig, device: torch.device, max_new
         dcfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, name=draft_model or cfg.model.name, path=draft_path,
             quantize=draft_quantize or "none"))
-        dspec, dparams = build_model(dcfg, tokenizer, device)
+        dspec, dparams = build_model(dcfg, tokenizer, device, mesh=mesh)
         base_bytes += quantized_bytes(dparams)
     lora = lspec = None
     if adapter_dir:
         lora, lspec = load_adapter_lora(adapter_dir, cfg, spec, fold=fold, keep_fold_axis=False,
                                         device=device)
+        lora = mesh_mod.local_lora(lora, mesh, with_fold_axis=False)
     chunk = min(decode_chunk_rows(spec, tb.seq_len, max_new, k=1, base_bytes=base_bytes), tb.n)
+    data = mesh.size("data") if mesh is not None else 1
+    chunk += (-chunk) % data  # every data rank decodes its share of a chunk
     tokens = torch.from_numpy(tb.tokens).to(device)
     prompt_len = torch.from_numpy(tb.answer_pos).to(device).long() + 1
 
@@ -630,20 +661,28 @@ def run_generate(ds: BlindDataset, cfg: RunConfig, device: torch.device, max_new
         if rows.size < chunk:  # pad the tail chunk with its last row
             rows = np.pad(rows, (0, chunk - rows.size), mode="edge")
         sel = torch.from_numpy(rows).to(device)
+        if data > 1:  # this rank's share of the chunk
+            per = chunk // data
+            sel = sel[mesh.index("data") * per: (mesh.index("data") + 1) * per]
         t0 = time.time()
         if dparams is not None:
             out, stats = speculative_greedy_decode(
                 dparams, dspec, params, spec, tokens[sel], prompt_len[sel], max_new,
                 gamma=gamma, lora=lora, lora_spec=lspec, use_pallas=use_pallas,
-                return_stats=True)
+                return_stats=True, mesh=mesh)
+            committed = stats["committed"]
+            if data > 1:
+                committed = mesh_mod.gather_leaf(committed, ("data",), mesh)
             rounds_total += stats["rounds"]
             # a full row keeps counting, so committed - 1 over the real rows
             # is the unbiased tokens-a-round count
-            committed_total += float(stats["committed"][:n_real].sum().item() - n_real)
+            committed_total += float(committed[:n_real].sum().item() - n_real)
             round_rows += n_real * stats["rounds"]
         else:
             out = greedy_decode(params, tokens[sel], prompt_len[sel], max_new, spec, lora=lora,
-                                lora_spec=lspec, use_pallas=use_pallas)
+                                lora_spec=lspec, use_pallas=use_pallas, mesh=mesh)
+        if data > 1:
+            out = mesh_mod.gather_leaf(out, ("data",), mesh)
         out = out.cpu().numpy()
         if t_first is None:
             t_first = time.time() - t0
@@ -652,13 +691,14 @@ def run_generate(ds: BlindDataset, cfg: RunConfig, device: torch.device, max_new
 
     texts = decode_text(gen, tokenizer)
     values = decode_numeric(gen, tokenizer)
-    os.makedirs(cfg.out_dir, exist_ok=True)
-    with open(f"{cfg.out_dir}/generations.jsonl", "w") as f:
-        for sample, text, val in zip(ds, texts, values):
-            row = {"id": sample.id, "answer_type": sample.answer_type, "text": text}
-            if sample.answer_type == NUMERIC:
-                row["value"] = None if np.isnan(val) else float(val)
-            f.write(json.dumps(row) + "\n")
+    if mesh_mod.is_main():
+        os.makedirs(cfg.out_dir, exist_ok=True)
+        with open(f"{cfg.out_dir}/generations.jsonl", "w") as f:
+            for sample, text, val in zip(ds, texts, values):
+                row = {"id": sample.id, "answer_type": sample.answer_type, "text": text}
+                if sample.answer_type == NUMERIC:
+                    row["value"] = None if np.isnan(val) else float(val)
+                f.write(json.dumps(row) + "\n")
 
     report: Dict[str, Any] = {
         "n_samples": len(ds), "model": spec.name, "max_new": max_new,
@@ -677,7 +717,8 @@ def run_generate(ds: BlindDataset, cfg: RunConfig, device: torch.device, max_new
         report.update(draft=dspec.name, gamma=gamma, spec_rounds=int(rounds_total),
                       committed_per_round=round(per_round, 3),
                       draft_acceptance=round(max(per_round - 1.0, 0.0) / gamma, 3))
-    outputs.write_report(cfg.out_dir, report, name="generate_report.json")
+    if mesh_mod.is_main():
+        outputs.write_report(cfg.out_dir, report, name="generate_report.json")
     return report
 
 
@@ -686,13 +727,16 @@ _K1 = ("tst_flash_attention_fwd", "tst_flash_attention_bwd_dkv", "tst_flash_atte
 _K1_SEG = tuple(e + "_seg" for e in _K1)
 _K3 = ("tst_int4_matmul",)
 _K4 = ("tst_swiglu_gate_up", "tst_swiglu_down")
+_DECODE_ATTENTION = ("tst_decode_attention",)
 
 
-def warmup_entries(cfg: RunConfig) -> list:
+def warmup_entries(cfg: RunConfig, decodes: bool = False) -> list:
     """The CUDA entry points a diagnose-sft (or debias-ibp) run of ``cfg``
     would launch: K1's forward, dK/dV and dQ with ``model.use_pallas``, and
     their segmented variants with ``optim.pack``; K3 with an int4 base; K4
-    with ``model.fused_mlp`` when no adapter targets the MLP."""
+    with ``model.fused_mlp`` when no adapter targets the MLP; the decode
+    step's attention kernel when the set has decode-scored rows
+    (``decodes``)."""
     if not cfg.model.use_pallas:
         return []
     entries = list(_K1)
@@ -703,6 +747,8 @@ def warmup_entries(cfg: RunConfig) -> list:
     mlp_lora = any(t in cfg.lora.targets for t in ("gate_proj", "up_proj", "down_proj"))
     if cfg.model.fused_mlp and not mlp_lora:
         entries += _K4
+    if decodes:
+        entries += _DECODE_ATTENTION
     return entries
 
 
@@ -725,7 +771,7 @@ def run_warmup(ds: BlindDataset, cfg: RunConfig, device: torch.device,
     ``--platform cpu`` builds nothing (CPU tensors take the plain
     versions), and the report says so."""
     t_start = time.time()
-    _check_sft_config(ds, cfg)
+    run_mesh(cfg)
     tokenizer = build_tokenizer(cfg)
     tb = tokenize_dataset(ds, tokenizer, max_len=cfg.data.max_len,
                           include_context=cfg.data.include_context)
@@ -733,7 +779,7 @@ def run_warmup(ds: BlindDataset, cfg: RunConfig, device: torch.device,
     report: Dict[str, Any] = {"model": spec.name, "k": cfg.data.k, "seq_len": tb.seq_len,
                               "n_samples": len(ds),
                               "target": "debias-ibp" if ibp else "diagnose-sft"}
-    entries = warmup_entries(cfg)
+    entries = warmup_entries(cfg, decodes=_has_decoded_rows(ds))
     if device.type != "cuda":
         report.update(kernels=[], build_seconds=0.0, library=None,
                       note="--platform cpu: nothing to build; CPU tensors take the kernels' "
@@ -748,5 +794,6 @@ def run_warmup(ds: BlindDataset, cfg: RunConfig, device: torch.device,
         report.update(kernels=entries, build_seconds=round(res.seconds, 2),
                       library=res.path.name)
     report["wall_seconds"] = round(time.time() - t_start, 2)
-    outputs.write_report(cfg.out_dir, report, name="warmup_report.json")
+    if mesh_mod.is_main():
+        outputs.write_report(cfg.out_dir, report, name="warmup_report.json")
     return report

@@ -31,15 +31,23 @@ import numpy as np
 import torch
 
 from tst_torch.aux import ckpt as ckpt_mod
-from tst_torch.models.decoder import apply_model, check_remat, lm_head_weight
+from tst_torch.models.decoder import apply_model, check_remat, check_tensor_widths, head_logits
+from tst_torch.runtime import mesh as mesh_mod
 from tst_torch.models.lora import DropoutKey, LoraSpec, MaskFn, dropout_mask, fold_count, init_lora
 from tst_torch.models.spec import ModelSpec
 
 Params = Dict[str, Any]
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to tst_torch yet ({item})")
+#: raise at the first non-finite loss or adapter gradient (``--debug-nans``)
+DEBUG_NANS = False
+
+
+def set_debug_nans(on: bool) -> None:
+    """Turn the train step's finite check on or off for the process: the
+    counterpart of ``jax.config.update("jax_debug_nans", ...)``."""
+    global DEBUG_NANS
+    DEBUG_NANS = bool(on)
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -55,15 +63,33 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def check_finite(losses: torch.Tensor, grads: Params, step: int, fold0: int = 0) -> None:
+    """Raise FloatingPointError naming the step and the first fold whose loss
+    or adapter gradient holds a NaN or an infinity (gradient leaves
+    fold-stacked; folds counted from ``fold0``, a rank's first fold)."""
+    bad_loss = ~torch.isfinite(losses.detach().float())
+    bad = bad_loss.clone()
+    for g in tree_leaves(grads):
+        bad |= ~torch.isfinite(g.float()).reshape(g.shape[0], -1).all(-1)
+    if bool(bad.any()):
+        f = int(bad.nonzero()[0, 0])
+        what = "loss" if bool(bad_loss[f]) else "adapter gradient"
+        raise FloatingPointError(f"non-finite {what} at step {step}, fold {fold0 + f} "
+                                 "(--debug-nans)")
+
+
 def _masked_mean(logits: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
-                 n_folds: Optional[int]) -> torch.Tensor:
+                 n_folds: Optional[int], mesh=None) -> torch.Tensor:
     """-Σ w·log p(label) / max(Σ w, 1): a scalar, or with ``n_folds`` the
-    [k] per-fold means over the fold-major row blocks."""
+    [k] per-fold means over the fold-major row blocks. Under a mesh whose
+    ``data`` axis splits the rows, Σ w is the sum over the axis, so the
+    ranks' results add up to the one-process mean (their gradients are
+    summed over the axis)."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     gold = lp.gather(-1, labels.long()[..., None])[..., 0]
     k = n_folds or 1
     nll = -(gold * w).reshape(k, -1).sum(-1)
-    loss = nll / w.reshape(k, -1).sum(-1).clamp_min(1.0)
+    loss = nll / mesh_mod.sum_over(w.reshape(k, -1).sum(-1), mesh, ["data"]).clamp_min(1.0)
     return loss if n_folds else loss[0]
 
 
@@ -80,14 +106,17 @@ def sft_loss(
     fused_mlp: bool = False,
     lora_rng=None,
     seg_starts=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Prompt-masked causal-LM cross entropy (mean over target tokens). With
-    a fold-stacked ``lora`` and fold-major rows, the [k] per-fold means."""
+    a fold-stacked ``lora`` and fold-major rows, the [k] per-fold means.
+    ``mesh``: the base and adapters are this rank's shards (apply_model)."""
     logits = apply_model(base, tokens, spec, lora=lora, lora_spec=lora_spec,
                          use_pallas=use_pallas, remat=remat, ring_mesh=ring_mesh,
                          fused_mlp=fused_mlp, lora_rng=lora_rng,
-                         seg_starts=seg_starts)  # [B, S, V] f32
-    return _masked_mean(logits[:, :-1], tokens[:, 1:], loss_mask[:, 1:], fold_count(lora))
+                         seg_starts=seg_starts, mesh=mesh)  # [B, S, V] f32
+    return _masked_mean(logits[:, :-1], tokens[:, 1:], loss_mask[:, 1:], fold_count(lora),
+                        mesh)
 
 
 def sft_loss_window(
@@ -105,6 +134,7 @@ def sft_loss_window(
     fused_mlp: bool = False,
     lora_rng=None,
     seg_starts=None,
+    mesh=None,
 ) -> torch.Tensor:
     """The loss of :func:`sft_loss`, with the vocabulary projection only on
     the ``t_max`` rows ``answer_pos + [0, t_max)`` (targets are contiguous
@@ -118,7 +148,7 @@ def sft_loss_window(
     h = apply_model(base, tokens, spec, lora=lora, lora_spec=lora_spec,
                     use_pallas=use_pallas, remat=remat, return_hidden=True,
                     ring_mesh=ring_mesh, fused_mlp=fused_mlp, lora_rng=lora_rng,
-                    seg_starts=seg_starts)  # [B, S, D]
+                    seg_starts=seg_starts, mesh=mesh)  # [B, S, D]
     b, s = tokens.shape
     ap = (answer_pos if answer_pos.ndim == 2 else answer_pos[:, None]).long()  # [B, G]
     g = ap.shape[1]
@@ -131,10 +161,10 @@ def sft_loss_window(
         in_range = in_range & (rows + 1 < seg_end[:, :, None])
     rows = rows.reshape(b, g * t_max).clamp_max(s - 2)
     hsel = h.gather(1, rows[..., None].expand(-1, -1, h.shape[-1]))  # [B, G·T, D]
-    logits = hsel.float() @ lm_head_weight(base, spec).to(spec.dtype).float()
+    logits = head_logits(hsel, base, spec, mesh=mesh)
     labels = tokens.gather(1, rows + 1)
     w = loss_mask.gather(1, rows + 1) * in_range.reshape(b, g * t_max)
-    return _masked_mean(logits, labels, w, fold_count(lora))
+    return _masked_mean(logits, labels, w, fold_count(lora), mesh)
 
 
 def warmup_cosine_schedule(lr: float, total_steps: int,
@@ -264,8 +294,20 @@ def _sync(t: torch.Tensor) -> None:
 
 
 class FoldTrainer:
-    """The fold-parallel train step and the training loop. Options of the
-    reference that are not ported raise, naming their ROADMAP item."""
+    """The fold-parallel train step and the training loop.
+
+    ``mesh`` (tst_torch.runtime.mesh): the base passed to :meth:`step` and
+    :meth:`fit` is this rank's shard (``shard_tree``), and the adapters and
+    AdamW moments are this rank's part (:meth:`init_state`): its block of
+    k / fold folds, B split over ``tensor`` on the column-parallel
+    projections. Each rank gathers its folds' rows of a batch and its share
+    of them over ``data``; the window loss's sums run over ``data``, so the
+    per-fold losses are the one-process numbers on every rank, and the
+    gradients are summed over ``data`` (and ``seq`` under the ring, and
+    ``tensor`` where a rank holds a whole leaf). ``ring``: attention goes
+    around the mesh's ``seq`` axis (each rank runs its sequence block).
+    Checkpoints gather to rank 0 on save and every rank reads its part on
+    load; the file is the one-process file."""
 
     def __init__(
         self,
@@ -288,8 +330,14 @@ class FoldTrainer:
         dropout_masks: MaskFn = dropout_mask,
     ):
         check_remat(remat)
-        if ring or mesh is not None:
-            _not_ported("meshes and ring attention", "ROADMAP item 16")
+        self.mesh = mesh if mesh_mod.active(mesh) else None
+        #: sequence-parallel training: ring attention over the mesh's "seq" axis
+        self.ring_mesh = self.mesh if (ring and self.mesh is not None
+                                       and self.mesh.size("seq") > 1) else None
+        #: the folds this rank steps
+        self.folds = mesh_mod.fold_range(k, self.mesh)
+        if self.mesh is not None:
+            check_tensor_widths(spec, self.mesh.size("tensor"))
         self.spec = spec
         self.lora_spec = lora_spec
         self.k = k
@@ -322,10 +370,37 @@ class FoldTrainer:
 
     def init_state(self, rng: torch.Generator) -> Tuple[Params, AdamWState]:
         """(fold-stacked adapters [k, ...], optimizer state). The k adapters
-        are consecutive draws of ``rng``, so the folds start decorrelated."""
+        are consecutive draws of ``rng``, so the folds start decorrelated;
+        under a mesh, this rank's part of them."""
         loras = [init_lora(rng, self.spec, self.lora_spec) for _ in range(self.k)]
-        lora = tree_map(lambda *xs: torch.stack(xs), *loras)
+        lora = mesh_mod.local_lora(tree_map(lambda *xs: torch.stack(xs), *loras), self.mesh)
         return lora, self.tx.init(lora)
+
+    def global_tree(self, tree: Params) -> Params:
+        """A rank's adapter-shaped tree (adapters, or an AdamW moment) made
+        whole: every fold, B unsplit; a collective, every rank calls it."""
+        if self.mesh is None:
+            return tree
+        return {p: {n: mesh_mod.gather_leaf(t, mesh_mod.lora_local_pspec(p, n), self.mesh)
+                    for n, t in ab.items()} for p, ab in tree.items()}
+
+    def local_tree(self, tree: Params) -> Params:
+        """:meth:`global_tree`'s inverse: this rank's part of a whole tree."""
+        return mesh_mod.local_lora(tree, self.mesh)
+
+    def _rows(self, idx_kb: np.ndarray) -> np.ndarray:
+        """This rank's part of a batch's [k, B] rows: its folds, its share
+        over ``data``."""
+        idx = np.asarray(idx_kb)[self.folds.start: self.folds.stop]
+        if self.mesh is not None and self.mesh.size("data") > 1:
+            n, i = self.mesh.size("data"), self.mesh.index("data")
+            if idx.shape[1] % n:
+                raise ValueError(f"batch of {idx.shape[1]} rows a fold does not split over the "
+                                 f"{n} ranks of the 'data' axis (make_fold_batches' "
+                                 "batch_multiple)")
+            per = idx.shape[1] // n
+            idx = idx[:, i * per: (i + 1) * per]
+        return idx
 
     def loss_and_grads(self, base: Params, lora: Params, tokens: torch.Tensor,
                        mask: torch.Tensor, pos: torch.Tensor,
@@ -339,25 +414,28 @@ class FoldTrainer:
         k, b, s = tokens.shape
         lora_rng = None
         if step is not None and self.lora_spec.dropout > 0.0:
-            lora_rng = DropoutKey(tuple(range(k)), int(step), self.dropout_masks)
+            rows = ((self.mesh.index("data"), self.mesh.size("data"))
+                    if self.mesh is not None else None)
+            lora_rng = DropoutKey(tuple(self.folds), int(step), self.dropout_masks, rows=rows)
         params = tree_map(lambda t: t.detach().requires_grad_(True), lora)
         tokens, mask = tokens.reshape(k * b, s), mask.reshape(k * b, s)
         pos = pos.reshape(k * b, *pos.shape[2:])
         if segs is not None:
             segs = segs.reshape(k * b, -1)
+        kw = dict(remat=self.remat, ring_mesh=self.ring_mesh, fused_mlp=self.fused_mlp,
+                  lora_rng=lora_rng, seg_starts=segs, mesh=self.mesh)
         if self.t_max is None:
             losses = sft_loss(base, params, tokens, mask, self.spec, self.lora_spec,
-                              self.use_pallas, remat=self.remat, fused_mlp=self.fused_mlp,
-                              lora_rng=lora_rng, seg_starts=segs)
+                              self.use_pallas, **kw)
         else:
             losses = sft_loss_window(base, params, tokens, mask, pos, self.t_max, self.spec,
-                                     self.lora_spec, self.use_pallas, remat=self.remat,
-                                     fused_mlp=self.fused_mlp, lora_rng=lora_rng,
-                                     seg_starts=segs)
+                                     self.lora_spec, self.use_pallas, **kw)
         leaves = tree_leaves(params)
         grads = torch.autograd.grad(losses.sum(), leaves)
         by_id = {id(leaf): g for leaf, g in zip(leaves, grads)}
-        return losses.detach(), tree_map(lambda t: by_id[id(t)], params)
+        grads = mesh_mod.reduce_grads(tree_map(lambda t: by_id[id(t)], params), self.mesh,
+                                      ring=self.ring_mesh is not None)
+        return mesh_mod.sum_over(losses.detach(), self.mesh, ["data"]), grads
 
     def step(self, base: Params, lora: Params, opt_state: AdamWState,
              all_tokens: torch.Tensor, all_mask: torch.Tensor, all_pos: torch.Tensor,
@@ -368,16 +446,30 @@ class FoldTrainer:
         the arrays are per fold ([k, Np, ...], ``all_segs`` the starts) and
         fold f's rows come from its own split. The dropout masks (with
         ``lora_spec.dropout > 0``) follow the optimizer's count, which the
-        checkpoint restores."""
-        idx = torch.as_tensor(idx_kb, dtype=torch.long).to(all_tokens.device)
+        checkpoint restores. Under a mesh the step runs this rank's folds and
+        rows, and the losses are this rank's folds'."""
+        idx = torch.as_tensor(self._rows(idx_kb), dtype=torch.long).to(all_tokens.device)
         if self.packed:
-            ka = torch.arange(idx.shape[0], device=idx.device)[:, None]
+            ka = torch.arange(self.folds.start, self.folds.stop, device=idx.device)[:, None]
             idx = (ka, idx)
         segs = None if all_segs is None else all_segs[idx]
         losses, grads = self.loss_and_grads(base, lora, all_tokens[idx], all_mask[idx],
                                             all_pos[idx], segs, step=opt_state.count)
+        if DEBUG_NANS:
+            check_finite(losses, grads, step=opt_state.count, fold0=self.folds.start)
         updates, opt_state = self.tx.update(grads, opt_state, lora)
         return apply_updates(lora, updates), opt_state, losses
+
+    def save(self, checkpoint_dir: str, lora: Params, opt_state: AdamWState,
+             step: int) -> None:
+        """A checkpoint of the whole adapters and AdamW state, written by rank
+        0 (the other ranks wait for it)."""
+        whole = (self.global_tree(lora), AdamWState(opt_state.count,
+                                                     self.global_tree(opt_state.mu),
+                                                     self.global_tree(opt_state.nu)))
+        if mesh_mod.is_main():
+            ckpt_mod.save_train_state(checkpoint_dir, *whole, extra=self.ckpt_extra(step=step))
+        mesh_mod.barrier(self.mesh)
 
     def fit(
         self,
@@ -419,7 +511,13 @@ class FoldTrainer:
         start_step = 0
         if checkpoint_dir is not None and os.path.exists(
                 os.path.join(checkpoint_dir, ckpt_mod.EXTRA_FILE)):
-            lora, opt_state, extra = ckpt_mod.load_train_state(checkpoint_dir, lora, opt_state)
+            like = AdamWState(opt_state.count, self.global_tree(opt_state.mu),
+                              self.global_tree(opt_state.nu))
+            lora, opt_state, extra = ckpt_mod.load_train_state(
+                checkpoint_dir, self.global_tree(lora), like)
+            lora = self.local_tree(lora)
+            opt_state = AdamWState(opt_state.count, self.local_tree(opt_state.mu),
+                                   self.local_tree(opt_state.nu))
             start_step = int((extra or {}).get("step", 0))
         log = TrainLog()
         t0 = time.time()
@@ -427,7 +525,7 @@ class FoldTrainer:
         for t in range(start_step, batches.shape[0]):
             lora, opt_state, loss = self.step(base, lora, opt_state, all_tokens, all_mask,
                                               all_pos, batches[t], all_segs)
-            pending.append(loss)
+            pending.append(mesh_mod.gather_folds(loss, self.mesh))
             if t == start_step:
                 _sync(loss)
                 log.first_step_seconds = time.time() - t0
@@ -440,14 +538,12 @@ class FoldTrainer:
                     log_fn(t + 1, mean)
                 pending.clear()
             if checkpoint_dir is not None and (t + 1) % checkpoint_every == 0:
-                ckpt_mod.save_train_state(checkpoint_dir, lora, opt_state,
-                                          extra=self.ckpt_extra(step=t + 1))
+                self.save(checkpoint_dir, lora, opt_state, step=t + 1)
             if fail_after_step is not None and t + 1 >= fail_after_step:
                 raise RuntimeError(f"injected failure after step {t + 1}")
         _sync(all_tokens)
         if checkpoint_dir is not None:
-            ckpt_mod.save_train_state(checkpoint_dir, lora, opt_state,
-                                      extra=self.ckpt_extra(step=int(batches.shape[0])))
+            self.save(checkpoint_dir, lora, opt_state, step=int(batches.shape[0]))
         log.steps = int(batches.shape[0])
         log.wall_seconds = time.time() - t0
         if self.packed and n_segs is not None:

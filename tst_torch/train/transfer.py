@@ -29,10 +29,11 @@ from tst_torch.data.schema import BlindDataset
 from tst_torch.data.tokenize import tokenize_dataset
 from tst_torch.eval import metrics
 from tst_torch.io import outputs
+from tst_torch.runtime.mesh import is_main
 from tst_torch.train.infer import score_heldout_mcq, score_heldout_numeric, score_heldout_open
 from tst_torch.train.pipeline import (build_draft_model, build_model, build_tokenizer,
-                                      check_mesh, gold_texts_of, gold_values_of,
-                                      lora_spec_from_cfg)
+                                      gold_texts_of, gold_values_of, lora_spec_from_cfg,
+                                      run_mesh)
 from tst_torch.train.sft import FoldTrainer, make_fold_batches
 
 
@@ -41,13 +42,13 @@ def run_train_transfer(train_ds: BlindDataset, eval_ds: BlindDataset, cfg: RunCo
     """SFT on ``train_ds`` (every row), blind-score ``eval_ds`` with the
     trained adapter and zero-shot → the report (``transfer_report.json``)."""
     t_start = time.time()
-    check_mesh(cfg)
+    mesh = run_mesh(cfg)
     tokenizer = build_tokenizer(cfg)
     tb_train = tokenize_dataset(train_ds, tokenizer, max_len=cfg.data.max_len,
                                 include_context=cfg.data.include_context)
     tb_eval = tokenize_dataset(eval_ds, tokenizer, max_len=cfg.data.max_len,
                                include_context=cfg.data.include_context)
-    spec, params = build_model(cfg, tokenizer, device)
+    spec, params = build_model(cfg, tokenizer, device, mesh=mesh)
     lspec = lora_spec_from_cfg(cfg, spec.dtype)
 
     # k=1, every row trains: fold ids of -1 never match fold 0
@@ -67,8 +68,8 @@ def run_train_transfer(train_ds: BlindDataset, eval_ds: BlindDataset, cfg: RunCo
     trainer = FoldTrainer(
         spec, lspec, k=1, lr=cfg.optim.lr, total_steps=batches.shape[0],
         warmup_frac=cfg.optim.warmup_frac, weight_decay=cfg.optim.weight_decay,
-        use_pallas=use_pallas, remat=cfg.model.remat, t_max=t_max, b1=cfg.optim.b1,
-        b2=cfg.optim.b2, packed=pack is not None)
+        use_pallas=use_pallas, remat=cfg.model.remat, mesh=mesh, t_max=t_max,
+        ring=cfg.mesh.seq > 1, b1=cfg.optim.b1, b2=cfg.optim.b2, packed=pack is not None)
     lora, opt = trainer.init_state(torch.Generator(device=device).manual_seed(cfg.data.seed + 1))
     if pack is not None:
         lora, opt, tlog = trainer.fit(
@@ -87,9 +88,9 @@ def run_train_transfer(train_ds: BlindDataset, eval_ds: BlindDataset, cfg: RunCo
     tokens_ev = torch.from_numpy(tb_eval.tokens).to(device)
     pos_ev = torch.from_numpy(tb_eval.answer_pos).to(device)
     eval_fold0 = np.zeros(tb_eval.n, np.int32)
-    draft = build_draft_model(cfg, tokenizer, device)
+    draft = build_draft_model(cfg, tokenizer, device, mesh=mesh)
     decode_kw = dict(tokenizer=tokenizer, use_pallas=use_pallas, draft=draft,
-                     gamma=cfg.perf.spec_gamma)
+                     gamma=cfg.perf.spec_gamma, mesh=mesh)
     gold_values = gold_values_of(eval_ds)
     gold_texts = gold_texts_of(eval_ds)
 
@@ -99,7 +100,7 @@ def run_train_transfer(train_ds: BlindDataset, eval_ds: BlindDataset, cfg: RunCo
             probs = score_heldout_mcq(params, lora_or_none, spec, lspec_or_none, tokens_ev,
                                       pos_ev, tb_eval.option_token_ids, tb_eval.n_options,
                                       eval_fold0, 1, use_pallas=use_pallas,
-                                      option_seqs=tb_eval.option_token_seqs)
+                                      option_seqs=tb_eval.option_token_seqs, mesh=mesh)
             pred = probs.argmax(-1).astype(np.int32)
             mcq_rows = np.asarray(tb_eval.n_options) > 0
             leg["blind_accuracy"] = float(metrics.accuracy(pred[mcq_rows],
@@ -138,5 +139,6 @@ def run_train_transfer(train_ds: BlindDataset, eval_ds: BlindDataset, cfg: RunCo
         train_steps=tlog.steps,
         wall_seconds=round(time.time() - t_start, 2),
     )
-    outputs.write_report(cfg.out_dir, report, name="transfer_report.json")
+    if is_main():
+        outputs.write_report(cfg.out_dir, report, name="transfer_report.json")
     return report
