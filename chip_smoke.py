@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only mlp-int4  # phases 1-2, 11-12 (K3, K4), the int4 decode
                                            # and fused train steps of phases 13-14
     python3 chip_smoke.py --only serve     # phases 1-2, the decode attention kernel and 20
+    python3 chip_smoke.py --only llama8b   # phases 1-2, the native packer and 22
 
 Every step compared with the plain path (phases 7, 10, 14) holds its
 per-fold losses within 1e-3 of the plain loss, relative, and its LoRA
@@ -14,6 +15,10 @@ gradients at cosine >= 0.99.
 Phases, each printing one line; any failure raises and exits non-zero:
 
   1. device  — a CUDA device is present; its name and power limit;
+     native-pack — the port's C++ byte packer built with g++ from
+               tst_torch/native/csrc, backend="native" bit-equal to the Python
+               path on phase 21's long rows and on a 100,000-character context
+               (at its bucket and head-truncated to 512); each path's seconds;
   2. build   — nvcc builds every kernel from tst_torch/csrc (sm_90a); each
                kernel's registers and spill bytes; the count of wgmma (HGMMA)
                instructions in the SASS (cuobjdump) of each of the 12
@@ -111,8 +116,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                (the benchmark plants a length bias); the fit's wall and the
                traversal's time on the card;
  16. debias-ibp — ``python -m tst_torch debias-ibp`` (Qwen2.5-0.5B at full
-               width, bf16, synthetic-vsi:0.4, n=512, phase 6's training, 2
-               rounds, stop_epsilon -1) through the CLI: 2 rounds; the audit
+               width, bf16, synthetic-vsi:0.4, n=512, phase 6's training for
+               one epoch a round, 2 rounds, stop_epsilon -1) through the CLI: 2 rounds; the audit
                rows, debiased.jsonl + removed.jsonl and sx.jsonl's kept column
                add up; ibp_report.json is strict JSON; the three attention
                kernels launch as the rounds' own steps, scorer chunks and
@@ -131,11 +136,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
                written, the letter probabilities equal to phase 4's; the
                write and load walls and GB/s;
  19. llama — a checkpoint at Llama-3-8B's published width (config.json with
-               4 of its 32 layers, random weights from a seed, ~3.85 GB in a
-               temporary directory, deleted after): (a) ``diagnose-sft
-               --preset sft-mmmu-llama8b`` (k=5, batch 8, remat=True) with
-               model.path, the byte tokenizer, a mesh of one, synthetic:0.5,
-               n=120, one epoch: K1 at D=128 forward (twice a step under remat),
+               2 of its 32 layers, random weights from a seed, ~2.97 GB in a
+               temporary directory, deleted after; read back bit-equal, GB/s):
+               (a) ``diagnose-sft --preset sft-mmmu-llama8b`` (k=5, batch 8,
+               remat=True) with model.path, the byte tokenizer, a mesh of one,
+               synthetic:0.5, n=40, one epoch: K1 at D=128 forward (twice a step
+               under remat),
                dK/dV and dQ launches as implied; one step with remat against
                one without (the step gates; bit-equality reported), each one's
                step time, peak memory and profile; the multi-token scorer on
@@ -144,7 +150,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                the step's shape beside the plain version, the library and the
                bound; (b) the checkpoint quantized to int4 on arrival
                (``quantizing_put``), ``eval-blind`` on synthetic-vsi:0.4,
-               n=256: launches as implied (numeric rows decoded through K3 at
+               n=64: launches as implied (numeric rows decoded through K3 at
                Llama's widths), the first decode step's logits against the
                plain path (phase 13's gates);
  20. serve — Qwen2.5-0.5B at full width, bf16, random weights from the
@@ -193,6 +199,33 @@ shapes, Llama-3-8B's heads and a cache of 16,512 slots, bit-equal query by
 query and in a longer cache with masked slots between the keys; its device
 time from a CUDA graph beside the library's and the bound (the keys and
 values of the slots a row's queries see).
+
+ 22. llama8b — Llama-3-8B at all 32 of its layers and its published widths,
+               random weights from the seed initialized on the card (no
+               checkpoint), the byte tokenizer, a mesh of one card: (a)
+               ``diagnose-sft --preset sft-mmmu-llama8b`` (k=5, batch 8,
+               remat=True) on synthetic:0.5, n=80, one epoch, with
+               ``--profile-dir``: launches as implied, finite fold losses, s(x)
+               in [0, 1], the RF cross-check; the step's median ms, samples/s,
+               TFLOP/s (tst_torch.aux.flops) and its share of 989, peak memory
+               and the trace's top ops; one step (4 rows a fold) through the
+               kernels against ``model.use_pallas=false`` (the step gates of
+               phase 7); (b) ``debias-ibp --preset ibp-vsibench`` (k=5, remat,
+               prune_rate 0.1, the SFT diagnostic) on synthetic-vsi:0.4, n=60,
+               2 rounds: phase 16's gates, then the first decode step of the
+               bf16 base with round 0's fold-0 adapter through the kernels
+               against the plain path (phase 13's rule); (c) ``eval-blind`` on
+               an int4 base (quantized after the init) on synthetic-vsi:0.4,
+               n=128: launches as implied (K3 at Llama's widths in every decode
+               step), the first decode step through K3 against the plain path,
+               decode tokens/s and the step's idle share, the init +
+               quantization wall and the peak memory during the build and
+               after it.
+
+Phase 11 also times K3 and torch's tinygemm int4 product
+(``aten._weight_int4pack_mm``, bf16 scales; its library yardstick) at M=32
+over a decode layer's seven projections of Qwen2.5-0.5B and of
+Llama-3-8B, the library held to K3's plain version within 2e-2.
 
 The second-to-last line is the per-kernel JSON record (launches on the
 main path, error, kernel, plain and library times, and the bound: the
@@ -285,8 +318,18 @@ QWEN_INT4 = {"wq": (896, 896), "wk": (896, 128), "wv": (896, 128), "wo": (896, 8
              "w_gate": (896, 4864), "w_up": (896, 4864), "w_down": (4864, 896)}
 #: Llama-3-8B's int4 leaves: q/o, k/v, gate/up, down
 LLAMA_INT4 = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+#: the int4 group along K (tst_torch.models.quant.INT4_GROUP)
+INT4_GROUP_SIZE = 128
 #: the same bf16-rounded weights, f32 sums in another order
 INT4_TOL = 1e-2
+#: how often each of LLAMA_INT4's shapes comes in a layer (q/o, k/v,
+#: gate/up, down)
+LLAMA_INT4_PER_LAYER = (2, 2, 2, 1)
+#: K3's library yardstick, torch's tinygemm int4 product
+#: (aten._weight_int4pack_mm), against K3's plain version: its scales and
+#: output are bf16 (a scale rounded to 8 bits moves a product by up to
+#: 2^-9 of its size, the output's rounding as much again)
+LIB_INT4_TOL = 2e-2
 #: K4: the int4 train step (2 folds x 16 rows x 512 tokens), Llama-3-8B
 #: widths, and an M that is no multiple of the kernel's 32-row tile
 MLP_SHAPES = [(16384, 896, 4864), (2048, 4096, 14336), (1000, 896, 4864)]
@@ -317,11 +360,12 @@ RF = ["diagnose-rf", "--bench", "synthetic:0.5", "--set", "data.n=512", "--k", "
 #: trees against sklearn's f64 sum
 RF_TOL = 1e-6
 #: IBP with the SFT diagnostic on phase 14's mix, the train geometry of phase
-#: 6; stop_epsilon -1, so the loop at random weights (blind accuracy near
-#: chance) still prunes every round
+#: 6 for one epoch a round (three before phase 22 took its time); stop_epsilon
+#: -1, so the loop at random weights (blind accuracy near chance) still
+#: prunes every round
 IBP_ROUNDS = 2
 IBP = ["debias-ibp", "--bench", "synthetic-vsi:0.4", "--set", "data.n=512", "--k", "2",
-       "--set", "optim.batch_size=16", "--set", "optim.epochs=3",
+       "--set", "optim.batch_size=16", "--set", "optim.epochs=1",
        "--set", f"ibp.rounds={IBP_ROUNDS}", "--set", "ibp.stop_epsilon=-1",
        "--set", "model.name=qwen2.5-0.5b"]
 #: round 0's held-out MCQ s(x), kernels against the plain attention on the
@@ -354,17 +398,17 @@ LLAMA_CONFIG = {
     "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
     "rope_scaling": None, "rope_theta": 500000.0, "tie_word_embeddings": False,
     "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 128256}
-LLAMA_LAYERS = 4
+LLAMA_LAYERS = 2
 #: phase 19a's attention call: 5 folds x 8 rows of 512 tokens, Llama-3-8B heads
 LLAMA_STEP_SHAPE = (40, 512, 32, 8, 128)
 #: phase 19a: the sft-mmmu-llama8b preset (k=5, batch 8, remat=True) from the
 #: checkpoint, cut to one chip, the synthetic benchmark and one epoch
 LLAMA_TRAIN = ["diagnose-sft", "--preset", "sft-mmmu-llama8b", "--bench", "synthetic:0.5",
                "--set", "model.tokenizer=byte", "--set", "mesh.data=1", "--set", "mesh.tensor=1",
-               "--set", "data.n=120", "--set", "optim.epochs=1"]
+               "--set", "data.n=40", "--set", "optim.epochs=1"]
 #: phase 19b: eval-blind int4 through quantizing_put, numeric rows decoded
 #: through K3 at Llama-3-8B's widths
-LLAMA_BLIND_INT4 = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=256",
+LLAMA_BLIND_INT4 = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=64",
                     "--set", "model.name=llama3-8b", "--set", "model.tokenizer=byte",
                     "--set", "model.quantize=int4"]
 #: phase 19c: synthetic [C, T] option sequences for the multi-token scorer,
@@ -410,6 +454,28 @@ LONG_ROWS, LONG_CONTEXT_BYTES = 8, 16000
 LONG_TRAIN = ["diagnose-sft", "--preset", "sft-videomme-long", "--set", "model.tokenizer=byte",
               "--set", "model.remat=true", "--set", "optim.epochs=1",
               "--set", "rf.cross_check=false"]
+#: phase 22: Llama-3-8B at all 32 of its layers from a random init on the
+#: card (no checkpoint), the byte tokenizer (the presets' HF tokenizer needs
+#: a download) and the mesh of one card
+LLAMA8B_ONE_CARD = ["--set", "model.tokenizer=byte", "--set", "mesh.data=1",
+                    "--set", "mesh.tensor=1"]
+#: (a) the sft-mmmu-llama8b preset (k=5, batch 8, remat=True): 80 rows, one
+#: epoch, 8 fold-parallel steps of 40 rows x 512 tokens
+LLAMA8B_TRAIN = ["diagnose-sft", "--preset", "sft-mmmu-llama8b", "--bench", "synthetic:0.5",
+                 *LLAMA8B_ONE_CARD, "--set", "data.n=80", "--set", "optim.epochs=1"]
+#: (b) the ibp-vsibench preset (k=5, remat=True, prune_rate 0.1, the SFT
+#: diagnostic): 60 rows, one epoch a round, 2 rounds that always prune
+LLAMA8B_IBP_ROUNDS = 2
+LLAMA8B_IBP = ["debias-ibp", "--preset", "ibp-vsibench", "--bench", "synthetic-vsi:0.4",
+               *LLAMA8B_ONE_CARD, "--set", "data.n=60", "--set", "optim.epochs=1",
+               "--set", f"ibp.rounds={LLAMA8B_IBP_ROUNDS}", "--set", "ibp.stop_epsilon=-1"]
+#: (c) eval-blind on an int4 base quantized after the init: 96 MCQ rows and
+#: 32 numeric rows decoded through K3 at Llama's widths
+LLAMA8B_INT4 = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=128",
+                "--set", "model.name=llama3-8b", "--set", "model.quantize=int4"]
+LLAMA8B_LAYERS = 32
+#: the card's dense bf16 peak, for the step's share of it
+PEAK_TFLOPS = PEAK_BF16_FLOPS / 1e12
 #: safetensors' dtype names
 _ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
               torch.int8: "I8", torch.uint8: "U8"}
@@ -576,15 +642,17 @@ def check_split(n, kept_ids, removed_ids, sx_rows):
                              f"{len(sx_removed)} removed")
 
 
-def ibp_launches_want(plan, n_layers=N_LAYERS):
+def ibp_launches_want(plan, n_layers=N_LAYERS, remat=False):
     """The attention kernels' launches that IBP rounds imply, each round of
     ``plan`` given as its train steps, scorer chunks and decode prefill
     chunks (summed over the round's seeds and scoring passes): one forward a
-    layer for each step, chunk and prefill, one dK/dV and one dQ a layer for
-    each step, the decode attention a layer in each decode step after a
-    prefill's (MAX_NEW tokens), and nothing else."""
+    layer for each step (two under full remat, as sft_launches_want), chunk
+    and prefill, one dK/dV and one dQ a layer for each step, the decode
+    attention a layer in each decode step after a prefill's (MAX_NEW
+    tokens), and nothing else."""
     steps = sum(p["steps"] for p in plan)
-    fwd = steps + sum(p["scorer_chunks"] + p["decode_chunks"] for p in plan)
+    fwd = (steps * (2 if remat in (True, "full", "dots") else 1)
+           + sum(p["scorer_chunks"] + p["decode_chunks"] for p in plan))
     decode = sum(p["decode_chunks"] for p in plan)
     return {"fwd": n_layers * fwd, "dkv": n_layers * steps, "dq": n_layers * steps,
             "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0,
@@ -1361,6 +1429,46 @@ def phase_train_packed_vs_plain():
         raise AssertionError("the packed path through the kernels disagrees with the plain path")
 
 
+def trace_device_time(events):
+    """From a Chrome trace's events: the device's kernels (and copies, sets)
+    as (µs, calls, name), and the host ops whose launches took that device
+    time, as (µs, name): each kernel is counted under the innermost CPU op
+    around the runtime call that launched it (the call and the kernel share
+    a ``correlation`` id), as ``key_averages()``'s self device time counts
+    it. The trace is read instead of ``key_averages()``, which builds every
+    event in Python (tst_torch.aux.profile)."""
+    kernels, by_corr = {}, {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            acc = kernels.setdefault(ev["name"], [0.0, 0])
+            acc[0] += float(ev.get("dur", 0.0))
+            acc[1] += 1
+            corr = ev.get("args", {}).get("correlation")
+            if corr is not None:
+                by_corr[corr] = by_corr.get(corr, 0.0) + float(ev.get("dur", 0.0))
+    # per host thread, a sweep in time order keeps the stack of open CPU ops
+    threads = {}
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver"):
+            threads.setdefault((ev.get("pid"), ev.get("tid")), []).append(ev)
+    ops = {}
+    for evs in threads.values():
+        evs.sort(key=lambda e: (float(e["ts"]), e["cat"] != "cpu_op", -float(e.get("dur", 0))))
+        stack = []
+        for ev in evs:
+            ts = float(ev["ts"])
+            while stack and float(stack[-1]["ts"]) + float(stack[-1].get("dur", 0)) < ts:
+                stack.pop()
+            if ev["cat"] == "cpu_op":
+                stack.append(ev)
+            elif stack:
+                us = by_corr.get(ev.get("args", {}).get("correlation"), 0.0)
+                if us:
+                    ops[stack[-1]["name"]] = ops.get(stack[-1]["name"], 0.0) + us
+    return ([(us, n, name) for name, (us, n) in kernels.items()],
+            [(us, name) for name, us in ops.items()])
+
+
 def _profile(fn, steps, match=None):
     """Per call of ``fn``: the synchronized wall ms of ``steps`` calls
     without the profiler, and the device's busy ms from a torch.profiler
@@ -1385,21 +1493,21 @@ def _profile(fn, steps, match=None):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    kernels, ops = [], []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        row = (us / 1e3 / steps, e.count / steps, e.key)
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            kernels.append(row)
-        elif us > 0:
-            ops.append(row)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            kern_us, op_us = trace_device_time(json.load(f)["traceEvents"])
+    finally:
+        os.unlink(path)
+    kernels = [(us / 1e3 / steps, n / steps, name) for us, n, name in kern_us]
+    ops = [(us / 1e3 / steps, name) for us, name in op_us]
     busy = sum(k[0] for k in kernels)
     if busy <= 0:
         return {"wall_ms": wall_ms, "busy_ms": None, "idle_share": None, "top": [], "ops": []}
     top = [f"{name[:60]} {ms:.3f} ms x{cnt:g}" for ms, cnt, name in sorted(kernels)[::-1][:5]]
-    by_op = [f"{name[:48]} {ms:.3f} ms ({ms / busy:.1%})" for ms, _, name in sorted(ops)[::-1][:12]]
+    by_op = [f"{name[:48]} {ms:.3f} ms ({ms / busy:.1%})" for ms, name in sorted(ops)[::-1][:12]]
     out = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms, "top": top,
            "ops": by_op}
     if match:
@@ -1502,9 +1610,13 @@ def phase_kernel_int4(device, strict=True):
     g = torch.Generator(device=device).manual_seed(11)
     layer = {m: {"device_us": 0.0, "host_us": 0.0, "plain_ms": 0.0} for m in INT4_M}
     worst, timed = 0.0, []
-    cases = [(name, k, n) for name, (k, n) in QWEN_INT4.items()]
-    cases += [("llama3-8b", k, n) for k, n in LLAMA_INT4]
-    for name, k, n in cases:
+    # K3 and the library at M=32 summed over a decode layer's 7 projections
+    lib = {"qwen2.5-0.5b": {"k3_us": 0.0, "library_us": 0.0, "max_rel_err": 0.0},
+           "llama3-8b": {"k3_us": 0.0, "library_us": 0.0, "max_rel_err": 0.0}}
+    lib_error = None
+    cases = [(name, k, n, 1) for name, (k, n) in QWEN_INT4.items()]
+    cases += [("llama3-8b", k, n, c) for (k, n), c in zip(LLAMA_INT4, LLAMA_INT4_PER_LAYER)]
+    for name, k, n, per_layer in cases:
         w = (torch.randn(2, k, n, device=device, generator=g) / math.sqrt(k)).to(torch.bfloat16)
         leaf = quantize_leaf(w, bits=4)
         q, sc = leaf["q"], leaf["scale"]
@@ -1541,6 +1653,28 @@ def phase_kernel_int4(device, strict=True):
                 layer[m]["plain_ms"] += plain
                 line += (f"; kernel {dev:.2f} µs on the device, {host:.2f} µs on the host; "
                          f"plain {plain:.4f} ms")
+            if m == INT4_M[0] and lib_error is None:
+                fam = "llama3-8b" if name == "llama3-8b" else "qwen2.5-0.5b"
+                try:
+                    w4, sz = tinygemm_operands(q, sc, 1)
+                    got_lib = torch.ops.aten._weight_int4pack_mm(y, w4, INT4_GROUP_SIZE, sz)
+                    torch.cuda.synchronize()
+                except (RuntimeError, NotImplementedError, AttributeError) as e:
+                    lib_error = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+                else:
+                    rel_lib = _rel_err(got_lib, want)
+                    if rel_lib > LIB_INT4_TOL or not bool(torch.isfinite(got_lib).all()):
+                        raise AssertionError(f"the tinygemm yardstick disagrees with K3's plain "
+                                             f"version at M={m} K={k} N={n}: {rel_lib:.3e}")
+                    lib_us = graph_us(lambda: torch.ops.aten._weight_int4pack_mm(
+                        y, w4, INT4_GROUP_SIZE, sz))
+                    k3_us = graph_us(lambda: tqm._launch(y, q, sc, 1))
+                    lib[fam]["k3_us"] += per_layer * k3_us
+                    lib[fam]["library_us"] += per_layer * lib_us
+                    lib[fam]["max_rel_err"] = max(lib[fam]["max_rel_err"], rel_lib)
+                    line += (f"; library (aten._weight_int4pack_mm, bf16 scales) {lib_us:.2f} µs "
+                             f"vs K3 {k3_us:.2f} µs device, library vs plain {rel_lib:.3e} "
+                             f"(<= {LIB_INT4_TOL})")
             print(line + f" (<= {INT4_TOL})")
         del q, sc
     # kernels a call: a CUDA graph of one call at every Qwen shape
@@ -1550,6 +1684,15 @@ def phase_kernel_int4(device, strict=True):
           f"{launches:g}")
     if strict and launches != 1:
         raise AssertionError(f"K3 must be one launch a call: {launches:g}")
+    if lib_error is None:
+        for fam, row in lib.items():
+            print(f"[kernel-int4] {fam}: one decode layer's 7 projections at M={INT4_M[0]}, "
+                  f"device time (CUDA graph): K3 {row['k3_us']:.2f} µs, library "
+                  f"(aten._weight_int4pack_mm) {row['library_us']:.2f} µs; library vs K3's "
+                  f"plain version max|d|/max|ref| {row['max_rel_err']:.3e}")
+    else:
+        print(f"[kernel-int4] no library time: aten._weight_int4pack_mm refused K3's "
+              f"operands on this build of torch ({lib_error})")
     for m in INT4_M:
         print(f"[kernel-int4] one decode layer's 7 projections at M={m}: device "
               f"{layer[m]['device_us']:.2f} µs (CUDA graph of 10 calls, median of 20 replays), "
@@ -1561,12 +1704,42 @@ def phase_kernel_int4(device, strict=True):
     nbytes = sum(m * k * 2 + k * n // 2 + (k // 128) * n * 4 + m * n * 4
                  for k, n in QWEN_INT4.values())
     return {"max_abs_err": worst, "ms": layer[m]["device_us"] / 1e3,
-            "plain_ms": layer[m]["plain_ms"], "library_ms": None, **_bound(flops, nbytes),
+            "plain_ms": layer[m]["plain_ms"],
+            "library_ms": None if lib_error else lib["qwen2.5-0.5b"]["library_us"] / 1e3,
+            "library": lib_error or "aten._weight_int4pack_mm (tinygemm), bf16 scales",
+            "library_max_rel_err": None if lib_error else lib["qwen2.5-0.5b"]["max_rel_err"],
+            "llama_layer": None if lib_error else {
+                "k3_ms": lib["llama3-8b"]["k3_us"] / 1e3,
+                "library_ms": lib["llama3-8b"]["library_us"] / 1e3,
+                "library_max_rel_err": lib["llama3-8b"]["max_rel_err"]},
+            **_bound(flops, nbytes),
             "host_ms": layer[m]["host_us"] / 1e3,
             "device_us_a_call": {str(mm): layer[mm]["device_us"] / INT4_PROJ for mm in INT4_M},
             "host_us_a_call": {str(mm): layer[mm]["host_us"] / INT4_PROJ for mm in INT4_M},
             "timed": f"device time summed over one Qwen2.5-0.5B layer's 7 projections at M={m} "
                      f"(CUDA graph); host_ms the same sum on the host"}
+
+
+def tinygemm_weights(q, sc, layer):
+    """K3's operands (planar int4 ``q`` [L, K, N/2], f32 g128 scales ``sc``
+    [L, K/128, 1, N]), layer ``layer``, as torch's tinygemm int4 product
+    (``aten._weight_int4pack_mm``) reads them before packing: the weight
+    [N, K] as unsigned nibbles u = v + 8, and bf16 scales and zero points
+    [K/128, N, 2] with zeros 0 (tinygemm computes (u - 8) * scale + zero)."""
+    ql = q[layer]
+    v = torch.cat([(ql & 0xF).to(torch.int16) - 8, (ql >> 4).to(torch.int16)], dim=-1)
+    u = (v + 8).to(torch.uint8).t().contiguous()
+    scale = sc[layer][:, 0, :]
+    sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).to(torch.bfloat16).contiguous()
+    return u, sz
+
+
+def tinygemm_operands(q, sc, layer, inner_k_tiles=8):
+    """tinygemm_weights packed for the CUDA op: two nibbles a byte, then
+    ``_convert_weight_to_int4pack``'s tiled layout."""
+    u, sz = tinygemm_weights(q, sc, layer)
+    return torch.ops.aten._convert_weight_to_int4pack((u[:, ::2] << 4) | u[:, 1::2],
+                                                      inner_k_tiles), sz
 
 
 def _dattn_case(device, b, t, h, kvh, d, s, seed):
@@ -2167,12 +2340,14 @@ def ibp_round_plan(runner, alive, r):
     return {"steps": steps, "scorer_chunks": chunks, "decode_chunks": dchunks}
 
 
-def phase_debias_ibp():
+def run_ibp_gated(argv, n, rounds_want, n_layers, remat, tag):
     """``debias-ibp`` with the SFT diagnostic through the CLI: the rounds,
     the audit and the split add up, the report is strict JSON, the attention
     kernels launch as the rounds' own steps, scorer chunks and decode
     prefills imply; round 0's final adapters re-score its held-out MCQ rows
-    through the plain attention, and the two s(x) agree in rank."""
+    through the plain attention, and the two s(x) agree in rank. Returns
+    (launch counts, the rounds recorded: each one's runner, survivors, plan
+    and round 0's scoring call, the report, peak device GB)."""
     from tst_torch import cli
     from tst_torch.debias import ibp as tibp
     from tst_torch.diagnose.score import bias_scores
@@ -2198,25 +2373,27 @@ def phase_debias_ibp():
     tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq = recorded_round, recorded_score
     try:
         t0 = time.perf_counter()
-        rc = cli.main(IBP + ["--out", out_dir])
+        rc = cli.main(argv + ["--out", out_dir])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq = run_round, score
     counts = _launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    report, n_kept, n_removed = _ibp_artifacts(out_dir, N_SAMPLES)
+    report, n_kept, n_removed = _ibp_artifacts(out_dir, n)
     for rec in rounds:
         rec["plan"] = ibp_round_plan(rec["runner"], rec["alive"], rec["round"])
-    want = ibp_launches_want([r["plan"] for r in rounds])
-    if rc != 0 or report["rounds_run"] != IBP_ROUNDS or len(rounds) != IBP_ROUNDS:
+    want = ibp_launches_want([r["plan"] for r in rounds], n_layers, remat)
+    if rc != 0 or report["rounds_run"] != rounds_want or len(rounds) != rounds_want:
         raise AssertionError(f"debias-ibp rc={rc}, rounds_run {report['rounds_run']}, "
                              f"rounds recorded {len(rounds)}")
     check_launches(counts, want, "debias-ibp")
     walls = [{key: v for key, v in row.items() if key.startswith("round_")}
              for row in report["per_round"]]
-    print(f"[debias-ibp] debias-ibp synthetic-vsi:0.4 n=512 k=2, {IBP_ROUNDS} rounds rc=0: "
-          f"stop {report['stop_reason']}, n_alive {[r['n_alive'] for r in report['per_round']]}, "
+    cfg = rounds[0]["runner"].cfg
+    print(f"[{tag}] debias-ibp {cfg.data.bench} n={n} k={cfg.data.k}, {rounds_want} rounds "
+          f"rc=0: stop {report['stop_reason']}, n_alive "
+          f"{[r['n_alive'] for r in report['per_round']]}, "
           f"pruned {[r['pruned_this_round'] for r in report['per_round']]}, n_debiased "
           f"{report['n_debiased']} (debiased.jsonl {n_kept} + removed.jsonl {n_removed}; audit, "
           f"split and kept column agree; strict JSON); blind accuracy by round "
@@ -2224,9 +2401,10 @@ def phase_debias_ibp():
           f"{[round(r['chance'], 4) for r in report['per_round']]}), numeric MRA "
           f"{[r.get('numeric_mra') for r in report['per_round']]}; rf_sft_spearman "
           f"{report.get('rf_sft_spearman')}; rounds' plans {[r['plan'] for r in rounds]}; "
-          f"launches fwd {counts['fwd']} dkv {counts['dkv']} dq {counts['dq']} (as implied); "
-          f"CLI wall {wall:.2f} s; peak device memory {peak_gb:.2f} GB")
-    print(f"[debias-ibp] round walls (s): {json.dumps(walls)}")
+          f"launches fwd {counts['fwd']} dkv {counts['dkv']} dq {counts['dq']} dattn "
+          f"{counts['dattn']} (as implied{', the forward twice a step under remat' if remat else ''}"
+          f"); CLI wall {wall:.2f} s; peak device memory {peak_gb:.2f} GB")
+    print(f"[{tag}] round walls (s): {json.dumps(walls)}")
 
     # round 0's final adapters: its held-out MCQ rows through the plain attention
     args, kw, probs_k = rounds[0]["score"]
@@ -2238,14 +2416,21 @@ def phase_debias_ibp():
     gold, n_opts, rule = runner.tb.gold, runner.tb.n_options, runner.cfg.rf.score_rule
     s_k, s_p = (bias_scores(p, gold, n_opts, rule=rule)[mcq] for p in (probs_k, probs_p))
     rho = spearman(s_k, s_p)
-    print(f"[debias-ibp] round 0's held-out s(x) on its final adapters, {int(mcq.sum())} MCQ "
+    print(f"[{tag}] round 0's held-out s(x) on its final adapters, {int(mcq.sum())} MCQ "
           f"rows: kernels vs plain attention Spearman {rho:.6f} (>= {IBP_SPEARMAN}), "
           f"max|dprob| {float(np.abs(probs_k - probs_p)[mcq].max()):.3e}; plain scoring "
           f"{plain_s:.2f} s")
     if not rho >= IBP_SPEARMAN:
         raise AssertionError("IBP round 0's s(x) through the kernels disagrees in rank with "
                              "the plain attention")
-    del rounds, runner, args
+    return counts, rounds, report, peak_gb
+
+
+def phase_debias_ibp():
+    """Phase 16: run_ibp_gated on Qwen2.5-0.5B."""
+    counts, rounds, _, _ = run_ibp_gated(IBP, N_SAMPLES, IBP_ROUNDS, N_LAYERS, False,
+                                         "debias-ibp")
+    del rounds
     torch.cuda.empty_cache()
     return counts
 
@@ -2660,8 +2845,6 @@ def phase_llama(device):
         params = init_params(torch.Generator(device=device).manual_seed(19), spec)
         nbytes, write_s = write_checkpoint(ckpt, params, config)
         n_params = sum(t.numel() for _, t in _leaves(params))
-        del params
-        torch.cuda.empty_cache()
 
         # (a) the preset's diagnose-sft, remat=True
         argv = _llama_argv(ckpt, LLAMA_TRAIN)
@@ -2682,13 +2865,19 @@ def phase_llama(device):
         chunks = k * math.ceil(max(int((folds == f).sum()) for f in range(k)) / SCORER_BATCH)
         want = sft_launches_want(steps, chunks, spec.n_layers, remat=True)
         cfg, _ = cli._resolve(cli.build_parser().parse_args(argv))
-        _, _, load_s = _timed_build(cfg, device)
+        _, loaded, load_s = _timed_build(cfg, device)
+        differ = trees_equal(loaded, params)
+        del loaded, params
         torch.cuda.empty_cache()
+        if differ:
+            raise AssertionError(f"the Llama-width checkpoint read back differs from what was "
+                                 f"written: {differ[:8]}")
         sx = np.array([r["s_x"] for r in rows], np.float64)
         loss, rho = report["final_loss"], report.get("rf_sft_spearman")
         print(f"[llama] Llama-3-8B width, {spec.n_layers} of 32 layers, {n_params / 1e6:.1f} M "
               f"parameters: wrote {nbytes / 1e9:.3f} GB in {write_s:.2f} s, load "
-              f"{load_s:.3f} s ({nbytes / load_s / 1e9:.2f} GB/s from the page cache)")
+              f"{load_s:.3f} s ({nbytes / load_s / 1e9:.2f} GB/s from the page cache), every leaf "
+              f"bit-equal to what was written")
         print(f"[llama] diagnose-sft --preset sft-mmmu-llama8b (k={k}, batch "
               f"{cfg.optim.batch_size}, remat={cfg.model.remat}) rc={rc}: {steps} steps, "
               f"{chunks} scorer chunks; launches fwd {sft_counts['fwd']} dkv {sft_counts['dkv']} "
@@ -3304,13 +3493,303 @@ def phase_long(device):
     return out
 
 
+def phase_native_pack():
+    """The port's native byte packer (tst_torch.native, built with g++ from
+    the checkout) with backend="native" against the Python path: phase 21's
+    long rows at max_len 16384, and a 100,000-character context at its
+    bucket and head-truncated to 512; every TokenBatch field bit-equal; the
+    seconds each path takes. A failed build raises."""
+    from tst_torch.data.schema import BlindDataset
+    from tst_torch.data.tokenize import ByteTokenizer, tokenize_dataset
+    from tst_torch.native import fast_pack
+
+    root = tempfile.mkdtemp(prefix="tst_torch_pack_")
+    try:
+        t0 = time.perf_counter()
+        if not fast_pack.native_available():
+            raise AssertionError("the native packer did not build (g++ on "
+                                 f"tst_torch/native/csrc/fast_pack.cpp)")
+        build_s = time.perf_counter() - t0
+        cases = [("phase 21's rows", long_rows(os.path.join(root, "long.jsonl")), 16384),
+                 ("a 100,000-character context", long_rows(os.path.join(root, "ctx.jsonl"), n=1,
+                                                           nbytes=100_000, seed=1), None),
+                 ("the same, head-truncated", os.path.join(root, "ctx.jsonl"), 512)]
+        out = {"build_s": build_s}
+        for name, path, max_len in cases:
+            ds = BlindDataset.load_jsonl(path)
+            secs, batches = {}, {}
+            for backend in ("native", "python"):
+                t0 = time.perf_counter()
+                batches[backend] = tokenize_dataset(ds, ByteTokenizer(), max_len=max_len,
+                                                    backend=backend)
+                secs[backend] = time.perf_counter() - t0
+            nat, py = batches["native"], batches["python"]
+            differ = [f.name for f in dataclasses.fields(nat)
+                      if not np.array_equal(np.asarray(getattr(nat, f.name)),
+                                            np.asarray(getattr(py, f.name)))]
+            tail = nat.tokens[np.arange(nat.n), nat.answer_pos + 1]
+            print(f"[native-pack] {name}: {nat.n} rows of up to "
+                  f"{max(len(s.context) for s in ds)} characters into [{nat.n}, {nat.seq_len}]: "
+                  f"native {secs['native'] * 1e3:.2f} ms, python {secs['python'] * 1e3:.2f} ms; "
+                  f"fields that differ {differ} (must be none); first target token the gold "
+                  f"letter on every row: {bool((tail == nat.option_token_ids[nat.gold]).all())}")
+            if differ or not (tail == nat.option_token_ids[nat.gold]).all():
+                raise AssertionError(f"the native packer disagrees with the Python path on "
+                                     f"{name}: {differ}")
+            out[name] = {"native_s": secs["native"], "python_s": secs["python"]}
+        print(f"[native-pack] {fast_pack.library_path().name} built or found in {build_s:.2f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def remat_memory_reckoning(spec, rows, seq):
+    """What a remat train step must hold, in GB: the bf16 base (every
+    weight once) and each layer's saved input [rows, seq, d_model] in the
+    base's dtype."""
+    d, q, kv, f = spec.d_model, spec.q_dim, spec.kv_dim, spec.d_ff
+    layer = d * q + 2 * d * kv + q * d + 3 * d * f + 2 * d
+    head = 0 if spec.tie_embeddings else d * spec.vocab_size
+    n_params = spec.vocab_size * d + head + spec.n_layers * layer + d
+    item = torch.empty((), dtype=spec.dtype).element_size()
+    return {"weights_gb": n_params * item / 1e9,
+            "saved_inputs_gb": spec.n_layers * rows * seq * d * item / 1e9}
+
+
+def _llama8b_sft(root):
+    """Phase 22a: the sft-mmmu-llama8b preset through the CLI at 32 layers,
+    profiled; then one step through the kernels against the plain path."""
+    import tst_torch.train.sft as tsft
+    from tst_torch.aux.flops import train_step_flops
+
+    prof_dir = os.path.join(root, "prof")
+    step_ms, fold_losses, seen = [], [], {}
+    real_step = tsft.FoldTrainer.step
+
+    def timed_step(self, *args, **kw):
+        torch.cuda.synchronize()
+        if not step_ms:  # the set-up's peak (the init), then the steps' own
+            seen["setup_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = real_step(self, *args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        fold_losses.append(result[2].float().cpu().tolist())
+        seen.update(trainer=self, rows=int(np.prod(np.shape(args[6]))), seq=args[3].shape[1],
+                    step_peak=torch.cuda.max_memory_allocated())
+        return result
+
+    torch.cuda.reset_peak_memory_stats()
+    tsft.FoldTrainer.step = timed_step
+    try:
+        rc, counts, report, wall = _cli_run(LLAMA8B_TRAIN + ["--profile-dir", prof_dir],
+                                            os.path.join(root, "sft"), "report.json")
+    finally:
+        tsft.FoldTrainer.step = real_step
+    peak_gb = max(seen["setup_peak"], torch.cuda.max_memory_allocated()) / 1e9
+    rows = _read_jsonl(os.path.join(root, "sft", "sx.jsonl"))
+    with open(os.path.join(prof_dir, "op_summary.json")) as f:
+        summary = json.load(f)
+    trainer = seen["trainer"]
+    spec = trainer.spec
+    folds = np.array([r["fold"] for r in rows])
+    k, steps = report["k"], report["train_steps"]
+    chunks = k * math.ceil(max(int((folds == f).sum()) for f in range(k)) / SCORER_BATCH)
+    want = sft_launches_want(steps, chunks, LLAMA8B_LAYERS, remat=True)
+    sx = np.array([r["s_x"] for r in rows], np.float64)
+    rho, acc = report.get("rf_sft_spearman"), report.get("rf_blind_accuracy")
+    finite = all(math.isfinite(x) for fl in fold_losses for x in fl)
+    if (rc != 0 or spec.n_layers != LLAMA8B_LAYERS or counts != want or len(rows) != 80
+            or report["n_mcq"] != 80 or not finite or not fold_losses
+            or not ((sx >= 0) & (sx <= 1)).all() or not summary["top_ops"]
+            or not all(isinstance(v, float) and math.isfinite(v) for v in (rho, acc))):
+        raise AssertionError(f"Llama-3-8B diagnose-sft rc={rc}, layers {spec.n_layers}, launches "
+                             f"{counts} (want {want}), rows {len(rows)}, fold losses "
+                             f"{fold_losses}, rf_sft_spearman {rho}, rf_blind_accuracy {acc}")
+    median = statistics.median(step_ms[1:])
+    flops = train_step_flops(spec, trainer.lora_spec, seen["rows"], seen["seq"], trainer.t_max,
+                             remat=trainer.remat)
+    tflops = flops["hardware_flops"] / median * 1e3 / 1e12
+    reckon = remat_memory_reckoning(spec, seen["rows"], seen["seq"])
+    top = [f"{op['name'][:60]} {op['total_us'] / 1e3:.1f} ms x{op['calls']}"
+           for op in summary["top_ops"][:8]]
+    print(f"[llama8b] (a) diagnose-sft --preset sft-mmmu-llama8b, Llama-3-8B at "
+          f"{spec.n_layers} of 32 layers (random init on the card, vocab {spec.vocab_size}, "
+          f"d_model {spec.d_model}, {spec.n_heads}/{spec.n_kv_heads} heads, d_ff {spec.d_ff}; "
+          f"k={k}, remat={trainer.remat}) rc=0: {steps} steps of {seen['rows']} rows x "
+          f"{seen['seq']} tokens, {chunks} scorer chunks; launches fwd {counts['fwd']} dkv "
+          f"{counts['dkv']} dq {counts['dq']} (as implied: the forward twice a step under "
+          f"remat); fold losses {fold_losses[-1]} (every step finite); final_loss "
+          f"{report['final_loss']}, blind_accuracy {report['blind_accuracy']:.4f}; RF "
+          f"cross-check rf_sft_spearman {rho}, rf_blind_accuracy {acc}; CLI wall {wall:.2f} s "
+          f"under --profile-dir")
+    print(f"[llama8b] (a) step median {median:.1f} ms over {len(step_ms) - 1} steps after the "
+          f"first ({step_ms[0]:.1f} ms): {seen['rows'] / median * 1e3:.2f} train samples/s; "
+          f"{flops['hardware_flops'] / 1e15:.4f} PFLOP a step with remat's recomputation "
+          f"(train_step_flops; model FLOPs {flops['model_flops'] / 1e15:.4f}): {tflops:.1f} "
+          f"TFLOP/s, {tflops / PEAK_TFLOPS:.1%} of {PEAK_TFLOPS:g}; peak device memory "
+          f"{peak_gb:.2f} GB: the set-up {seen['setup_peak'] / 1e9:.2f} GB (the init), the train "
+          f"steps {seen['step_peak'] / 1e9:.2f} GB (reckoned: bf16 weights "
+          f"{reckon['weights_gb']:.2f} GB + saved layer inputs {reckon['saved_inputs_gb']:.2f} GB "
+          f"+ one layer's recompute and the head)")
+    print(f"[llama8b] (a) --profile-dir: top device ops of the run: {'; '.join(top)}")
+
+    # the step gates at full depth: one step through the kernels against the
+    # plain attention (the trainer's use_pallas off), on one state: the same
+    # weights, adapters and batch
+    t0 = time.perf_counter()
+    st = _train_state([f"optim.batch_size={PLAIN_ROWS}"], base=LLAMA8B_TRAIN)
+    rng = torch.Generator(device=st.tokens.device).manual_seed(7)
+    for ab in st.lora.values():
+        ab["b"] = (B_SCALE * torch.randn(ab["b"].shape, generator=rng,
+                                      device=rng.device)).to(ab["b"].dtype)
+    idx = torch.as_tensor(st.batches[0], dtype=torch.long, device=st.tokens.device)
+    states, secs = {}, {}
+    for use_pallas in (True, False):
+        st.trainer.use_pallas = use_pallas
+        t1 = time.perf_counter()
+        states[use_pallas] = st.trainer.loss_and_grads(
+            st.params, st.lora, st.tokens[idx], st.loss_mask[idx], st.answer_pos[idx])
+        torch.cuda.synchronize()
+        secs[use_pallas] = time.perf_counter() - t1
+    del st, idx
+    torch.cuda.empty_cache()
+    line, ok = _step_gates(states[True], states[False])
+    print(f"[llama8b] (a) one step at 32 layers, {PLAIN_ROWS} rows a fold, kernels vs "
+          f"model.use_pallas=false: {line}; kernels {secs[True]:.2f} s, plain "
+          f"{secs[False]:.2f} s, {time.perf_counter() - t0:.2f} s with the state's build")
+    if not ok:
+        raise AssertionError("the 32-layer Llama-3-8B step through the kernels disagrees with "
+                             "the plain path")
+    return {"launches": counts, "step_ms": median, "samples_per_s": seen["rows"] / median * 1e3,
+            "tflops": tflops, "peak_gb": peak_gb, "step_peak_gb": seen["step_peak"] / 1e9,
+            "top_ops": top[:5], **reckon}
+
+
+def _llama8b_ibp():
+    """Phase 22b: the ibp-vsibench preset through the CLI at 32 layers (bf16
+    base; numeric rows greedy-decoded through the decode attention kernel),
+    phase 16's gates, then the first decode step's logits through the
+    kernels against the plain path with round 0's fold-0 adapter."""
+    counts, rounds, report, peak_gb = run_ibp_gated(
+        LLAMA8B_IBP, 60, LLAMA8B_IBP_ROUNDS, LLAMA8B_LAYERS, True, "llama8b")
+    runner = rounds[0]["runner"]
+    lora_k = rounds[0]["score"][0][1]
+    one = {p: {n: t[0] for n, t in ab.items()} for p, ab in lora_k.items()}
+    rows = _numeric_rows(runner.ds)
+    t0 = time.perf_counter()
+    line, ok, _ = first_decode_step_gate(runner.params, runner.spec, runner.tokens,
+                                         runner.answer_pos, rows, lora=one, lspec=runner.lspec)
+    print(f"[llama8b] (b) bf16 base, round 0's fold-0 adapter, decode attention kernel vs plain: "
+          f"{line} ({time.perf_counter() - t0:.2f} s)")
+    walls = [{key: v for key, v in row.items() if key.startswith("round_")}
+             for row in report["per_round"]]
+    del rounds, runner, lora_k, one
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the 8B bf16 decode step through the kernels disagrees with the "
+                             "plain path")
+    return {"launches": counts, "peak_gb": peak_gb, "round_walls": walls}
+
+
+def _llama8b_int4(root):
+    """Phase 22c: eval-blind on Llama-3-8B's int4 base (quantize_params after
+    the init on the card) through the CLI: launches as implied, the first
+    decode step through K3 against the plain path, decode tokens/s and the
+    step's idle share, the init + quantization wall and peak memory during
+    the build and after it."""
+    from tst_torch import cli
+    from tst_torch.data.tokenize import ByteTokenizer, tokenize_dataset
+    from tst_torch.models.quant import quantized_bytes
+    from tst_torch.train import pipeline as tpipe
+
+    built = {}
+    real_build = tpipe.build_model
+
+    def timed_build(cfg, tokenizer, device, mesh=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = real_build(cfg, tokenizer, device, mesh=mesh)
+        torch.cuda.synchronize()
+        built.update(seconds=time.perf_counter() - t0, result=result,
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        return result
+
+    tpipe.build_model = timed_build
+    try:
+        rc, counts, report, wall = _cli_run(LLAMA8B_INT4, os.path.join(root, "int4"),
+                                            "blind_eval.json")
+    finally:
+        tpipe.build_model = real_build
+    after_gb = torch.cuda.max_memory_allocated() / 1e9
+    spec, params = built.pop("result")
+    cfg, device = cli._resolve(cli.build_parser().parse_args(LLAMA8B_INT4))
+    ds = cli._load_dataset(cfg)
+    tb = tokenize_dataset(ds, ByteTokenizer(), max_len=cfg.data.max_len,
+                          include_context=cfg.data.include_context)
+    tokens = torch.from_numpy(tb.tokens).to(device)
+    pos = torch.from_numpy(tb.answer_pos).to(device)
+    nrows = _numeric_rows(ds)
+    mc, dchunks = _decode_chunks(spec, params, tokens.shape[1], np.zeros(len(nrows)), 1)
+    want = blind_int4_launches_want(math.ceil(len(ds) / SCORER_BATCH), dchunks, LLAMA8B_LAYERS)
+    mra = report.get("numeric_blind_mra")
+    print(f"[llama8b] (c) eval-blind int4 Llama-3-8B at {spec.n_layers} layers, "
+          f"synthetic-vsi:0.4 n={len(ds)} rc={rc}: n_mcq {report['n_mcq']}, n_numeric "
+          f"{report.get('n_numeric')} in {dchunks} decode chunk(s) of {mc} rows; launches fwd "
+          f"{counts['fwd']} int4 {counts['int4']} dattn {counts['dattn']} (want {want['fwd']}/"
+          f"{want['int4']}/{want['dattn']}: K3 at {spec.d_model} -> {spec.q_dim}, "
+          f"{spec.kv_dim}, {spec.d_ff} and {spec.d_ff} -> {spec.d_model}); blind_accuracy "
+          f"{report['blind_accuracy']:.4f}, numeric_blind_mra {mra}; init + quantization "
+          f"{built['seconds']:.2f} s to a {quantized_bytes(params) / 1e9:.2f} GB base, peak "
+          f"device memory during the build {built['peak_gb']:.2f} GB, after it (scoring and "
+          f"decode) {after_gb:.2f} GB; CLI wall {wall:.2f} s")
+    if (rc != 0 or counts != want or report["n_mcq"] != 96 or report.get("n_numeric") != 32
+            or mra is None or not math.isfinite(mra)):
+        raise AssertionError(f"Llama-3-8B eval-blind int4 rc={rc}, launches {counts} (want "
+                             f"{want}), report {report}")
+    t0 = time.perf_counter()
+    line, ok, state = first_decode_step_gate(params, spec, tokens, pos, nrows)
+    print(f"[llama8b] (c) {line} ({time.perf_counter() - t0:.2f} s)")
+    if not ok:
+        raise AssertionError("the 32-layer decode step through K3 disagrees with the plain path")
+    step = decode_step_profiles(state)
+    rows = state[2].shape[0]
+    for up, name in ((True, "through K3"), (False, "plain path (dequantize, then product)")):
+        print(f"[llama8b] (c) decode step ({rows} rows, 32 layers), {name}: "
+              f"{rows / step[up]['wall_ms'] * 1e3:.1f} tokens/s; {_fmt_profile(step[up])}")
+    del state, params
+    torch.cuda.empty_cache()
+    return {"launches": counts, "build_s": built["seconds"], "build_peak_gb": built["peak_gb"],
+            "after_build_peak_gb": after_gb,
+            "decode_tokens_per_s": rows / step[True]["wall_ms"] * 1e3,
+            "decode_idle_share": step[True]["idle_share"]}
+
+
+def phase_llama8b():
+    """Phase 22: Llama-3-8B at all 32 layers on one card through the CLI."""
+    root = tempfile.mkdtemp(prefix="tst_torch_llama8b_")
+    try:
+        out = {"sft": _llama8b_sft(root)}
+        torch.cuda.empty_cache()
+        out["ibp"] = _llama8b_ibp()
+        out["int4"] = _llama8b_int4(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["rank", "mlp-int4", "serve", "long"], default=None,
+    parser.add_argument("--only", choices=["rank", "mlp-int4", "serve", "long", "llama8b"],
+                        default=None,
                         help="rank: the attention kernels against the library at the train "
                              "shape; mlp-int4: K3 and K4 against their plain versions, timed "
                              "(either runs on any build of tst_torch, so also a parent "
-                             "commit's); serve: phase 20 alone; long: phase 21 alone")
+                             "commit's); serve: phase 20 alone; long: phase 21 alone; "
+                             "llama8b: the native packer and phase 22 alone")
     args = parser.parse_args(argv)
     device = phase_device()
     phase_build(sass=args.only is None)
@@ -3324,6 +3803,10 @@ def main(argv=None):
     if args.only == "long":
         print(json.dumps({"long": phase_long(device)}, default=float))
         return
+    if args.only == "llama8b":
+        print(json.dumps({"native_pack": phase_native_pack(), "llama8b": phase_llama8b()},
+                         default=float))
+        return
     if args.only == "mlp-int4":
         print(json.dumps({"int4": phase_kernel_int4(device, strict=False),
                           "mlp": phase_kernel_mlp(device), "steps": phase_steps()}))
@@ -3336,6 +3819,7 @@ def main(argv=None):
         walls[name] = round(time.perf_counter() - t0, 1)
         return result
 
+    run("native-pack", phase_native_pack)
     kern = run("kernel", phase_kernel, device)
     blind_launches, slice_probs, slice_report = run("slice", phase_slice)
     bwd = run("kernel-bwd", phase_kernel_bwd, device)
@@ -3356,6 +3840,7 @@ def main(argv=None):
     llama = run("llama", phase_llama, device)
     serve = run("serve", phase_serve)
     long = run("long", phase_long, device)
+    l8 = run("llama8b", phase_llama8b)
     print(f"[walls] seconds a phase: {json.dumps(walls)}")
     sft, times = llama["sft"], llama["times"]
     long_shape = {key: {"shape": long["shape"], **long[key]} for key in ("fwd", "dkv", "dq")}
@@ -3367,6 +3852,9 @@ def main(argv=None):
          "launches_debias_ibp": ibp["fwd"], "launches_checkpoint_qwen": ckpt["fwd"],
          "launches_llama_sft": sft["fwd"], "launches_llama_int4": llama["int4"]["fwd"],
          "launches_serve": serve["fwd"], "launches_long": long["launches"]["fwd"],
+         "launches_llama8b_sft": l8["sft"]["launches"]["fwd"],
+         "launches_llama8b_ibp": l8["ibp"]["launches"]["fwd"],
+         "launches_llama8b_int4": l8["int4"]["launches"]["fwd"],
          "llama_shape": {"shape": times["shape"], **times["fwd"]},
          "long_shape": long_shape["fwd"], **kern, **bwd["fwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
@@ -3375,6 +3863,8 @@ def main(argv=None):
          "launches": counts["dkv"], "launches_debias_ibp": ibp["dkv"],
          "launches_llama_sft": sft["dkv"], "launches_serve": serve["dkv"],
          "launches_long": long["launches"]["dkv"],
+         "launches_llama8b_sft": l8["sft"]["launches"]["dkv"],
+         "launches_llama8b_ibp": l8["ibp"]["launches"]["dkv"],
          "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
                          **times["dkv"]}, "long_shape": long_shape["dkv"], **bwd["dkv"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
@@ -3383,6 +3873,8 @@ def main(argv=None):
          "launches": counts["dq"], "launches_debias_ibp": ibp["dq"],
          "launches_llama_sft": sft["dq"], "launches_serve": serve["dq"],
          "launches_long": long["launches"]["dq"],
+         "launches_llama8b_sft": l8["sft"]["launches"]["dq"],
+         "launches_llama8b_ibp": l8["ibp"]["launches"]["dq"],
          "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
                          **times["dq"]}, "long_shape": long_shape["dq"], **bwd["dq"]},
         {"name": "flash_attention_fwd_seg", "route": "cuda",
@@ -3400,7 +3892,8 @@ def main(argv=None):
         {"name": "int4_matmul", "route": "cuda", "source": "tst_torch/csrc/int4_matmul.cu",
          "replaces": "tst/kernels/quant_matmul.py:64", "launches": decode["int4"],
          "launches_diagnose_sft": fused["int4"], "launches_llama_int4": llama["int4"]["int4"],
-         "launches_serve": serve["int4"], **int4},
+         "launches_serve": serve["int4"],
+         "launches_llama8b_int4": l8["int4"]["launches"]["int4"], **int4},
         {"name": "fused_swiglu_mlp", "route": "cuda", "source": "tst_torch/csrc/fused_mlp.cu",
          "replaces": "tst/kernels/fused_mlp.py:44", "launches": fused["mlp"], **mlp},
         {"name": "decode_attention", "route": "cuda",
@@ -3408,7 +3901,9 @@ def main(argv=None):
          "replaces": "tst/models/decode.py:196 (jnp, no pallas_call)",
          "launches": decode["dattn"], "launches_diagnose_sft": fused["dattn"],
          "launches_debias_ibp": ibp["dattn"], "launches_llama_int4": llama["int4"]["dattn"],
-         "launches_serve": serve["dattn"], **dattn},
+         "launches_serve": serve["dattn"],
+         "launches_llama8b_ibp": l8["ibp"]["launches"]["dattn"],
+         "launches_llama8b_int4": l8["int4"]["launches"]["dattn"], **dattn},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

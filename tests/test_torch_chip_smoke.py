@@ -4,7 +4,10 @@ log's per-kernel registers and spills, the K3 first-token gate (no decisive
 disagreement) and the relative per-fold loss bound, phases 15-17's gates, and
 phases 18-19's checkpoint writer, HF-name exporter and launch arithmetic, and
 phase 20's launch arithmetic of generate and speculative decode and its
-token gate. The phases that use them run only on a card."""
+token gate, phase 22's launch arithmetic at Llama-3-8B's 32 layers (IBP
+under remat), its command lines and memory reckoning, and phase 11's
+library yardstick for K3 (tinygemm's operands). The phases that use them
+run only on a card."""
 
 import math
 import sys
@@ -487,3 +490,111 @@ def test_decode_attention_case_and_bound_count_the_visible_slots():
     assert rec["bound_by"] == "bytes"
     whole = 2 * q.numel() * 2 + 2 * k.numel() * 2 + mask.numel()
     assert rec["bound_ms"] < 0.6 * whole / chip_smoke.PEAK_BYTES_PER_S * 1e3
+
+
+def test_llama8b_launch_arithmetic():
+    """Phase 22's launches at 32 layers: the preset's step under full remat
+    (the forward twice a step), IBP rounds under remat with their decode
+    prefills and steps, and the int4 eval-blind's K3 and decode attention."""
+    assert chip_smoke.LLAMA8B_LAYERS == 32
+    assert chip_smoke.sft_launches_want(9, 5, 32, remat=True) == {
+        "fwd": 32 * 23, "dkv": 32 * 9, "dq": 32 * 9, "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0,
+        "int4": 0, "mlp": 0, "dattn": 0}
+    plan = [{"steps": 7, "scorer_chunks": 5, "decode_chunks": 2},
+            {"steps": 6, "scorer_chunks": 5, "decode_chunks": 2}]
+    want = chip_smoke.ibp_launches_want(plan, 32, remat=True)
+    assert want == {"fwd": 32 * (2 * 13 + 10 + 4), "dkv": 32 * 13, "dq": 32 * 13,
+                    "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0, "int4": 0, "mlp": 0,
+                    "dattn": 32 * 11 * 4}
+    assert chip_smoke.ibp_launches_want(plan, 32)["fwd"] == 32 * (13 + 10 + 4)
+    assert chip_smoke.ibp_launches_want(plan, 32, remat="flash") == \
+        chip_smoke.ibp_launches_want(plan, 32)
+    with pytest.raises(AssertionError, match="debias-ibp: launches"):
+        chip_smoke.check_launches(chip_smoke.ibp_launches_want(plan, 32), want, "debias-ibp")
+    assert chip_smoke.blind_int4_launches_want(4, 1, 32) == {
+        "fwd": 32 * 5, "dkv": 0, "dq": 0, "fwd_seg": 0, "dkv_seg": 0, "dq_seg": 0,
+        "int4": 7 * 32 * 11, "mlp": 0, "dattn": 32 * 11}
+
+
+def test_llama8b_phase_runs_the_presets_at_full_depth():
+    """Phase 22's command lines: the two presets and Llama-3-8B by name (no
+    checkpoint: every layer of the published geometry), on one card."""
+    from tst_torch import cli
+    from tst_torch.models.spec import spec_by_name
+
+    for argv, preset in ((chip_smoke.LLAMA8B_TRAIN, "sft-mmmu-llama8b"),
+                         (chip_smoke.LLAMA8B_IBP, "ibp-vsibench"), (chip_smoke.LLAMA8B_INT4, None)):
+        args = cli.build_parser().parse_args(argv + ["--platform", "cpu"])
+        cfg, _ = cli._resolve(args)
+        assert args.preset == preset and cfg.model.path is None
+        assert cfg.model.name == "llama3-8b" and cfg.model.tokenizer == "byte"
+        assert (cfg.mesh.fold, cfg.mesh.data, cfg.mesh.seq, cfg.mesh.tensor) == (1, 1, 1, 1)
+        if preset:
+            assert cfg.data.k == 5 and cfg.model.remat is True
+    assert spec_by_name("llama3-8b").n_layers == chip_smoke.LLAMA8B_LAYERS
+
+
+def test_remat_memory_reckoning_at_llama8b():
+    """The reckoning printed beside phase 22a's peak: Llama-3-8B's 8.03 B
+    bf16 weights (16.06 GB) and 32 saved layer inputs of [40, 512, 4096]."""
+    from tst_torch.models.spec import spec_by_name
+
+    got = chip_smoke.remat_memory_reckoning(spec_by_name("llama3-8b"), 40, 512)
+    assert got["weights_gb"] == pytest.approx(16.0605, abs=1e-3)
+    assert got["saved_inputs_gb"] == pytest.approx(32 * 40 * 512 * 4096 * 2 / 1e9)
+    tiny = spec_by_name("qwen2.5-0.5b")
+    assert chip_smoke.remat_memory_reckoning(tiny, 1, 1)["weights_gb"] == pytest.approx(
+        0.988, abs=2e-3)  # tied head: the embedding counted once
+
+
+@pytest.mark.parametrize("k,n", [(896, 128), (4096, 1024)])
+def test_tinygemm_yardstick_computes_k3s_function(k, n):
+    """K3's library yardstick reads K3's leaf as tinygemm's unsigned
+    nibbles and bf16 scales: on the CPU variant of the same op the product
+    agrees with K3's plain version within LIB_INT4_TOL."""
+    import tst_torch.kernels.quant_matmul as tqm
+    from tst_torch.models.quant import quantize_leaf
+
+    g = torch.Generator().manual_seed(0)
+    w = (torch.randn(2, k, n, generator=g) / math.sqrt(k)).to(torch.bfloat16)
+    leaf = quantize_leaf(w, bits=4)
+    y = torch.randn(8, k, generator=g).to(torch.bfloat16)
+    u, sz = chip_smoke.tinygemm_weights(leaf["q"], leaf["scale"], 1)
+    assert u.shape == (n, k) and u.dtype == torch.uint8 and int(u.min()) >= 1
+    assert sz.shape == (k // 128, n, 2) and not sz[..., 1].any()
+    w4 = torch.ops.aten._convert_weight_to_int4pack_for_cpu(u.int(), 8)
+    got = torch.ops.aten._weight_int4pack_mm_for_cpu(y, w4, chip_smoke.INT4_GROUP_SIZE, sz)
+    want = tqm.int4_matmul_reference(y, leaf["q"], leaf["scale"], 1)
+    assert chip_smoke._rel_err(got, want) <= chip_smoke.LIB_INT4_TOL
+    # the other layer's weights give another product: the layer index is read
+    other = tqm.int4_matmul_reference(y, leaf["q"], leaf["scale"], 0)
+    assert chip_smoke._rel_err(got, other) > 0.5
+
+
+def test_trace_device_time_sums_kernels_and_their_launching_ops():
+    """The profile read from a Chrome trace: kernels summed by name; each
+    kernel's time counted under the innermost CPU op around the runtime call
+    that launched it (matched by correlation id), not under its parents."""
+
+    def x(cat, name, ts, dur, tid=1, corr=None):
+        ev = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "pid": 0, "tid": tid}
+        if corr is not None:
+            ev["args"] = {"correlation": corr}
+        return ev
+
+    events = [
+        x("cpu_op", "aten::linear", 0, 100), x("cpu_op", "aten::mm", 10, 30),
+        x("cuda_runtime", "cudaLaunchKernel", 20, 5, corr=1),
+        x("cuda_runtime", "cudaLaunchKernel", 60, 5, corr=2),  # linear's own launch
+        x("cpu_op", "aten::mul", 200, 10, tid=2),
+        x("cuda_driver", "cuLaunchKernel", 203, 2, tid=2, corr=3),
+        x("cuda_runtime", "cudaLaunchKernel", 300, 2, tid=2, corr=4),  # outside any op
+        x("kernel", "gemm", 25, 40, tid=7, corr=1), x("kernel", "gemm", 70, 60, tid=7, corr=2),
+        x("kernel", "mul_kernel", 210, 5, tid=7, corr=3),
+        x("gpu_memcpy", "Memcpy DtoD", 305, 1, tid=7, corr=4),
+        {"ph": "f", "cat": "ac2g", "name": "flow", "ts": 25, "id": 1},
+    ]
+    kernels, ops = chip_smoke.trace_device_time(events)
+    assert sorted(kernels) == [(1.0, 1, "Memcpy DtoD"), (5.0, 1, "mul_kernel"),
+                               (100.0, 2, "gemm")]
+    assert sorted(ops) == [(5.0, "aten::mul"), (40.0, "aten::mm"), (60.0, "aten::linear")]

@@ -143,14 +143,6 @@ def test_tokenize_head_truncates_long_context():
         np.testing.assert_array_equal(getattr(tbs[0], name), getattr(tbs[1], name))
 
 
-def test_tokenize_native_backend_not_ported():
-    ds = tload("synthetic:0.5", n=4, seed=0)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        ttokenize(ds, TByteTokenizer(), backend="native")
-    with pytest.raises(ValueError, match="unknown tokenize backend"):
-        ttokenize(ds, TByteTokenizer(), backend="rust")
-
-
 @pytest.mark.parametrize("bench,n", [("synthetic:0.5", 48), ("synthetic-vsi:0.4", 40),
                                      ("synthetic-numeric", 17)])
 @pytest.mark.parametrize("k,seed", [(2, 0), (3, 1), (5, 7)])

@@ -1,5 +1,6 @@
-# The port's own copy of tst/data/tokenize.py (the native C++ packer left out): the port imports nothing of
-# tst. tests/test_torch_host.py holds the two to equal results.
+# The port's own copy of tst/data/tokenize.py: the port imports nothing of tst
+# (its native packer is the port's copy, tst_torch.native). tests/test_torch_host.py
+# and tests/test_torch_native_pack.py hold the two to equal results.
 """Tokenization + fixed-shape packing of blind prompts for TPU.
 
 TPU/XLA programs are compiled per shape, so variable-length text must become
@@ -225,17 +226,26 @@ def tokenize_dataset(
     (the question/options tail is always kept — it carries the shortcut signal
     the diagnostic is hunting for).
 
-    ``backend='auto'`` and ``'python'`` take the Python packing path, which
-    is byte-identical to the reference's native C++ packer
-    (``tst/data/tokenize.py:226-229``); the port has no copy of that packer
-    yet (ROADMAP §1 item 19), so ``backend='native'`` raises
-    NotImplementedError.
+    ``backend='auto'`` routes byte-tokenizer packing through the port's
+    native C++ packer (tst_torch.native.fast_pack, built with g++ at first
+    use) when it builds, and otherwise, like any other tokenizer, through
+    the Python path; the two are byte-identical (tested). ``'native'``
+    insists: it raises ValueError for another tokenizer and RuntimeError
+    when the packer cannot be built. ``'python'`` always takes the Python
+    path.
     """
     if backend not in ("auto", "python", "native"):
         raise ValueError(f"unknown tokenize backend {backend!r}")
-    if backend == "native":
-        raise NotImplementedError("native (C++) byte packing is not ported yet "
-                                  "(ROADMAP item 19); use backend='python' or 'auto'")
+    if backend != "python" and isinstance(tokenizer, ByteTokenizer):
+        from tst_torch.native.fast_pack import native_available
+
+        if native_available():
+            return _tokenize_dataset_native(ds, tokenizer, max_len, buckets,
+                                            include_context)
+        if backend == "native":
+            raise RuntimeError("native packing requested but unavailable")
+    elif backend == "native":
+        raise ValueError("native packing only supports the byte tokenizer")
 
     prompt_ids: List[List[int]] = []
     target_ids: List[List[int]] = []
@@ -318,3 +328,48 @@ def pad_batch_n(tb: TokenBatch, multiple: int) -> Tuple[TokenBatch, np.ndarray]:
     )
     valid = np.concatenate([np.ones(n, np.float32), np.zeros(n_pad, np.float32)])
     return padded, valid
+
+
+def _gold_arrays(ds: BlindDataset, tokenizer):
+    n = len(ds)
+    max_opts = max((len(s.options) for s in ds), default=0)
+    gold = np.full(n, -1, np.int32)
+    n_opts = np.zeros(n, np.int32)
+    for i, s in enumerate(ds):
+        if s.answer_type == MCQ:
+            gold[i] = s.answer_index
+            n_opts[i] = len(s.options)
+    opt_ids = tokenizer.option_token_ids(max_opts) if max_opts else np.zeros(0, np.int32)
+    return gold, n_opts, opt_ids
+
+
+def _tokenize_dataset_native(ds, tokenizer, max_len, buckets, include_context):
+    """ByteTokenizer packing through the C++ kernel; same semantics as the
+    Python path (space-folded targets, BOS/EOS, head-truncation)."""
+    from tst_torch.native.fast_pack import pack_byte_batch
+
+    prompts: List[bytes] = []
+    targets: List[bytes] = []
+    for s in ds:
+        p, t = blind.render_example(s, include_context)
+        if t.startswith(" "):  # ByteTokenizer folds the target space into the prompt
+            p, t = p + " ", t[1:]
+        prompts.append(p.encode("utf-8", errors="replace"))
+        targets.append(t.encode("utf-8", errors="replace"))
+    p_off = np.zeros(len(ds) + 1, np.int64)
+    t_off = np.zeros(len(ds) + 1, np.int64)
+    np.cumsum([len(b) for b in prompts], out=p_off[1:])
+    np.cumsum([len(b) for b in targets], out=t_off[1:])
+    lengths = (p_off[1:] - p_off[:-1]) + (t_off[1:] - t_off[:-1]) + 2  # +BOS +EOS
+    L = _resolve_len(lengths, max_len, buckets)
+    tokens, loss_mask, answer_pos, true_len = pack_byte_batch(
+        b"".join(prompts), p_off, b"".join(targets), t_off, L,
+        tokenizer.pad_id, tokenizer.bos_id, tokenizer.eos_id,
+        names=[s.id for s in ds],
+    )
+    gold, n_opts, opt_ids = _gold_arrays(ds, tokenizer)
+    return TokenBatch(
+        tokens=tokens, loss_mask=loss_mask, answer_pos=answer_pos,
+        lengths=true_len, gold=gold, n_options=n_opts,
+        option_token_ids=opt_ids, pad_id=tokenizer.pad_id,
+    )
