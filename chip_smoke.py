@@ -7,6 +7,7 @@
                                            # and fused train steps of phases 13-14
     python3 chip_smoke.py --only serve     # phases 1-2, the decode attention kernel and 20
     python3 chip_smoke.py --only llama8b   # phases 1-2, the native packer and 22
+    python3 chip_smoke.py --only entry     # phases 1-2 and 23
 
 Every step compared with the plain path (phases 7, 10, 14) holds its
 per-fold losses within 1e-3 of the plain loss, relative, and its LoRA
@@ -222,6 +223,24 @@ values of the slots a row's queries see).
                quantization wall and the peak memory during the build and
                after it.
 
+ 23. entry — the entry points of tst_torch.graft_entry: (a)
+               ``entry()``, Qwen2.5-0.5B at full width in bf16 from a random
+               init on the card, its forward of a [4, 512] batch: K1's forward
+               launched once a layer (24) and no other kernel, the logits
+               against the plain attention on the same weights within 2e-2 ·
+               max|logit|; since a batch of ones gives every position one
+               value row, which attention returns whatever its weights, also
+               on random tokens against the plain path in f32 (the bf16 plain
+               path's distance reported); the first and the median call's
+               wall and the peak memory; (b) ``dryrun_multichip(1)``: every leg of the
+               reference's dry run on a mesh of one card (``tiny`` with
+               d_head 64 for the kernels) through K1 (plain and segmented,
+               forward and backward) and the decode attention, each launched,
+               K3 and K4 not; its OK line parsed and gated (speculative decode
+               exact, the ring within 1e-4); its wall; (c)
+               ``dryrun_multichip(4)`` over NCCL when the machine has 4 cards
+               (else a line says so): its OK line and wall.
+
 Phase 11 also times K3 and torch's tinygemm int4 product
 (``aten._weight_int4pack_mm``, bf16 scales; its library yardstick) at M=32
 over a decode layer's seven projections of Qwen2.5-0.5B and of
@@ -259,6 +278,9 @@ N_SAMPLES, N_LAYERS, SCORER_BATCH = 512, 24, 32
 KERNEL_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64)]
 #: the kernels also at one tile (S=64), at both head dims
 ONE_TILE = [(3, 64, 14, 2, 64), (2, 64, 8, 2, 128)]
+#: and at the dry run's calls (phase 23; tiny with d_head 64): one rank's
+#: train step (4/2 heads), a tensor=2 rank's scorer and prefill (2/1 heads)
+DRYRUN_SHAPES = [(4, 512, 4, 2, 64), (8, 512, 2, 1, 64)]
 #: the card's peaks for the bounds (NVIDIA H100 SXM data sheet: dense bf16,
 #: HBM3)
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
@@ -290,9 +312,10 @@ PACKED = ["optim.pack=true"]
 #: the packed train step's attention call: 2 folds x 16 rows of 1024 tokens
 PACKED_TRAIN_SHAPE = (32, 1024, 14, 2, 64)
 #: the other segmented checks: Llama-3-8B heads at S=2048, 8 segments a row
-#: (where the TPU dispatches its chunked K2 bodies); 128- and 64-token cases
+#: (where the TPU dispatches its chunked K2 bodies); 128- and 64-token cases;
+#: the dry run's packed step, one rank's (4/2 heads) and a tensor=2 rank's
 SEG_SHAPES = [(2, 2048, 32, 8, 128), (5, 128, 14, 2, 64), (5, 64, 14, 2, 64),
-              (3, 64, 8, 2, 128)]
+              (3, 64, 8, 2, 128), (2, 1024, 4, 2, 64), (2, 1024, 2, 1, 64)]
 #: segment starts a row (kernel layout) and the unused slot
 MAX_SEGS, SEG_PAD = 8, 1 << 30
 #: packed rows per fold of the kernel-vs-plain step: the plain attention keeps
@@ -306,9 +329,11 @@ INT4_M = (32, 64)
 SPEC_GAMMA = 2
 #: the decode attention kernel's checks (B, T, H, KVH, D, S): a greedy step
 #: of 32 rows at Qwen2.5-0.5B's heads (timed), the verify chunk, Llama-3-8B's
-#: heads, and a cache of the long preset (16384 slots and a generation pad)
+#: heads, a cache of the long preset (16384 slots and a generation pad), and
+#: the dry run's decode: one rank's greedy step, a tensor=2 rank's verify chunk
 DATTN_CASES = [(32, 1, 14, 2, 64, 640), (32, SPEC_GAMMA + 1, 14, 2, 64, 640),
-               (8, SPEC_GAMMA + 1, 32, 8, 128, 640), (2, SPEC_GAMMA + 1, 14, 2, 64, 16512)]
+               (8, SPEC_GAMMA + 1, 32, 8, 128, 640), (2, SPEC_GAMMA + 1, 14, 2, 64, 16512),
+               (8, 1, 4, 2, 64, 640), (4, SPEC_GAMMA + 1, 2, 1, 64, 640)]
 #: phase 20d on a bf16 target: speculative decode's gammas, rows a call (a
 #: full decode chunk, and a count that is no multiple of 8) and tokens a row
 BF16_SPEC_GAMMAS, BF16_SPEC_ROWS, BF16_SPEC_MAX_NEW = (2, 4), (32, 27), 8
@@ -476,6 +501,18 @@ LLAMA8B_INT4 = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=1
 LLAMA8B_LAYERS = 32
 #: the card's dense bf16 peak, for the step's share of it
 PEAK_TFLOPS = PEAK_BF16_FLOPS / 1e12
+#: phase 23: the kernels every leg of the dry run goes through on the card
+#: (K1's forward and backward, plain and segmented, the decode attention);
+#: K3 and K4 are off its path (an unquantized base, no fused MLP)
+DRYRUN_KERNELS = ("fwd", "dkv", "dq", "fwd_seg", "dkv_seg", "dq_seg", "dattn")
+DRYRUN_OFF_PATH = ("int4", "mlp")
+#: the cards the dry run's four-rank run needs
+DRYRUN_CARDS = 4
+#: entry()'s logits: the kernel path's distance from the f32 plain forward
+#: within ENTRY_ERR_RATIO times the bf16 plain path's own distance from it,
+#: plus ENTRY_ERR_EPS · max|logit| (K1 no worse than the plain bf16
+#: attention, whatever bf16 rounding over 24 random layers amounts to)
+ENTRY_ERR_RATIO, ENTRY_ERR_EPS = 1.25, 1e-3
 #: safetensors' dtype names
 _ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
               torch.int8: "I8", torch.uint8: "U8"}
@@ -727,7 +764,7 @@ def phase_kernel(device):
     import tst_torch.kernels.flash_attention as tfa
 
     out = {}
-    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE:
+    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE + DRYRUN_SHAPES:
         rng = np.random.default_rng(s + d)
         q, k, v = (torch.from_numpy(rng.normal(0.0, 0.5, shape).astype(np.float32))
                    .to(device, torch.bfloat16)
@@ -864,7 +901,7 @@ def phase_kernel_bwd(device):
     import tst_torch.kernels.flash_attention as tfa
 
     out = {}
-    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE:
+    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE + DRYRUN_SHAPES:
         rng = np.random.default_rng(s + d + 1)
         q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
         k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
@@ -3781,15 +3818,163 @@ def phase_llama8b():
     return out
 
 
+def _f32(tree):
+    """A weight tree in f32."""
+    if isinstance(tree, dict):
+        return {key: _f32(t) for key, t in tree.items()}
+    return tree.float()
+
+
+def entry_logit_gate(lk, lp, l32, ratio=ENTRY_ERR_RATIO, eps=ENTRY_ERR_EPS):
+    """``entry()``'s f32 logits through the kernel, ``lk``, against the f32
+    plain forward's, ``l32``, beside the bf16 plain path's, ``lp``, on the
+    same weights and tokens: finite, of one shape, and max|lk - l32| within
+    ``ratio`` · max|lp - l32| + ``eps`` · max|l32| → (the kernel path's
+    error, the plain path's, the bound, the first decode step's absolute
+    rule LOGIT_TOL · max|l32| as a report)."""
+    if not lk.shape == lp.shape == l32.shape or not bool(torch.isfinite(lk).all()):
+        raise AssertionError(f"entry() logits {tuple(lk.shape)} against the plain path's "
+                             f"{tuple(lp.shape)} and {tuple(l32.shape)}, finite "
+                             f"{bool(torch.isfinite(lk).all())}")
+    scale = float(l32.abs().max())
+    err_k, err_p = float((lk - l32).abs().max()), float((lp - l32).abs().max())
+    bound = ratio * err_p + eps * scale
+    if not err_k <= bound:
+        raise AssertionError(f"entry() logits: max|lk - l32| {err_k:.4e} > {ratio} x the plain "
+                             f"path's {err_p:.4e} + {eps} x max|logit| = {bound:.4e}")
+    return err_k, err_p, bound, LOGIT_TOL * scale
+
+
+def dryrun_gate(result, printed, n, against_plain):
+    """``dryrun_multichip(n, against_plain=...)``'s result and what it
+    printed: graft_entry's own gate on the result, and its OK line the last
+    line printed."""
+    from tst_torch.graft_entry import check_result, ok_line
+
+    check_result(result, n, against_plain)
+    lines = printed.strip().splitlines()
+    if not lines or lines[-1] != ok_line(result):
+        raise AssertionError(f"dryrun_multichip({n}) printed {lines[-1:]}, not its OK line "
+                             f"{ok_line(result)!r}")
+
+
+def dryrun_launch_gate(counts):
+    """Every kernel of the dry run's path launched in its run, and none off it."""
+    missing = [key for key in DRYRUN_KERNELS if counts[key] <= 0]
+    off = [key for key in DRYRUN_OFF_PATH if counts[key] != 0]
+    if missing or off:
+        raise AssertionError(f"dry run launches {counts}: none of {missing}; off its path "
+                             f"{off}")
+
+
+def _dryrun(n, against_plain):
+    """``dryrun_multichip(n, against_plain=...)`` on cards, gated
+    (dryrun_gate) → (its result, wall s)."""
+    import contextlib
+    import io
+
+    from tst_torch.graft_entry import dryrun_multichip
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = dryrun_multichip(n, against_plain=against_plain)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(buf.getvalue().strip())
+    dryrun_gate(result, buf.getvalue(), n, against_plain)
+    return result, wall
+
+
+def phase_entry():
+    """Phase 23: the entry points of tst_torch.graft_entry on the card."""
+    from tst_torch.graft_entry import entry
+    from tst_torch.models.decoder import apply_model
+    from tst_torch.models.spec import spec_by_name
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn, (params, tokens) = entry()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    logits = fn(params, tokens)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    check_launches(counts, {**{key: 0 for key in counts}, "fwd": N_LAYERS}, "entry()")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn(params, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    spec = spec_by_name("qwen2.5-0.5b")
+    spec32 = dataclasses.replace(spec, dtype=torch.float32)
+    # the reference's batch is all ones: every value row of a layer is the
+    # same, and attention returns it whatever its weights, so its gate holds
+    # trivially; random tokens are where K1's rounding shows
+    rand = torch.randint(0, spec.vocab_size, tuple(tokens.shape), device=tokens.device,
+                         generator=torch.Generator(tokens.device).manual_seed(1))
+    gates = {}
+    with torch.inference_mode():
+        for name, toks, lk in (("ones", tokens, logits), ("random", rand, None)):
+            lk = fn(params, toks) if lk is None else lk
+            lp = apply_model(params, toks, spec)
+            l32 = apply_model(_f32(params), toks, spec32)
+            gates[name] = entry_logit_gate(lk, lp, l32)
+            del lk, lp, l32
+    fwd_ms = statistics.median(walls) * 1e3
+    print(f"[entry] entry(): Qwen2.5-0.5B bf16 forward of {tuple(tokens.shape)} tokens, "
+          f"{counts['fwd']} K1 forward launches; init {init_s:.3f} s, first call "
+          f"{first_s * 1e3:.2f} ms, then median {fwd_ms:.2f} ms ({walls}); peak "
+          f"{peak:.2f} GB; logits against the f32 plain forward, (kernel path's max|dlogit|, "
+          f"the bf16 plain path's, bound {ENTRY_ERR_RATIO} x plain + {ENTRY_ERR_EPS} x "
+          f"max|logit|, {LOGIT_TOL} x max|logit| reported): {gates}")
+    err_k, err_p, bound, abs_rule = gates["random"]
+    del fn, params, tokens, logits, rand
+    torch.cuda.empty_cache()
+
+    # the launches are the dry run's own; a second run holds legs 1-4 to
+    # the plain path from one state (its launches compare, and are not kept)
+    _zero_launch_counts()
+    dry_result, wall1 = _dryrun(1, against_plain=False)
+    dry = _launch_counts()
+    dryrun_launch_gate(dry)
+    vs_plain = _dryrun(1, against_plain=True)[0]["vs_plain"]
+    print(f"[entry] dryrun_multichip(1): every leg through the kernels, wall {wall1:.2f} s, "
+          f"launches {json.dumps(dry)}; again with legs 1-4 against the plain path: "
+          f"{json.dumps(vs_plain)}")
+    out = {"launches": counts, "init_s": init_s, "first_ms": first_s * 1e3, "fwd_ms": fwd_ms,
+           "peak_gb": peak, "max_dlogit": err_k, "plain_max_dlogit": err_p,
+           "logit_bound": bound, "abs_rule": abs_rule, "max_dlogit_ones": gates["ones"][0],
+           "dryrun": {"launches": dry, "wall_s": wall1, **dry_result, "vs_plain": vs_plain}}
+    cards = torch.cuda.device_count()
+    if cards >= DRYRUN_CARDS:
+        result, wall = _dryrun(DRYRUN_CARDS, against_plain=True)
+        out[f"dryrun_{DRYRUN_CARDS}"] = {"wall_s": wall, **result}
+        print(f"[entry] dryrun_multichip({DRYRUN_CARDS}, against_plain=True) on "
+              f"{DRYRUN_CARDS} cards over NCCL: legs 1-4 against the plain path "
+              f"{json.dumps(result['vs_plain'])}; wall {wall:.2f} s")
+    else:
+        print(f"[entry] dryrun_multichip({DRYRUN_CARDS}) not run: {cards} card(s) here")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["rank", "mlp-int4", "serve", "long", "llama8b"],
+    parser.add_argument("--only", choices=["rank", "mlp-int4", "serve", "long", "llama8b",
+                                           "entry"],
                         default=None,
                         help="rank: the attention kernels against the library at the train "
                              "shape; mlp-int4: K3 and K4 against their plain versions, timed "
                              "(either runs on any build of tst_torch, so also a parent "
                              "commit's); serve: phase 20 alone; long: phase 21 alone; "
-                             "llama8b: the native packer and phase 22 alone")
+                             "llama8b: the native packer and phase 22 alone; entry: phase 23 "
+                             "alone")
     args = parser.parse_args(argv)
     device = phase_device()
     phase_build(sass=args.only is None)
@@ -3803,6 +3988,9 @@ def main(argv=None):
     if args.only == "long":
         print(json.dumps({"long": phase_long(device)}, default=float))
         return
+    if args.only == "entry":
+        print(json.dumps({"entry": phase_entry()}, default=float))
+        return
     if args.only == "llama8b":
         print(json.dumps({"native_pack": phase_native_pack(), "llama8b": phase_llama8b()},
                          default=float))
@@ -3815,9 +4003,11 @@ def main(argv=None):
 
     def run(name, fn, *a):
         t0 = time.perf_counter()
-        result = fn(*a)
-        walls[name] = round(time.perf_counter() - t0, 1)
-        return result
+        try:
+            return fn(*a)
+        finally:
+            walls[name] = round(time.perf_counter() - t0, 1)
+            print(f"[walls] {name} {walls[name]} s", flush=True)
 
     run("native-pack", phase_native_pack)
     kern = run("kernel", phase_kernel, device)
@@ -3841,6 +4031,7 @@ def main(argv=None):
     serve = run("serve", phase_serve)
     long = run("long", phase_long, device)
     l8 = run("llama8b", phase_llama8b)
+    ent = run("entry", phase_entry)
     print(f"[walls] seconds a phase: {json.dumps(walls)}")
     sft, times = llama["sft"], llama["times"]
     long_shape = {key: {"shape": long["shape"], **long[key]} for key in ("fwd", "dkv", "dq")}
@@ -3855,6 +4046,8 @@ def main(argv=None):
          "launches_llama8b_sft": l8["sft"]["launches"]["fwd"],
          "launches_llama8b_ibp": l8["ibp"]["launches"]["fwd"],
          "launches_llama8b_int4": l8["int4"]["launches"]["fwd"],
+         "launches_entry": ent["launches"]["fwd"],
+         "launches_dryrun": ent["dryrun"]["launches"]["fwd"],
          "llama_shape": {"shape": times["shape"], **times["fwd"]},
          "long_shape": long_shape["fwd"], **kern, **bwd["fwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
@@ -3865,6 +4058,7 @@ def main(argv=None):
          "launches_long": long["launches"]["dkv"],
          "launches_llama8b_sft": l8["sft"]["launches"]["dkv"],
          "launches_llama8b_ibp": l8["ibp"]["launches"]["dkv"],
+         "launches_dryrun": ent["dryrun"]["launches"]["dkv"],
          "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
                          **times["dkv"]}, "long_shape": long_shape["dkv"], **bwd["dkv"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
@@ -3875,20 +4069,24 @@ def main(argv=None):
          "launches_long": long["launches"]["dq"],
          "launches_llama8b_sft": l8["sft"]["launches"]["dq"],
          "launches_llama8b_ibp": l8["ibp"]["launches"]["dq"],
+         "launches_dryrun": ent["dryrun"]["launches"]["dq"],
          "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
                          **times["dq"]}, "long_shape": long_shape["dq"], **bwd["dq"]},
         {"name": "flash_attention_fwd_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
          "replaces": "tst/kernels/flash_attention.py:464",
-         "launches": packed["fwd_seg"], **seg["fwd"]},
+         "launches": packed["fwd_seg"], "launches_dryrun": ent["dryrun"]["launches"]["fwd_seg"],
+         **seg["fwd"]},
         {"name": "flash_attention_bwd_dkv_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:650",
-         "launches": packed["dkv_seg"], **seg["dkv"]},
+         "launches": packed["dkv_seg"], "launches_dryrun": ent["dryrun"]["launches"]["dkv_seg"],
+         **seg["dkv"]},
         {"name": "flash_attention_bwd_dq_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:650",
-         "launches": packed["dq_seg"], **seg["dq"]},
+         "launches": packed["dq_seg"], "launches_dryrun": ent["dryrun"]["launches"]["dq_seg"],
+         **seg["dq"]},
         {"name": "int4_matmul", "route": "cuda", "source": "tst_torch/csrc/int4_matmul.cu",
          "replaces": "tst/kernels/quant_matmul.py:64", "launches": decode["int4"],
          "launches_diagnose_sft": fused["int4"], "launches_llama_int4": llama["int4"]["int4"],
@@ -3903,7 +4101,8 @@ def main(argv=None):
          "launches_debias_ibp": ibp["dattn"], "launches_llama_int4": llama["int4"]["dattn"],
          "launches_serve": serve["dattn"],
          "launches_llama8b_ibp": l8["ibp"]["launches"]["dattn"],
-         "launches_llama8b_int4": l8["int4"]["launches"]["dattn"], **dattn},
+         "launches_llama8b_int4": l8["int4"]["launches"]["dattn"],
+         "launches_dryrun": ent["dryrun"]["launches"]["dattn"], **dattn},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@
 multi-card entry (``torchrun --nproc-per-node N -m tst_torch``).
 
     python3 scripts/torch_mesh_cards.py [--ranks 4] [--platform gpu|cpu] [--out DIR]
+        [--precision f32|bf16|both] [--quantize none|int4]
 
 Runs ``synthetic-vsi:0.4`` (MCQ rows and numeric rows decoded with each
 fold's adapter) at Qwen2.5-0.5B's width (``--platform cpu``: the tiny spec,
@@ -12,8 +13,12 @@ plain attention (the meshes' collectives against one rank's arithmetic: the
 per-fold losses and s(x) must agree within f32 rounding) and in bf16 through
 the kernels (one mesh, against one rank at the bf16 rank rule). Each run's
 wall and train samples/s; every run under remat (one card holds the f32
-plain attention's saves only so). Prints one JSON line a run and one for
-all; exits non-zero when a run fails or disagrees.
+plain attention's saves only so). ``--precision`` keeps one of the two;
+``--quantize int4`` quantizes the base in every run (at Qwen2.5-0.5B's
+widths, tensor=2 gives each rank 448 of o's 896 input rows, 3.5 int4 groups:
+padded shards, and numeric rows decoded through the int4 kernel under
+NCCL). Prints one JSON line a run and one for all; exits non-zero when a
+run fails or disagrees.
 """
 
 import argparse
@@ -35,23 +40,17 @@ F32_SX_ATOL, F32_LOSS_RTOL = 1e-4, 1e-4
 BF16_SPEARMAN = 0.99
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _run(argv, out, ranks, timeout):
     """One ``diagnose-sft`` run → (rc, wall s, report, s(x) list, log tail)."""
+    from tst_torch.runtime.mesh import free_port
+
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
     if ranks == 1:
         cmd = [sys.executable, "-m", "tst_torch", *argv, "--out", out]
     else:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(ranks),
-               "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+               "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
                "-m", "tst_torch", *argv, "--out", out]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout,
@@ -91,6 +90,8 @@ def main(argv=None):
     parser.add_argument("--platform", choices=["gpu", "cpu"], default="gpu")
     parser.add_argument("--out", default=os.path.join(REPO, "runs", "mesh_cards"))
     parser.add_argument("--timeout", type=float, default=600)
+    parser.add_argument("--precision", choices=["f32", "bf16", "both"], default="both")
+    parser.add_argument("--quantize", choices=["none", "int4"], default="none")
     args = parser.parse_args(argv)
     from tst_torch.models.spec import spec_by_name
 
@@ -100,14 +101,18 @@ def main(argv=None):
             "--set", "optim.batch_size=16" if args.platform == "gpu" else "optim.batch_size=4",
             "--set", "optim.epochs=1", "--set", f"model.name={name}",
             "--set", "rf.cross_check=false", "--set", "data.max_len=512",
-            "--set", "model.remat=true"]  # the f32 plain attention's saves, one card
+            "--set", "model.remat=true",  # the f32 plain attention's saves, one card
+            "--set", f"model.quantize={args.quantize}"]
     f32 = ["--set", "model.dtype=float32", "--set", "model.use_pallas=false"]
     results, failed = [], []
     ref = {}
     for precision, extra, shapes in (("f32", f32, meshes(args.ranks, spec_by_name(name))),
                                      ("bf16", [], [(1, 2, 1, 2)])):
+        if args.precision not in (precision, "both"):
+            continue
         for shape in [(1, 1, 1, 1)] + shapes:
-            tag = f"{precision}_{'x'.join(map(str, shape))}"
+            quant = "" if args.quantize == "none" else f"_{args.quantize}"
+            tag = f"{precision}{quant}_{'x'.join(map(str, shape))}"
             flags = [a for axis, n in zip(("fold", "data", "seq", "tensor"), shape)
                      for a in ("--set", f"mesh.{axis}={n}")]
             ranks = int(np.prod(shape))

@@ -2,80 +2,28 @@
 
 Spawned processes re-import the module of the function they run, so this
 module imports torch, numpy and the port only: never jax, never a test
-module. :func:`run_ranks` starts ``world`` processes on a free local port,
-each with one torch thread, a process-group timeout and a join deadline of
-its own; on the deadline it kills them and raises.
+module. :func:`run_ranks` starts ``world`` gloo processes through the
+port's own spawner (tst_torch.runtime.mesh ``spawn_ranks``), each with one
+torch thread and a process-group timeout of its own; on the deadline it
+kills them and raises.
 """
 
 from __future__ import annotations
 
-import datetime
-import multiprocessing as mp
-import os
-import socket
-import traceback
-
 import numpy as np
 import torch
+
+from tst_torch.runtime.mesh import spawn_ranks
 
 #: seconds a rank's collective waits before it fails
 PG_TIMEOUT_S = 60
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _entry(fn, rank: int, world: int, port: int, args, queue) -> None:
-    try:
-        torch.set_num_threads(1)
-        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
-                          WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                          LOCAL_WORLD_SIZE=str(world))
-        torch.distributed.init_process_group(
-            "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
-            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
-        out = fn(rank, world, *args)
-        torch.distributed.barrier()
-        torch.distributed.destroy_process_group()
-        queue.put((rank, "ok", out))
-    except BaseException:  # the parent reports it
-        queue.put((rank, "error", traceback.format_exc()))
-
-
 def run_ranks(fn, world: int, *args, deadline_s: float = 240.0):
-    """``fn(rank, world, *args)`` in ``world`` spawned processes → the list
-    of their results by rank. Raises with a rank's traceback if it failed,
-    or when the deadline passes (its processes killed)."""
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_entry, args=(fn, r, world, port, args, queue), daemon=True)
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    results, errors = {}, []
-    try:
-        for _ in range(world):
-            rank, status, out = queue.get(timeout=deadline_s)
-            if status == "ok":
-                results[rank] = out
-            else:
-                errors.append(f"rank {rank}:\n{out}")
-                break
-    except Exception as e:  # queue.Empty: the deadline passed
-        errors.append(f"no result within {deadline_s} s ({type(e).__name__})")
-    finally:
-        for p in procs:
-            p.join(timeout=5)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=5)
-    if errors:
-        raise RuntimeError("a spawned rank failed: " + "\n".join(errors))
-    return [results[r] for r in range(world)]
+    """``fn(rank, world, *args)`` in ``world`` spawned gloo processes → the
+    list of their results by rank. Raises with a rank's traceback if it
+    failed, or when the deadline passes (its processes killed)."""
+    return spawn_ranks(fn, world, "gloo", *args, deadline_s=deadline_s, timeout_s=PG_TIMEOUT_S)
 
 
 # ---------------------------------------------------------------------------
@@ -209,3 +157,46 @@ def decode_one(shape, max_new=6, gamma=2):
 
 def decode_rank(rank, world, shapes):
     return [decode_one(shape) for shape in shapes]
+
+
+def packed_one(shape, params_np, lora_np, steps=2, pack_len=256):
+    """Packed FoldTrainer steps (k=2, the tiny spec in f32, 2 packed rows of
+    ``pack_len`` a fold a step) from the given weights and initial adapters
+    (numpy trees), then the held-out MCQ scorer with the trained adapters,
+    on the mesh ``shape`` → (per-fold losses [steps, k], probabilities
+    [N, C])."""
+    from tst_torch import bridge
+    from tst_torch.data.packing import make_packed_fold_batches, pack_fold_datasets
+    from tst_torch.models.lora import LoraSpec
+    from tst_torch.runtime import mesh as tmesh
+    from tst_torch.train.infer import score_heldout_mcq
+    from tst_torch.train.sft import FoldTrainer
+
+    mesh = tmesh.make_mesh(fold=shape[0], data=shape[1], seq=shape[2], tensor=shape[3])
+    spec, _, tb, fold_id = _tiny_setup(k=2)
+    fp = pack_fold_datasets(tb, fold_id, 2, pack_len)
+    batches = make_packed_fold_batches(fp.n_rows, 2, 1, seed=0,
+                                       batch_multiple=shape[1])[:steps]
+    lspec = LoraSpec(rank=4, alpha=8.0, dtype=torch.float32)
+    t_max = int(np.max(tb.lengths - tb.answer_pos - 1))
+    trainer = FoldTrainer(spec, lspec, 2, lr=1e-3, total_steps=steps, mesh=mesh, t_max=t_max,
+                          packed=True)
+    params = bridge.to_torch(params_np)
+    local = tmesh.shard_tree(params, tmesh.param_pspec_tree(params), mesh)
+    lora = trainer.local_tree(bridge.to_torch(lora_np))
+    ptok, pmask, ppos, psegs = (torch.from_numpy(a) for a in (fp.tokens, fp.loss_mask,
+                                                             fp.answer_pos, fp.seg_starts))
+    lora, _, log = trainer.fit(local, lora, trainer.tx.init(lora), ptok, pmask, batches,
+                               all_pos=ppos, all_segs=psegs, n_segs=fp.n_segs, log_every=1)
+    probs = score_heldout_mcq(local, lora, spec, lspec, torch.from_numpy(tb.tokens),
+                              torch.from_numpy(tb.answer_pos), tb.option_token_ids,
+                              tb.n_options, fold_id, 2, batch=8, mesh=mesh)
+    return np.asarray(log.fold_losses), probs
+
+
+def dry_mesh_rank(rank, world, shape, params_np, lora_np):
+    """On the dry run's mesh ``shape``: :func:`packed_one` from the given
+    weights and adapters, :func:`train_one` with the ring, and
+    :func:`decode_one` → their three results."""
+    return (packed_one(shape, params_np, lora_np), train_one(shape, ring=True),
+            decode_one(shape))

@@ -598,3 +598,77 @@ def test_trace_device_time_sums_kernels_and_their_launching_ops():
     assert sorted(kernels) == [(1.0, 1, "Memcpy DtoD"), (5.0, 1, "mul_kernel"),
                                (100.0, 2, "gemm")]
     assert sorted(ops) == [(5.0, "aten::mul"), (40.0, "aten::mm"), (60.0, "aten::linear")]
+
+
+def test_entry_logit_gate_is_the_first_decode_steps_rule():
+    """Phase 23 (a): entry()'s logits through the kernel no farther from the
+    f32 plain forward than 1.25 times the bf16 plain path's own distance,
+    plus 1e-3 · max|logit| (the first decode step's 2e-2 · max|logit| is
+    reported); beyond it, a shape mismatch or a non-finite logit fails."""
+    l32 = torch.linspace(-10.0, 10.0, 64).reshape(2, 32)
+    lp = l32 + 0.1
+    err_k, err_p, bound, abs_rule = chip_smoke.entry_logit_gate(l32 - 0.13, lp, l32)
+    assert err_k == pytest.approx(0.13, abs=1e-6) and err_p == pytest.approx(0.1, abs=1e-6)
+    assert bound == pytest.approx(1.25 * 0.1 + 1e-3 * 10, abs=1e-6)
+    assert abs_rule == pytest.approx(0.2)
+    # the bound follows the plain path's error, not the logits' size
+    assert chip_smoke.entry_logit_gate(l32, l32, l32)[2] == pytest.approx(1e-2)
+    for bad in (l32 + 0.14, (l32 + 0.1)[:, :16], torch.where(l32 > 9.0, torch.nan, l32)):
+        with pytest.raises(AssertionError):
+            chip_smoke.entry_logit_gate(bad, lp, l32)
+
+
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_dryrun_ok_line_is_parsed_and_gated(n):
+    """Phase 23 (b, c): graft_entry's gate on the dry run's result for n
+    ranks, and its OK line the last line printed; a result of another mesh,
+    an inexact speculative decode, a ring error at the bound, a non-finite
+    loss, a leg off the plain path, or another line printed fails."""
+    from tst_torch import graft_entry as ge
+
+    mesh = ge.mesh_shape(n)
+    k = 2 * mesh["fold"]
+    vs = {"step": {"loss_gap": 2e-4, "grad_cosine": 0.9995},
+          "packed_step": {"loss_gap": 3e-4, "grad_cosine": 0.9993},
+          "scorer": {"max_dprob": 4e-3},
+          "decode": {"max_dlogit_rel": 6e-3, "differ": 0, "decisive": 0}}
+    good = {"mesh": mesh, "k": k, "loss": 6.083, "packed_loss": 5.868, "decode": [k, 4, 4],
+            "spec_exact": True, "ring_err": 5.96e-08, "vs_plain": vs}
+    printed = f"log line\n{ge.ok_line(good)}\n"
+    chip_smoke.dryrun_gate(good, printed, n, True)
+    for bad in ({"spec_exact": False}, {"ring_err": ge.RING_TOL}, {"loss": float("nan")},
+                {"decode": [k + 1, 4, 4]},
+                {"vs_plain": {**vs, "step": {"loss_gap": 2e-3, "grad_cosine": 0.9995}}},
+                {"vs_plain": {**vs, "packed_step": {"loss_gap": 0.0, "grad_cosine": 0.98}}},
+                {"vs_plain": {**vs, "scorer": {"max_dprob": 0.06}}},
+                {"vs_plain": {**vs, "decode": {**vs["decode"], "decisive": 1}}}):
+        with pytest.raises(AssertionError):
+            chip_smoke.dryrun_gate({**good, **bad}, ge.ok_line({**good, **bad}), n, True)
+    no_vs = {key: val for key, val in good.items() if key != "vs_plain"}
+    chip_smoke.dryrun_gate(no_vs, ge.ok_line(no_vs), n, False)
+    with pytest.raises(AssertionError, match="vs_plain missing"):
+        chip_smoke.dryrun_gate(no_vs, ge.ok_line(no_vs), n, True)
+    with pytest.raises(AssertionError):
+        chip_smoke.dryrun_gate(good, ge.ok_line(good), 2 * n, True)
+    with pytest.raises(AssertionError, match="not its OK line"):
+        chip_smoke.dryrun_gate(good, ge.ok_line(good) + "\ndryrun_multichip failed", n, True)
+
+
+def test_dryrun_launch_gate_needs_every_kernel_of_its_path():
+    counts = {"fwd": 30, "dkv": 2, "dq": 2, "fwd_seg": 2, "dkv_seg": 2, "dq_seg": 2,
+              "int4": 0, "mlp": 0, "dattn": 48}
+    chip_smoke.dryrun_launch_gate(counts)
+    for key, value in (("dkv_seg", 0), ("dattn", 0), ("int4", 7), ("mlp", 1)):
+        with pytest.raises(AssertionError):
+            chip_smoke.dryrun_launch_gate({**counts, key: value})
+
+
+def test_only_entry_is_an_option_that_needs_a_card(capsys):
+    """``--only entry`` parses and, without a CUDA device, exits 1 before any
+    phase runs (an unknown choice exits 2)."""
+    with pytest.raises(SystemExit) as e:
+        chip_smoke.main(["--only", "entry"])
+    assert e.value.code == 1 and "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        chip_smoke.main(["--only", "entries"])
+    assert e.value.code == 2

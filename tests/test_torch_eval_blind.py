@@ -288,9 +288,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   for p in (REPO / "tst_torch").rglob("*.py") if p.name != "__main__.py")
     # the sweep covers the mesh, ring, decode-attention and profiling modules
+    # and the entry points of graft_entry
     assert {"tst_torch.runtime.mesh", "tst_torch.kernels.ring_attention",
             "tst_torch.kernels.decode_attention", "tst_torch.aux.profile",
-            "tst_torch.aux.flops"} <= set(mods)
+            "tst_torch.aux.flops", "tst_torch.graft_entry"} <= set(mods)
     rf = ["diagnose-rf", "--platform", "cpu", "--bench", "synthetic:0.5", "--k", "3",
           "--set", "data.n=60", "--set", "rf.n_estimators=20", "--out", str(tmp_path / "rf")]
     sft = ["diagnose-sft", "--platform", "cpu", "--bench", "synthetic:0.5", "--k", "2",

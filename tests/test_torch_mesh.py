@@ -34,6 +34,9 @@ from tst_torch.runtime import mesh as tmesh
 
 RTOL = 1e-5
 TINY = jdec.spec_by_name("tiny", dtype=jnp.float32)
+#: ``small`` widened so that o's and down's 384 input rows split into 192 a
+#: rank at tensor=2: 1.5 int4 groups (``small``'s own 128 and 512 split whole)
+INT4_SPLIT = {"d_model": 384, "n_heads": 24, "d_ff": 384}
 
 
 @pytest.fixture(autouse=True)
@@ -147,18 +150,38 @@ def test_widths_the_tensor_axis_does_not_divide_raise():
         check_tensor_widths(spec_by_name("tiny"), 3)
 
 
-def test_row_parallel_int4_needs_whole_groups():
+@pytest.mark.parametrize("rank", [0, 1])
+def test_row_parallel_int4_shards_hold_the_groups_they_split(rank):
     """Qwen2.5-0.5B's o projection at tensor=2: 448 rows a rank, 3.5 of the
-    128-row groups, raises (GSPMD would pad; ROADMAP §3)."""
-    w = torch.zeros(1, 896, 896)
-    leaf = tquant.quantize_leaf(w, bits=4)
-    spec = tmesh.leaf_pspec("layers.wo", leaf)
-    with pytest.raises(ValueError, match="whole 128-row groups; 448 rows .* 3.5 groups"):
-        tmesh.shard_leaf(leaf, spec, _fake_mesh(tensor=2), "layers.wo")
+    128-row groups. Each rank holds the 4 whole groups its rows touch and
+    their scales (as GSPMD pads), with its offset in the first group; its
+    own rows, dequantized, are the leaf's, and its zero-padded input gives
+    the rank's partial sum. Qwen's down (2432 rows a rank, 19 groups) keeps
+    whole groups and no ``rows``."""
+    g = torch.Generator().manual_seed(0)
+    leaf = tquant.quantize_leaf(torch.randn(2, 896, 896, generator=g), bits=4)
+    mesh = _fake_mesh(tensor=2, rank=rank)
+    got = tmesh.shard_leaf(leaf, tmesh.leaf_pspec("layers.wo", leaf), mesh, "layers.wo")
+    g0 = rank * 448 // 128
+    assert got["q"].shape == (2, 512, 448) and got["scale"].shape == (2, 4, 1, 896)
+    assert got["rows"].tolist() == [[rank * 448 - g0 * 128, 448]] * 2
+    assert torch.equal(got["scale"], leaf["scale"][:, g0: g0 + 4])
+    whole = tquant.dequantize_leaf(leaf, torch.float32)
+    mine = tmesh.own_rows(tquant.dequantize_leaf(got, torch.float32), got)
+    assert torch.equal(mine, whole[:, rank * 448: (rank + 1) * 448])
+    y = torch.randn(3, 896, generator=g)
+    y_own = y[:, rank * 448: (rank + 1) * 448]
+    layer = {key: t[1] for key, t in got.items()}
+    np.testing.assert_allclose(
+        tquant.qdot(tmesh.pad_rows(y_own, layer), layer, torch.float32).numpy(),
+        (y_own @ whole[1, rank * 448: (rank + 1) * 448]).numpy(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="input width 447 is not the shard's 448 rows"):
+        tmesh.pad_rows(y_own[:, 1:], layer)
     w_down = tquant.quantize_leaf(torch.zeros(1, 4864, 896), bits=4)
-    got = tmesh.shard_leaf(w_down, tmesh.leaf_pspec("layers.w_down", w_down),
-                           _fake_mesh(tensor=2, rank=1), "layers.w_down")
+    got = tmesh.shard_leaf(w_down, tmesh.leaf_pspec("layers.w_down", w_down), mesh,
+                           "layers.w_down")
     assert got["q"].shape == (1, 2432, 448) and got["scale"].shape == (1, 19, 1, 896)
+    assert "rows" not in got
 
 
 # --- sharded training against one process -------------------------------------
@@ -212,25 +235,24 @@ def test_sharded_training_matches_one_process(sharded, name):
             np.testing.assert_allclose(lora[p][n], t, rtol=1e-4, atol=1e-6)
 
 
-def test_mesh_training_matches_the_reference_on_the_same_mesh():
-    """(data=2, tensor=2): tst's FoldTrainer on 4 fake devices and the port on
-    4 gloo ranks, from the same weights and initial adapters (the JAX
-    package's), the same folds and batches."""
+def _reference_fit(spec, params, lspec, shape):
+    """tst's FoldTrainer and held-out scorer on fake devices, mesh ``shape``
+    = (fold, data, seq, tensor): 3 steps of 4 rows a fold, k=2 → (per-fold
+    losses, probabilities, the weights and initial adapters as numpy
+    trees)."""
     from tst.data.adapters import load_benchmark
     from tst.data.folds import kfold_assign
     from tst.data.tokenize import ByteTokenizer, tokenize_dataset
     from tst.train.infer import score_heldout_mcq
     from tst.train.sft import FoldTrainer, make_fold_batches
 
-    params = jdec.init_params(jax.random.key(0), TINY)
-    lspec = jlora.LoraSpec(rank=4, alpha=8.0, dtype=jnp.float32)
     ds = load_benchmark("synthetic:0.5", n=24, seed=0)
     tb = tokenize_dataset(ds, ByteTokenizer(), max_len=128)
     fold_id = kfold_assign(ds, 2, 0)
     t_max = int(np.max(tb.lengths - tb.answer_pos - 1))
-    batches = make_fold_batches(fold_id, 2, 4, 2, seed=0, batch_multiple=2)[:3]
-    mesh = jmesh.make_mesh(data=2, tensor=2)
-    trainer = FoldTrainer(TINY, lspec, k=2, lr=1e-3, total_steps=3, mesh=mesh, t_max=t_max)
+    batches = make_fold_batches(fold_id, 2, 4, 2, seed=0, batch_multiple=shape[1])[:3]
+    mesh = jmesh.make_mesh(fold=shape[0], data=shape[1], seq=shape[2], tensor=shape[3])
+    trainer = FoldTrainer(spec, lspec, k=2, lr=1e-3, total_steps=3, mesh=mesh, t_max=t_max)
     lora0, opt = trainer.init_state(jax.random.key(1))
     to_np = jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, lora0)  # fit donates
     sharded = jmesh.shard_tree(params, jmesh.param_pspec_tree(params), mesh)
@@ -239,10 +261,49 @@ def test_mesh_training_matches_the_reference_on_the_same_mesh():
                          for a in (tb.tokens, tb.loss_mask, tb.answer_pos))
     lora, _, log = trainer.fit(sharded, lora0, opt, tokens, mask, batches, all_pos=pos,
                                log_every=1)
-    want_probs = score_heldout_mcq(sharded, lora, TINY, lspec, tokens, pos,
-                                   tb.option_token_ids, tb.n_options, fold_id, 2, batch=8)
-    runs = run_ranks(train_rank, 4, [dict(shape=(1, 2, 1, 2), params_np=to_np[0],
-                                          lora_np=to_np[1])])
+    probs = score_heldout_mcq(sharded, lora, spec, lspec, tokens, pos, tb.option_token_ids,
+                              tb.n_options, fold_id, 2, batch=8)
+    return np.asarray(log.fold_losses), np.asarray(probs), to_np[0], to_np[1]
+
+
+def test_mesh_training_matches_the_reference_on_the_same_mesh():
+    """(data=2, tensor=2): tst's FoldTrainer on 4 fake devices and the port on
+    4 gloo ranks, from the same weights and initial adapters (the JAX
+    package's), the same folds and batches."""
+    params = jdec.init_params(jax.random.key(0), TINY)
+    lspec = jlora.LoraSpec(rank=4, alpha=8.0, dtype=jnp.float32)
+    want_losses, want_probs, params_np, lora_np = _reference_fit(TINY, params, lspec,
+                                                                 (1, 2, 1, 2))
+    runs = run_ranks(train_rank, 4, [dict(shape=(1, 2, 1, 2), params_np=params_np,
+                                          lora_np=lora_np)])
     losses, probs, _ = runs[0][0]
-    np.testing.assert_allclose(losses, np.asarray(log.fold_losses), rtol=RTOL, atol=1e-5)
-    np.testing.assert_allclose(probs, np.asarray(want_probs), atol=1e-5)
+    np.testing.assert_allclose(losses, want_losses, rtol=RTOL, atol=1e-5)
+    np.testing.assert_allclose(probs, want_probs, atol=1e-5)
+
+
+def test_int4_groups_split_by_the_tensor_axis_match_the_reference():
+    """An int4 base whose row-parallel o and down split a 128-row group at
+    tensor=2 (``small`` with d_model 384, 24 heads and d_ff 384: 192 rows a
+    rank, 1.5 groups) trains on (data=2, tensor=2) with LoRA on o and down:
+    tst's FoldTrainer on 4 fake devices (GSPMD pads the shard) and the port
+    on 4 gloo ranks (padded shards, ``mesh.pad_rows``), from the reference's
+    quantized weights and initial adapters; and the port in one process on
+    the same weights. Its adapters are not held to one process's at
+    ``test_sharded_training_matches_one_process``'s rtol 1e-4: the
+    unpadded controls of scripts/torch_int4_split_control.py (int4 at
+    d_model 256, whole groups; this model unquantized; this model on
+    data=2 alone) drift past it as well."""
+    spec = jdec.spec_by_name("small", dtype=jnp.float32, **INT4_SPLIT)
+    params = jquant.quantize_params(jdec.init_params(jax.random.key(0), spec), bits=4)
+    assert params["layers"]["wo"]["scale"].ndim == 4  # grouped int4, no int8 fallback
+    lspec = jlora.LoraSpec(rank=4, alpha=8.0, dtype=jnp.float32,
+                           targets=("q_proj", "v_proj", "o_proj", "down_proj"))
+    want_losses, want_probs, params_np, lora_np = _reference_fit(spec, params, lspec,
+                                                                 (1, 2, 1, 2))
+    cfg = dict(spec_name="small", overrides=INT4_SPLIT, params_np=params_np, lora_np=lora_np)
+    runs = run_ranks(train_rank, 4, [dict(shape=(1, 2, 1, 2), **cfg)])
+    losses, probs, _ = runs[0][0]
+    one_losses, one_probs, _ = train_one((1, 1, 1, 1), **cfg)
+    for want_l, want_p in ((want_losses, want_probs), (one_losses, one_probs)):
+        np.testing.assert_allclose(losses, want_l, rtol=RTOL, atol=1e-5)
+        np.testing.assert_allclose(probs, want_p, atol=1e-5)

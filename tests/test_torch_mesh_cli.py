@@ -133,7 +133,7 @@ def test_torchrun_is_the_multi_card_entry(tmp_path):
     runs in a session of its own, killed with its workers on the deadline."""
     import signal
 
-    from _torch_mesh_ranks import _free_port
+    from tst_torch.runtime.mesh import free_port
 
     one = tmp_path / "one"
     assert cli.main(SFT + ["--out", str(one)]) == 0
@@ -142,7 +142,7 @@ def test_torchrun_is_the_multi_card_entry(tmp_path):
     env.update(OMP_NUM_THREADS="1", PYTHONPATH=f"{REPO}{os.pathsep}{env.get('PYTHONPATH', '')}")
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
-         "--master-addr", "127.0.0.1", "--master-port", str(_free_port()), "-m", "tst_torch",
+         "--master-addr", "127.0.0.1", "--master-port", str(free_port()), "-m", "tst_torch",
          *SFT, *_mesh_flags(MESHES["fold=2"]), "--out", str(out)],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
         start_new_session=True)

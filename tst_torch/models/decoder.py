@@ -248,7 +248,9 @@ def make_proj(lw, la, i: int, lora_spec, dtype: torch.dtype, mesh=None,
     column-parallel (local heads, local ffn; the caller passes ``y``
     through ``to_tensor``) and o and down row-parallel: the local input
     columns against the weight's local rows and A's local columns, the
-    partial sums added over the axis (``from_tensor``). ``base_dot(y,
+    partial sums added over the axis (``from_tensor``); an int4 shard whose
+    rows split a 128-row group takes its input padded with zero columns to
+    the whole groups it holds (``pad_rows``). ``base_dot(y,
     leaf)`` is the base product (``qdot`` by default), ``lora_delta(ab, y,
     rng)`` the adapter's (``apply_lora_delta`` by default)."""
     if base_dot is None:
@@ -262,7 +264,7 @@ def make_proj(lw, la, i: int, lora_spec, dtype: torch.dtype, mesh=None,
     def proj(name: str, y: torch.Tensor) -> torch.Tensor:
         w_key = _W_KEYS[name]
         leaf = lw[w_key]
-        out = mesh_mod.fsdp_apply(base_dot, y, leaf,
+        out = mesh_mod.fsdp_apply(base_dot, mesh_mod.pad_rows(y, leaf), leaf,
                                   mesh_mod.leaf_pspec(f"layers.{w_key}", leaf), mesh)
         if name in la:
             ab = la[name]
@@ -426,8 +428,8 @@ def apply_model(
             # on gate/up changes the hidden nonlinearly), the reference's condition
             mlp_lora = any(t in la for t in ("gate", "up", "down"))
             if use_pallas is True and fused_mlp and not mlp_lora:
-                w = {key: dequantize_leaf(mesh_mod.gather_data(
-                    lw[key], mesh_mod.leaf_pspec(f"layers.{key}", lw[key]), mesh), dt)
+                w = {key: mesh_mod.own_rows(dequantize_leaf(mesh_mod.gather_data(
+                    lw[key], mesh_mod.leaf_pspec(f"layers.{key}", lw[key]), mesh), dt), lw[key])
                     for key in ("w_gate", "w_up", "w_down")}
                 down = mesh_mod.from_tensor(
                     fused_swiglu_mlp(h, w["w_gate"], w["w_up"], w["w_down"]), mesh)
@@ -480,9 +482,10 @@ def head_logits(h: torch.Tensor, params: Params, spec: ModelSpec, mesh=None) -> 
 
 
 def layer_of(w, i: int):
-    """Layer ``i`` of a stacked leaf, plain or quantized ({"q", "scale"})."""
+    """Layer ``i`` of a stacked leaf, plain or quantized ({"q", "scale"}, and
+    a row-parallel shard's ``rows``, tst_torch.runtime.mesh)."""
     if is_quantized_leaf(w):
-        return {"q": w["q"][i], "scale": w["scale"][i]}
+        return {key: t[i] for key, t in w.items()}
     return w[i]
 
 

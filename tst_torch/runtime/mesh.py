@@ -6,8 +6,8 @@ fold models (each rank steps only its folds), ``data`` the batch rows and
 the FSDP shards of the frozen base, ``seq`` the ring-attention sequence
 blocks, ``tensor`` Megatron-style tensor parallelism (local heads and ffn,
 the vocabulary split). One process a rank, started by ``torchrun`` (one
-rank a card) or by a test's spawned processes; NCCL carries CUDA tensors,
-gloo CPU tensors. A mesh of one rank has no groups and no collective runs.
+rank a card) or by :func:`spawn_ranks`; NCCL carries CUDA tensors, gloo CPU
+tensors. A mesh of one rank has no groups and no collective runs.
 
 GSPMD inserted the reference's collectives implicitly. Here each is an
 explicit ``torch.distributed`` call, written once, in this module:
@@ -42,7 +42,12 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import multiprocessing as mp
 import os
+import queue as queue_mod
+import socket
+import time
+import traceback
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -68,13 +73,15 @@ def _env_int(*names) -> Optional[int]:
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     timeout_s: float = TIMEOUT_S) -> bool:
+                     timeout_s: float = TIMEOUT_S,
+                     backend: Optional[str] = None) -> bool:
     """Join the process group of a launch over several ranks: torchrun's
     variables (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``,
     ``LOCAL_RANK``) or the reference's (``COORDINATOR_ADDRESS`` host:port,
-    ``NUM_PROCESSES``, ``PROCESS_ID``). NCCL where there is a card (each
-    rank on card ``LOCAL_RANK``), gloo otherwise. A no-op returning False
-    when nothing says the launch has several processes; True once joined."""
+    ``NUM_PROCESSES``, ``PROCESS_ID``). ``backend``: NCCL by default where
+    there is a card (each rank on card ``LOCAL_RANK``), gloo otherwise. A
+    no-op returning False when nothing says the launch has several
+    processes; True once joined."""
     if dist.is_available() and dist.is_initialized():
         return True
     world = num_processes or _env_int("WORLD_SIZE", "NUM_PROCESSES")
@@ -85,13 +92,83 @@ def init_distributed(coordinator_address: Optional[str] = None,
     if world is None or rank is None:
         raise ValueError("a launch over several processes needs its world size and this "
                          "process's rank (WORLD_SIZE/RANK or NUM_PROCESSES/PROCESS_ID)")
-    cuda = torch.cuda.is_available()
-    if cuda:
+    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    if backend == "nccl":
         torch.cuda.set_device(_env_int("LOCAL_RANK") or 0)
     init = f"tcp://{coord}" if coord else "env://"
-    dist.init_process_group("nccl" if cuda else "gloo", init_method=init, world_size=world,
-                            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
     return True
+
+
+def free_port() -> int:
+    """A free TCP port on this host, for a process group of local ranks."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(fn, rank: int, world: int, backend: str, port: int, timeout_s: float,
+                  args, results) -> None:
+    """One rank of :func:`spawn_ranks`: torchrun's variables, the process
+    group, ``fn``, a last barrier → (rank, "ok" | "error", result or
+    traceback) on ``results``."""
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(port))
+        if backend == "gloo":
+            torch.set_num_threads(1)
+        init_distributed(f"127.0.0.1:{port}", world, rank, timeout_s=timeout_s, backend=backend)
+        try:
+            out = fn(rank, world, *args)
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, "ok", out))
+    except BaseException:  # the parent raises with it
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def spawn_ranks(fn, world: int, backend: str, *args, deadline_s: float = 900.0,
+                timeout_s: float = TIMEOUT_S) -> list:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes joined over
+    ``backend`` on a free local port (NCCL: rank r on card r; gloo: one
+    torch thread a rank) → their results by rank. ``fn`` and its results
+    must pickle. Raises with the first failed rank's traceback, or when
+    ``deadline_s`` passes; the processes are stopped either way."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_spawned_rank,
+                         args=(fn, r, world, backend, port, timeout_s, args, results),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    got: Dict[int, Any] = {}
+    error = None
+    end = time.monotonic() + deadline_s
+    try:
+        while len(got) < world and error is None:
+            try:
+                rank, status, out = results.get(timeout=max(end - time.monotonic(), 0.1))
+            except queue_mod.Empty:
+                error = (f"no result from {world - len(got)} of {world} ranks within "
+                         f"{deadline_s} s")
+                break
+            if status == "ok":
+                got[rank] = out
+            else:
+                error = f"rank {rank} failed:\n{out}"
+    finally:
+        for p in procs:
+            p.join(timeout=30 if error is None else 1)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    if error is not None:
+        raise RuntimeError(f"{getattr(fn, '__name__', fn)} on {world} {backend} ranks: {error}")
+    return [got[r] for r in range(world)]
 
 
 def rank_grid(fold: int, data: int, seq: int, tensor: int, world: int,
@@ -313,28 +390,47 @@ def int4_pack(vals: torch.Tensor) -> torch.Tensor:
     return ((hi << 4) + (lo + 8)).to(torch.int8)
 
 
+def _group_span(vals: torch.Tensor, scale: torch.Tensor, mesh: Mesh, what: str):
+    """A row-parallel int4 leaf's input rows as this rank of ``tensor`` holds
+    them → (the int values of the whole 128-row groups its rows touch, their
+    scales, ``{}`` when those rows are its own, else ``{"rows": ...}``:
+    int64 [..., 2] on the host, the offset of its first row in the first
+    group and its row count). GSPMD pads such a shard the same way: the
+    groups' other rows meet zero inputs (:func:`pad_rows`), so the partial
+    sums are the unpadded ones."""
+    dim = vals.ndim - 2
+    k_local = _slice(vals, dim, mesh, "tensor", what).shape[dim]
+    lo = mesh.index("tensor") * k_local
+    g0, g1 = lo // INT4_GROUP, -(-(lo + k_local) // INT4_GROUP)
+    vals = vals.narrow(dim, g0 * INT4_GROUP, (g1 - g0) * INT4_GROUP)
+    scale = scale.narrow(scale.ndim - 3, g0, g1 - g0)
+    if vals.shape[dim] == k_local:
+        return vals, scale, {}
+    rows = torch.tensor([lo - g0 * INT4_GROUP, k_local], dtype=torch.int64)
+    return vals, scale, {"rows": rows.expand(*vals.shape[:dim], 2).contiguous()}
+
+
 def shard_leaf(x, spec, mesh: Mesh, what: str = "leaf"):
     """This rank's slice of a plain or quantized leaf. A packed-int4 leaf is
     split on its column values and packed again, so a rank's slice is a
-    packed leaf of its own columns; when the tensor axis splits its input
-    (row-parallel), its scale keeps the rank's 128-row groups, which must
-    be whole."""
+    packed leaf of its own columns. When the tensor axis splits its input
+    (row-parallel, o and down), the rank keeps the whole 128-row groups its
+    rows touch and their scales; where those hold rows of another rank (a
+    group split between ranks), the leaf carries ``rows``
+    (:func:`_group_span`), which :func:`pad_rows` and :func:`own_rows`
+    read."""
     if isinstance(x, dict) and is_quantized_leaf(x):
         qspec, sspec = spec["q"], spec["scale"]
-        q, scale = x["q"], x["scale"]
+        q, scale, extra = x["q"], x["scale"], {}
         if is_int4_leaf(x):
             vals = int4_values(q)
             for dim, axis in enumerate(qspec):
-                if axis is not None and mesh.size(axis) > 1:
+                if axis is None or mesh.size(axis) == 1:
+                    continue
+                if axis == "tensor" and dim == len(qspec) - 2:  # row-parallel
+                    vals, scale, extra = _group_span(vals, scale, mesh, what)
+                else:
                     vals = _slice(vals, dim, mesh, axis, what)
-            if qspec[-2] == "tensor" and mesh.size("tensor") > 1:
-                k_local = vals.shape[-2]
-                if k_local % INT4_GROUP:
-                    raise ValueError(
-                        f"{what}: an int4 shard of the row-parallel input must hold whole "
-                        f"{INT4_GROUP}-row groups; {k_local} rows a rank of the 'tensor' axis "
-                        f"is {k_local / INT4_GROUP} groups")
-                scale = _slice(scale, scale.ndim - 3, mesh, "tensor", what)
             q = int4_pack(vals)
         else:
             for dim, axis in enumerate(qspec):
@@ -343,11 +439,42 @@ def shard_leaf(x, spec, mesh: Mesh, what: str = "leaf"):
         for dim, axis in enumerate(sspec):
             if axis is not None and mesh.size(axis) > 1:
                 scale = _slice(scale, dim, mesh, axis, what)
-        return {"q": q.contiguous(), "scale": scale.contiguous()}
+        return {"q": q.contiguous(), "scale": scale.contiguous(), **extra}
     for dim, axis in enumerate(spec):
         if axis is not None and mesh.size(axis) > 1:
             x = _slice(x, dim, mesh, axis, what)
     return x.contiguous()
+
+
+def _own_rows_of(leaf) -> Optional[Tuple[int, int]]:
+    """(offset of the rank's first row in the shard, its row count), or None
+    for a leaf without ``rows``."""
+    if not isinstance(leaf, dict) or "rows" not in leaf:
+        return None
+    row0, n = (int(v) for v in leaf["rows"].reshape(-1, 2)[0])
+    return row0, n
+
+
+def pad_rows(y: torch.Tensor, leaf) -> torch.Tensor:
+    """The input of a row-parallel product against this rank's shard ``leaf``:
+    ``y`` [..., rows of its own] with zero columns before and after, to the
+    span of the whole int4 groups the shard holds (unchanged for a leaf
+    without ``rows``)."""
+    own = _own_rows_of(leaf)
+    if own is None:
+        return y
+    row0, n = own
+    if y.shape[-1] != n:
+        raise ValueError(f"input width {y.shape[-1]} is not the shard's {n} rows")
+    return torch.nn.functional.pad(y, (row0, leaf["q"].shape[-2] - row0 - n))
+
+
+def own_rows(w: torch.Tensor, leaf) -> torch.Tensor:
+    """A dequantized shard ``w`` [..., span, out] of ``leaf`` cut to the rows
+    of this rank (unchanged for a leaf without ``rows``): what a gather of the
+    whole leaf takes from it."""
+    own = _own_rows_of(leaf)
+    return w if own is None else w.narrow(-2, *own)
 
 
 def shard_tree(tree, pspecs, mesh: Mesh):
@@ -410,7 +537,7 @@ def gather_data(leaf, spec, mesh: Optional[Mesh]):
                     q = _all_gather(q, group, dim)
             if "data" in sspec:
                 scale = _all_gather(scale, group, sspec.index("data"))
-            return {"q": q, "scale": scale}
+            return {**leaf, "q": q, "scale": scale}
         spec = spec[len(spec) - leaf.ndim:]
         if "data" not in spec:
             return leaf

@@ -437,6 +437,21 @@ class FoldTrainer:
                                       ring=self.ring_mesh is not None)
         return mesh_mod.sum_over(losses.detach(), self.mesh, ["data"]), grads
 
+    def batch_loss_and_grads(self, base: Params, lora: Params, all_tokens: torch.Tensor,
+                             all_mask: torch.Tensor, all_pos: torch.Tensor,
+                             idx_kb: np.ndarray, all_segs: Optional[torch.Tensor] = None,
+                             step: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+        """:meth:`loss_and_grads` on rows ``idx_kb`` [k, B] of the whole
+        arrays (:meth:`step`'s layout), gathered on the device: this rank's
+        folds and share of the rows."""
+        idx = torch.as_tensor(self._rows(idx_kb), dtype=torch.long).to(all_tokens.device)
+        if self.packed:
+            ka = torch.arange(self.folds.start, self.folds.stop, device=idx.device)[:, None]
+            idx = (ka, idx)
+        segs = None if all_segs is None else all_segs[idx]
+        return self.loss_and_grads(base, lora, all_tokens[idx], all_mask[idx], all_pos[idx],
+                                   segs, step=step)
+
     def step(self, base: Params, lora: Params, opt_state: AdamWState,
              all_tokens: torch.Tensor, all_mask: torch.Tensor, all_pos: torch.Tensor,
              idx_kb: np.ndarray, all_segs: Optional[torch.Tensor] = None,
@@ -448,13 +463,8 @@ class FoldTrainer:
         ``lora_spec.dropout > 0``) follow the optimizer's count, which the
         checkpoint restores. Under a mesh the step runs this rank's folds and
         rows, and the losses are this rank's folds'."""
-        idx = torch.as_tensor(self._rows(idx_kb), dtype=torch.long).to(all_tokens.device)
-        if self.packed:
-            ka = torch.arange(self.folds.start, self.folds.stop, device=idx.device)[:, None]
-            idx = (ka, idx)
-        segs = None if all_segs is None else all_segs[idx]
-        losses, grads = self.loss_and_grads(base, lora, all_tokens[idx], all_mask[idx],
-                                            all_pos[idx], segs, step=opt_state.count)
+        losses, grads = self.batch_loss_and_grads(base, lora, all_tokens, all_mask, all_pos,
+                                                  idx_kb, all_segs, step=opt_state.count)
         if DEBUG_NANS:
             check_finite(losses, grads, step=opt_state.count, fold0=self.folds.start)
         updates, opt_state = self.tx.update(grads, opt_state, lora)
