@@ -8,10 +8,13 @@
     python3 chip_smoke.py --only serve     # phases 1-2, the decode attention kernel and 20
     python3 chip_smoke.py --only llama8b   # phases 1-2, the native packer and 22
     python3 chip_smoke.py --only entry     # phases 1-2 and 23
+    python3 chip_smoke.py --only bench     # phases 1-2 and 24 (the bench's default steps)
 
-Every step compared with the plain path (phases 7, 10, 14) holds its
-per-fold losses within 1e-3 of the plain loss, relative, and its LoRA
-gradients at cosine >= 0.99.
+Every step compared with the plain path (phases 7, 10, 14, 22, 24) holds
+its per-fold losses within 1e-3 of the plain loss, relative, and its LoRA
+gradients at cosine >= 0.99, each averaged over the path's first batches
+(GATE_BATCHES: one batch's fold loss is a handful of answer tokens, where
+bf16 rounding alone can reach 1e-3).
 
 Phases, each printing one line; any failure raises and exits non-zero:
 
@@ -28,7 +31,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                which must not be 0;
   3. kernel  — the flash-attention forward kernel against its plain PyTorch
                version on the card at the slice's shape, Llama-3-8B heads, a
-               128-token case and one tile (S=64) at both head dims;
+               128-token case, one tile (S=64) at both head dims, the dry
+               run's and the bench's fold-parallel call [20, 512, 14, 64];
                bit-equal on a second call; bad shapes raise; median kernel
                and plain times;
   4. slice   — ``python -m tst_torch eval-blind`` (Qwen2.5-0.5B at full
@@ -45,23 +49,26 @@ Phases, each printing one line; any failure raises and exits non-zero:
                torch's scaled_dot_product_attention (forward, and its
                backward alone) as the library yardstick;
   6. train   — ``python -m tst_torch diagnose-sft`` (Qwen2.5-0.5B at full
-               width, k=2 folds x 16 rows, 3 epochs, LoRA r16 on q/k/v/o,
+               width, k=2 folds x 16 rows, 2 epochs, LoRA r16 on q/k/v/o,
                bf16, synthetic:0.5, n=512) through the CLI entry point; the
                three kernels' launch counts must be what the run's own step
                and chunk counts imply; report.json and the s(x) table, with
                the RF cross-check of the default config (a finite
                rf_sft_spearman and rf_blind_accuracy, and its wall); then
                the median train-step time after the first step;
-  7. train, kernel vs plain — one fold-parallel step's LoRA gradients and
+  7. train, kernel vs plain — the fold-parallel step's LoRA gradients and
                losses through the kernels against ``model.use_pallas=false``
-               on the same weights, adapters and batch (4 rows per fold);
+               on the same weights, adapters and batches (4 rows per fold,
+               averaged over GATE_BATCHES);
   8. kernel-seg — the segmented (packed-row) forward, dK/dV and dQ kernels
                against their plain versions, and gradients through the
                autograd Function against autograd of the plain masked
                attention: at the packed train step's call with the run's own
                segment starts, at Llama-3-8B heads with 8 segments a row at
                S=2048, and at 128- and 64-token cases (64 at both head dims)
-               with starts inside tiles and a row of all SEG_PAD; forward and
+               with starts inside tiles and a row of all SEG_PAD, and at the
+               bench's packed Llama-3-8B legs' first steps ([2, 1024, 32, 128]
+               and [5, 1024, 32, 128], their own starts); forward and
                backward bit-equal on a second call;
                bad starts raise; median times of the segmented kernels, the
                unsegmented ones, the plain versions and scaled_dot_product_
@@ -73,8 +80,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                be what the run's steps and scorer chunks imply, and the
                unsegmented kernels must not run; report.json and the s(x)
                table; the median train-step time after the first;
- 10. train-packed, kernel vs plain — one packed step's LoRA gradients and
-               losses (2 packed rows per fold) and the packed scorer's letter
+ 10. train-packed, kernel vs plain — the packed step's LoRA gradients and
+               losses (2 packed rows per fold, averaged over GATE_BATCHES)
+               and the packed scorer's letter
                probabilities through the kernels against the plain path;
  11. kernel-int4 — the packed-int4 dequant-matmul (K3) against its plain
                version at decode's M (32, 64), at speculative decode's verify
@@ -102,14 +110,14 @@ Phases, each printing one line; any failure raises and exits non-zero:
                decode step times, the device's idle share and K3's share of
                the busy time (profiler);
  14. train-fused — ``python -m tst_torch diagnose-sft`` on synthetic-vsi:0.4
-               with ``model.quantize=int4 model.fused_mlp=true`` through the
-               CLI: launch counts as implied (K4 on every train-step MLP, K3 on
-               the held-out decode of both folds' rows at once); report.json
-               and the s(x) table; one step's LoRA gradients and fold losses
-               against the unfused plain path; median step time fused against
-               unfused, their peak device memory, and a profile of the fused
-               step;
- 15. diagnose-rf — ``python -m tst_torch diagnose-rf`` (synthetic:0.5, n=512,
+               (256 rows) with ``model.quantize=int4 model.fused_mlp=true``
+               through the CLI: launch counts as implied (K4 on every
+               train-step MLP, K3 on the held-out decode of both folds' rows
+               at once); report.json and the s(x) table; the step's LoRA
+               gradients and fold losses against the unfused plain path
+               (GATE_BATCHES); median step time fused against unfused, their
+               peak device memory, and a profile of the fused step;
+ 15. diagnose-rf — ``python -m tst_torch diagnose-rf`` (synthetic:0.5, n=128,
                k=5) through the CLI, the port's own forest fit on the host and
                the forests traversed on the card: each fold's forest traversed
                on the host path gives probabilities within 1e-6 and the same
@@ -126,7 +134,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                adapters through the plain attention at Spearman >= 0.999; each
                round's stage walls and the peak device memory;
  17. debias-ibp-rf — the same subcommand with ``ibp.diagnostic=rf``
-               (synthetic:0.5, n=512, k=3, 2 rounds): each round prunes
+               (synthetic:0.5, n=128, k=3, 2 rounds): each round prunes
                prune_mask's budget, the audit and split add up, no kernel
                launches;
  18. checkpoint-qwen — phase 4's weights written as an HF safetensors
@@ -187,7 +195,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                >= 0.999; the kernels timed at the preset's call q [10, 16384,
                14, 64] beside scaled_dot_product_attention and the bound;
                ``diagnose-sft --preset sft-videomme-long`` (max_len 16384, k=5,
-               batch 2 a fold, model.remat=true, the byte tokenizer) on 8
+               batch 2 a fold, model.remat=true, the byte tokenizer) on 6
                synthetic rows of ~16,000 bytes through the CLI with
                ``--profile-dir``: launches as implied, finite fold losses, every
                row's s(x), the step's median ms, samples/s, peak memory and the
@@ -205,15 +213,15 @@ values of the slots a row's queries see).
                random weights from the seed initialized on the card (no
                checkpoint), the byte tokenizer, a mesh of one card: (a)
                ``diagnose-sft --preset sft-mmmu-llama8b`` (k=5, batch 8,
-               remat=True) on synthetic:0.5, n=80, one epoch, with
+               remat=True) on synthetic:0.5, n=20, one epoch, with
                ``--profile-dir``: launches as implied, finite fold losses, s(x)
                in [0, 1], the RF cross-check; the step's median ms, samples/s,
                TFLOP/s (tst_torch.aux.flops) and its share of 989, peak memory
-               and the trace's top ops; one step (4 rows a fold) through the
+               and the trace's top ops; the step (4 rows a fold) through the
                kernels against ``model.use_pallas=false`` (the step gates of
-               phase 7); (b) ``debias-ibp --preset ibp-vsibench`` (k=5, remat,
+               phase 7, GATE_BATCHES); (b) ``debias-ibp --preset ibp-vsibench`` (k=5, remat,
                prune_rate 0.1, the SFT diagnostic) on synthetic-vsi:0.4, n=60,
-               2 rounds: phase 16's gates, then the first decode step of the
+               1 round: phase 16's gates, then the first decode step of the
                bf16 base with round 0's fold-0 adapter through the kernels
                against the plain path (phase 13's rule); (c) ``eval-blind`` on
                an int4 base (quantized after the init) on synthetic-vsi:0.4,
@@ -241,6 +249,21 @@ values of the slots a row's queries see).
                ``dryrun_multichip(4)`` over NCCL when the machine has 4 cards
                (else a line says so): its OK line and wall.
 
+ 24. bench — ``tst_torch.bench`` (the port's ``bench.py``) in process, its
+               stdout and stderr captured, at the reference's own overrides
+               TST_BENCH_STEPS=2 TST_BENCH_WARMUP=1 (``--only bench``: the
+               defaults, 12 timed steps after 3; the 8B, long and decode legs
+               keep their fixed counts): exactly one JSON line, the contract
+               (metric, value > 0, unit, vs_baseline > 0, fine-tunes an hour >
+               0, backend cuda, n_chips 1), every leg's key and no leg
+               skipped; each kernel's launches as the legs' steps, remat modes
+               and decode calls imply (bench_launches_want). Before it, the
+               step gates (GATE_BATCHES) for each train path new to the card:
+               the fold-parallel step at the bench's shape (Qwen2.5-0.5B, k=5
+               x 4 rows, remat="dots"), the int8 Llama-3-8B k=2 leg at all 32
+               layers ("dots"), and the packed int8 8B leg (k=5, one row of
+               1024 a fold, remat="attn").
+
 Phase 11 also times K3 and torch's tinygemm int4 product
 (``aten._weight_int4pack_mm``, bf16 scales; its library yardstick) at M=32
 over a decode layer's seven projections of Qwen2.5-0.5B and of
@@ -257,6 +280,7 @@ package ``tst``, and neither does the port it drives.
 import argparse
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -294,8 +318,12 @@ TRAIN_SHAPE = (32, 512, 14, 2, 64)
 #: as operands, and dk/dv sum over 7 heads x up to 512 rows, so each gradient
 #: is held to max|d - ref| <= 2e-2 * max|ref|
 GRAD_TOL = 2e-2
+#: phase 6's diagnose-sft (and phase 9's, packed): 2 epochs (3 before
+#: phase 24's gates averaged batches)
+TRAIN_EPOCHS = 2
 TRAIN = ["diagnose-sft", "--bench", "synthetic:0.5", "--set", "data.n=512",
-         "--set", "data.k=2", "--set", "optim.batch_size=16", "--set", "optim.epochs=3",
+         "--set", "data.k=2", "--set", "optim.batch_size=16", "--set",
+         f"optim.epochs={TRAIN_EPOCHS}",
          "--set", "model.name=qwen2.5-0.5b"]  # the default rf.cross_check=true
 #: rows per fold of the kernel-vs-plain step: the plain attention keeps
 #: several f32 [rows, 14, 512, 512] tensors per layer for its backward
@@ -307,7 +335,9 @@ PLAIN_ROWS = 4
 GRAD_COSINE, LOSS_RTOL = 0.99, 1e-3
 #: scale of the drawn LoRA B for that step (nonzero, so A has gradients)
 B_SCALE = 0.005
-STEP_SAMPLES = 8
+#: steps a median step time is taken over, after the first (8 before phase
+#: 24 took its time, 5 before its gates averaged batches)
+STEP_SAMPLES = 3
 PACKED = ["optim.pack=true"]
 #: the packed train step's attention call: 2 folds x 16 rows of 1024 tokens
 PACKED_TRAIN_SHAPE = (32, 1024, 14, 2, 64)
@@ -374,13 +404,22 @@ MAX_NEW, INT4_PROJ, DECODE_ROWS = 12, 7, 32
 #: (decisive_disagreements): the logits are near-tied, so argmax agreement
 #: alone fails correct code
 LOGIT_TOL = 2e-2
-#: phase 14: one epoch of phase 6's geometry (17 steps)
-TRAIN_FUSED = ([a.replace("synthetic:0.5", "synthetic-vsi:0.4").replace("optim.epochs=3",
-                                                                         "optim.epochs=1")
-                for a in TRAIN]
-               + ["--set", "model.quantize=int4", "--set", "model.fused_mlp=true"])
-#: the RF auditor on the planted-bias benchmark (forests traversed on the card)
-RF = ["diagnose-rf", "--bench", "synthetic:0.5", "--set", "data.n=512", "--k", "5"]
+#: phase 14: one epoch of phase 6's geometry on 256 rows of
+#: synthetic-vsi:0.4, 192 MCQ and 64 numeric (9 steps; 512 rows and 17 steps
+#: before phase 24's gates averaged batches); the RF cross-check, which
+#: phase 6 runs, off (on before phase 24 took its time)
+FUSED_ROWS, FUSED_MCQ, FUSED_NUMERIC = 256, 192, 64
+TRAIN_FUSED = ([a.replace("synthetic:0.5", "synthetic-vsi:0.4").replace(
+                    f"optim.epochs={TRAIN_EPOCHS}", "optim.epochs=1")
+                .replace(f"data.n={N_SAMPLES}", f"data.n={FUSED_ROWS}") for a in TRAIN]
+               + ["--set", "model.quantize=int4", "--set", "model.fused_mlp=true",
+                  "--set", "rf.cross_check=false"])
+#: the RF auditor on the planted-bias benchmark (forests traversed on the
+#: card), and its IBP loop (phase 17): 128 rows each (512 before phase 24
+#: took its time, 256 before its gates averaged batches; the host fit is
+#: most of both phases' walls)
+RF_ROWS = 128
+RF = ["diagnose-rf", "--bench", "synthetic:0.5", "--set", f"data.n={RF_ROWS}", "--k", "5"]
 #: the device traversal against the host one: the same trees, f32 mean over
 #: trees against sklearn's f64 sum
 RF_TOL = 1e-6
@@ -397,7 +436,7 @@ IBP = ["debias-ibp", "--bench", "synthetic-vsi:0.4", "--set", "data.n=512", "--k
 #: same adapters: the bf16 rank rule (ROADMAP, "Hold parity on the same inputs")
 IBP_SPEARMAN = 0.999
 IBP_RF_ROUNDS = 2
-IBP_RF = ["debias-ibp", "--bench", "synthetic:0.5", "--set", "data.n=512", "--k", "3",
+IBP_RF = ["debias-ibp", "--bench", "synthetic:0.5", "--set", f"data.n={RF_ROWS}", "--k", "3",
           "--set", "ibp.diagnostic=rf", "--set", f"ibp.rounds={IBP_RF_ROUNDS}",
           "--set", "ibp.stop_epsilon=-1"]
 #: prune_mask's floor of survivors
@@ -447,7 +486,7 @@ MULTI_BATCH = 8
 #: phase 20a: phase 6's training (k=2 x 16 rows, LoRA r16 q/k/v/o, n=512) for
 #: one epoch, checkpointed under checkpoint_dir (the RF cross-check, which
 #: phase 6 runs, is off)
-SERVE_TRAIN = ([a.replace("optim.epochs=3", "optim.epochs=1") for a in TRAIN]
+SERVE_TRAIN = ([a.replace(f"optim.epochs={TRAIN_EPOCHS}", "optim.epochs=1") for a in TRAIN]
                + ["--set", "rf.cross_check=false"])
 SERVE_EPOCH_DIR = "seed_0_epoch_000"
 #: phase 20a's in-process resume: steps, the failure after step 3, a
@@ -473,9 +512,9 @@ LONG_RING_BLOCKS, LONG_RING_COSINE = 4, 0.999
 #: the preset through the CLI (BASELINE config 4): synthetic rows with
 #: ~16,000-byte transcripts, the byte tokenizer (the preset's HF tokenizer
 #: needs a download) and remat (one layer's saves at 163,840 tokens would be
-#: ~6.5 GB, ~157 GB over 24 layers); 8 rows, one epoch: 4 steps of 2 rows a
-#: fold; the RF cross-check off (2 held-out rows a fold)
-LONG_ROWS, LONG_CONTEXT_BYTES = 8, 16000
+#: ~6.5 GB, ~157 GB over 24 layers); 6 rows (8 before phase 24 took its
+#: time), one epoch: 3 steps of 2 rows a fold; the RF cross-check off
+LONG_ROWS, LONG_CONTEXT_BYTES = 6, 16000
 LONG_TRAIN = ["diagnose-sft", "--preset", "sft-videomme-long", "--set", "model.tokenizer=byte",
               "--set", "model.remat=true", "--set", "optim.epochs=1",
               "--set", "rf.cross_check=false"]
@@ -484,13 +523,18 @@ LONG_TRAIN = ["diagnose-sft", "--preset", "sft-videomme-long", "--set", "model.t
 #: a download) and the mesh of one card
 LLAMA8B_ONE_CARD = ["--set", "model.tokenizer=byte", "--set", "mesh.data=1",
                     "--set", "mesh.tensor=1"]
-#: (a) the sft-mmmu-llama8b preset (k=5, batch 8, remat=True): 80 rows, one
-#: epoch, 8 fold-parallel steps of 40 rows x 512 tokens
+#: (a) the sft-mmmu-llama8b preset (k=5, batch 8, remat=True): 20 rows (80
+#: before phase 24 took its time, 40 before its gates averaged batches), one
+#: epoch of fold-parallel steps of 40 rows x 512 tokens; its step gate takes
+#: the first 8 batches of 4 rows a fold of the preset at LLAMA8B_GATE_ROWS
+LLAMA8B_ROWS, LLAMA8B_GATE_ROWS = 20, 40
 LLAMA8B_TRAIN = ["diagnose-sft", "--preset", "sft-mmmu-llama8b", "--bench", "synthetic:0.5",
-                 *LLAMA8B_ONE_CARD, "--set", "data.n=80", "--set", "optim.epochs=1"]
+                 *LLAMA8B_ONE_CARD, "--set", f"data.n={LLAMA8B_ROWS}", "--set",
+                 "optim.epochs=1"]
 #: (b) the ibp-vsibench preset (k=5, remat=True, prune_rate 0.1, the SFT
-#: diagnostic): 60 rows, one epoch a round, 2 rounds that always prune
-LLAMA8B_IBP_ROUNDS = 2
+#: diagnostic): 60 rows, one epoch, one round that prunes (2 before phase 24
+#: took its time; phase 16 runs two)
+LLAMA8B_IBP_ROUNDS = 1
 LLAMA8B_IBP = ["debias-ibp", "--preset", "ibp-vsibench", "--bench", "synthetic-vsi:0.4",
                *LLAMA8B_ONE_CARD, "--set", "data.n=60", "--set", "optim.epochs=1",
                "--set", f"ibp.rounds={LLAMA8B_IBP_ROUNDS}", "--set", "ibp.stop_epsilon=-1"]
@@ -513,6 +557,37 @@ DRYRUN_CARDS = 4
 #: plus ENTRY_ERR_EPS · max|logit| (K1 no worse than the plain bf16
 #: attention, whatever bf16 rounding over 24 random layers amounts to)
 ENTRY_ERR_RATIO, ENTRY_ERR_EPS = 1.25, 1e-3
+#: phase 24: the bench (tst_torch.bench) in the full run at the reference's
+#: own step overrides (its 8B, long and decode legs keep their fixed counts);
+#: ``--only bench`` runs its defaults (12 timed steps after 3)
+BENCH_ENV = {"TST_BENCH_STEPS": "2", "TST_BENCH_WARMUP": "1"}
+#: the step gates (phases 7, 10, 14, 22a, 24) hold a path's per-fold losses
+#: and LoRA gradients, averaged over its first batches, to one rule
+#: (_step_gates). One batch's fold loss is a handful of answer tokens, where
+#: bf16 rounding alone moves it by up to 1.75e-03 (kernels against the plain
+#: path). Each gate averages the fewest of 1, 2, 4 or 8 batches at which its
+#: largest reading over two adapter seeds is at most half of LOSS_RTOL, and 8
+#: where none is (the fused MLP's, 5.48e-04 at 8: K4 against the unfused MLP
+#: moves one seed's losses by a steady 5e-04 to 8e-04). The readings, of
+#: scripts/torch_step_loss_noise.py, are in PERF.md
+GATE_BATCHES = {"train": 8, "packed": 2, "fused": 8, "llama8b": 8,
+                "qwen": 4, "llama8b_k2": 8, "llama8b_packed_k5": 4}
+#: the bench's fold-parallel attention call (k=5 x 4 rows, Qwen2.5-0.5B
+#: heads), in the kernel checks of phases 3 and 5
+BENCH_SHAPES = [(20, 512, 14, 2, 64)]
+#: the record's keys that every leg run on the card writes beside the
+#: contract's (bench_record_gate)
+BENCH_LEG_KEYS = (
+    "unpacked_samples_per_sec_per_chip", "fold_sequential_samples_per_sec_per_chip",
+    "compile_s_fold_parallel", "compile_cache_hit_fold_parallel", "compile_s_single_fold",
+    "step_hbm_gb", "mfu", "tflops_per_s", "packed_samples_per_sec_per_chip", "pack_len",
+    "pack_fill_fraction", "pack_batch_rows_per_fold", "packed_mfu",
+    "llama3_8b_int8_samples_per_sec_per_chip", "llama3_8b_mfu", "llama3_8b_base_hbm_gb",
+    "llama3_8b_step_hbm_gb", "llama3_8b_k5_fold_parallel_samples_per_sec_per_chip",
+    "llama3_8b_packed_samples_per_sec_per_chip", "llama3_8b_k5_packed_samples_per_sec_per_chip",
+    "llama3_8b_int4_decode_step_tokens_per_s", "longseq_tokens_per_s", "longseq_len",
+    "longseq_32k_tokens_per_s", "decode_tokens_per_s", "decode_batch",
+    "decode_step_tokens_per_s")
 #: safetensors' dtype names
 _ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
               torch.int8: "I8", torch.uint8: "U8"}
@@ -764,7 +839,7 @@ def phase_kernel(device):
     import tst_torch.kernels.flash_attention as tfa
 
     out = {}
-    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE + DRYRUN_SHAPES:
+    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE + DRYRUN_SHAPES + BENCH_SHAPES:
         rng = np.random.default_rng(s + d)
         q, k, v = (torch.from_numpy(rng.normal(0.0, 0.5, shape).astype(np.float32))
                    .to(device, torch.bfloat16)
@@ -785,7 +860,8 @@ def phase_kernel(device):
         if (b, s, h, kvh, d) == KERNEL_SHAPES[0]:
             out["max_abs_err"] = o_err
             out["ms"] = median_ms(lambda: tfa.flash_attention(q, k, v))
-            out["plain_ms"] = median_ms(lambda: tfa.flash_attention_reference(q, k, v))
+            out["plain_ms"] = median_ms(lambda: tfa.flash_attention_reference(q, k, v),
+                                        samples=10, reps=3, warmup=1)
     bad = torch.zeros(1, 100, 2, 64, device=device, dtype=torch.bfloat16)
     try:
         tfa.flash_attention(bad, bad, bad)
@@ -901,7 +977,7 @@ def phase_kernel_bwd(device):
     import tst_torch.kernels.flash_attention as tfa
 
     out = {}
-    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE + DRYRUN_SHAPES:
+    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE + DRYRUN_SHAPES + BENCH_SHAPES:
         rng = np.random.default_rng(s + d + 1)
         q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
         k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
@@ -934,7 +1010,7 @@ def phase_kernel_bwd(device):
         if (b, s, h, kvh, d) == TRAIN_SHAPE:
             di = tfa.backward_row_stat(o, do)
             plain_ms = median_ms(lambda: tfa.flash_attention_backward_reference(
-                q, k, v, o, lse, do))
+                q, k, v, o, lse, do), samples=10, reps=3, warmup=1)
             lib = _sdpa_yardstick(q, k, v, do, o)
             bounds = _attention_bounds(q, k)
             out["dkv"] = {"max_abs_err": (got[1].float() - want[1]).abs().max().item(),
@@ -1190,23 +1266,118 @@ def _step_gates(kernel, plain):
     return line, loss_ok and cos[worst] >= GRAD_COSINE
 
 
+def mean_loss_and_grads(trainer, params, lora, arrays, batches, segs=None):
+    """``trainer``'s per-fold losses [k] and LoRA gradients on each batch
+    of ``batches`` from one state, averaged over the batches, in f32."""
+    from tst_torch.train.sft import tree_map
+
+    loss_sum, grad_sum = 0.0, None
+    for idx in batches:
+        loss, grads = trainer.batch_loss_and_grads(params, lora, *arrays, idx, segs)
+        grads = tree_map(lambda t: t.float(), grads)
+        loss_sum = loss_sum + loss.float()
+        grad_sum = grads if grad_sum is None else tree_map(torch.add, grad_sum, grads)
+    return loss_sum / len(batches), tree_map(lambda t: t / len(batches), grad_sum)
+
+
+def gate_adapters(trainer, device, seed=1):
+    """``trainer``'s adapters of ``seed``, with B drawn nonzero from seed + 6
+    (B starts at 0, which leaves every A-gradient 0)."""
+    lora = trainer.init_state(torch.Generator(device).manual_seed(seed))[0]
+    rng = torch.Generator(device).manual_seed(seed + 6)
+    for ab in lora.values():
+        ab["b"] = (B_SCALE * torch.randn(ab["b"].shape, generator=rng, device=device)).to(
+            ab["b"].dtype)
+    return lora
+
+
+def gate_case(key, name, make, spec, params, arrays, batches, segs=None):
+    """A path a step gate holds: ``make(spec, use_pallas)`` → its
+    FoldTrainer, the weights, the arrays (tokens, mask, answer positions)
+    and batches its steps take, the packed starts or None; ``key`` names
+    its GATE_BATCHES."""
+    return {"key": key, "name": name, "make": make, "spec": spec, "params": params,
+            "arrays": arrays, "batches": batches, "segs": segs}
+
+
+def state_gate_case(key, name, st, packed=False):
+    """gate_case of a diagnose-sft state (_train_state, kept as "state"):
+    its trainer's settings, weights, arrays and batches."""
+    from tst_torch.train.sft import FoldTrainer
+
+    tr = st.trainer
+
+    def make(spec, use_pallas):
+        return FoldTrainer(spec, dataclasses.replace(tr.lora_spec, dtype=spec.dtype), k=tr.k,
+                           use_pallas=use_pallas, remat=tr.remat, t_max=tr.t_max,
+                           fused_mlp=tr.fused_mlp, packed=tr.packed)
+    arrays = (st.ptokens, st.pmask, st.ppos) if packed else (st.tokens, st.loss_mask,
+                                                             st.answer_pos)
+    return {**gate_case(key, name, make, st.spec, st.params, arrays, st.batches,
+                        st.psegs if packed else None), "state": st}
+
+
+def step_gate(case, lora=None):
+    """_step_gates on ``case``'s first GATE_BATCHES batches through the
+    kernels against ``use_pallas=False``, from one state: the weights,
+    ``lora`` (gate_adapters by default) and batches; losses and gradients
+    averaged over the batches → (line, ok)."""
+    n = GATE_BATCHES[case["key"]]
+    batches = case["batches"][:n]
+    if len(batches) < n:
+        raise AssertionError(f"{case['name']}: {len(batches)} batches, the gate averages {n}")
+    device = case["arrays"][0].device
+    if lora is None:
+        lora = gate_adapters(case["make"](case["spec"], True), device)
+    got = [mean_loss_and_grads(case["make"](case["spec"], use_pallas), case["params"], lora,
+                               case["arrays"], batches, case["segs"])
+           for use_pallas in (True, False)]
+    torch.cuda.synchronize()
+    line, ok = _step_gates(*got)
+    return f"{n} batch(es) averaged: {line}", ok
+
+
+def _train_gate_case():
+    return state_gate_case("train", f"Qwen2.5-0.5B k=2 x {PLAIN_ROWS} rows",
+                           _train_state([f"optim.batch_size={PLAIN_ROWS}"]))
+
+
+def _packed_gate_case():
+    return state_gate_case(
+        "packed", f"Qwen2.5-0.5B k=2 x {PACKED_PLAIN_ROWS} packed rows of 1024",
+        _train_state(PACKED + [f"optim.batch_size={PACKED_PLAIN_ROWS}"]), packed=True)
+
+
+def _fused_gate_case():
+    return state_gate_case("fused", f"int4 Qwen2.5-0.5B fused MLP k=2 x {PLAIN_ROWS} rows",
+                           _train_state([f"optim.batch_size={PLAIN_ROWS}"], base=TRAIN_FUSED))
+
+
+def _llama8b_gate_case():
+    return state_gate_case("llama8b", f"Llama-3-8B (32 layers) k=5 x {PLAIN_ROWS} rows, remat",
+                           _train_state([f"optim.batch_size={PLAIN_ROWS}",
+                                         f"data.n={LLAMA8B_GATE_ROWS}"], base=LLAMA8B_TRAIN))
+
+
+def train_gate_cases(keys=None):
+    """The diagnose-sft paths of phases 7, 10, 14 and 22a (those of
+    ``keys`` if given), one state at a time (for
+    scripts/torch_step_loss_noise.py)."""
+    for key, build in (("train", _train_gate_case), ("packed", _packed_gate_case),
+                       ("fused", _fused_gate_case), ("llama8b", _llama8b_gate_case)):
+        if keys and key not in keys:
+            continue
+        case = build()
+        yield case
+        del case
+        torch.cuda.empty_cache()
+
+
 def phase_train_vs_plain():
-    """One step's LoRA gradients through the kernels and through the plain
-    attention, from the same seed: same weights, adapters and batch. B is
-    drawn nonzero (it starts at 0, which leaves every A-gradient 0)."""
-    states = {}
-    for use_pallas in (True, False):
-        st = _train_state([f"optim.batch_size={PLAIN_ROWS}",
-                           f"model.use_pallas={str(use_pallas).lower()}"])
-        rng = torch.Generator(device=st.tokens.device).manual_seed(7)
-        for ab in st.lora.values():
-            ab["b"] = (B_SCALE * torch.randn(ab["b"].shape, generator=rng,
-                                          device=rng.device)).to(ab["b"].dtype)
-        idx = torch.as_tensor(st.batches[0], dtype=torch.long, device=st.tokens.device)
-        states[use_pallas] = st.trainer.loss_and_grads(
-            st.params, st.lora, st.tokens[idx], st.loss_mask[idx], st.answer_pos[idx])
-        del st
-    line, ok = _step_gates(states[True], states[False])
+    """The step's LoRA gradients and fold losses through the kernels and
+    through the plain attention (step_gate: same weights, adapters and
+    batches)."""
+    line, ok = step_gate(_train_gate_case())
     print(f"[train-vs-plain] {PLAIN_ROWS} rows per fold, kernels: {line}")
     if not ok:
         raise AssertionError("the train step through the kernels disagrees with the plain path")
@@ -1248,6 +1419,7 @@ def phase_kernel_seg(device):
 
     cases = [(PACKED_TRAIN_SHAPE, _packed_step_starts())]
     cases += [(shape, _seg_starts(shape[0], shape[1], shape[1])) for shape in SEG_SHAPES]
+    cases += _bench_seg_cases()
     out = {}
     for (b, s, h, kvh, d), starts in cases:
         rng = np.random.default_rng(s + d + 2)
@@ -1426,33 +1598,26 @@ def phase_train_packed():
 
 
 def phase_train_packed_vs_plain():
-    """One packed step's LoRA gradients and losses, and the packed scorer's
-    letter probabilities, through the kernels and through the plain path
-    from the same seed: same weights, adapters (B drawn nonzero) and rows."""
+    """One packed step's LoRA gradients and losses (step_gate), and the
+    packed scorer's letter probabilities, through the kernels and through
+    the plain path on one state: the same weights, adapters and rows."""
     from tst_torch.train.infer import score_heldout_mcq_packed
 
-    grads, probs, secs = {}, {}, {}
+    case = _packed_gate_case()
+    st = case["state"]
+    lora = gate_adapters(case["make"](case["spec"], True), st.tokens.device)
+    line, ok = step_gate(case, lora)
+    probs, secs = {}, {}
     for use_pallas in (True, False):
-        st = _train_state(PACKED + [f"optim.batch_size={PACKED_PLAIN_ROWS}",
-                                    f"model.use_pallas={str(use_pallas).lower()}"])
-        rng = torch.Generator(device=st.tokens.device).manual_seed(7)
-        for ab in st.lora.values():
-            ab["b"] = (B_SCALE * torch.randn(ab["b"].shape, generator=rng,
-                                          device=rng.device)).to(ab["b"].dtype)
-        idx = torch.as_tensor(st.batches[0], dtype=torch.long, device=st.tokens.device)
-        idx = (torch.arange(idx.shape[0], device=idx.device)[:, None], idx)
-        grads[use_pallas] = st.trainer.loss_and_grads(
-            st.params, st.lora, st.ptokens[idx], st.pmask[idx], st.ppos[idx], st.psegs[idx])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         probs[use_pallas] = score_heldout_mcq_packed(
-            st.params, st.lora, st.spec, st.lspec, st.tb, st.fold_id, st.trainer.k,
+            st.params, lora, st.spec, st.lspec, st.tb, st.fold_id, st.trainer.k,
             pack_len=st.pack.pack_len, use_pallas=use_pallas)
         secs[use_pallas] = time.perf_counter() - t0
-        gold = st.tb.gold
-        del st
-        torch.cuda.empty_cache()
-    line, ok = _step_gates(grads[True], grads[False])
+    gold = st.tb.gold
+    del case, st, lora
+    torch.cuda.empty_cache()
     pk, pp = probs[True], probs[False]
     diff = float(np.abs(pk - pp).max())
     agree = float((pk.argmax(-1) == pp.argmax(-1)).mean())
@@ -2108,7 +2273,7 @@ def decode_state():
     return params, spec, tok0, plen, tok.shape[1], kc, vc, head, rope
 
 
-def decode_step_profiles(state, steps=5):
+def decode_step_profiles(state, steps=3):
     """One greedy decode step through K3 and through the plain path on
     ``state`` (decode_state): _profile of each, K3's kernels matched."""
     from tst_torch.models.decode import _decode_step
@@ -2193,8 +2358,8 @@ def phase_train_fused():
     loss = report["final_loss"]
     sx = np.array([r["s_x"] for r in sx_rows], np.float64)
     mra = report.get("numeric_blind_mra")
-    if (rc != 0 or counts != want or report.get("n_numeric") != N_NUMERIC_VSI
-            or report["n_mcq"] != N_MCQ_VSI or len(sx_rows) != N_SAMPLES
+    if (rc != 0 or counts != want or report.get("n_numeric") != FUSED_NUMERIC
+            or report["n_mcq"] != FUSED_MCQ or len(sx_rows) != FUSED_ROWS
             or "numeric_decode_wall_seconds" not in report or mra is None
             or not math.isfinite(mra) or not (loss is not None and math.isfinite(loss))
             or not ((sx >= 0) & (sx <= 1)).all()):
@@ -2211,25 +2376,13 @@ def phase_train_fused():
           f"10/50/90% {np.quantile(sx, [0.1, 0.5, 0.9]).round(4).tolist()}; top 5 "
           f"{json.dumps(top)}")
 
-    # one step, fused through the kernels vs the unfused plain path
-    states = {}
-    for fused in (True, False):
-        over = [f"optim.batch_size={PLAIN_ROWS}"] + ([] if fused else ["model.use_pallas=false"])
-        st2 = _train_state(over, base=TRAIN_FUSED)
-        rng = torch.Generator(device=st2.tokens.device).manual_seed(7)
-        for ab in st2.lora.values():
-            ab["b"] = (B_SCALE * torch.randn(ab["b"].shape, generator=rng,
-                                          device=rng.device)).to(ab["b"].dtype)
-        idx = torch.as_tensor(st2.batches[0], dtype=torch.long, device=st2.tokens.device)
-        states[fused] = st2.trainer.loss_and_grads(
-            st2.params, st2.lora, st2.tokens[idx], st2.loss_mask[idx], st2.answer_pos[idx])
-        del st2
-    line, ok = _step_gates(states[True], states[False])
+    # the step fused through the kernels vs the unfused plain path
+    line, ok = step_gate(_fused_gate_case())
     print(f"[train-fused] {PLAIN_ROWS} rows per fold, fused kernels vs unfused plain path: "
           f"{line}")
     if not ok:
         raise AssertionError("the fused train step disagrees with the unfused plain path")
-    del states
+    torch.cuda.empty_cache()
 
     # step times fused vs unfused (both int4, flash kernels), peak memory
     timing = {True: step_timing(st)}
@@ -2315,7 +2468,7 @@ def phase_diagnose_rf(device):
     dev_ms = median_ms(lambda: tforest.forest_predict_proba(packed, xt), samples=10, reps=3)
     acc, chance = report["blind_accuracy"], report["chance_accuracy"]
     zero = {key: 0 for key in counts}
-    print(f"[diagnose-rf] diagnose-rf synthetic:0.5 n=512 k={cfg.data.k} rc={rc}: "
+    print(f"[diagnose-rf] diagnose-rf synthetic:0.5 n={RF_ROWS} k={cfg.data.k} rc={rc}: "
           f"blind_accuracy {acc:.4f} (chance {chance:.4f}), fold_accuracies "
           f"{report['fold_accuracies']}, top features {list(report['top_features'])[:5]}; "
           f"device vs host traversal of the same {len(folds)} forests of {cfg.rf.n_estimators} "
@@ -2484,9 +2637,9 @@ def phase_debias_ibp_rf():
     rc = cli.main(IBP_RF + ["--out", out_dir])
     wall = time.perf_counter() - t0
     counts = _launch_counts()
-    report, n_kept, n_removed = _ibp_artifacts(out_dir, N_SAMPLES)
+    report, n_kept, n_removed = _ibp_artifacts(out_dir, RF_ROWS)
     cfg, _ = cli._resolve_k(cli.build_parser().parse_args(IBP_RF))
-    print(f"[debias-ibp-rf] debias-ibp ibp.diagnostic=rf synthetic:0.5 n=512 k={cfg.data.k} "
+    print(f"[debias-ibp-rf] debias-ibp ibp.diagnostic=rf synthetic:0.5 n={RF_ROWS} k={cfg.data.k} "
           f"rc={rc}: rounds_run {report['rounds_run']}, n_alive "
           f"{[r['n_alive'] for r in report['per_round']]}, pruned "
           f"{[r.get('pruned_this_round') for r in report['per_round']]} (prune_rate "
@@ -3637,8 +3790,9 @@ def _llama8b_sft(root):
     sx = np.array([r["s_x"] for r in rows], np.float64)
     rho, acc = report.get("rf_sft_spearman"), report.get("rf_blind_accuracy")
     finite = all(math.isfinite(x) for fl in fold_losses for x in fl)
-    if (rc != 0 or spec.n_layers != LLAMA8B_LAYERS or counts != want or len(rows) != 80
-            or report["n_mcq"] != 80 or not finite or not fold_losses
+    if (rc != 0 or spec.n_layers != LLAMA8B_LAYERS or counts != want
+            or len(rows) != LLAMA8B_ROWS or report["n_mcq"] != LLAMA8B_ROWS or not finite
+            or not fold_losses
             or not ((sx >= 0) & (sx <= 1)).all() or not summary["top_ops"]
             or not all(isinstance(v, float) and math.isfinite(v) for v in (rho, acc))):
         raise AssertionError(f"Llama-3-8B diagnose-sft rc={rc}, layers {spec.n_layers}, launches "
@@ -3672,30 +3826,16 @@ def _llama8b_sft(root):
           f"+ one layer's recompute and the head)")
     print(f"[llama8b] (a) --profile-dir: top device ops of the run: {'; '.join(top)}")
 
-    # the step gates at full depth: one step through the kernels against the
-    # plain attention (the trainer's use_pallas off), on one state: the same
-    # weights, adapters and batch
+    # the step gates at full depth: through the kernels against the plain
+    # attention (the trainer's use_pallas off), on one state (step_gate)
     t0 = time.perf_counter()
-    st = _train_state([f"optim.batch_size={PLAIN_ROWS}"], base=LLAMA8B_TRAIN)
-    rng = torch.Generator(device=st.tokens.device).manual_seed(7)
-    for ab in st.lora.values():
-        ab["b"] = (B_SCALE * torch.randn(ab["b"].shape, generator=rng,
-                                      device=rng.device)).to(ab["b"].dtype)
-    idx = torch.as_tensor(st.batches[0], dtype=torch.long, device=st.tokens.device)
-    states, secs = {}, {}
-    for use_pallas in (True, False):
-        st.trainer.use_pallas = use_pallas
-        t1 = time.perf_counter()
-        states[use_pallas] = st.trainer.loss_and_grads(
-            st.params, st.lora, st.tokens[idx], st.loss_mask[idx], st.answer_pos[idx])
-        torch.cuda.synchronize()
-        secs[use_pallas] = time.perf_counter() - t1
-    del st, idx
+    case = _llama8b_gate_case()
+    line, ok = step_gate(case)
+    del case
     torch.cuda.empty_cache()
-    line, ok = _step_gates(states[True], states[False])
-    print(f"[llama8b] (a) one step at 32 layers, {PLAIN_ROWS} rows a fold, kernels vs "
-          f"model.use_pallas=false: {line}; kernels {secs[True]:.2f} s, plain "
-          f"{secs[False]:.2f} s, {time.perf_counter() - t0:.2f} s with the state's build")
+    print(f"[llama8b] (a) at 32 layers, {PLAIN_ROWS} rows a fold, kernels vs "
+          f"model.use_pallas=false: {line}; {time.perf_counter() - t0:.2f} s with the state's "
+          f"build")
     if not ok:
         raise AssertionError("the 32-layer Llama-3-8B step through the kernels disagrees with "
                              "the plain path")
@@ -3819,8 +3959,11 @@ def phase_llama8b():
 
 
 def _f32(tree):
-    """A weight tree in f32."""
+    """A weight tree in f32; quantized leaves stay as they are (they
+    dequantize to the spec's dtype at use)."""
     if isinstance(tree, dict):
+        if "q" in tree and "scale" in tree:
+            return tree
         return {key: _f32(t) for key, t in tree.items()}
     return tree.float()
 
@@ -3964,17 +4107,222 @@ def phase_entry():
     return out
 
 
+def bench_launches_want(steps, warmup, qwen_layers=N_LAYERS, llama_layers=LLAMA8B_LAYERS):
+    """The kernels' launches of one ``tst_torch.bench`` run on the card at
+    ``steps`` timed and ``warmup`` untimed 0.5B steps → (each leg's, their
+    sum). A train step launches one forward a layer ("dots" a second: it
+    recomputes the layer in the backward and keeps no kernel output;
+    "attn" and "flash" keep the kernel's output and lse), one dK/dV and one
+    dQ, segmented on packed rows; a greedy decode call one forward a layer
+    in its prefill, then in each step after the prefill's token the decode
+    attention a layer, and on an int4 base K3 on each of a layer's 7
+    projections. The fold-parallel and packed legs run 1 + (warmup - 1) +
+    steps steps, the fold-sequential one 1 + K·(warmup - 1 + steps) one-fold
+    steps; the 8B, long and decode legs their fixed counts."""
+    from tst_torch import bench as tb
+
+    def train(layers, n_steps, remat, seg=False):
+        fwd = n_steps * (2 if remat in (True, "full", "dots") else 1)
+        keys = ("fwd_seg", "dkv_seg", "dq_seg") if seg else ("fwd", "dkv", "dq")
+        return dict(zip(keys, (layers * fwd, layers * n_steps, layers * n_steps)))
+
+    def decode(layers, int4):
+        calls = 1 + tb.DECODE_TIMED
+        steps_after = calls * (tb.DECODE_NEW - 1 + tb.DECODE_SHORT - 1)
+        out = {"fwd": layers * 2 * calls, "dattn": layers * steps_after}
+        if int4:
+            out["int4"] = INT4_PROJ * layers * steps_after
+        return out
+
+    fixed = tb.FIXED_WARM
+    legs = {"fold_parallel": train(qwen_layers, steps + warmup, "dots"),
+            "packed": train(qwen_layers, steps + warmup, "dots", seg=True),
+            "fold_sequential": train(qwen_layers, 1 + tb.K * (warmup - 1 + steps), "dots"),
+            "llama8b_k2": train(llama_layers, fixed + tb.L8_K2_TIMED, "dots"),
+            "llama8b_k5": train(llama_layers, fixed + tb.L8_K5_TIMED, "attn")}
+    for kk, remat, _ in tb.L8_PACKED:
+        legs[f"llama8b_packed_k{kk}"] = train(llama_layers, fixed + tb.L8_PACKED_TIMED, remat,
+                                              seg=True)
+    legs.update({"llama8b_int4_decode": decode(llama_layers, True),
+                 "longseq": train(qwen_layers, fixed + tb.LONG_TIMED, "flash"),
+                 "longseq_32k": train(qwen_layers, fixed + tb.LONG32_TIMED, "flash"),
+                 "decode": decode(qwen_layers, False)})
+    total = dict.fromkeys(("fwd", "dkv", "dq", "fwd_seg", "dkv_seg", "dq_seg", "int4", "mlp",
+                           "dattn"), 0)
+    for leg in legs.values():
+        for key, n in leg.items():
+            total[key] += n
+    return legs, total
+
+
+def _positive(x):
+    return isinstance(x, (int, float)) and not isinstance(x, bool) and math.isfinite(x) and x > 0
+
+
+def bench_record_gate(stdout, stderr=""):
+    """The bench's output on the card: exactly one line, a strict-JSON
+    record with the contract (metric, value > 0, unit, vs_baseline > 0,
+    fold_finetunes_per_hour_per_chip > 0, backend "cuda", n_chips 1) and
+    every leg's key (BENCH_LEG_KEYS), and no leg reported skipped on
+    ``stderr`` → the record."""
+    lines = stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"tst_torch.bench printed {len(lines)} lines on stdout, not one "
+                             f"JSON line: {lines[:3]}")
+    rec = strict_json(lines[0])
+    bad = [key for key, ok in (
+        ("metric", rec.get("metric") == "blind_sft_samples_per_sec_per_chip"),
+        ("value", _positive(rec.get("value"))), ("unit", rec.get("unit") == "samples/s/chip"),
+        ("vs_baseline", _positive(rec.get("vs_baseline"))),
+        ("fold_finetunes_per_hour_per_chip",
+         _positive(rec.get("fold_finetunes_per_hour_per_chip"))),
+        ("backend", rec.get("backend") == "cuda"), ("n_chips", rec.get("n_chips") == 1)) if not ok]
+    missing = [key for key in BENCH_LEG_KEYS if key not in rec]
+    skipped = [ln for ln in stderr.splitlines() if " skipped: " in ln]
+    if bad or missing or skipped:
+        raise AssertionError(f"tst_torch.bench's record: contract keys {bad} wrong, leg keys "
+                             f"{missing} missing, legs skipped {skipped}: {rec}")
+    return rec
+
+
+@functools.lru_cache(maxsize=1)
+def _bench_workload():
+    """The bench's workload on the card (tst_torch.bench.bench_workload),
+    built once for phase 24's gates and the segmented kernel checks."""
+    from tst_torch import bench
+
+    return bench.bench_workload(True, max(GATE_BATCHES.values()), 1)
+
+
+def bench_gate_cases(device):
+    """The bench's train paths new to the card, as gate_case, one at a
+    time: the fold-parallel step at its Qwen2.5-0.5B shape, the int8
+    Llama-3-8B k=2 leg at all 32 layers, and the packed int8 8B leg under
+    remat="attn" (k=5, one row of 1024 a fold, its own starts); the 8B base
+    is made once and freed after its two."""
+    from tst_torch import bench
+    from tst_torch.models.decoder import init_params
+    from tst_torch.models.lora import LoraSpec
+    from tst_torch.models.quant import quantize_params
+    from tst_torch.models.spec import spec_by_name
+    from tst_torch.train.sft import FoldTrainer
+
+    w = _bench_workload()
+
+    def maker(k, remat, packed=False):
+        def make(spec, use_pallas):
+            lspec = LoraSpec(rank=bench.LORA_RANK, alpha=bench.LORA_ALPHA, dtype=spec.dtype)
+            return FoldTrainer(spec, lspec, k=k, lr=bench.LR, use_pallas=use_pallas,
+                               remat=remat, t_max=w.t_max, packed=packed)
+        return make
+
+    arrays = bench._to(device, w.tb.tokens, w.tb.loss_mask, w.tb.answer_pos)
+    spec = spec_by_name(w.spec_name)
+    params = init_params(torch.Generator(device).manual_seed(0), spec)
+    yield gate_case("qwen", f"{spec.name} k={bench.K} x {bench.BATCH} rows, dots",
+                    maker(bench.K, "dots"), spec, params, arrays, w.batches)
+    del params
+    spec8 = spec_by_name("llama3-8b")
+    params8 = quantize_params(init_params(torch.Generator(device).manual_seed(0), spec8), bits=8)
+    yield gate_case("llama8b_k2", f"int8 {spec8.name} ({spec8.n_layers} layers) k=2 x 2 rows, "
+                    "dots", maker(2, "dots"), spec8, params8, arrays, w.b8)
+    fp8, pb8 = w.packed8[5]
+    parrays = bench._to(device, fp8.tokens, fp8.loss_mask, fp8.answer_pos)
+    (psegs,) = bench._to(device, fp8.seg_starts)
+    yield gate_case("llama8b_packed_k5", f"packed int8 {spec8.name} k=5 x 1 row of "
+                    f"{bench.PACK_LEN}, attn", maker(5, "attn", packed=True), spec8, params8,
+                    parrays, pb8, psegs)
+    del params8, parrays, psegs
+    torch.cuda.empty_cache()
+
+
+def _bench_step_gates():
+    """step_gate on each of bench_gate_cases."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for case in bench_gate_cases(device):
+        t0 = time.perf_counter()
+        line, ok = step_gate(case)
+        print(f"[bench] {case['name']}, kernels vs model.use_pallas=false: {line} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if not ok:
+            raise AssertionError(f"the bench's {case['name']} step through the kernels "
+                                 "disagrees with the plain path")
+        out[case["name"]] = line
+    return out
+
+
+def _bench_seg_cases():
+    """The segmented kernels at the bench's packed 8B legs' first steps:
+    Llama-3-8B heads, k x one row of PACK_LEN a fold, the legs' own starts."""
+    from tst_torch import bench
+
+    w = _bench_workload()
+    cases = []
+    for kk, _, _ in bench.L8_PACKED:
+        fp8, pb8 = w.packed8[kk]
+        seg = fp8.seg_starts[np.arange(kk)[:, None], pb8[0]]
+        cases.append(((kk, bench.PACK_LEN, 32, 8, 128), seg.reshape(-1, seg.shape[-1])))
+    return cases
+
+
+def phase_bench(full=True):
+    """Phase 24: ``tst_torch.bench`` on the card, in process with its
+    stdout and stderr captured, after the step gates of its new train
+    paths; the launches of its run as its legs imply, its record gated."""
+    import contextlib
+    import io
+
+    from tst_torch import bench
+
+    gates = _bench_step_gates()
+    saved = {key: os.environ.get(key) for key in BENCH_ENV}
+    if full:
+        os.environ.update(BENCH_ENV)
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        steps, warmup = bench.bench_steps()
+        torch.cuda.empty_cache()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        sys.stderr.write(err.getvalue())
+        sys.stderr.flush()
+    print(out.getvalue().strip())
+    record = bench_record_gate(out.getvalue(), err.getvalue())
+    legs, want = bench_launches_want(steps, warmup)
+    check_launches(counts, want, "tst_torch.bench")
+    if rc != 0:
+        raise AssertionError(f"tst_torch.bench returned {rc}")
+    print(f"[bench] python -m tst_torch.bench in process (TST_BENCH_STEPS={steps}, "
+          f"TST_BENCH_WARMUP={warmup}): one JSON line, backend cuda, n_chips 1, every leg's "
+          f"key, no leg skipped; wall {wall:.1f} s; launches {json.dumps(counts)} (as the legs "
+          f"imply: {json.dumps(legs)})")
+    return {"launches": counts, "wall_s": wall, "steps": steps, "warmup": warmup,
+            "record": record, "step_gates": gates}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["rank", "mlp-int4", "serve", "long", "llama8b",
-                                           "entry"],
+                                           "entry", "bench"],
                         default=None,
                         help="rank: the attention kernels against the library at the train "
                              "shape; mlp-int4: K3 and K4 against their plain versions, timed "
                              "(either runs on any build of tst_torch, so also a parent "
                              "commit's); serve: phase 20 alone; long: phase 21 alone; "
                              "llama8b: the native packer and phase 22 alone; entry: phase 23 "
-                             "alone")
+                             "alone; bench: phase 24 alone, at the bench's default steps")
     args = parser.parse_args(argv)
     device = phase_device()
     phase_build(sass=args.only is None)
@@ -3990,6 +4338,9 @@ def main(argv=None):
         return
     if args.only == "entry":
         print(json.dumps({"entry": phase_entry()}, default=float))
+        return
+    if args.only == "bench":
+        print(json.dumps({"bench": phase_bench(full=False)}, default=float))
         return
     if args.only == "llama8b":
         print(json.dumps({"native_pack": phase_native_pack(), "llama8b": phase_llama8b()},
@@ -4032,6 +4383,7 @@ def main(argv=None):
     long = run("long", phase_long, device)
     l8 = run("llama8b", phase_llama8b)
     ent = run("entry", phase_entry)
+    bench = run("bench", phase_bench)["launches"]
     print(f"[walls] seconds a phase: {json.dumps(walls)}")
     sft, times = llama["sft"], llama["times"]
     long_shape = {key: {"shape": long["shape"], **long[key]} for key in ("fwd", "dkv", "dq")}
@@ -4047,7 +4399,7 @@ def main(argv=None):
          "launches_llama8b_ibp": l8["ibp"]["launches"]["fwd"],
          "launches_llama8b_int4": l8["int4"]["launches"]["fwd"],
          "launches_entry": ent["launches"]["fwd"],
-         "launches_dryrun": ent["dryrun"]["launches"]["fwd"],
+         "launches_dryrun": ent["dryrun"]["launches"]["fwd"], "launches_bench": bench["fwd"],
          "llama_shape": {"shape": times["shape"], **times["fwd"]},
          "long_shape": long_shape["fwd"], **kern, **bwd["fwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
@@ -4058,7 +4410,7 @@ def main(argv=None):
          "launches_long": long["launches"]["dkv"],
          "launches_llama8b_sft": l8["sft"]["launches"]["dkv"],
          "launches_llama8b_ibp": l8["ibp"]["launches"]["dkv"],
-         "launches_dryrun": ent["dryrun"]["launches"]["dkv"],
+         "launches_dryrun": ent["dryrun"]["launches"]["dkv"], "launches_bench": bench["dkv"],
          "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
                          **times["dkv"]}, "long_shape": long_shape["dkv"], **bwd["dkv"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
@@ -4069,29 +4421,33 @@ def main(argv=None):
          "launches_long": long["launches"]["dq"],
          "launches_llama8b_sft": l8["sft"]["launches"]["dq"],
          "launches_llama8b_ibp": l8["ibp"]["launches"]["dq"],
-         "launches_dryrun": ent["dryrun"]["launches"]["dq"],
+         "launches_dryrun": ent["dryrun"]["launches"]["dq"], "launches_bench": bench["dq"],
          "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
                          **times["dq"]}, "long_shape": long_shape["dq"], **bwd["dq"]},
         {"name": "flash_attention_fwd_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
          "replaces": "tst/kernels/flash_attention.py:464",
          "launches": packed["fwd_seg"], "launches_dryrun": ent["dryrun"]["launches"]["fwd_seg"],
+         "launches_bench": bench["fwd_seg"],
          **seg["fwd"]},
         {"name": "flash_attention_bwd_dkv_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:650",
          "launches": packed["dkv_seg"], "launches_dryrun": ent["dryrun"]["launches"]["dkv_seg"],
+         "launches_bench": bench["dkv_seg"],
          **seg["dkv"]},
         {"name": "flash_attention_bwd_dq_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:650",
          "launches": packed["dq_seg"], "launches_dryrun": ent["dryrun"]["launches"]["dq_seg"],
+         "launches_bench": bench["dq_seg"],
          **seg["dq"]},
         {"name": "int4_matmul", "route": "cuda", "source": "tst_torch/csrc/int4_matmul.cu",
          "replaces": "tst/kernels/quant_matmul.py:64", "launches": decode["int4"],
          "launches_diagnose_sft": fused["int4"], "launches_llama_int4": llama["int4"]["int4"],
          "launches_serve": serve["int4"],
-         "launches_llama8b_int4": l8["int4"]["launches"]["int4"], **int4},
+         "launches_llama8b_int4": l8["int4"]["launches"]["int4"], "launches_bench": bench["int4"],
+         **int4},
         {"name": "fused_swiglu_mlp", "route": "cuda", "source": "tst_torch/csrc/fused_mlp.cu",
          "replaces": "tst/kernels/fused_mlp.py:44", "launches": fused["mlp"], **mlp},
         {"name": "decode_attention", "route": "cuda",
@@ -4102,7 +4458,8 @@ def main(argv=None):
          "launches_serve": serve["dattn"],
          "launches_llama8b_ibp": l8["ibp"]["launches"]["dattn"],
          "launches_llama8b_int4": l8["int4"]["launches"]["dattn"],
-         "launches_dryrun": ent["dryrun"]["launches"]["dattn"], **dattn},
+         "launches_dryrun": ent["dryrun"]["launches"]["dattn"], "launches_bench": bench["dattn"],
+         **dattn},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

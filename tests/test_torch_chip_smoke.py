@@ -9,6 +9,7 @@ under remat), its command lines and memory reckoning, and phase 11's
 library yardstick for K3 (tinygemm's operands). The phases that use them
 run only on a card."""
 
+import json
 import math
 import sys
 from pathlib import Path
@@ -672,3 +673,135 @@ def test_only_entry_is_an_option_that_needs_a_card(capsys):
     with pytest.raises(SystemExit) as e:
         chip_smoke.main(["--only", "entries"])
     assert e.value.code == 2
+
+
+def test_bench_launch_arithmetic():
+    """Phase 24's launches of one bench run at TST_BENCH_STEPS=2,
+    TST_BENCH_WARMUP=1, leg by leg: "dots" runs the forward kernel twice a
+    step, "attn" and "flash" once; the fold-sequential leg 1 + 5 x 2 one-fold
+    steps; each decode leg 4 calls of 16 and 4 of 4 new tokens (72 steps
+    after the prefills), K3 on the int4 base's 7 projections a layer."""
+    legs, total = chip_smoke.bench_launches_want(2, 1)
+    assert legs["fold_parallel"] == {"fwd": 24 * 6, "dkv": 24 * 3, "dq": 24 * 3}
+    assert legs["packed"] == {"fwd_seg": 24 * 6, "dkv_seg": 24 * 3, "dq_seg": 24 * 3}
+    assert legs["fold_sequential"] == {"fwd": 24 * 22, "dkv": 24 * 11, "dq": 24 * 11}
+    assert legs["llama8b_k2"] == {"fwd": 32 * 16, "dkv": 32 * 8, "dq": 32 * 8}
+    assert legs["llama8b_k5"] == {"fwd": 32 * 7, "dkv": 32 * 7, "dq": 32 * 7}
+    assert legs["llama8b_packed_k2"] == {"fwd_seg": 32 * 16, "dkv_seg": 32 * 8, "dq_seg": 32 * 8}
+    assert legs["llama8b_packed_k5"] == {"fwd_seg": 32 * 8, "dkv_seg": 32 * 8, "dq_seg": 32 * 8}
+    assert legs["llama8b_int4_decode"] == {"fwd": 32 * 8, "dattn": 32 * 72, "int4": 7 * 32 * 72}
+    assert legs["longseq"] == {"fwd": 24 * 6, "dkv": 24 * 6, "dq": 24 * 6}
+    assert legs["longseq_32k"] == {"fwd": 24 * 5, "dkv": 24 * 5, "dq": 24 * 5}
+    assert legs["decode"] == {"fwd": 24 * 8, "dattn": 24 * 72}
+    assert total == {"fwd": 2120, "dkv": 1080, "dq": 1080, "fwd_seg": 912, "dkv_seg": 584,
+                     "dq_seg": 584, "int4": 16128, "mlp": 0, "dattn": 4032}
+    # the bench's defaults: 15 steps of each 0.5B leg, 1 + 5 x 14 one-fold steps
+    legs, _ = chip_smoke.bench_launches_want(12, 3)
+    assert legs["fold_parallel"]["fwd"] == 24 * 30 and legs["fold_sequential"]["dq"] == 24 * 71
+
+
+def _bench_record():
+    rec = {"metric": "blind_sft_samples_per_sec_per_chip", "value": 150.5,
+           "unit": "samples/s/chip", "vs_baseline": 3.2, "fold_finetunes_per_hour_per_chip": 441.5,
+           "backend": "cuda", "n_chips": 1}
+    rec.update({key: 1.0 for key in chip_smoke.BENCH_LEG_KEYS})
+    rec["compile_cache_hit_fold_parallel"] = True
+    return rec
+
+
+def test_bench_record_gate_needs_the_contract_and_every_leg():
+    rec = _bench_record()
+    assert chip_smoke.bench_record_gate(json.dumps(rec) + "\n", "[bench] leg: 1 s") == rec
+    missing = {key: v for key, v in rec.items() if key != "longseq_32k_tokens_per_s"}
+    with pytest.raises(AssertionError, match="longseq_32k_tokens_per_s"):
+        chip_smoke.bench_record_gate(json.dumps(missing))
+    with pytest.raises(AssertionError, match="skipped"):
+        chip_smoke.bench_record_gate(json.dumps(rec), "32k leg skipped: OutOfMemoryError: ...")
+    for key, bad in (("backend", "cpu"), ("n_chips", 4), ("value", 0.0), ("vs_baseline", None),
+                     ("metric", "samples"), ("fold_finetunes_per_hour_per_chip", True)):
+        with pytest.raises(AssertionError, match=key):
+            chip_smoke.bench_record_gate(json.dumps({**rec, key: bad}))
+    with pytest.raises(AssertionError, match="2 lines"):
+        chip_smoke.bench_record_gate(json.dumps(rec) + "\n" + json.dumps(rec))
+    with pytest.raises(ValueError, match="strict JSON"):
+        chip_smoke.bench_record_gate(json.dumps({**rec, "mfu": float("nan")}))
+
+
+def test_bench_leg_keys_are_every_card_key_of_the_record():
+    """The gate's keys are exactly what the bench writes with every leg run."""
+    from tst_torch import bench
+
+    leg = {"samples_per_s": 1.0, "step_ms": 1.0, "compile_s": 1.0, "compile_cache_hit": True,
+           "flops_per_step": 1.0, "mfu": 0.5, "hbm_gb": 1.0}
+    rec = bench.bench_record(
+        "qwen2.5-0.5b", "cuda", leg, {**leg, "fill": 0.9, "pack_len": 1024, "batch_rows": 3},
+        1.0, 1.0, {"samples_per_s": 1.0, "mfu": 0.5, "base_hbm_gb": 8.0, "hbm_gb": 9.0,
+                   "compile_s": 1.0, "k5_samples_per_s": 1.0, "packed_samples_per_s": 1.0,
+                   "k5_packed_samples_per_s": 1.0},
+        {"step_tokens_per_s": 1.0, "batch": 32}, {"tokens_per_s": 1.0, "seq_len": 16384},
+        {"tokens_per_s": 1.0, "seq_len": 32768},
+        {"tokens_per_s": 1.0, "batch": 32, "max_new": 16, "step_tokens_per_s": 1.0})
+    contract = {"metric", "value", "unit", "vs_baseline", "fold_finetunes_per_hour_per_chip",
+                "backend", "n_chips", "baseline", "headline_config", "model", "k",
+                "batch_per_fold", "seq_len"}
+    assert set(rec) == contract | set(chip_smoke.BENCH_LEG_KEYS)
+    assert chip_smoke.bench_record_gate(json.dumps(rec)) == rec
+
+
+def test_only_bench_is_an_option_that_needs_a_card(capsys):
+    with pytest.raises(SystemExit) as e:
+        chip_smoke.main(["--only", "bench"])
+    assert e.value.code == 1 and "no CUDA device" in capsys.readouterr().err
+
+
+def test_bench_gates_average_the_batches():
+    """Phase 24's gates hold the fold losses and LoRA gradients averaged over
+    a leg's first batches to _step_gates' one rule: 1e-3 relative, cosine
+    >= 0.99."""
+    class Trainer:
+        def __init__(self, scale):
+            self.scale, self.seen = scale, []
+
+        def batch_loss_and_grads(self, params, lora, tokens, mask, pos, idx, segs=None):
+            self.seen.append((int(idx[0, 0]), segs))
+            t = float(idx[0, 0])
+            loss = torch.tensor([10.0 + t, 12.0 - t], dtype=torch.bfloat16) * self.scale
+            return loss, {"q": {"a": torch.full((3,), t + 1, dtype=torch.bfloat16),
+                                "b": torch.arange(3.0) * (t + 1)}}
+
+    batches = np.array([[[0], [0]], [[2], [2]], [[4], [4]]])
+    kernel = Trainer(1.0)
+    loss, grads = chip_smoke.mean_loss_and_grads(kernel, None, None, (None,) * 3, batches, "s")
+    assert [t for t, _ in kernel.seen] == [0, 2, 4] and {g for _, g in kernel.seen} == {"s"}
+    assert loss.dtype == torch.float32 and loss.tolist() == [12.0, 10.0]
+    assert grads["q"]["a"].dtype == torch.float32 and grads["q"]["a"].tolist() == [3.0] * 3
+    assert grads["q"]["b"].tolist() == [0.0, 3.0, 6.0]
+
+    plain = (loss, grads)
+    assert chip_smoke._step_gates((loss * (1 + 9e-4), grads), plain)[1]
+    line, ok = chip_smoke._step_gates((loss * (1 + 1.1e-3), grads), plain)
+    assert not ok and "<= 0.001" in line
+    flipped = {"q": {"a": grads["q"]["a"], "b": -grads["q"]["b"]}}
+    assert not chip_smoke._step_gates((loss, flipped), plain)[1]
+    assert not chip_smoke._step_gates((loss * torch.tensor([1.0, float("nan")]), grads), plain)[1]
+
+
+def test_gate_adapters_draw_b_from_the_seed():
+    """The gates' adapters: the trainer's initial A of ``seed``, B drawn
+    nonzero at B_SCALE from seed + 6, the same for the same seed."""
+    from tst_torch.models.lora import LoraSpec
+    from tst_torch.models.spec import spec_by_name
+    from tst_torch.train.sft import FoldTrainer
+
+    spec = spec_by_name("tiny")
+    trainer = FoldTrainer(spec, LoraSpec(rank=4, alpha=8.0, dtype=spec.dtype), k=2, lr=1e-4,
+                          use_pallas=False)
+    cpu = torch.device("cpu")
+    one, again, two = (chip_smoke.gate_adapters(trainer, cpu, seed) for seed in (1, 1, 2))
+    init = trainer.init_state(torch.Generator(cpu).manual_seed(1))[0]
+    for name, ab in one.items():
+        torch.testing.assert_close(ab["a"], init[name]["a"], rtol=0, atol=0)
+        torch.testing.assert_close(ab["b"], again[name]["b"], rtol=0, atol=0)
+        assert ab["b"].dtype == init[name]["b"].dtype and bool((ab["b"] != 0).all())
+        assert float(ab["b"].float().abs().max()) < 10 * chip_smoke.B_SCALE
+        assert not torch.equal(ab["b"], two[name]["b"])
