@@ -69,7 +69,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                with starts inside tiles and a row of all SEG_PAD, and at the
                bench's packed Llama-3-8B legs' first steps ([2, 1024, 32, 128]
                and [5, 1024, 32, 128], their own starts); forward and
-               backward bit-equal on a second call;
+               backward bit-equal on a second call; the segmented kernels
+               timed at the [5, 1024, 32, 128] leg beside the library with
+               the segment mask and the bound;
                bad starts raise; median times of the segmented kernels, the
                unsegmented ones, the plain versions and scaled_dot_product_
                attention with the boolean segment mask at the train step's
@@ -155,9 +157,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                one without (the step gates; bit-equality reported), each one's
                step time, peak memory and profile; the multi-token scorer on
                synthetic [4, 3] option sequences, K1 against the plain path
-               (probabilities within 0.05); K1's forward and backward times at
-               the step's shape beside the plain version, the library and the
-               bound; (b) the checkpoint quantized to int4 on arrival
+               (probabilities within 0.05); K1's forward (bit-equal on a
+               second call) and backward times at the step's shape beside the
+               plain version, the library and the bound; (b) the checkpoint quantized to int4 on arrival
                (``quantizing_put``), ``eval-blind`` on synthetic-vsi:0.4,
                n=64: launches as implied (numeric rows decoded through K3 at
                Llama's widths), the first decode step's logits against the
@@ -192,8 +194,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
                the ring's arithmetic at S=16384 (4 blocks, the ranks' step in
                one process, tst_torch.kernels.ring_attention) against the
                kernels, output within the forward gate and gradients at cosine
-               >= 0.999; the kernels timed at the preset's call q [10, 16384,
-               14, 64] beside scaled_dot_product_attention and the bound;
+               >= 0.999; the forward and the backward pair bit-equal on a
+               second call at S=16384 (the check and the preset's call); the
+               kernels timed at the preset's call q [10, 16384, 14, 64] beside
+               scaled_dot_product_attention and the bound;
                ``diagnose-sft --preset sft-videomme-long`` (max_len 16384, k=5,
                batch 2 a fold, model.remat=true, the byte tokenizer) on 6
                synthetic rows of ~16,000 bytes through the CLI with
@@ -269,6 +273,11 @@ Phase 11 also times K3 and torch's tinygemm int4 product
 over a decode layer's seven projections of Qwen2.5-0.5B and of
 Llama-3-8B, the library held to K3's plain version within 2e-2.
 
+Before it, a ``[k1]`` line gives each K1 kernel's ``ratio_to_library``
+(kernel ms / library ms) and ``share_of_bound`` (bound ms / kernel ms) at
+the main shapes (plain and segmented), Llama-3-8B's step, the long preset's
+call and the packed 8B leg.
+
 The second-to-last line is the per-kernel JSON record (launches on the
 main path, error, kernel, plain and library times, and the bound: the
 larger of the function's bytes over 3.35 TB/s and its operations over
@@ -302,6 +311,9 @@ N_SAMPLES, N_LAYERS, SCORER_BATCH = 512, 24, 32
 KERNEL_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64)]
 #: the kernels also at one tile (S=64), at both head dims
 ONE_TILE = [(3, 64, 14, 2, 64), (2, 64, 8, 2, 128)]
+#: and over several tiles with S = 64 (mod 128), where the last 128-row tile
+#: of the persistent kernels ends past S (its rows arrive as zeros, unstored)
+ODD_TILES = [(2, 576, 14, 2, 64), (2, 576, 8, 2, 128)]
 #: and at the dry run's calls (phase 23; tiny with d_head 64): one rank's
 #: train step (4/2 heads), a tensor=2 rank's scorer and prefill (2/1 heads)
 DRYRUN_SHAPES = [(4, 512, 4, 2, 64), (8, 512, 2, 1, 64)]
@@ -343,9 +355,10 @@ PACKED = ["optim.pack=true"]
 PACKED_TRAIN_SHAPE = (32, 1024, 14, 2, 64)
 #: the other segmented checks: Llama-3-8B heads at S=2048, 8 segments a row
 #: (where the TPU dispatches its chunked K2 bodies); 128- and 64-token cases;
-#: the dry run's packed step, one rank's (4/2 heads) and a tensor=2 rank's
+#: the dry run's packed step, one rank's (4/2 heads) and a tensor=2 rank's;
+#: S = 576 at both head dims (ODD_TILES)
 SEG_SHAPES = [(2, 2048, 32, 8, 128), (5, 128, 14, 2, 64), (5, 64, 14, 2, 64),
-              (3, 64, 8, 2, 128), (2, 1024, 4, 2, 64), (2, 1024, 2, 1, 64)]
+              (3, 64, 8, 2, 128), (2, 1024, 4, 2, 64), (2, 1024, 2, 1, 64)] + ODD_TILES
 #: segment starts a row (kernel layout) and the unused slot
 MAX_SEGS, SEG_PAD = 8, 1 << 30
 #: packed rows per fold of the kernel-vs-plain step: the plain attention keeps
@@ -575,6 +588,8 @@ GATE_BATCHES = {"train": 8, "packed": 2, "fused": 8, "llama8b": 8,
 #: the bench's fold-parallel attention call (k=5 x 4 rows, Qwen2.5-0.5B
 #: heads), in the kernel checks of phases 3 and 5
 BENCH_SHAPES = [(20, 512, 14, 2, 64)]
+#: the bench's packed 8B leg whose segmented kernels phase 8 also times
+BENCH_SEG_TIMED = (5, 1024, 32, 8, 128)
 #: the record's keys that every leg run on the card writes beside the
 #: contract's (bench_record_gate)
 BENCH_LEG_KEYS = (
@@ -624,10 +639,19 @@ def median_ms(fn, samples=30, reps=10, warmup=3):
     return statistics.median(times)
 
 
-#: a flash-attention kernel's mangled name: which kernel, D, kSeg
-_FLASH_KERNEL = re.compile(r"flash_(?:bwd_)?(fwd|dkv|dq)_kernelILi(\d+)ELb([01])E")
-#: the attention kernels' instantiations: {fwd, dkv, dq} x D {64, 128} x {plain, seg}
-N_ATTENTION_KERNELS = 12
+#: a flash-attention kernel's mangled name: which kernel (``_tiled``: the
+#: 64-row forward and dK/dV, kept where they are faster), D, kSeg (the
+#: persistent dK/dV kernel has none: it serves D=64 unsegmented only)
+_FLASH_KERNEL = re.compile(
+    r"flash_(?:bwd_)?(fwd|dkv|dq)(_tiled)?_kernelILi(\d+)E(?:Lb([01])E)?")
+#: the attention kernels the C entries launch, one for each of {fwd, dkv, dq}
+#: x D {64, 128} x {plain, seg}: the 64-row forward for packed rows at D=64,
+#: the 64-key dK/dV for packed rows and at D=128, the persistent ones elsewhere
+ATTENTION_KERNELS = frozenset({
+    "fwd<D=64>", "fwd<D=128>", "fwd_tiled<D=64, seg>", "fwd<D=128, seg>",
+    "dkv<D=64>", "dkv_tiled<D=128>", "dkv_tiled<D=64, seg>", "dkv_tiled<D=128, seg>",
+    "dq<D=64>", "dq<D=128>", "dq<D=64, seg>", "dq<D=128, seg>"})
+N_ATTENTION_KERNELS = len(ATTENTION_KERNELS)
 #: K4's two kernels, which must run their products on wgmma too
 K4_KERNELS = ("swiglu_gate_up_kernel", "swiglu_down_kernel")
 _K4_KERNEL = re.compile(r"\d+(" + "|".join(K4_KERNELS) + r")(?=E|I)")
@@ -639,7 +663,7 @@ def kernel_name(mangled):
     template arguments (``fused_mlp_kernel<8>``, ``int4_matmul_kernel<2, 4>``)."""
     m = _FLASH_KERNEL.search(mangled)
     if m:
-        return f"{m[1]}<D={m[2]}{', seg' if m[3] == '1' else ''}>"
+        return f"{m[1]}{m[2] or ''}<D={m[3]}{', seg' if m[4] == '1' else ''}>"
     if not mangled.startswith("_ZN"):
         return mangled
     i, name = 3, mangled
@@ -667,13 +691,15 @@ def hgmma_counts(sass):
 
 
 def check_hgmma(counts):
-    """Every attention kernel (forward, dK/dV, dQ at both head dims, plain
-    and segmented) and both K4 kernels must run their products on wgmma."""
-    attention = {k: v for k, v in counts.items() if k not in K4_KERNELS}
-    if (len(attention) != N_ATTENTION_KERNELS or any(k not in counts for k in K4_KERNELS)
+    """The listing's attention kernels must be exactly those the C entries
+    launch (ATTENTION_KERNELS: none built and never launched), and each of
+    them and both K4 kernels must run its products on wgmma."""
+    attention = {k for k in counts if k not in K4_KERNELS}
+    if (attention != ATTENTION_KERNELS or any(k not in counts for k in K4_KERNELS)
             or min(counts.values(), default=0) == 0):
-        raise AssertionError(f"each of the {N_ATTENTION_KERNELS} attention kernels and the K4 "
-                             f"kernels {K4_KERNELS} must run its products on wgmma: {counts}")
+        raise AssertionError(f"the {N_ATTENTION_KERNELS} attention kernels "
+                             f"{sorted(ATTENTION_KERNELS)} (and no other) and the K4 kernels "
+                             f"{K4_KERNELS} must each run its products on wgmma: {counts}")
 
 
 def ptxas_usage(log):
@@ -839,7 +865,7 @@ def phase_kernel(device):
     import tst_torch.kernels.flash_attention as tfa
 
     out = {}
-    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE + DRYRUN_SHAPES + BENCH_SHAPES:
+    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE + ODD_TILES + DRYRUN_SHAPES + BENCH_SHAPES:
         rng = np.random.default_rng(s + d)
         q, k, v = (torch.from_numpy(rng.normal(0.0, 0.5, shape).astype(np.float32))
                    .to(device, torch.bfloat16)
@@ -970,6 +996,15 @@ def _check_bitwise(fn, got, what="the backward kernels"):
         raise AssertionError(f"{what}: not bit-reproducible")
 
 
+def k1_summary(rows):
+    """Each K1 row's ``ratio_to_library`` (kernel ms / library ms; None where
+    no library call was timed) and ``share_of_bound`` (bound ms / kernel
+    ms), by the row's key."""
+    return {key: {"ratio_to_library": (None if r.get("library_ms") is None
+                                       else r["ms"] / r["library_ms"]),
+                  "share_of_bound": r["bound_ms"] / r["ms"]} for key, r in rows.items()}
+
+
 def phase_kernel_bwd(device):
     """The dK/dV and dQ kernels against the plain backward (f32, same o and
     lse), and gradients through the autograd Function against autograd of
@@ -977,7 +1012,7 @@ def phase_kernel_bwd(device):
     import tst_torch.kernels.flash_attention as tfa
 
     out = {}
-    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE + DRYRUN_SHAPES + BENCH_SHAPES:
+    for b, s, h, kvh, d in KERNEL_SHAPES + ONE_TILE + ODD_TILES + DRYRUN_SHAPES + BENCH_SHAPES:
         rng = np.random.default_rng(s + d + 1)
         q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
         k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
@@ -1414,7 +1449,7 @@ def phase_kernel_seg(device):
     the plain masked attention, at the packed train step's call (its own
     starts), Llama-3-8B heads at S=2048 with 8 segments, 128- and 64-token
     cases (SEG_SHAPES), each bit-equal on a second call; then times at the
-    train step's shape."""
+    train step's shape and at the bench's packed 8B leg (BENCH_SEG_TIMED)."""
     import tst_torch.kernels.flash_attention as tfa
 
     cases = [(PACKED_TRAIN_SHAPE, _packed_step_starts())]
@@ -1467,9 +1502,16 @@ def phase_kernel_seg(device):
             raise AssertionError(f"segmented flash attention disagrees with its plain version "
                                  f"at {(b, s, h, kvh, d)}")
         if (b, s, h, kvh, d) == PACKED_TRAIN_SHAPE:
-            out = _time_seg_kernels(q, k, v, do, seg, o, lse)
+            out = {**_time_seg_kernels(q, k, v, do, seg, o, lse), **out}
             out["fwd"]["max_abs_err"] = o_err
             out["dq"]["max_abs_err"], out["dkv"]["max_abs_err"] = abs_errs[0], abs_errs[1]
+        elif (b, s, h, kvh, d) == BENCH_SEG_TIMED:
+            wide = _time_seg_kernels(q, k, v, do, seg, o, lse)
+            wide_lib = wide.pop("library")
+            out["llama8b_packed"] = {
+                key: {"shape": [b, s, h, kvh, d], "max_abs_err": err, **wide[key],
+                      "library": f"{wide_lib['backend']}, {wide_lib['gqa']}"}
+                for key, err in (("fwd", o_err), ("dkv", abs_errs[1]), ("dq", abs_errs[0]))}
         del q, k, v, do, o, lse, got
         torch.cuda.empty_cache()
     q = torch.zeros(2, 128, 4, 64, device=device, dtype=torch.bfloat16)
@@ -1484,6 +1526,13 @@ def phase_kernel_seg(device):
         raise AssertionError(f"flash_attention accepted seg_starts {tuple(bad.shape)} "
                              f"{bad.dtype} causal={causal}")
     f, dkv, dq, lib = out["fwd"], out["dkv"], out["dq"], out.pop("library")
+    wide = out["llama8b_packed"]
+    print(f"[kernel-seg] the bench's packed 8B leg {BENCH_SEG_TIMED}, its own starts: forward "
+          f"segmented {wide['fwd']['ms']:.4f} ms (bound {wide['fwd']['bound_ms']:.4f}, library "
+          f"{wide['fwd']['library_ms']:.4f}, plain {wide['fwd']['plain_ms']:.4f}); dK/dV "
+          f"{wide['dkv']['ms']:.4f} ms (bound {wide['dkv']['bound_ms']:.4f}) + dQ "
+          f"{wide['dq']['ms']:.4f} ms (bound {wide['dq']['bound_ms']:.4f}) against the "
+          f"library's backward {wide['dkv']['library_ms']:.4f} ms ({wide['fwd']['library']})")
     print(f"[kernel-seg] bit-equal on a second call at every shape; bad starts rejected (9 "
           f"columns, int64, wrong batch, causal=False); train shape {PACKED_TRAIN_SHAPE}: "
           f"forward segmented {f['ms']:.4f} ms (bound {f['bound_ms']:.4f}, {f['bound_by']}), "
@@ -2970,6 +3019,8 @@ def _llama_attention_times(device):
     q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
     k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
     o, lse = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    _check_bitwise(lambda: tfa.flash_attention(q, k, v), (o, lse), "the forward kernel")
     o_ref, _ = tfa.flash_attention_reference(q, k, v)
     err = (o.float() - o_ref.float()).abs().max().item()
     del o_ref
@@ -3523,6 +3574,8 @@ def phase_long(device):
         o, lse = tfa.flash_attention(q, k, v)
         got = tfa.flash_attention_backward(q, k, v, o, lse, do)
         torch.cuda.synchronize()
+        _check_bitwise(lambda: tfa.flash_attention(q, k, v), (o, lse), "the forward kernel")
+        _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do), got)
         o_ref, lse_ref = tfa.flash_attention_reference(q, k, v)
         o_err = (o.float() - o_ref.float()).abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
@@ -3590,6 +3643,12 @@ def phase_long(device):
     k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
     o, lse = tfa.flash_attention(q, k, v)
     di = tfa.backward_row_stat(o, do)
+    pair = (*tfa._launch_bwd_dkv(q, k, v, do, lse, di), tfa._launch_bwd_dq(q, k, v, do, lse, di))
+    torch.cuda.synchronize()
+    _check_bitwise(lambda: tfa.flash_attention(q, k, v), (o, lse), "the forward kernel")
+    _check_bitwise(lambda: (*tfa._launch_bwd_dkv(q, k, v, do, lse, di),
+                            tfa._launch_bwd_dq(q, k, v, do, lse, di)), pair)
+    del pair
     times = {"fwd": median_ms(lambda: tfa.flash_attention(q, k, v), 5, 3),
              "dkv": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di), 5, 3),
              "dq": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di), 5, 3)}
@@ -3610,7 +3669,8 @@ def phase_long(device):
           f"{lib['fwd_ms']:.3f}), dK/dV {times['dkv']:.3f} ms (bound "
           f"{bounds['dkv']['bound_ms']:.3f}) + dQ {times['dq']:.3f} ms (bound "
           f"{bounds['dq']['bound_ms']:.3f}) against the library's backward {lib['bwd_ms']:.3f} "
-          f"ms ({lib['backend']}, {lib['gqa']}); median of 5 x 3 calls")
+          f"ms ({lib['backend']}, {lib['gqa']}); median of 5 x 3 calls; forward and backward "
+          f"bit-equal on a second call at this call and at S={LONG_CHECKS[0][0]}")
     del q, k, v, do, o, lse, di
     torch.cuda.empty_cache()
 
@@ -4429,19 +4489,19 @@ def main(argv=None):
          "replaces": "tst/kernels/flash_attention.py:464",
          "launches": packed["fwd_seg"], "launches_dryrun": ent["dryrun"]["launches"]["fwd_seg"],
          "launches_bench": bench["fwd_seg"],
-         **seg["fwd"]},
+         "llama8b_packed_shape": seg["llama8b_packed"]["fwd"], **seg["fwd"]},
         {"name": "flash_attention_bwd_dkv_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:650",
          "launches": packed["dkv_seg"], "launches_dryrun": ent["dryrun"]["launches"]["dkv_seg"],
          "launches_bench": bench["dkv_seg"],
-         **seg["dkv"]},
+         "llama8b_packed_shape": seg["llama8b_packed"]["dkv"], **seg["dkv"]},
         {"name": "flash_attention_bwd_dq_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:650",
          "launches": packed["dq_seg"], "launches_dryrun": ent["dryrun"]["launches"]["dq_seg"],
          "launches_bench": bench["dq_seg"],
-         **seg["dq"]},
+         "llama8b_packed_shape": seg["llama8b_packed"]["dq"], **seg["dq"]},
         {"name": "int4_matmul", "route": "cuda", "source": "tst_torch/csrc/int4_matmul.cu",
          "replaces": "tst/kernels/quant_matmul.py:64", "launches": decode["int4"],
          "launches_diagnose_sft": fused["int4"], "launches_llama_int4": llama["int4"]["int4"],
@@ -4461,6 +4521,14 @@ def main(argv=None):
          "launches_dryrun": ent["dryrun"]["launches"]["dattn"], "launches_bench": bench["dattn"],
          **dattn},
     ]
+    print("[k1] ratio_to_library (kernel ms / library ms) and share_of_bound (bound ms / "
+          "kernel ms) of each K1 kernel: " + json.dumps({
+              "main": k1_summary(dict(zip(("fwd", "dkv", "dq"), records[:3]))),
+              "segmented": k1_summary(dict(zip(("fwd", "dkv", "dq"), records[3:6]))),
+              "llama_shape": k1_summary({key: r["llama_shape"]
+                                         for key, r in zip(("fwd", "dkv", "dq"), records[:3])}),
+              "long_shape": k1_summary(long_shape),
+              "llama8b_packed_shape": k1_summary(seg["llama8b_packed"])}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

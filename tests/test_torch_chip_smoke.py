@@ -23,17 +23,26 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 
 _NS = "_ZN12_GLOBAL__N_1"
-_ARGS = "EEEvPK13__nv_bfloat16S3_S3_PKiPS1_Pfiiif"
+_ARGS = "EEvPK13__nv_bfloat16S3_S3_PKiPS1_Pfiiif"
 
 
-def _mangled(kind, d, seg):
+def _mangled(kind, d, seg, tiled=False):
+    """A kernel's mangled name; seg None: a kernel templated on D alone."""
     name = {"fwd": "flash_fwd_kernel", "dkv": "flash_bwd_dkv_kernel",
             "dq": "flash_bwd_dq_kernel"}[kind]
-    return f"{_NS}{len(name)}{name}ILi{d}ELb{int(seg)}{_ARGS}"
+    if tiled:
+        name = name.replace("_kernel", "_tiled_kernel")
+    flag = "" if seg is None else f"Lb{int(seg)}E"
+    return f"{_NS}{len(name)}{name}ILi{d}E{flag}{_ARGS}"
 
 
-ATTENTION = [(kind, d, seg) for kind in ("fwd", "dkv", "dq") for d in (64, 128)
-             for seg in (False, True)]
+#: (kind, D, seg, tiled) of each attention kernel the C entries launch: the
+#: 64-row forward for packed rows at D=64, the 64-key dK/dV for packed rows
+#: and at D=128, the persistent kernels (dK/dV at D=64 alone) and dQ elsewhere
+ATTENTION = [("fwd", 64, False, False), ("fwd", 128, False, False), ("fwd", 64, True, True),
+             ("fwd", 128, True, False), ("dkv", 64, None, False), ("dkv", 128, False, True),
+             ("dkv", 64, True, True), ("dkv", 128, True, True)]
+ATTENTION += [("dq", d, seg, False) for d in (64, 128) for seg in (False, True)]
 #: K4's kernels as the SASS listing names them
 K4 = {"swiglu_gate_up_kernel": f"{_NS}21swiglu_gate_up_kernelEPK13__nv_bfloat16S2_S2_PS0_iii",
       "swiglu_down_kernel": f"{_NS}18swiglu_down_kernelEPK13__nv_bfloat16S2_PS0_iii"}
@@ -53,8 +62,8 @@ def _sass(kernels, hgmma=3, k4=tuple(K4), k4_hgmma=2):
     lines among others, the K4 kernels `k4` with `k4_hgmma`, and one kernel
     that is neither."""
     out = ["", "Fatbin elf code:", "================", "arch = sm_90a"]
-    for kind, d, seg in kernels:
-        out += _function(_mangled(kind, d, seg), hgmma)
+    for kernel in kernels:
+        out += _function(_mangled(*kernel), hgmma)
     for name in k4:
         out += _function(K4[name], k4_hgmma)
     out += [f"\t\tFunction : {_NS}18int4_matmul_kernelILi1ELi2EEEv",
@@ -70,6 +79,30 @@ def test_hgmma_counts_name_all_twelve_attention_kernels():
     assert set(counts) == ({chip_smoke.kernel_name(_mangled(*k)) for k in ATTENTION}
                            | set(chip_smoke.K4_KERNELS))
     chip_smoke.check_hgmma(counts)
+
+
+def test_the_listing_names_the_kernels_the_gate_wants():
+    assert ({chip_smoke.kernel_name(_mangled(*k)) for k in ATTENTION}
+            == chip_smoke.ATTENTION_KERNELS)
+
+
+@pytest.mark.parametrize("case", ["tiled without wgmma", "an unlaunched persistent kernel",
+                                  "a tiled kernel in place of the persistent one"])
+def test_hgmma_gate_holds_the_tiled_kernels_to_wgmma(case):
+    """The 64-row kernels are held to wgmma like the others, and the listing
+    must hold the launched set exactly: a kernel built and never launched
+    (or launched in place of another) fails the gate."""
+    if case == "tiled without wgmma":
+        kernels = [k for k in ATTENTION if k != ("dkv", 64, True, True)]
+        sass = _sass(kernels) + "\n" + _sass([("dkv", 64, True, True)], hgmma=0, k4=())
+    elif case == "an unlaunched persistent kernel":
+        sass = _sass(ATTENTION + [("fwd", 64, True, False)])
+    else:
+        sass = _sass([k for k in ATTENTION if k != ("fwd", 128, True, False)]
+                     + [("fwd", 128, True, True)])
+    counts = chip_smoke.hgmma_counts(sass)
+    with pytest.raises(AssertionError, match="wgmma"):
+        chip_smoke.check_hgmma(counts)
 
 
 @pytest.mark.parametrize("case", ["forward missing", "forward without wgmma",

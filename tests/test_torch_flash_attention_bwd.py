@@ -122,8 +122,10 @@ def test_backward_argument_checks(change, msg):
 
 
 #: the train step's attention call (2 folds x 16 rows, Qwen2.5-0.5B heads),
-#: Llama-3-8B heads at D=128, one tile
-CARD_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64)]
+#: Llama-3-8B heads at D=128, a 128-token case; S=576, where a 128-key tile
+#: ends past S
+CARD_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64),
+               (2, 576, 14, 2, 64)]
 
 
 @pytest.mark.cuda

@@ -11,10 +11,8 @@
 //     _dkv_tiled :1041), the tiled forms.
 // and, for packed rows, the `has_seg` branches of all five (:521, :556, :603,
 // :734, :780) and the segment-sparse `_bwd_fused_chunked_kernel` (:650, via
-// `_flash_bwd_fused` :854) that the TPU dispatches at S >= 2048.
-// They share one semantics; their one-shot / tiled / fused / chunked split is
-// a TPU VMEM schedule, so these two kernels cover all of them. The segmented
-// kernels (kSeg) are second instantiations of the same templates.
+// `_flash_bwd_fused` :854) that the TPU dispatches at S >= 2048. Their
+// one-shot / tiled / fused / chunked split is a TPU VMEM schedule.
 //
 // Semantics (the reference's): with the forward's f32 lse [B,H,S] and
 // di[b,h,i] = sum_d o·do (f32, computed by the caller from the bf16 o),
@@ -24,61 +22,67 @@
 //   dS[i,j] = P[i,j] · (do_i·v_j - di_i)
 //   dq_i    = scale · sum_j dS[i,j] k_j
 //   dk_j    = scale · group sum, sum_i dS[i,j] q_i
-// q/do/dq [B,S,H,D], k/v/dk/dv [B,S,KVH,D], contiguous, read in place with
-// strides. P is recomputed as the forward made it: f32 logits scaled in f32,
-// minus the f32 lse (both in log2 units); P and scale·dS are rounded to bf16
-// only as operands of the products.
+// q/do/dq [B,S,H,D], k/v/dk/dv [B,S,KVH,D], contiguous. P is recomputed as
+// the forward made it (f32 logits scaled in f32, minus the f32 lse, both in
+// log2 units); P and scale·dS are rounded to bf16 only as operands of the
+// products. Each output element is written once, with no atomics, in one
+// fixed order: bit-equal across calls.
 //
-// What bounds it on an H100, at the train step's call (q [32,512,14,64], k/v
-// [32,512,2,64], bf16): the causal mask keeps 58.8 M (query, key) pairs over
-// the 448 (b, h), 2·D = 128 operations a pair for each product.
-//   dK/dV: S^T, dP^T, dV, dK: 30.1 GFLOP, 30.5 us at the dense bf16 peak
-//     (989 TFLOP/s), against 77 MB (q, do 29 MB each; k, v, dk, dv 4 MB each;
-//     lse, di 0.9 MB each), 23 us at 3.35 TB/s: bound by its products.
-//   dQ: S, dP, dQ: 22.6 GFLOP, 22.8 us, against 98 MB (q, do, dq; k, v; lse,
-//     di), 29.3 us: bound by its bytes.
-//   (chip_smoke.py computes both bounds from each run's shapes and masks.)
-//   The two kernels stay separate, with no dq by atomics: S and dP are
-//   computed in both, 7 products a pair where a fused kernel would do 5.
+// What bounds dK/dV on an H100 (chip_smoke.py's _attention_bounds; PERF.md
+// §6): four products a (query, key) pair the mask keeps, S^T, dP^T, dV, dK,
+// 2·D operations each:
+//   * S=512, D=64 (the train step, q [32,512,14,64]): 30.1 GFLOP, 0.0305 ms
+//     at 989 TFLOP/s, against 77 MB, 0.023 ms: operations;
+//   * S=512, D=128 (Llama-3-8B, q [40,512,32,128]): 0.174 ms: operations,
+//     with 128 f32 accumulators of dK and dV a thread besides the operands;
+//   * S=16384, D=64 (the long preset, q [10,16384,14,64]): 9.62 TFLOP,
+//     9.73 ms: operations. The block of KV tile 0 walks all 7 heads x 256
+//     query tiles; the 64-key design's grid started the longest blocks of
+//     later (head, batch) late, and each of its warpgroups staged its own
+//     Q, dO, lse, di, so no staged byte served two of them.
+// dQ (S, dP, dQ: three products a pair) is bound by its bytes at S=512 and
+// by its operations at S=16384 (7.30 ms); its kernel is the 64-row design
+// below, unchanged.
 //
-// What the design does about each limit of the earlier mma.sync design:
-//   * products: wgmma m64n64k16 for all of them. dK/dV: S^T = K·Q^T and
-//     dP^T = V·dO^T with both operands in shared memory; P^T and scale·dS^T
-//     go from the accumulators to registers as bf16 and are the A operand of
-//     dV += P^T·dO and dK += scale·dS^T·Q, which read dO and Q MN-major
-//     through the descriptor's transpose bit. dQ: S = Q·K^T, dP = dO·V^T from
-//     shared memory, dQ += scale·dS·K with K read MN-major. Tiles are staged
-//     once, in the 128-byte-swizzled layout wgmma reads (wgmma_sm90.cuh), so
-//     there is no transposed copy and no bank-conflicted scalar store;
-//   * staging overlaps the products: each warpgroup walks its tiles through a
-//     2-stage ring loaded ahead by 16-byte cp.async (dK/dV: Q, dO, lse, di
-//     and, packed, the segment starts; dQ: K and V). An iteration waits for
-//     its own copies and passes one barrier of its own warpgroup (named, of
-//     128 threads, in dK/dV; in dQ the block is one warpgroup), then starts
-//     the next tile's copies before its products: one barrier an iteration
-//     where there were two block-wide ones;
-//   * the GQA loop is balanced: a dK/dV block (one 64-row KV tile, one KV
-//     head) hands its (query head, query tile) pairs round-robin to W
-//     warpgroups (W = 3 at D = 64, 2 at D = 128, as registers allow), each
-//     with its own dK and dV accumulators and its own ring. The block of KV
-//     tile 0, 7 heads x 8 query tiles = 56 pairs at the train shape, is
-//     19 pairs deep instead of 56. At the end the warpgroups' accumulators
-//     are summed in shared memory in a fixed order (0, then 1, then 2): no
-//     atomics, each dk/dv/dq element written once, bit-equal across calls;
-//   * dQ: one warpgroup per (64-row query tile, head, batch) walks the KV
-//     tiles up to the diagonal, longest rows launched first;
-//   * masks as before: only the diagonal tile is masked when unpacked, and a
-//     masked entry is set to 0 rather than computed as exp(-inf - lse).
-//     Packed rows (kSeg): dQ visits KV tiles from floor(seg_start(p0)/64) up
-//     to the diagonal, as the forward does; a dK/dV block for KV tile
-//     [c0, c0+64) visits query tiles from the diagonal up to the first start
-//     > c0+63 (rows from there on start their segment after the whole tile),
-//     or S. A tile pair is masked per element (col <= row && col >=
-//     seg_start(row)) when it is diagonal or the query tile's largest start
-//     lies beyond the KV tile's first column; the dK/dV ring stage carries
-//     each query's start beside its lse and di.
-// Not yet: TMA and a producer warp (cp.async costs the consumers issue
-// slots), overlap of one pair's dV/dK products with the next pair's S^T.
+// dK/dV at D=64 unsegmented (the train step, the long preset), what the
+// design does about it:
+//   * a persistent grid, one block an SM, walks the (128-key tile, KV head,
+//     batch) tiles longest first (tile 0 has the most query tiles) in snake
+//     rounds (flash_sm90.cuh sched_tile);
+//   * a producer warp (warpgroup 0, setmaxnreg down to 24) loads K and V of
+//     the tile once, into two buffers (the next tile's while this one's last
+//     pairs run), and each (query head, 64-row query tile) pair's Q, dO by
+//     TMA and lse, di by bulk copy into a ring of 3 stages. Keys past S
+//     arrive as zeros and are never stored;
+//   * two consumer warpgroups (setmaxnreg up to 240) own keys 0-63 and
+//     64-127 and read every staged pair: each staged byte serves both. Each
+//     keeps its dK and dV in registers over all of the tile's pairs, so no
+//     sum across warpgroups is needed, and holds K and V as A fragments in
+//     registers for the whole tile;
+//   * S^T = K·Q^T and dP^T = V·dO^T, then dV += P^T·dO and dK += dS^T·Q
+//     (P^T, dS^T from the accumulators as bf16 A fragments, packed two
+//     elements at a time; dO and Q read MN-major). Pair p+1's S^T and dP^T
+//     are in flight with pair p's dV and dK, and the two consumers issue in
+//     ping-pong order (named barriers 1 and 2). dK is scaled by 1/sqrt(64) =
+//     1/8 once after its sum rather than dS before its rounding: a power of
+//     two, so the same bits for one multiply fewer an element;
+//   * masks per element only where a query tile reaches a key tile (the
+//     diagonal); a masked entry is set to 0.
+// Packed rows (both head dims) and D=128 take the 64-key kernel
+// (flash_bwd_dkv_tiled_kernel, below). Packed, a 128-key tile walks the
+// query tiles up to the segment end of its last key, so at ~300-token
+// samples its first 64 keys run pairs they do not see. At D=128 the
+// persistent design, with one wgmma group in flight and no ping-pong, left
+// ptxas short of registers (C7512, 432 bytes spilled).
+// Measured and not kept (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W): the
+// persistent design at D=128, 0.663-0.666 ms against the 64-key kernel's
+// 0.579-0.583 at q [40,512,32,128], and packed at [5,1024,32,128] 0.422-0.424
+// against 0.406-0.408 (random starts), 0.267 against 0.276-0.277 (the bench's
+// starts); skipping the pairs a consumer does not see (a wgmma behind a
+// branch on the consumer's index: ptxas serializes the pipeline, C7520; 29.4
+// against 21.4 ms at S=16384); a ring of 4 stages (within noise); ping-pong
+// at D=128 (0.82 against 0.63 ms). K and V in registers and ping-pong were
+// kept: 20.5 against 21.4 ms at S=16384 (each alone within noise).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,35 +93,311 @@
 
 namespace {
 
-// kTile, kStages, the tile size, aligned_smem, load_tile, store_tile:
+// kTile, kStages, the tile sizes, aligned_smem, load_tile, store_tile:
 // flash_sm90.cuh
 template <int D>
 struct Bwd {
   static constexpr int kBlocks = FlashTile<D>::kBlocks;
   static constexpr int kTileBytes = FlashTile<D>::kTileBytes;
-  // dK/dV: warpgroups a block (each 128 threads), K and V, then a ring per
-  // warpgroup of (Q tile, dO tile, lse[64], di[64], starts[64]) stages
+  // dQ: one warpgroup; Q and dO, then a ring of (K tile, V tile) stages
+  static constexpr int kDqSmem = 2 * kTileBytes + kStages * 2 * kTileBytes + 1024;
+};
+
+// dK/dV: K and V of a 128-key tile in two buffers (the next tile's copies
+// while this one's last pairs run), then a ring of 3 pair stages: Q [64][D],
+// dO [64][D], and 1 KB of row statistics (lse[64], di[64]; the rest keeps
+// the next stage's tiles aligned), and the mbarriers: 116 KB at D=64.
+template <int D>
+struct Dkv {
+  static constexpr int kBlocks = D / 64;
+  static constexpr int kKVBytes = FlashTile<D>::kTile128Bytes;  // one [128][D] tile
+  static constexpr int kQBytes = FlashTile<D>::kTileBytes;      // one [64][D] tile
+  static constexpr int kStatBytes = 1024;
+  static constexpr int kStageBytes = 2 * kQBytes + kStatBytes;
+  static constexpr int kRing = 3;
+  static constexpr int kRingOff = 2 * 2 * kKVBytes;
+  static constexpr int kBarOff = kRingOff + kRing * kStageBytes;
+  static constexpr int kSmem = kBarOff + 8 * (4 + 2 * kRing) + 1024;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+};
+
+// which tile of the call: KV tile (128 keys; tile 0, seen by the most query
+// tiles, first), KV head, batch; and its (query head, 64-row query tile)
+// pairs, head-major: the query tiles from the first that sees a key of the
+// tile to the last
+struct DkvTile {
+  int kvt, kvh, b, q_first, nq, n_pairs;
+};
+
+__device__ __forceinline__ DkvTile dkv_tile(int tile, int KVH, int B, int S, int groups) {
+  DkvTile f;
+  f.kvt = tile / (KVH * B);
+  const int rem = tile % (KVH * B);
+  f.kvh = rem % KVH;
+  f.b = rem / KVH;
+  f.q_first = f.kvt * kRows / kTile;
+  f.nq = S / kTile - f.q_first;
+  f.n_pairs = groups * f.nq;
+  return f;
+}
+
+// dK, dV: one persistent block an SM over (KV tile, KV head, batch) tiles.
+// Warpgroup 0 is the producer: its first warp's lane 0 loads K and V once a
+// tile and every pair's Q, dO, lse, di into the ring. Warpgroups 1 and 2 own
+// keys 0-63 and 64-127 of the tile, each with its own dK and dV in registers
+// over all of the tile's pairs: no sum across warpgroups. D=64 only: at
+// D=128 the two accumulators alone take 128 registers a thread, and the
+// kernel spilled and ran slower than the 64-key one (PERF.md §6).
+template <int D>
+__global__ void __launch_bounds__(kWarpSpecThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse, const float* __restrict__ di,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int S,
+                     int H, int KVH, float scale) {
+  static_assert(D == 64, "the persistent dK/dV kernel serves D=64; D=128 takes the 64-key one");
+  using T = Dkv<D>;
+  constexpr int kR = T::kRing;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bars = base + T::kBarOff;
+  auto kv_full = [&](int i) { return bars + 8 * i; };
+  auto kv_empty = [&](int i) { return bars + 8 * (2 + i); };
+  auto full = [&](int i) { return bars + 8 * (4 + i); };
+  auto empty = [&](int i) { return bars + 8 * (4 + kR + i); };
+  auto stage = [&](int i) { return T::kRingOff + i * T::kStageBytes; };  // byte offset
+
+  const int groups = H / KVH;
+  const int n_tiles = (S + kRows - 1) / kRows * KVH * B;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(kv_full(i), 1);
+      mbar_init(kv_empty(i), kConsumerWarps);
+    }
+    for (int i = 0; i < kR; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer
+    regs_dealloc<T::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int ti = 0, pi = 0;
+      for (int r = 0;; ++r, ++ti) {
+        const int tile = sched_tile(r, blockIdx.x, gridDim.x);
+        if (tile >= n_tiles) break;
+        const DkvTile f = dkv_tile(tile, KVH, B, S, groups);
+        const int kvs = ti % 2;
+        if (ti >= 2) mbar_wait(kv_empty(kvs), (ti / 2 - 1) & 1);
+        const uint32_t k_t = base + kvs * 2 * T::kKVBytes;
+        mbar_expect_tx(kv_full(kvs), 2 * T::kKVBytes);
+#pragma unroll
+        for (int cb = 0; cb < T::kBlocks; ++cb) {  // keys past S arrive as zeros
+          tma_load_3d(k_t + cb * kRowBlock, &tk, kv_full(kvs), f.kvh * D + cb * 64,
+                      f.kvt * kRows, f.b);
+          tma_load_3d(k_t + T::kKVBytes + cb * kRowBlock, &tv, kv_full(kvs),
+                      f.kvh * D + cb * 64, f.kvt * kRows, f.b);
+        }
+        for (int p = 0; p < f.n_pairs; ++p, ++pi) {
+          const int h = f.kvh * groups + p / f.nq;
+          const int q0 = (f.q_first + p % f.nq) * kTile;
+          const int st = pi % kR;
+          if (pi >= kR) mbar_wait(empty(st), (pi / kR - 1) & 1);
+          const uint32_t s_t = base + stage(st);
+          const long r0 = ((long)f.b * H + h) * S + q0;
+          mbar_expect_tx(full(st), 2 * T::kQBytes + 512);
+#pragma unroll
+          for (int cb = 0; cb < T::kBlocks; ++cb) {
+            tma_load_3d(s_t + cb * kSw128Block, &tq, full(st), h * D + cb * 64, q0, f.b);
+            tma_load_3d(s_t + T::kQBytes + cb * kSw128Block, &tdo, full(st), h * D + cb * 64,
+                        q0, f.b);
+          }
+          bulk_load(s_t + 2 * T::kQBytes, lse + r0, 256, full(st));
+          bulk_load(s_t + 2 * T::kQBytes + 256, di + r0, 256, full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  regs_alloc<T::kConsumerRegs>();
+  const int c = threadIdx.x / 128 - 1;  // this consumer's keys: 64c .. 64c + 63 of a tile
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const bool lead = tid % 32 == 0;
+  const float scale_log2 = scale * kLog2e;
+  // ping-pong: named barrier 1 + c is "consumer c may issue"
+  const int my_turn = 1 + c, their_turn = 2 - c;
+  if (c == 1) named_arrive(1, 256);
+
+  int ti = 0, pi = 0;
+  for (int r = 0;; ++r, ++ti) {
+    const int tile = sched_tile(r, blockIdx.x, gridDim.x);
+    if (tile >= n_tiles) break;
+    const DkvTile f = dkv_tile(tile, KVH, B, S, groups);
+    const int kvs = ti % 2;
+    const uint32_t k_t = base + kvs * 2 * T::kKVBytes + c * kHalfBlock;  // K[key][d], sw128
+    const uint32_t v_t = k_t + T::kKVBytes;
+    const int key0 = f.kvt * kRows + 64 * c;  // this consumer's first key
+    const int key_tile = key0 / kTile;
+    mbar_wait(kv_full(kvs), (ti / 2) & 1);
+
+    float acc_dk[T::kBlocks][32], acc_dv[T::kBlocks][32];
+#pragma unroll
+    for (int cb = 0; cb < T::kBlocks; ++cb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_dk[cb][i] = acc_dv[cb][i] = 0.f;
+    }
+    float s[32], dp[32];
+    uint32_t pa[4][4], dsa[4][4];
+
+    // K and V as A fragments, read once a tile from the sw128 tiles
+    uint32_t ka[D / 16][4], va[D / 16][4];
+    load_a<D>(ka, k_t, kRowBlock, warp, g, t);
+    load_a<D>(va, v_t, kRowBlock, warp, g, t);
+    // S^T = K Q^T and dP^T = V dO^T of pair stage st: keys x queries
+    auto issue_sdp = [&](int st) {
+      const uint32_t q_t = base + stage(st);
+      const uint32_t do_t = q_t + T::kQBytes;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_rs_k(s, ka[kk], desc_k_major(q_t, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_rs_k(dp, va[kk], desc_k_major(do_t, kk), kk > 0);
+    };
+    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+    auto issue_dvdk = [&](int st) {
+      const uint32_t q_t = base + stage(st);
+      const uint32_t do_t = q_t + T::kQBytes;
+#pragma unroll
+      for (int cb = 0; cb < T::kBlocks; ++cb) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc_dv[cb], pa[kk], desc_mn_major(do_t, cb, kk));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc_dk[cb], dsa[kk], desc_mn_major(q_t, cb, kk));
+      }
+    };
+    // P^T and dS^T of pair p (stage st) into pa, dsa, packed to bf16 two
+    // elements at a time, so that s and dp die as they are read. dK is
+    // scaled once after its sum instead of dS before its rounding: the same
+    // bits, as scale = 1/sqrt(64) = 1/8 is a power of two
+    auto elementwise = [&](int p, int st) {
+      const unsigned char* stat = smem + stage(st) + 2 * T::kQBytes;
+      const float* lse_s = reinterpret_cast<const float*>(stat);
+      const float* di_s = lse_s + kTile;
+      const int q_tile = f.q_first + p % f.nq;
+      const int q0 = q_tile * kTile;
+      // masked per element where a query precedes a key: the diagonal, and
+      // for consumer 1 the query tile below it
+      const bool masked = q_tile <= key_tile;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        float pv[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * (i / 4) + 2 * t + e;           // query within the tile
+          const int row = 16 * warp + g + ((i & 2) ? 8 : 0);  // key within the consumer's 64
+          const bool off = masked && key0 + row > q0 + col;
+          pv[e] = off ? 0.f : fast_exp2(s[i + e] * scale_log2 - lse_s[col] * kLog2e);  // P^T
+          ds[e] = pv[e] * (dp[i + e] - di_s[col]);  // dS^T
+        }
+        pa[i / 8][(i % 8) / 2] = pack_bf16(pv[0], pv[1]);
+        dsa[i / 8][(i % 8) / 2] = pack_bf16(ds[0], ds[1]);
+      }
+    };
+    auto release = [&](uint32_t bar) {
+      if (lead) mbar_arrive(bar);
+    };
+
+    // pair 0's S^T and dP^T; then each step issues pair p's dV and dK
+    // products and pair p + 1's S^T and dP^T, all in flight together
+    named_barrier(my_turn, 256);
+    mbar_wait(full(pi % kR), (pi / kR) & 1);
+    wgmma_fence();
+    issue_sdp(pi % kR);
+    wgmma_commit();
+    named_arrive(their_turn, 256);
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    elementwise(0, pi % kR);
+    for (int p = 0; p < f.n_pairs; ++p) {
+      const int st = (pi + p) % kR, nxt = (pi + p + 1) % kR;
+      const bool more = p + 1 < f.n_pairs;
+      named_barrier(my_turn, 256);
+      wgmma_fence();
+      issue_dvdk(st);
+      wgmma_commit();
+      if (more) {
+        mbar_wait(full(nxt), ((pi + p + 1) / kR) & 1);
+        issue_sdp(nxt);
+        wgmma_commit();
+      }
+      named_arrive(their_turn, 256);
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+#pragma unroll
+      for (int cb = 0; cb < T::kBlocks; ++cb) {
+        fence_acc(acc_dv[cb]);
+        fence_acc(acc_dk[cb]);
+      }
+      release(empty(st));
+      if (more) elementwise(p + 1, nxt);
+    }
+    pi += f.n_pairs;
+    release(kv_empty(kvs));
+
+    const long kv_stride = (long)KVH * D;
+    const long kv_off = ((long)f.b * S + key0) * kv_stride + (long)f.kvh * D;
+#pragma unroll
+    for (int cb = 0; cb < T::kBlocks; ++cb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_dk[cb][i] *= scale;
+    }
+    store_rows<D>(acc_dk, dk + kv_off, kv_stride, warp, g, t, S - key0);
+    store_rows<D>(acc_dv, dv + kv_off, kv_stride, warp, g, t, S - key0);
+  }
+  if (c == 0) named_barrier(my_turn, 256);  // consumer 1's last turn handed over
+}
+
+// the 64-key dK/dV kernel: warpgroups a block (each 128 threads), K and V,
+// then a ring per warpgroup of (Q tile, dO tile, lse[64], di[64], starts[64])
+// stages
+template <int D>
+struct DkvTiled {
+  static constexpr int kBlocks = FlashTile<D>::kBlocks;
+  static constexpr int kTileBytes = FlashTile<D>::kTileBytes;
   static constexpr int kDkvGroups = D == 64 ? 3 : 2;
   static constexpr int kDkvStage = 2 * kTileBytes + 1024;  // stats padded to keep tiles aligned
   static constexpr int kDkvSmem = 2 * kTileBytes + kDkvGroups * kStages * kDkvStage + 1024;
-  // dQ: one warpgroup; Q and dO, then a ring of (K tile, V tile) stages
-  static constexpr int kDqSmem = 2 * kTileBytes + kStages * 2 * kTileBytes + 1024;
   // the final sum of the dK/dV warpgroups' accumulators fits in their rings
   static_assert((kDkvGroups - 1) * 2 * 64 * D * 4 <= kDkvGroups * kStages * kDkvStage, "");
 };
 
+// The 64-key design this file had before the persistent kernel above, kept
+// for packed rows and at D=128, where it is faster (PERF.md §6): each
+// warpgroup stages its own pairs by cp.async, and a KV tile visits the query
+// tiles up to the first start after its own 64 keys, so it computes less of
+// the masked area than a 128-key tile.
 // dK, dV: one block per (KV tile, KV head, batch), W warpgroups. Warpgroup
 // w takes pairs w, w + W, ... of the (query head, query tile) pairs that see
 // the tile; warp i of a warpgroup owns KV rows 16i .. 16i+16. `seg` (int32
 // [B, kMaxSegs]) is read only when kSeg.
 template <int D, bool kSeg>
-__global__ void __launch_bounds__(Bwd<D>::kDkvGroups * 128, 1)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+__global__ void __launch_bounds__(DkvTiled<D>::kDkvGroups * 128, 1)
+flash_bwd_dkv_tiled_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ di,
                      const int* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int S, int H, int KVH, float scale) {
-  using T = Bwd<D>;
+  using T = DkvTiled<D>;
   constexpr int W = T::kDkvGroups;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -242,7 +522,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     pack_a(pa, s);
     pack_a(dsa, dp);
 
-    // dV += P^T dO and dK += scale·dS^T Q, dO and Q read MN-major
+    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
     wgmma_fence();
 #pragma unroll
     for (int cb = 0; cb < T::kBlocks; ++cb) {
@@ -421,20 +701,49 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   store_tile<D>(acc, dq + q_off, q_stride, warp, g, t);
 }
 
-template <int D, bool kSeg>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* di, const void* seg, void* dk, void* dv,
-                       int B, int S, int H, int KVH, float scale, cudaStream_t st) {
-  constexpr int smem = Bwd<D>::kDkvSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, kSeg>,
+                       const void* lse, const void* di, void* dk, void* dv, int B, int S, int H,
+                       int KVH, float scale, int device, cudaStream_t st) {
+  static unsigned smem_set = 0;
+  constexpr int smem = Dkv<D>::kSmem;
+  cudaError_t err = cudaSuccess;
+  if (!(smem_set & (1u << device))) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set |= 1u << device;
+  }
+  CUtensorMap tq, tk, tv, tdo;
+  err = heads_map(&tq, q, B, S, H, D, kTile);
+  if (err == cudaSuccess) err = heads_map(&tdo, dout, B, S, H, D, kTile);
+  if (err == cudaSuccess) err = heads_map(&tk, k, B, S, KVH, D, kRows);
+  if (err == cudaSuccess) err = heads_map(&tv, v, B, S, KVH, D, kRows);
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + kRows - 1) / kRows * KVH * B;
+  const int sms = sm_count(device);
+  if (sms == 0) return cudaErrorInvalidValue;
+  flash_bwd_dkv_kernel<D><<<tiles < sms ? tiles : sms, kWarpSpecThreads, smem, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, S, H, KVH, scale);
+  return cudaGetLastError();
+}
+
+template <int D, bool kSeg>
+cudaError_t launch_dkv_tiled(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* di, const void* seg, void* dk, void* dv,
+                             int B, int S, int H, int KVH, float scale, cudaStream_t st) {
+  constexpr int smem = DkvTiled<D>::kDkvSmem;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tiled_kernel<D, kSeg>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<D, kSeg><<<dim3(S / kTile, KVH, B), Bwd<D>::kDkvGroups * 128, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, H, KVH, scale);
+  flash_bwd_dkv_tiled_kernel<D, kSeg>
+      <<<dim3(S / kTile, KVH, B), DkvTiled<D>::kDkvGroups * 128, smem, st>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(di),
+          static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), S, H, KVH, scale);
   return cudaGetLastError();
 }
 
@@ -463,15 +772,22 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
             const void* di, const void* seg, void* dk, void* dv, int B, int S, int H, int KVH,
             int D, float scale, int device, void* stream) {
   if (bad_shape(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the persistent kernel at D=64 unsegmented; the 64-key kernel for packed
+  // rows and at D=128 (PERF.md §6)
   if (D == 64) {
-    return (int)launch_dkv<64, kSeg>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH, scale, st);
+    if constexpr (kSeg) {
+      return (int)launch_dkv_tiled<64, true>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH,
+                                             scale, st);
+    } else {
+      return (int)launch_dkv<64>(q, k, v, dout, lse, di, dk, dv, B, S, H, KVH, scale, device, st);
+    }
   }
   if (D == 128) {
-    return (int)launch_dkv<128, kSeg>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH, scale,
-                                      st);
+    return (int)launch_dkv_tiled<128, kSeg>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH,
+                                            scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks of the fused-MLP products: warpgroup
-// wgmma m64nNk16 (bf16 in, f32 accumulate) at N = 128 and 256, A read
-// K-major and B read MN-major from 128-byte-swizzled tiles in shared memory
-// (the tile layout of wgmma_sm90.cuh, which TMA's SWIZZLE_128B writes), TMA
-// tile copies and the mbarriers they complete.
+// Hopper (sm_90a) building blocks of the fused-MLP products and of the
+// flash-attention forward and dK/dV kernels: warpgroup wgmma m64nNk16 (bf16
+// in, f32 accumulate) at N = 128 and 256, A read K-major and B read MN-major
+// (or, for S = Q·K^T, K-major too) from 128-byte-swizzled tiles in shared
+// memory (the tile layout of wgmma_sm90.cuh, which TMA's SWIZZLE_128B
+// writes); TMA tile copies (2-D and 3-D), bulk copies of contiguous bytes and
+// the mbarriers they complete; the host's tensor maps; setmaxnreg.
 //
 // A B tile [64 k rows][N] is N/64 sw128 blocks of [64][64], 8 KB apart. Read
 // MN-major (the descriptor's transpose bit), the product runs down the rows:
@@ -16,7 +18,9 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "wgmma_sm90.cuh"
@@ -64,6 +68,64 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "%4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// the same box of a 3-D tensor map, at (c0 along the row, c1 down the rows,
+// c2 across the outer dimension); rows past the map's extent arrive as zeros
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, "
+      "%4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned) from
+// global `src` into shared memory at `dst`, paid to barrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// hand registers back (a producer) or take them (the consumers): every warp
+// of a warpgroup runs the same one
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// a TMA map of a row-major bf16 tensor of `rank` (2 or 3) dimensions,
+// `dims` innermost first and `strides` the bytes between steps of the outer
+// ones, read in boxes `box` into 128-byte-swizzled tiles (box[0] = 64
+// elements: one swizzle row); elements outside the tensor read as zero
+inline cudaError_t encode_tensor_map(CUtensorMap* map, const void* base, int rank,
+                                     const cuuint64_t* dims, const cuuint64_t* strides,
+                                     const cuuint32_t* box) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int N>
@@ -129,6 +191,18 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t a, uint64_t
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TST_WGMMA_D_N128
       ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : TST_WGMMA_OUT_N128(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128) = A·B^T, or += with `accumulate`: A and B in shared memory,
+// both read K-major (S = Q·K^T with 128 keys)
+__device__ __forceinline__ void wgmma_ss_kk(float (&d)[64], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TST_WGMMA_D_N128
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : TST_WGMMA_OUT_N128(d)
       : "l"(a), "l"(b), "r"(accumulate));
 }

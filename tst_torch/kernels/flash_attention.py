@@ -11,7 +11,10 @@ The CUDA sources are ``tst_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu``; every product in both is a Hopper warpgroup
 ``wgmma`` on 128-byte-swizzled shared-memory tiles (``wgmma_sm90.cuh``,
 ``flash_sm90.cuh``; segments: ``seg_starts.cuh``). Their headers say what
-bounds them on the card and how the design answers.
+bounds them on the card and how the design answers. The forward and dK/dV
+kernels are persistent, warp-specialized and fed by TMA; the C entries take
+the 64-row forward for packed rows at D=64, and the 64-key dK/dV for packed
+rows and at D=128, where those are faster.
 
 ``flash_attention`` is differentiable on every device. For CUDA tensors its
 forward launches the forward kernel and its backward the dK/dV and dQ
@@ -53,7 +56,10 @@ LAUNCHES_SEG_BWD_DQ = 0
 MAX_SEGS = 8
 SEG_PAD = 1 << 30
 
-#: query/key tile of the kernels: S must be a multiple of it
+#: S must be a multiple of it: the kernels' 64-row tiles (dQ; the 64-row
+#: forward and dK/dV kept where they are faster), while the persistent
+#: kernels' 128-row tiles end at S through 3-D TMA maps that fill past it
+#: with zeros
 BLOCK = 64
 HEAD_DIMS = (64, 128)
 
