@@ -9,12 +9,14 @@
     python3 chip_smoke.py --only llama8b   # phases 1-2, the native packer and 22
     python3 chip_smoke.py --only entry     # phases 1-2 and 23
     python3 chip_smoke.py --only bench     # phases 1-2 and 24 (the bench's default steps)
+    python3 chip_smoke.py --only widths    # phases 1-2 and 25
 
-Every step compared with the plain path (phases 7, 10, 14, 22, 24) holds
-its per-fold losses within 1e-3 of the plain loss, relative, and its LoRA
-gradients at cosine >= 0.99, each averaged over the path's first batches
-(GATE_BATCHES: one batch's fold loss is a handful of answer tokens, where
-bf16 rounding alone can reach 1e-3).
+Every step compared with the plain path (phases 7, 10, 14, 22, 24, 25)
+holds its per-fold losses within 1e-3 of the plain loss, relative, and its
+LoRA gradients at cosine >= 0.999 (0.99 before phase 25), each averaged
+over the path's first batches (GATE_BATCHES: one batch's fold loss is a
+handful of answer tokens, where bf16 rounding alone can reach 1e-3); a
+``[cosines]`` line gives each phase's lowest cosine.
 
 Phases, each printing one line; any failure raises and exits non-zero:
 
@@ -49,7 +51,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                torch's scaled_dot_product_attention (forward, and its
                backward alone) as the library yardstick;
   6. train   — ``python -m tst_torch diagnose-sft`` (Qwen2.5-0.5B at full
-               width, k=2 folds x 16 rows, 2 epochs, LoRA r16 on q/k/v/o,
+               width, k=2 folds x 16 rows, 1 epoch, LoRA r16 on q/k/v/o,
                bf16, synthetic:0.5, n=512) through the CLI entry point; the
                three kernels' launch counts must be what the run's own step
                and chunk counts imply; report.json and the s(x) table, with
@@ -104,7 +106,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                of each of its two kernels, with TFLOP/s, the decoder's
                unfused bf16 MLP and the bound;
  13. decode-slice — ``python -m tst_torch eval-blind`` on synthetic-vsi:0.4
-               (384 MCQ + 128 numeric rows, n=512) with ``model.quantize=int4``
+               (192 MCQ + 64 numeric rows, n=256) with ``model.quantize=int4``
                through the CLI: launch counts as the run implies (K3 on every
                int4 projection of every decode step); the first decode step's
                logits through K3 against the plain path on the same caches
@@ -112,7 +114,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                decode step times, the device's idle share and K3's share of
                the busy time (profiler);
  14. train-fused — ``python -m tst_torch diagnose-sft`` on synthetic-vsi:0.4
-               (256 rows) with ``model.quantize=int4 model.fused_mlp=true``
+               (128 rows) with ``model.quantize=int4 model.fused_mlp=true``
                through the CLI: launch counts as implied (K4 on every
                train-step MLP, K3 on the held-out decode of both folds' rows
                at once); report.json and the s(x) table; the step's LoRA
@@ -127,7 +129,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                (the benchmark plants a length bias); the fit's wall and the
                traversal's time on the card;
  16. debias-ibp — ``python -m tst_torch debias-ibp`` (Qwen2.5-0.5B at full
-               width, bf16, synthetic-vsi:0.4, n=512, phase 6's training for
+               width, 12 of its 24 layers, bf16, synthetic-vsi:0.4, n=512,
+               phase 6's training for
                one epoch a round, 2 rounds, stop_epsilon -1) through the CLI: 2 rounds; the audit
                rows, debiased.jsonl + removed.jsonl and sx.jsonl's kept column
                add up; ibp_report.json is strict JSON; the three attention
@@ -174,7 +177,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                mean`` (K1 launches 24 x the chunks; fold 0's letter
                probabilities against the same adapter through the plain
                attention, within 0.05); (c) ``generate --adapter`` on an int4
-               base, synthetic-vsi:0.4, n=64, 16 tokens (K1, K3 and decode
+               base, synthetic-vsi:0.4, n=32, 8 tokens (K1, K3 and decode
                attention launches
                as implied; the first decode step through K3 against the plain
                path, phase 13's gates; tokens/s); (d) the same with the
@@ -221,15 +224,16 @@ values of the slots a row's queries see).
                ``--profile-dir``: launches as implied, finite fold losses, s(x)
                in [0, 1], the RF cross-check; the step's median ms, samples/s,
                TFLOP/s (tst_torch.aux.flops) and its share of 989, peak memory
-               and the trace's top ops; the step (4 rows a fold) through the
-               kernels against ``model.use_pallas=false`` (the step gates of
-               phase 7, GATE_BATCHES); (b) ``debias-ibp --preset ibp-vsibench`` (k=5, remat,
+               and the trace's top ops; the step (4 rows a fold, the first 8 of
+               the 32 layers) through the kernels against
+               ``model.use_pallas=false`` (the step gates of phase 7,
+               GATE_BATCHES); (b) ``debias-ibp --preset ibp-vsibench`` (k=5, remat,
                prune_rate 0.1, the SFT diagnostic) on synthetic-vsi:0.4, n=60,
                1 round: phase 16's gates, then the first decode step of the
                bf16 base with round 0's fold-0 adapter through the kernels
                against the plain path (phase 13's rule); (c) ``eval-blind`` on
                an int4 base (quantized after the init) on synthetic-vsi:0.4,
-               n=128: launches as implied (K3 at Llama's widths in every decode
+               n=64: launches as implied (K3 at Llama's widths in every decode
                step), the first decode step through K3 against the plain path,
                decode tokens/s and the step's idle share, the init +
                quantization wall and the peak memory during the build and
@@ -264,9 +268,58 @@ values of the slots a row's queries see).
                and decode calls imply (bench_launches_want). Before it, the
                step gates (GATE_BATCHES) for each train path new to the card:
                the fold-parallel step at the bench's shape (Qwen2.5-0.5B, k=5
-               x 4 rows, remat="dots"), the int8 Llama-3-8B k=2 leg at all 32
-               layers ("dots"), and the packed int8 8B leg (k=5, one row of
-               1024 a fold, remat="attn").
+               x 4 rows, remat="dots"), the int8 Llama-3-8B k=2 leg
+               ("dots") and the packed int8 8B leg (k=5, one row of 1024 a
+               fold, remat="attn"), both on one 8-layer init of Llama-3-8B
+               (LLAMA8B_GATE_LAYERS of its 32 layers).
+
+Cut for phase 25's time (before it: phases 6 and 9 two epochs, phase 13
+512 rows, 14 256, 20's generate 64 rows of 16 tokens, 22c 128 rows, step
+medians over 3 steps, phase 16 and the step gates of 22a and 24's 8B
+legs at full depth, the first decode step gates also compared whole
+greedy continuations, reported and never gated): phases 6 and 9 run one
+epoch; 13 256 rows; 14 128; 20's generate 32 rows of 8 tokens; 22c 64;
+step medians over 2 steps after the first; phase 16 at 12 of 24 layers;
+the step gates of 22a and of 24's 8B legs at 8 of the 32 layers
+(phase 25's Qwen2.5-7B gate holds its full 28); no continuations; phase
+9 without the RF cross-check (phases 6 and 22a run it). Phases 16 and 22b
+keep their rows, and 22b its depth: their s(x) rank gates need them.
+
+ 25. widths — the JAX package's six other geometries (Qwen2.5-1.5B, -3B,
+               -7B, Llama-3.1-8B, Llama-3.2-1B, -3B) at their published widths
+               from a random init, and its serving pair: (a) K1's forward,
+               dK/dV and dQ at their diagnose-sft step (32 x 512) for each
+               head layout no earlier phase holds (12/2, 16/2, 28/4, 24/8 at
+               D=128; 32/8 at D=64), at S=576 with 28/4 heads, and packed
+               [8, 1024, 28, 128] with the packed step's starts, against the
+               plain versions, bit-equal on a second call, timed beside the
+               library and the bound; K3 at Qwen2.5-7B's and Llama-3.2-1B's
+               seven leaves and Qwen2.5-1.5B's k/v (N=256) and down (K=8960)
+               at M=32 and the verify chunk's M=160 (rows bit-equal to M=32);
+               K4 at (2048, 3584, 18944); the decode attention at the draft's
+               greedy step (32/8, D=64), the target's verify chunk (32/8,
+               D=128, T=5), Qwen2.5-7B's (28/4) and Llama-3.2-3B's (24/8)
+               steps; (b) ``diagnose-sft --preset sft-cvbench-qwen --bench
+               synthetic:0.5 --set model.name=<width> --set
+               model.tokenizer=byte`` (48 rows, one epoch, the RF cross-check
+               off) for each width: launches as implied, every step's losses
+               finite; the step's median ms, tokens/s, TFLOP/s and its share
+               of 989, peak memory; the step gates on the run's own weights
+               and batches. Qwen2.5-7B runs all 28 of its layers under
+               ``model.remat=true`` (its saved activations would not fit the
+               card); the other five run 4 of theirs (the cut: every layer of
+               a width has the same shapes); (c) Qwen2.5-7B's int4
+               ``eval-blind`` (synthetic-vsi:0.4, n=32) at 28 layers, its base
+               the step's weights converted as a checkpoint is (each tensor
+               quantized on arrival by ``quantizing_put``): launches as
+               implied, letter probabilities within 0.05 of the plain
+               attention, the first decode step through K3 against the plain
+               path (phase 13's rule), samples/s; (d) ``generate`` with an int8
+               Llama-3-8B target at 32 layers, ``--draft-model llama3.2-1b
+               --draft-quantize int4`` (16 layers, D=64, tied head, x32 llama3
+               RoPE scaling) and ``--gamma 4`` on 32 rows x 4 tokens: launches
+               as implied, every row's tokens equal to greedy decode's on the
+               same target (exact), the rounds and the acceptance.
 
 Phase 11 also times K3 and torch's tinygemm int4 product
 (``aten._weight_int4pack_mm``, bf16 scales; its library yardstick) at M=32
@@ -330,9 +383,9 @@ TRAIN_SHAPE = (32, 512, 14, 2, 64)
 #: as operands, and dk/dv sum over 7 heads x up to 512 rows, so each gradient
 #: is held to max|d - ref| <= 2e-2 * max|ref|
 GRAD_TOL = 2e-2
-#: phase 6's diagnose-sft (and phase 9's, packed): 2 epochs (3 before
-#: phase 24's gates averaged batches)
-TRAIN_EPOCHS = 2
+#: phase 6's diagnose-sft (and phase 9's, packed): 1 epoch (3 before
+#: phase 24's gates averaged batches, 2 before phase 25 took its time)
+TRAIN_EPOCHS = 1
 TRAIN = ["diagnose-sft", "--bench", "synthetic:0.5", "--set", "data.n=512",
          "--set", "data.k=2", "--set", "optim.batch_size=16", "--set",
          f"optim.epochs={TRAIN_EPOCHS}",
@@ -343,13 +396,21 @@ PLAIN_ROWS = 4
 #: one bf16 step, kernel vs plain path: per-leaf LoRA gradient cosine, and
 #: per-fold losses within LOSS_RTOL of the plain loss: bf16 rounding through
 #: 24 layers moves the logits, and the loss with them, in proportion to
-#: their size (~13 nats at random weights: gaps of 5.6e-3 to 7.7e-3, PERF.md)
-GRAD_COSINE, LOSS_RTOL = 0.99, 1e-3
+#: their size (~13 nats at random weights: gaps of 5.6e-3 to 7.7e-3, PERF.md).
+#: The cosine rule was 0.99 until the sound paths had read >= 0.9999 on
+#: every gate and every layer's attention output x 1.01 had read >= 0.9970
+#: (PERF.md): 0.99 caught none of those faults
+GRAD_COSINE, LOSS_RTOL = 0.999, 1e-3
+#: the lowest LoRA gradient cosine each phase's step gates read (_step_gates
+#: records it under the running phase; main prints it)
+LOWEST_COSINE = {}
+_PHASE = ["-"]
 #: scale of the drawn LoRA B for that step (nonzero, so A has gradients)
 B_SCALE = 0.005
 #: steps a median step time is taken over, after the first (8 before phase
-#: 24 took its time, 5 before its gates averaged batches)
-STEP_SAMPLES = 3
+#: 24 took its time, 5 before its gates averaged batches, 3 before phase 25
+#: took its time)
+STEP_SAMPLES = 2
 PACKED = ["optim.pack=true"]
 #: the packed train step's attention call: 2 folds x 16 rows of 1024 tokens
 PACKED_TRAIN_SHAPE = (32, 1024, 14, 2, 64)
@@ -403,10 +464,12 @@ LIB_INT4_TOL = 2e-2
 MLP_SHAPES = [(16384, 896, 4864), (2048, 4096, 14336), (1000, 896, 4864)]
 #: bf16 output and h rounded to bf16 before the down product
 MLP_TOL = 2e-2
-DECODE = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=512",
+#: phase 13's eval-blind: 256 rows (512 before phase 25 took its time)
+DECODE_N = 256
+DECODE = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", f"data.n={DECODE_N}",
           "--set", "model.name=qwen2.5-0.5b", "--set", "model.quantize=int4"]
-#: synthetic-vsi:0.4 at n=512: 384 MCQ rows and 128 numeric rows
-N_MCQ_VSI, N_NUMERIC_VSI = 384, 128
+#: synthetic-vsi:0.4 at n=256: 192 MCQ rows and 64 numeric rows
+N_MCQ_VSI, N_NUMERIC_VSI = 192, 64
 #: greedy tokens of a numeric answer (the reference's max_new), the int4
 #: projections of a layer, and the decode step's rows of Path A
 MAX_NEW, INT4_PROJ, DECODE_ROWS = 12, 7, 32
@@ -417,11 +480,12 @@ MAX_NEW, INT4_PROJ, DECODE_ROWS = 12, 7, 32
 #: (decisive_disagreements): the logits are near-tied, so argmax agreement
 #: alone fails correct code
 LOGIT_TOL = 2e-2
-#: phase 14: one epoch of phase 6's geometry on 256 rows of
-#: synthetic-vsi:0.4, 192 MCQ and 64 numeric (9 steps; 512 rows and 17 steps
-#: before phase 24's gates averaged batches); the RF cross-check, which
-#: phase 6 runs, off (on before phase 24 took its time)
-FUSED_ROWS, FUSED_MCQ, FUSED_NUMERIC = 256, 192, 64
+#: phase 14: one epoch of phase 6's geometry on 128 rows of
+#: synthetic-vsi:0.4, 96 MCQ and 32 numeric (5 steps; 512 rows and 17 steps
+#: before phase 24's gates averaged batches, 256 and 9 before phase 25 took
+#: its time); the RF cross-check, which phase 6 runs, off (on before phase 24
+#: took its time)
+FUSED_ROWS, FUSED_MCQ, FUSED_NUMERIC = 128, 96, 32
 TRAIN_FUSED = ([a.replace("synthetic:0.5", "synthetic-vsi:0.4").replace(
                     f"optim.epochs={TRAIN_EPOCHS}", "optim.epochs=1")
                 .replace(f"data.n={N_SAMPLES}", f"data.n={FUSED_ROWS}") for a in TRAIN]
@@ -437,11 +501,14 @@ RF = ["diagnose-rf", "--bench", "synthetic:0.5", "--set", f"data.n={RF_ROWS}", "
 #: trees against sklearn's f64 sum
 RF_TOL = 1e-6
 #: IBP with the SFT diagnostic on phase 14's mix, the train geometry of phase
-#: 6 for one epoch a round (three before phase 22 took its time); stop_epsilon
-#: -1, so the loop at random weights (blind accuracy near chance) still
-#: prunes every round
-IBP_ROUNDS = 2
-IBP = ["debias-ibp", "--bench", "synthetic-vsi:0.4", "--set", "data.n=512", "--k", "2",
+#: 6 for one epoch a round (three before phase 22 took its time) on 512 rows
+#: (at 256, 192 MCQ rows, round 0's rank gate read 0.99930 against 0.99964
+#: at 512); stop_epsilon -1, so the loop at random weights (blind accuracy
+#: near chance) still prunes every round
+IBP_ROUNDS, IBP_N = 2, 512
+#: at 12 of Qwen2.5-0.5B's 24 layers (all 24 before phase 25 took its time)
+IBP_LAYERS = 12
+IBP = ["debias-ibp", "--bench", "synthetic-vsi:0.4", "--set", f"data.n={IBP_N}", "--k", "2",
        "--set", "optim.batch_size=16", "--set", "optim.epochs=1",
        "--set", f"ibp.rounds={IBP_ROUNDS}", "--set", "ibp.stop_epsilon=-1",
        "--set", "model.name=qwen2.5-0.5b"]
@@ -507,7 +574,7 @@ SERVE_EPOCH_DIR = "seed_0_epoch_000"
 RESUME_STEPS, RESUME_FAIL, RESUME_EVERY, RESUME_COSINE = 6, 3, 2, 0.999
 #: phase 20c-d: generate on an int4 base with the trained adapter, and again
 #: with the target's own config as an int4 draft
-GEN_MAX_NEW, GEN_ROWS = 16, 64
+GEN_MAX_NEW, GEN_ROWS = 8, 32
 SERVE_GEN = ["generate", "--bench", "synthetic-vsi:0.4", "--set", f"data.n={GEN_ROWS}",
              "--set", "model.name=qwen2.5-0.5b", "--set", "model.quantize=int4",
              "--max-new", str(GEN_MAX_NEW)]
@@ -539,21 +606,26 @@ LLAMA8B_ONE_CARD = ["--set", "model.tokenizer=byte", "--set", "mesh.data=1",
 #: (a) the sft-mmmu-llama8b preset (k=5, batch 8, remat=True): 20 rows (80
 #: before phase 24 took its time, 40 before its gates averaged batches), one
 #: epoch of fold-parallel steps of 40 rows x 512 tokens; its step gate takes
-#: the first 8 batches of 4 rows a fold of the preset at LLAMA8B_GATE_ROWS
-LLAMA8B_ROWS, LLAMA8B_GATE_ROWS = 20, 40
+#: the first 8 batches of 4 rows a fold of the preset at LLAMA8B_GATE_ROWS,
+#: at LLAMA8B_GATE_LAYERS of the 32 layers (all 32 before phase 25 took its
+#: time; phase 25's Qwen2.5-7B gate runs all 28 of its layers)
+LLAMA8B_ROWS, LLAMA8B_GATE_ROWS, LLAMA8B_GATE_LAYERS = 20, 40, 8
 LLAMA8B_TRAIN = ["diagnose-sft", "--preset", "sft-mmmu-llama8b", "--bench", "synthetic:0.5",
                  *LLAMA8B_ONE_CARD, "--set", f"data.n={LLAMA8B_ROWS}", "--set",
                  "optim.epochs=1"]
 #: (b) the ibp-vsibench preset (k=5, remat=True, prune_rate 0.1, the SFT
 #: diagnostic): 60 rows, one epoch, one round that prunes (2 before phase 24
-#: took its time; phase 16 runs two)
-LLAMA8B_IBP_ROUNDS = 1
+#: took its time; phase 16 runs two), all 32 layers. At 40 rows (30 MCQ
+#: rows) round 0's rank gate read 0.99733, at 16 layers 0.99895, against
+#: 0.99974 as it stands: too little for the bf16 rank rule
+LLAMA8B_IBP_ROUNDS, LLAMA8B_IBP_N = 1, 60
 LLAMA8B_IBP = ["debias-ibp", "--preset", "ibp-vsibench", "--bench", "synthetic-vsi:0.4",
-               *LLAMA8B_ONE_CARD, "--set", "data.n=60", "--set", "optim.epochs=1",
+               *LLAMA8B_ONE_CARD, "--set", f"data.n={LLAMA8B_IBP_N}", "--set", "optim.epochs=1",
                "--set", f"ibp.rounds={LLAMA8B_IBP_ROUNDS}", "--set", "ibp.stop_epsilon=-1"]
-#: (c) eval-blind on an int4 base quantized after the init: 96 MCQ rows and
-#: 32 numeric rows decoded through K3 at Llama's widths
-LLAMA8B_INT4 = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=128",
+#: (c) eval-blind on an int4 base quantized after the init: 48 MCQ rows and
+#: 16 numeric rows decoded through K3 at Llama's widths (96 and 32 before
+#: phase 25 took its time)
+LLAMA8B_INT4 = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=64",
                 "--set", "model.name=llama3-8b", "--set", "model.quantize=int4"]
 LLAMA8B_LAYERS = 32
 #: the card's dense bf16 peak, for the step's share of it
@@ -584,7 +656,7 @@ BENCH_ENV = {"TST_BENCH_STEPS": "2", "TST_BENCH_WARMUP": "1"}
 #: moves one seed's losses by a steady 5e-04 to 8e-04). The readings, of
 #: scripts/torch_step_loss_noise.py, are in PERF.md
 GATE_BATCHES = {"train": 8, "packed": 2, "fused": 8, "llama8b": 8,
-                "qwen": 4, "llama8b_k2": 8, "llama8b_packed_k5": 4}
+                "qwen": 4, "llama8b_k2": 8, "llama8b_packed_k5": 4, "widths": 8}
 #: the bench's fold-parallel attention call (k=5 x 4 rows, Qwen2.5-0.5B
 #: heads), in the kernel checks of phases 3 and 5
 BENCH_SHAPES = [(20, 512, 14, 2, 64)]
@@ -603,6 +675,57 @@ BENCH_LEG_KEYS = (
     "llama3_8b_int4_decode_step_tokens_per_s", "longseq_tokens_per_s", "longseq_len",
     "longseq_32k_tokens_per_s", "decode_tokens_per_s", "decode_batch",
     "decode_step_tokens_per_s")
+#: phase 25 (widths): the JAX package's six other geometries
+#: (tst/models/decoder.py:85-120; tst_torch/models/spec.py), each at its
+#: published widths from a random init on the card (no download), the byte
+#: tokenizer, sft-cvbench-qwen's diagnose-sft (k=2 x 16 rows of 512)
+WIDTHS = ("qwen2.5-1.5b", "qwen2.5-3b", "qwen2.5-7b", "llama3.1-8b", "llama3.2-1b",
+          "llama3.2-3b")
+#: Qwen2.5-7B, the largest, runs all 28 of its layers (under full remat: its
+#: saved activations at 32 x 512 tokens, ~3 GB a layer, would not fit); the
+#: others WIDTHS_LAYERS of theirs: every layer of a width has the same
+#: shapes, so depth adds no kernel coverage
+WIDTHS_FULL, WIDTHS_LAYERS = "qwen2.5-7b", 4
+#: their diagnose-sft runs: 48 rows, one epoch (2 steps of 2 x 16 rows; the
+#: step gates' 8 batches of 4 rows a fold cut from them), the RF cross-check
+#: off
+WIDTHS_ROWS = 48
+#: K1 at the widths' step (B, S) for each head layout no other phase checks
+#: (widths_k1_shapes), S = 576 at group 7 and D=128 (ODD_TILES' case), and
+#: packed rows of 1024 at Qwen2.5-7B's heads with the first rows of the
+#: packed step's own starts
+WIDTHS_STEP_BS = (32, 512)
+WIDTHS_ODD = (2, 576, 28, 4, 128)
+WIDTHS_PACKED = (8, 1024, 28, 4, 128)
+#: the reference's serving pair (tst/cli.py:311-313, scripts/probe_spec_decode.py:13):
+#: an int8 Llama-3-8B target at 32 layers, a Llama-3.2-1B draft at 16 layers
+#: stored int4 (K3 at its 2048 width), gamma 4, 32 rows, 4 tokens a row (the
+#: int8 target's verify chunk runs its products a position at a time, ~0.1 s
+#: each, and random weights reject every draft token: one token a round)
+PAIR_TARGET, PAIR_DRAFT, PAIR_GAMMA, PAIR_ROWS, PAIR_MAX_NEW = (
+    "llama3-8b", "llama3.2-1b", 4, 32, 4)
+PAIR_GEN = ["generate", "--bench", "synthetic-vsi:0.4", "--set", f"data.n={PAIR_ROWS}",
+            "--set", f"model.name={PAIR_TARGET}", "--set", "model.quantize=int8",
+            "--set", "model.tokenizer=byte", "--max-new", str(PAIR_MAX_NEW),
+            "--draft-model", PAIR_DRAFT, "--draft-quantize", "int4",
+            "--gamma", str(PAIR_GAMMA)]
+#: K3 at the new leaves: Qwen2.5-7B's seven, Qwen2.5-1.5B's k/v (N=256) and
+#: down (K=8960), Llama-3.2-1B's seven (the pair's draft); at a greedy step's
+#: M and the pair's verify chunk's, 32 x (gamma + 1)
+WIDTHS_INT4 = {"qwen2.5-7b": None, "qwen2.5-1.5b": ("wk", "wv", "w_down"),
+               "llama3.2-1b": None}
+WIDTHS_INT4_M = (32, 32 * (PAIR_GAMMA + 1))
+#: K4 at Qwen2.5-7B's MLP, at the M of MLP_SHAPES' Llama-3-8B case
+WIDTHS_MLP = (2048, 3584, 18944)
+#: the decode attention at the draft's greedy step (32/8 heads, D=64), the
+#: target's verify chunk (32/8, D=128, T = gamma + 1), Qwen2.5-7B's and
+#: Llama-3.2-3B's greedy steps
+WIDTHS_DATTN = [(32, 1, 32, 8, 64, 640), (32, PAIR_GAMMA + 1, 32, 8, 128, 640),
+                (32, 1, 28, 4, 128, 640), (32, 1, 24, 8, 128, 640)]
+#: phase 25's Qwen2.5-7B int4 eval-blind: 24 MCQ rows and 8 numeric rows
+WIDTHS_BLIND = ["eval-blind", "--bench", "synthetic-vsi:0.4", "--set", "data.n=32",
+                "--set", f"model.name={WIDTHS_FULL}", "--set", "model.tokenizer=byte",
+                "--set", "model.quantize=int4"]
 #: safetensors' dtype names
 _ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
               torch.int8: "I8", torch.uint8: "U8"}
@@ -1295,6 +1418,7 @@ def _step_gates(kernel, plain):
            for p in grads_k for n in grads_k[p]}
     gap, loss_ok = fold_losses_agree(loss_k.tolist(), loss_p.tolist())
     worst = min(cos, key=cos.get)
+    LOWEST_COSINE[_PHASE[0]] = min(LOWEST_COSINE.get(_PHASE[0], 1.0), cos[worst])
     line = (f"fold losses {loss_k.tolist()} vs plain {loss_p.tolist()} (max |d|/|loss| "
             f"{gap:.3e} <= {LOSS_RTOL}); LoRA gradient cosine min {cos[worst]:.5f} ({worst}) "
             f"over {len(cos)} leaves (>= {GRAD_COSINE})")
@@ -1389,9 +1513,11 @@ def _fused_gate_case():
 
 
 def _llama8b_gate_case():
-    return state_gate_case("llama8b", f"Llama-3-8B (32 layers) k=5 x {PLAIN_ROWS} rows, remat",
-                           _train_state([f"optim.batch_size={PLAIN_ROWS}",
-                                         f"data.n={LLAMA8B_GATE_ROWS}"], base=LLAMA8B_TRAIN))
+    with _CutDepth("llama3-8b", LLAMA8B_GATE_LAYERS):
+        st = _train_state([f"optim.batch_size={PLAIN_ROWS}", f"data.n={LLAMA8B_GATE_ROWS}"],
+                          base=LLAMA8B_TRAIN)
+    return state_gate_case("llama8b", f"Llama-3-8B ({LLAMA8B_GATE_LAYERS} layers) k=5 x "
+                           f"{PLAIN_ROWS} rows, remat", st)
 
 
 def train_gate_cases(keys=None):
@@ -1435,6 +1561,7 @@ def _seg_starts(b, s, seed):
     return np.asarray(rows, np.int32)
 
 
+@functools.lru_cache(maxsize=1)
 def _packed_step_starts():
     """The segment starts of the packed run's first train step, fold-major
     [k·B, MAX_SEGS], from the run's own state."""
@@ -1584,7 +1711,8 @@ def phase_train_packed():
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
     t0 = time.perf_counter()
-    rc = cli.main(TRAIN + ["--set", PACKED[0], "--out", out_dir])
+    rc = cli.main(TRAIN + ["--set", PACKED[0], "--set", "rf.cross_check=false",
+                           "--out", out_dir])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _launch_counts()
@@ -1949,11 +2077,7 @@ def phase_kernel_int4(device, strict=True):
               f"{layer[m]['device_us']:.2f} µs (CUDA graph of 10 calls, median of 20 replays), "
               f"host {layer[m]['host_us']:.2f} µs (300 calls back to back), plain (dequantize, "
               f"then product) {layer[m]['plain_ms']:.4f} ms (sums over the projections)")
-    # a layer's seven projections at M=32: y, packed weights and f32 scales in, f32 out
     m = INT4_M[0]
-    flops = sum(2 * m * k * n for k, n in QWEN_INT4.values())
-    nbytes = sum(m * k * 2 + k * n // 2 + (k // 128) * n * 4 + m * n * 4
-                 for k, n in QWEN_INT4.values())
     return {"max_abs_err": worst, "ms": layer[m]["device_us"] / 1e3,
             "plain_ms": layer[m]["plain_ms"],
             "library_ms": None if lib_error else lib["qwen2.5-0.5b"]["library_us"] / 1e3,
@@ -1963,7 +2087,7 @@ def phase_kernel_int4(device, strict=True):
                 "k3_ms": lib["llama3-8b"]["k3_us"] / 1e3,
                 "library_ms": lib["llama3-8b"]["library_us"] / 1e3,
                 "library_max_rel_err": lib["llama3-8b"]["max_rel_err"]},
-            **_bound(flops, nbytes),
+            **int4_bound(QWEN_INT4.values(), m),
             "host_ms": layer[m]["host_us"] / 1e3,
             "device_us_a_call": {str(mm): layer[mm]["device_us"] / INT4_PROJ for mm in INT4_M},
             "host_us_a_call": {str(mm): layer[mm]["host_us"] / INT4_PROJ for mm in INT4_M},
@@ -2019,161 +2143,189 @@ def dattn_bound(q, k, mask):
     return _bound(4 * d * h * int(mask.sum().item()), nbytes)
 
 
+def dattn_check(device, case):
+    """The decode attention kernel against its plain version at ``case``
+    (B, T, H, KVH, D, S): one launch, bit-equal on a second call, each query
+    of a verify chunk bit-equal to the same query alone (T=1), and to the
+    same keys in a cache 130 slots longer with masked slots between them
+    (F1) → (max |out - ref|, q, k, v, mask, the line printed)."""
+    import tst_torch.kernels.decode_attention as tda
+
+    b, t, h, kvh, d, s = case
+    q, k, v, mask = _dattn_case(device, b, t, h, kvh, d, s, seed=b * t + d)
+    before = tda.LAUNCHES
+    got = tda.cache_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    want = tda.cache_attention_reference(q, k, v, mask)
+    err = (got.float() - want.float()).abs().max().item()
+    if tda.LAUNCHES != before + 1 or err > O_TOL * want.float().abs().max().item():
+        raise AssertionError(f"decode attention disagrees with its plain version at "
+                             f"{case}: {err:.3e}")
+    _check_bitwise(lambda: (tda.cache_attention(q, k, v, mask),), (got,), "decode attention")
+    for j in range(t):
+        alone = tda.cache_attention(q[:, j: j + 1].contiguous(), k, v,
+                                    mask[:, j: j + 1].contiguous())
+        if not torch.equal(alone, got[:, j: j + 1]):
+            raise AssertionError(f"decode attention: query {j} of a T={t} call differs "
+                                 f"from the same query alone")
+    gap, gen = 2, s - 128
+
+    def widen(x, fill, seed):
+        return torch.cat([x[:, :gen], fill(seed), x[:, gen:], torch.zeros(
+            (b, 128) + tuple(x.shape[2:]), dtype=x.dtype, device=device)], 1)
+
+    def noise(seed):
+        return _randn(np.random.default_rng(seed), (b, gap, kvh, d), device)
+
+    k2, v2 = widen(k, noise, 1), widen(v, noise, 2)
+    m2 = torch.cat([mask[..., :gen], torch.zeros((b, t, gap), dtype=torch.bool, device=device),
+                    mask[..., gen:], torch.zeros((b, t, 128), dtype=torch.bool,
+                                                 device=device)], -1)
+    if not torch.equal(tda.cache_attention(q, k2, v2, m2.contiguous()), got):
+        raise AssertionError("decode attention depends on the cache's length or on where "
+                             "masked slots sit")
+    line = (f"B={b} T={t} H={h} KVH={kvh} D={d} S={s}: max|out-ref| {err:.3e}; bit-equal on a "
+            f"second call, query by query alone, and in a cache of {s + gap + 128} slots with "
+            f"masked slots inserted")
+    return err, q, k, v, mask, line
+
+
+def dattn_times(q, k, v, mask, back_to_back=True):
+    """The decode attention's device time a call (a CUDA graph), its plain
+    version's, scaled_dot_product_attention's with the boolean mask (the
+    first backend that runs) and the bound; with ``back_to_back`` the same
+    back to back with the host → a record's numbers and a line's text."""
+    import tst_torch.kernels.decode_attention as tda
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def kernel():
+        return tda.cache_attention(q, k, v, mask)
+
+    def plain():
+        return tda.cache_attention_reference(q, k, v, mask)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh, mh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
+
+    def library():
+        return sdpa(qh, kh, vh, attn_mask=mh, enable_gqa=True)
+
+    ms = graph_us(kernel) / 1e3
+    plain_ms = graph_us(plain, calls=2, replays=10) / 1e3
+    library_ms = backend = lib_b2b = None
+    for choice in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(choice):
+                library()
+                torch.cuda.synchronize()
+                library_ms = graph_us(library) / 1e3
+                lib_b2b = median_ms(library) if back_to_back else None
+            backend = choice.name
+            break
+        except RuntimeError:
+            continue
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **dattn_bound(q, k, mask),
+           "library": backend}
+    text = (f"device ms: kernel {ms:.5f}, plain {plain_ms:.5f}, library "
+            f"{library_ms if library_ms is None else round(library_ms, 5)} ({backend}), bound "
+            f"{rec['bound_ms']:.5f} ({rec['bound_by']})")
+    if back_to_back:
+        rec["back_to_back"] = {"ms": median_ms(kernel), "plain_ms": median_ms(plain, samples=10),
+                               "library_ms": lib_b2b}
+        text += "; back to back: " + ", ".join(f"{key} {val if val is None else round(val, 5)}"
+                                              for key, val in rec["back_to_back"].items())
+    return rec, text
+
+
 def phase_kernel_decode_attention(device):
     """The decode step's attention kernel against its plain version at the
     greedy step's shape (Qwen2.5-0.5B heads, 32 rows, T=1), the verify
     chunk's (T = gamma + 1), Llama-3-8B heads and a cache of the long
-    preset's length; bit-equal on a second call; a verify chunk's query t
-    bit-equal to the same query alone (T=1), and to the same keys in a cache
-    130 slots longer with masked slots between them (F1); device times from a
-    CUDA graph beside scaled_dot_product_attention with the boolean mask and
-    the bound, and the same back to back with the host."""
-    import tst_torch.kernels.decode_attention as tda
-
+    preset's length (dattn_check); device times at the greedy step's shape
+    from a CUDA graph beside scaled_dot_product_attention with the boolean
+    mask and the bound, and the same back to back with the host."""
     worst, rec = 0.0, None
-    for b, t, h, kvh, d, s in DATTN_CASES:
-        q, k, v, mask = _dattn_case(device, b, t, h, kvh, d, s, seed=b * t + d)
-        before = tda.LAUNCHES
-        got = tda.cache_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-        want = tda.cache_attention_reference(q, k, v, mask)
-        err = (got.float() - want.float()).abs().max().item()
-        if tda.LAUNCHES != before + 1 or err > O_TOL * want.float().abs().max().item():
-            raise AssertionError(f"decode attention disagrees with its plain version at "
-                                 f"{(b, t, h, kvh, d, s)}: {err:.3e}")
-        _check_bitwise(lambda: (tda.cache_attention(q, k, v, mask),), (got,), "decode attention")
+    for case in DATTN_CASES:
+        err, q, k, v, mask, line = dattn_check(device, case)
         worst = max(worst, err)
-        # a query alone, and its keys in a longer cache with masked slots inserted
-        for j in range(t):
-            alone = tda.cache_attention(q[:, j: j + 1].contiguous(), k, v,
-                                        mask[:, j: j + 1].contiguous())
-            if not torch.equal(alone, got[:, j: j + 1]):
-                raise AssertionError(f"decode attention: query {j} of a T={t} call differs "
-                                     f"from the same query alone")
-        gap, gen = 2, s - 128
-
-        def widen(x, fill, seed):
-            return torch.cat([x[:, :gen], fill(seed), x[:, gen:], torch.zeros(
-                (b, 128) + tuple(x.shape[2:]), dtype=x.dtype, device=device)], 1)
-
-        def noise(seed):
-            return _randn(np.random.default_rng(seed), (b, gap, kvh, d), device)
-
-        k2, v2 = widen(k, noise, 1), widen(v, noise, 2)
-        m2 = torch.cat([mask[..., :gen], torch.zeros((b, t, gap), dtype=torch.bool, device=device),
-                        mask[..., gen:], torch.zeros((b, t, 128), dtype=torch.bool,
-                                                     device=device)], -1)
-        if not torch.equal(tda.cache_attention(q, k2, v2, m2.contiguous()), got):
-            raise AssertionError("decode attention depends on the cache's length or on where "
-                                 "masked slots sit")
-        line = (f"[kernel-dattn] B={b} T={t} H={h} KVH={kvh} D={d} S={s}: max|out-ref| "
-                f"{err:.3e}; bit-equal on a second call, query by query alone, and in a cache "
-                f"of {s + gap + 128} slots with masked slots inserted")
         if rec is None:  # the greedy step's shape: timed
-            from torch.nn.attention import SDPBackend, sdpa_kernel
-
-            def kernel():
-                return tda.cache_attention(q, k, v, mask)
-
-            def plain():
-                return tda.cache_attention_reference(q, k, v, mask)
-
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            qh, kh, vh, mh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
-
-            def library():
-                return sdpa(qh, kh, vh, attn_mask=mh, enable_gqa=True)
-
-            ms = graph_us(kernel) / 1e3
-            plain_ms = graph_us(plain, calls=2, replays=10) / 1e3
-            library_ms = backend = None
-            for choice in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-                           SDPBackend.MATH):
-                try:
-                    with sdpa_kernel(choice):
-                        library()
-                        torch.cuda.synchronize()
-                        library_ms = graph_us(library) / 1e3
-                        lib_b2b = median_ms(library)
-                    backend = choice.name
-                    break
-                except RuntimeError:
-                    continue
-            back_to_back = {"ms": median_ms(kernel), "plain_ms": median_ms(plain, samples=10),
-                            "library_ms": lib_b2b if backend else None}
-            rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                   **dattn_bound(q, k, mask), "back_to_back": back_to_back,
-                   "timed": f"q [{b}, {t}, {h}, {d}] over a cache of {s} slots (a greedy step's "
+            b, t, h, kvh, d, s = case
+            rec, text = dattn_times(q, k, v, mask)
+            rec["timed"] = (f"q [{b}, {t}, {h}, {d}] over a cache of {s} slots (a greedy step's "
                             f"layer), device time a call from a CUDA graph; library: "
-                            f"scaled_dot_product_attention with the mask ({backend}); "
+                            f"scaled_dot_product_attention with the mask ({rec.pop('library')}); "
                             f"back_to_back: CUDA events around 10 calls, the host's launch "
-                            f"overhead included"}
-            line += (f"; device ms: kernel {ms:.5f}, plain {plain_ms:.5f}, library "
-                     f"{library_ms if library_ms is None else round(library_ms, 5)} "
-                     f"({backend}), bound {rec['bound_ms']:.5f} ({rec['bound_by']}); back to "
-                     f"back: " + ", ".join(f"{key} {val if val is None else round(val, 5)}"
-                                          for key, val in back_to_back.items()))
-        print(line)
+                            f"overhead included")
+            line += "; " + text
+        print(f"[kernel-dattn] {line}")
     rec["max_abs_err"] = worst
     return rec
 
 
-def phase_kernel_mlp(device):
-    """K4 against its plain version and the decoder's unfused bf16 MLP,
-    bit-equal on a second call; gradients of all four inputs through the
-    autograd Function against autograd of the plain version; times at the
-    train step's shape, each kernel's on its own."""
+def mlp_case(device, m, d, f, timed=False, tag="kernel-mlp"):
+    """K4 at (M, D, F) against its plain version (forward, and gradients of
+    all four inputs through the autograd Function against autograd of the
+    plain version, MLP_TOL), two launches, bit-equal on a second call;
+    ``timed``: the call's and each kernel's times, the plain version's,
+    the decoder's unfused bf16 MLP and the bound → that record, else None."""
     import tst_torch.kernels.fused_mlp as tfm
 
-    out = {}
-    for m, d, f in MLP_SHAPES:
-        g = torch.Generator(device=device).manual_seed(m + d)
-        x = torch.randn(m, d, device=device, generator=g).to(torch.bfloat16)
-        wg, wu = ((torch.randn(d, f, device=device, generator=g) / math.sqrt(d))
-                  .to(torch.bfloat16) for _ in range(2))
-        wd = (torch.randn(f, d, device=device, generator=g) / math.sqrt(f)).to(torch.bfloat16)
-        dout = torch.randn(m, d, device=device, generator=g).to(torch.bfloat16)
-        before = tfm.LAUNCHES
-        got = tfm.fused_mlp_forward(x, wg, wu, wd)
-        torch.cuda.synchronize()
-        want = tfm.swiglu_reference(x, wg, wu, wd)
-        fwd_rel = _rel_err(got, want)
-        fwd_abs = (got.float() - want.float()).abs().max().item()
-        leaves = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
-        tfm.fused_swiglu_mlp(*leaves).backward(dout)
-        plain = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
-        tfm.swiglu_reference(*plain).backward(dout)
-        torch.cuda.synchronize()
-        grad_rel = [_rel_err(a.grad, p.grad) for a, p in zip(leaves, plain)]
-        del leaves, plain
-        print(f"[kernel-mlp] M={m} D={d} F={f}: forward max|out-ref|/max|ref| {fwd_rel:.3e}; "
-              f"through autograd vs plain dx {grad_rel[0]:.3e} dWg {grad_rel[1]:.3e} "
-              f"dWu {grad_rel[2]:.3e} dWd {grad_rel[3]:.3e} (each <= {MLP_TOL})")
-        if (tfm.LAUNCHES != before + 2 or not bool(torch.isfinite(got).all())
-                or max([fwd_rel] + grad_rel) > MLP_TOL):
-            raise AssertionError(f"fused_swiglu_mlp disagrees with its plain version at "
-                                 f"{(m, d, f)}")
-        _check_bitwise(lambda: (tfm.fused_mlp_forward(x, wg, wu, wd),), (got,), "K4")
-        if (m, d, f) == MLP_SHAPES[0]:
-            def unfused():
-                act = torch.nn.functional.silu((x @ wg).float()).to(x.dtype) * (x @ wu)
-                return act @ wd
+    g = torch.Generator(device=device).manual_seed(m + d)
+    x = torch.randn(m, d, device=device, generator=g).to(torch.bfloat16)
+    wg, wu = ((torch.randn(d, f, device=device, generator=g) / math.sqrt(d))
+              .to(torch.bfloat16) for _ in range(2))
+    wd = (torch.randn(f, d, device=device, generator=g) / math.sqrt(f)).to(torch.bfloat16)
+    dout = torch.randn(m, d, device=device, generator=g).to(torch.bfloat16)
+    before = tfm.LAUNCHES
+    got = tfm.fused_mlp_forward(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    want = tfm.swiglu_reference(x, wg, wu, wd)
+    fwd_rel = _rel_err(got, want)
+    fwd_abs = (got.float() - want.float()).abs().max().item()
+    leaves = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
+    tfm.fused_swiglu_mlp(*leaves).backward(dout)
+    plain = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
+    tfm.swiglu_reference(*plain).backward(dout)
+    torch.cuda.synchronize()
+    grad_rel = [_rel_err(a.grad, p.grad) for a, p in zip(leaves, plain)]
+    del leaves, plain
+    print(f"[{tag}] M={m} D={d} F={f}: forward max|out-ref|/max|ref| {fwd_rel:.3e}; "
+          f"through autograd vs plain dx {grad_rel[0]:.3e} dWg {grad_rel[1]:.3e} "
+          f"dWu {grad_rel[2]:.3e} dWd {grad_rel[3]:.3e} (each <= {MLP_TOL})")
+    if (tfm.LAUNCHES != before + 2 or not bool(torch.isfinite(got).all())
+            or max([fwd_rel] + grad_rel) > MLP_TOL):
+        raise AssertionError(f"fused_swiglu_mlp disagrees with its plain version at "
+                             f"{(m, d, f)}")
+    _check_bitwise(lambda: (tfm.fused_mlp_forward(x, wg, wu, wd),), (got,), "K4")
+    out = None
+    if timed:
+        def unfused():
+            act = torch.nn.functional.silu((x @ wg).float()).to(x.dtype) * (x @ wu)
+            return act @ wd
 
-            by_kernel = None  # a tree with one K4 kernel: the call is the kernel
-            if hasattr(tfm, "_gate_up"):
-                h = tfm._gate_up(x, wg, wu)
-                by_kernel = {K4_KERNELS[0]: median_ms(lambda: tfm._gate_up(x, wg, wu)),
-                             K4_KERNELS[1]: median_ms(lambda: tfm._down(h, wd))}
-                del h
-            out = {"max_abs_err": fwd_abs, "ms": median_ms(lambda: tfm._launch(x, wg, wu, wd)),
-                   "plain_ms": median_ms(lambda: tfm.swiglu_reference(x, wg, wu, wd),
-                                         samples=10, reps=3, warmup=1),
-                   "library_ms": None,  # no single torch call computes the fused MLP
-                   "unfused_bf16_ms": median_ms(unfused, samples=10, reps=3, warmup=1),
-                   "kernels_ms": by_kernel,
-                   **_bound(3 * 2 * m * d * f, 2 * m * d * 2 + 3 * d * f * 2)}
-        del x, wg, wu, wd, dout, got, want
-        torch.cuda.empty_cache()
+        by_kernel = None  # a tree with one K4 kernel: the call is the kernel
+        if hasattr(tfm, "_gate_up"):
+            h = tfm._gate_up(x, wg, wu)
+            by_kernel = {K4_KERNELS[0]: median_ms(lambda: tfm._gate_up(x, wg, wu)),
+                         K4_KERNELS[1]: median_ms(lambda: tfm._down(h, wd))}
+            del h
+        out = {"max_abs_err": fwd_abs, "ms": median_ms(lambda: tfm._launch(x, wg, wu, wd)),
+               "plain_ms": median_ms(lambda: tfm.swiglu_reference(x, wg, wu, wd),
+                                     samples=10, reps=3, warmup=1),
+               "library_ms": None,  # no single torch call computes the fused MLP
+               "unfused_bf16_ms": median_ms(unfused, samples=10, reps=3, warmup=1),
+               "kernels_ms": by_kernel,
+               **_bound(3 * 2 * m * d * f, 2 * m * d * 2 + 3 * d * f * 2)}
+    del x, wg, wu, wd, dout, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernel_mlp(device):
+    """K4 against its plain version and the decoder's unfused bf16 MLP
+    (mlp_case) at MLP_SHAPES; times at the train step's shape, each
+    kernel's on its own."""
+    out = [mlp_case(device, m, d, f, timed=i == 0) for i, (m, d, f) in enumerate(MLP_SHAPES)][0]
     m, d, f = MLP_SHAPES[0]
 
     def tflops(name, ms):  # gate-up makes two products of the three
@@ -2229,7 +2381,7 @@ def phase_decode_slice():
     tb, tokens, pos, spec, params = prepare_blind_eval(ds, cfg, device)
     rows = _numeric_rows(ds)
     mc, dchunks = _decode_chunks(spec, params, tokens.shape[1], np.zeros(len(rows)), 1)
-    mcq_chunks = math.ceil(N_SAMPLES / SCORER_BATCH)
+    mcq_chunks = math.ceil(DECODE_N / SCORER_BATCH)
     want = blind_int4_launches_want(mcq_chunks, dchunks, N_LAYERS)
     mra = report.get("numeric_blind_mra")
     if (rc != 0 or counts != want or report.get("n_numeric") != N_NUMERIC_VSI
@@ -2260,17 +2412,16 @@ def phase_decode_slice():
 
 
 def first_decode_step_gate(params, spec, tokens, pos, rows, lora=None, lspec=None,
-                           max_new=MAX_NEW, continuations=True):
+                           max_new=MAX_NEW):
     """The first decode step of each of ``rows``, chunk by chunk, on the same
     weights (and ``lora``, a single adapter) and caches, through K3 against
     the plain path: (a line to print, whether the logit bound holds with no
     decisive first-token disagreement, the last chunk's state for
-    decode_step_profiles). With ``continuations`` the greedy continuations
-    of both are compared too (reported, not gated)."""
-    from tst_torch.models.decode import chunk_logits, greedy_decode, prefill
+    decode_step_profiles)."""
+    from tst_torch.models.decode import chunk_logits, prefill
 
     device = tokens.device
-    rels, differ, decisive, whole, per_tok, gaps = [], 0, 0, 0, 0.0, []
+    rels, differ, decisive, gaps = [], 0, 0, []
     for c0 in range(0, len(rows), DECODE_ROWS):
         sel = torch.as_tensor(rows[c0: c0 + DECODE_ROWS], device=device)
         tok, plen = tokens[sel], pos[sel].long() + 1
@@ -2287,20 +2438,11 @@ def first_decode_step_gate(params, spec, tokens, pos, rows, lora=None, lspec=Non
         rels.append(((lk - lp).abs().max() / lp.abs().max()).item())
         n_differ, n_decisive, chunk_gaps = decisive_disagreements(lk, lp)
         differ, decisive, gaps = differ + n_differ, decisive + n_decisive, gaps + chunk_gaps
-        if continuations:
-            gen_k, gen_p = (greedy_decode(params, tok, plen, max_new, spec, lora=lora,
-                                          lora_spec=lspec, use_pallas=up)
-                            for up in (True, False))
-            whole += int((gen_k == gen_p).all(-1).sum().item())
-            per_tok += (gen_k == gen_p).float().sum().item() / max_new
     line = (f"first decode step of the {len(rows)} rows ({DECODE_ROWS} a chunk), "
             f"same caches: K3 vs plain max|dlogit|/max|logit| {max(rels):.3e} (<= {LOGIT_TOL}); "
             f"argmax disagreements {differ} of {len(rows)} (the plain path's top-2 gap on each: "
             f"{[round(g, 4) for g in gaps]}), decisive (gap > 2 x {LOGIT_TOL} x max|logit|) "
             f"{decisive} (must be 0)")
-    if continuations:
-        line += (f"; greedy continuations ({max_new} tokens): whole-row agreement "
-                 f"{whole / len(rows):.4f}, per-token {per_tok / len(rows):.4f}")
     ok = max(rels) <= LOGIT_TOL and not decisive
     return line, ok, (params, spec, tok0, plen, s, kc, vc, head, rope)
 
@@ -2579,6 +2721,62 @@ def ibp_round_plan(runner, alive, r):
     return {"steps": steps, "scorer_chunks": chunks, "decode_chunks": dchunks}
 
 
+class _RecordIbp:
+    """While a debias-ibp run goes in the block, the list it gives gets each
+    SFT round's runner and survivors, and round 0's entry also its last
+    held-out scoring call (the call's arguments with its adapters cloned,
+    its keywords and the probabilities it gave)."""
+
+    def __enter__(self):
+        from tst_torch.debias import ibp as tibp
+
+        rounds = []
+        self.saved = run_round, score = tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq
+
+        def recorded_round(runner, r, alive):
+            rounds.append({"round": r, "alive": alive.copy(), "runner": runner})
+            return run_round(runner, r, alive)
+
+        def recorded_score(*args, **kw):
+            probs = score(*args, **kw)
+            if len(rounds) == 1:  # round 0: keep its last scoring pass's adapters
+                lora = {p: {n: t.clone() for n, t in ab.items()} for p, ab in args[1].items()}
+                rounds[0]["score"] = (args[:1] + (lora,) + args[2:], kw, probs)
+            return probs
+
+        tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq = recorded_round, recorded_score
+        return rounds
+
+    def __exit__(self, *exc):
+        from tst_torch.debias import ibp as tibp
+
+        tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq = self.saved
+
+
+def round0_sx(rounds, f32=False, **kw):
+    """(s(x), probabilities, MCQ mask) of round 0's held-out MCQ rows from
+    _RecordIbp's rounds: the recorded call's own, or with ``kw`` over
+    its keywords (or ``f32``: base weights, adapters and specs in f32) the
+    call made again."""
+    from tst_torch.diagnose.score import bias_scores
+    from tst_torch.train.infer import score_heldout_mcq
+    from tst_torch.train.sft import tree_map
+
+    args, rec_kw, probs = rounds[0]["score"]
+    if f32:
+        def up(tree):
+            return tree_map(lambda t: t.float() if t.is_floating_point() else t, tree)
+
+        args = (up(args[0]), up(args[1]), dataclasses.replace(args[2], dtype=torch.float32),
+                dataclasses.replace(args[3], dtype=torch.float32)) + args[4:]
+    if f32 or kw:
+        probs = score_heldout_mcq(*args, **{**rec_kw, **kw})
+    runner = rounds[0]["runner"]
+    mcq = args[8] >= 0
+    s = bias_scores(probs, runner.tb.gold, runner.tb.n_options, rule=runner.cfg.rf.score_rule)
+    return s[mcq], probs, mcq
+
+
 def run_ibp_gated(argv, n, rounds_want, n_layers, remat, tag):
     """``debias-ibp`` with the SFT diagnostic through the CLI: the rounds,
     the audit and the split add up, the report is strict JSON, the attention
@@ -2588,35 +2786,16 @@ def run_ibp_gated(argv, n, rounds_want, n_layers, remat, tag):
     (launch counts, the rounds recorded: each one's runner, survivors, plan
     and round 0's scoring call, the report, peak device GB)."""
     from tst_torch import cli
-    from tst_torch.debias import ibp as tibp
-    from tst_torch.diagnose.score import bias_scores
     from tst_torch.eval.parity import spearman
-
-    rounds = []
-    run_round, score = tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq
-
-    def recorded_round(self, r, alive):
-        rounds.append({"round": r, "alive": alive.copy(), "runner": self})
-        return run_round(self, r, alive)
-
-    def recorded_score(*args, **kw):
-        probs = score(*args, **kw)
-        if len(rounds) == 1:  # round 0: keep its last scoring pass's adapters
-            lora = {p: {n: t.clone() for n, t in ab.items()} for p, ab in args[1].items()}
-            rounds[0]["score"] = (args[:1] + (lora,) + args[2:], kw, probs)
-        return probs
 
     out_dir = tempfile.mkdtemp(prefix="tst_torch_ibp_")
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
-    tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq = recorded_round, recorded_score
-    try:
+    with _RecordIbp() as rounds:
         t0 = time.perf_counter()
         rc = cli.main(argv + ["--out", out_dir])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        tibp._SftRoundRunner.run_round, tibp.score_heldout_mcq = run_round, score
     counts = _launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     report, n_kept, n_removed = _ibp_artifacts(out_dir, n)
@@ -2646,14 +2825,10 @@ def run_ibp_gated(argv, n, rounds_want, n_layers, remat, tag):
     print(f"[{tag}] round walls (s): {json.dumps(walls)}")
 
     # round 0's final adapters: its held-out MCQ rows through the plain attention
-    args, kw, probs_k = rounds[0]["score"]
-    runner = rounds[0]["runner"]
+    s_k, probs_k, mcq = round0_sx(rounds)
     t0 = time.perf_counter()
-    probs_p = score(*args, **{**kw, "use_pallas": False})
+    s_p, probs_p, _ = round0_sx(rounds, use_pallas=False)
     plain_s = time.perf_counter() - t0
-    mcq = args[8] >= 0
-    gold, n_opts, rule = runner.tb.gold, runner.tb.n_options, runner.cfg.rf.score_rule
-    s_k, s_p = (bias_scores(p, gold, n_opts, rule=rule)[mcq] for p in (probs_k, probs_p))
     rho = spearman(s_k, s_p)
     print(f"[{tag}] round 0's held-out s(x) on its final adapters, {int(mcq.sum())} MCQ "
           f"rows: kernels vs plain attention Spearman {rho:.6f} (>= {IBP_SPEARMAN}), "
@@ -2667,8 +2842,9 @@ def run_ibp_gated(argv, n, rounds_want, n_layers, remat, tag):
 
 def phase_debias_ibp():
     """Phase 16: run_ibp_gated on Qwen2.5-0.5B."""
-    counts, rounds, _, _ = run_ibp_gated(IBP, N_SAMPLES, IBP_ROUNDS, N_LAYERS, False,
-                                         "debias-ibp")
+    with _CutDepth("qwen2.5-0.5b", IBP_LAYERS):
+        counts, rounds, _, _ = run_ibp_gated(IBP, IBP_N, IBP_ROUNDS, IBP_LAYERS, False,
+                                             "debias-ibp")
     del rounds
     torch.cuda.empty_cache()
     return counts
@@ -3007,63 +3183,11 @@ def _multitoken_gate(st):
 
 def _llama_attention_times(device):
     """K1's forward and backward pair at phase 19a's train step (5 folds x 8
-    rows of 512 tokens, Llama-3-8B heads): each kernel held against its
-    plain version (the forward at O_TOL; dK/dV and dQ, bit-equal on a
-    second call, against the f32 plain backward on the same o and lse at
-    GRAD_TOL, as phase 5 holds them), and timed against the plain version,
-    the library and the bound."""
-    import tst_torch.kernels.flash_attention as tfa
-
+    rows of 512 tokens, Llama-3-8B heads): k1_case, the plain versions
+    timed too."""
     b, s, h, kvh, d = LLAMA_STEP_SHAPE
-    rng = np.random.default_rng(s + d + 3)
-    q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
-    k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
-    o, lse = tfa.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    _check_bitwise(lambda: tfa.flash_attention(q, k, v), (o, lse), "the forward kernel")
-    o_ref, _ = tfa.flash_attention_reference(q, k, v)
-    err = (o.float() - o_ref.float()).abs().max().item()
-    del o_ref
-    if err > O_TOL:
-        raise AssertionError(f"the forward kernel disagrees with its plain version at "
-                             f"{LLAMA_STEP_SHAPE}: {err:.3e}")
-    di = tfa.backward_row_stat(o, do)
-
-    def pair():
-        return (tfa._launch_bwd_dq(q, k, v, do, lse, di),
-                *tfa._launch_bwd_dkv(q, k, v, do, lse, di))
-
-    got = pair()
-    torch.cuda.synchronize()
-    _check_bitwise(pair, got)
-    want = tfa.flash_attention_backward_reference(
-        q.float(), k.float(), v.float(), o.float(), lse, do.float())
-    rel = [_rel_err(g, w) for g, w in zip(got, want)]
-    abs_err = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
-    finite = all(bool(torch.isfinite(g).all()) and g.abs().max().item() > 0 for g in got)
-    del got, want
-    torch.cuda.empty_cache()
-    if not finite or max(rel) > GRAD_TOL:
-        raise AssertionError(f"the backward kernels disagree with the plain backward at "
-                             f"{LLAMA_STEP_SHAPE}: max|d-ref|/max|ref| dq {rel[0]:.3e} "
-                             f"dk {rel[1]:.3e} dv {rel[2]:.3e} (each <= {GRAD_TOL}), "
-                             f"finite and nonzero: {finite}")
-    lib = _sdpa_yardstick(q, k, v, do, o)
-    bounds = _attention_bounds(q, k)
-    return {"shape": list(LLAMA_STEP_SHAPE), "fwd_max_abs_err": err,
-            "fwd": {"max_abs_err": err, "ms": median_ms(lambda: tfa._launch_fwd(q, k, v)),
-                    "plain_ms": median_ms(lambda: tfa.flash_attention_reference(q, k, v),
-                                          samples=5, reps=2),
-                    "library_ms": lib["fwd_ms"], **bounds["fwd"]},
-            "dkv": {"max_abs_err": max(abs_err[1:]), "max_rel_err": max(rel[1:]),
-                    "ms": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di)),
-                    **bounds["dkv"]},
-            "dq": {"max_abs_err": abs_err[0], "max_rel_err": rel[0],
-                   "ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di)),
-                   **bounds["dq"]},
-            "plain_bwd_ms": median_ms(lambda: tfa.flash_attention_backward_reference(
-                q, k, v, o, lse, do), samples=5, reps=2),
-            "library_bwd_ms": lib["bwd_ms"], "library": f"{lib['backend']}, {lib['gqa']}"}
+    return {"shape": list(LLAMA_STEP_SHAPE),
+            **k1_case(device, LLAMA_STEP_SHAPE, s + d + 3, plain=True, tag="llama")}
 
 
 def phase_llama(device):
@@ -3147,17 +3271,6 @@ def phase_llama(device):
         if not mok:
             raise AssertionError("the multi-token scorer through K1 disagrees with the plain path")
         times = _llama_attention_times(device)
-        print(f"[llama] K1 at the step's shape {LLAMA_STEP_SHAPE} (B, S, H, KVH, D): forward "
-              f"{times['fwd']['ms']:.4f} ms (max|o-ref| {times['fwd_max_abs_err']:.3e}, plain "
-              f"{times['fwd']['plain_ms']:.4f} ms, library {times['fwd']['library_ms']:.4f} ms, "
-              f"bound {times['fwd']['bound_ms']:.4f} ms); dK/dV {times['dkv']['ms']:.4f} ms "
-              f"(bound {times['dkv']['bound_ms']:.4f}; max|d-ref|/max|ref| "
-              f"{times['dkv']['max_rel_err']:.3e}) + dQ {times['dq']['ms']:.4f} ms (bound "
-              f"{times['dq']['bound_ms']:.4f}; {times['dq']['max_rel_err']:.3e}; each <= "
-              f"{GRAD_TOL} against the f32 plain backward, bit-equal on a second call) vs the "
-              f"plain backward "
-              f"{times['plain_bwd_ms']:.4f} ms and the library's {times['library_bwd_ms']:.4f} "
-              f"ms ({times['library']})")
 
         # (b) the same checkpoint quantized to int4 on arrival; eval-blind
         argv = _llama_argv(ckpt, LLAMA_BLIND_INT4)
@@ -3476,8 +3589,7 @@ def phase_serve():
         one, lspec = load_adapter_lora(adapter, cfg, spec, fold="0", keep_fold_axis=False,
                                        device=device)
         line, ok, _ = first_decode_step_gate(params, spec, tokens, pos, np.arange(GEN_ROWS),
-                                             lora=one, lspec=lspec, max_new=GEN_MAX_NEW,
-                                             continuations=False)
+                                             lora=one, lspec=lspec, max_new=GEN_MAX_NEW)
         print(f"[serve] (c) {line}")
         if not ok:
             raise AssertionError("generate's first decode step through K3 disagrees with the "
@@ -3893,7 +4005,7 @@ def _llama8b_sft(root):
     line, ok = step_gate(case)
     del case
     torch.cuda.empty_cache()
-    print(f"[llama8b] (a) at 32 layers, {PLAIN_ROWS} rows a fold, kernels vs "
+    print(f"[llama8b] (a) at {LLAMA8B_GATE_LAYERS} layers, {PLAIN_ROWS} rows a fold, kernels vs "
           f"model.use_pallas=false: {line}; {time.perf_counter() - t0:.2f} s with the state's "
           f"build")
     if not ok:
@@ -3910,7 +4022,7 @@ def _llama8b_ibp():
     phase 16's gates, then the first decode step's logits through the
     kernels against the plain path with round 0's fold-0 adapter."""
     counts, rounds, report, peak_gb = run_ibp_gated(
-        LLAMA8B_IBP, 60, LLAMA8B_IBP_ROUNDS, LLAMA8B_LAYERS, True, "llama8b")
+        LLAMA8B_IBP, LLAMA8B_IBP_N, LLAMA8B_IBP_ROUNDS, LLAMA8B_LAYERS, True, "llama8b")
     runner = rounds[0]["runner"]
     lora_k = rounds[0]["score"][0][1]
     one = {p: {n: t[0] for n, t in ab.items()} for p, ab in lora_k.items()}
@@ -3983,7 +4095,7 @@ def _llama8b_int4(root):
           f"{built['seconds']:.2f} s to a {quantized_bytes(params) / 1e9:.2f} GB base, peak "
           f"device memory during the build {built['peak_gb']:.2f} GB, after it (scoring and "
           f"decode) {after_gb:.2f} GB; CLI wall {wall:.2f} s")
-    if (rc != 0 or counts != want or report["n_mcq"] != 96 or report.get("n_numeric") != 32
+    if (rc != 0 or counts != want or report["n_mcq"] != 48 or report.get("n_numeric") != 16
             or mra is None or not math.isfinite(mra)):
         raise AssertionError(f"Llama-3-8B eval-blind int4 rc={rc}, launches {counts} (want "
                              f"{want}), report {report}")
@@ -4257,9 +4369,10 @@ def _bench_workload():
 def bench_gate_cases(device):
     """The bench's train paths new to the card, as gate_case, one at a
     time: the fold-parallel step at its Qwen2.5-0.5B shape, the int8
-    Llama-3-8B k=2 leg at all 32 layers, and the packed int8 8B leg under
-    remat="attn" (k=5, one row of 1024 a fold, its own starts); the 8B base
-    is made once and freed after its two."""
+    Llama-3-8B k=2 leg, and the packed int8 8B leg under remat="attn" (k=5,
+    one row of 1024 a fold, its own starts); both 8B legs at
+    LLAMA8B_GATE_LAYERS of the 32 layers (all 32 before phase 25 took its
+    time), on one base made once and freed after them."""
     from tst_torch import bench
     from tst_torch.models.decoder import init_params
     from tst_torch.models.lora import LoraSpec
@@ -4282,16 +4395,17 @@ def bench_gate_cases(device):
     yield gate_case("qwen", f"{spec.name} k={bench.K} x {bench.BATCH} rows, dots",
                     maker(bench.K, "dots"), spec, params, arrays, w.batches)
     del params
-    spec8 = spec_by_name("llama3-8b")
+    spec8 = dataclasses.replace(spec_by_name("llama3-8b"), n_layers=LLAMA8B_GATE_LAYERS)
     params8 = quantize_params(init_params(torch.Generator(device).manual_seed(0), spec8), bits=8)
-    yield gate_case("llama8b_k2", f"int8 {spec8.name} ({spec8.n_layers} layers) k=2 x 2 rows, "
-                    "dots", maker(2, "dots"), spec8, params8, arrays, w.b8)
+    cut = spec8.n_layers
+    yield gate_case("llama8b_k2", f"int8 {spec8.name} ({cut} layers) k=2 x 2 rows, dots",
+                    maker(2, "dots"), spec8, params8, arrays, w.b8)
     fp8, pb8 = w.packed8[5]
     parrays = bench._to(device, fp8.tokens, fp8.loss_mask, fp8.answer_pos)
     (psegs,) = bench._to(device, fp8.seg_starts)
-    yield gate_case("llama8b_packed_k5", f"packed int8 {spec8.name} k=5 x 1 row of "
-                    f"{bench.PACK_LEN}, attn", maker(5, "attn", packed=True), spec8, params8,
-                    parrays, pb8, psegs)
+    yield gate_case("llama8b_packed_k5", f"packed int8 {spec8.name} ({cut} layers) k=5 x 1 "
+                    f"row of {bench.PACK_LEN}, attn", maker(5, "attn", packed=True),
+                    spec8, params8, parrays, pb8, psegs)
     del params8, parrays, psegs
     torch.cuda.empty_cache()
 
@@ -4372,17 +4486,574 @@ def phase_bench(full=True):
             "record": record, "step_gates": gates}
 
 
+def widths_specs():
+    """The ModelSpec of each of WIDTHS, at its published widths and depth."""
+    from tst_torch.models.spec import spec_by_name
+
+    return {name: spec_by_name(name) for name in WIDTHS}
+
+
+def widths_k1_shapes(specs):
+    """K1's (B, S, H, KVH, D) at the widths' step for each of their head
+    layouts that KERNEL_SHAPES does not hold, in WIDTHS' order."""
+    seen = {(h, kvh, d) for _, _, h, kvh, d in KERNEL_SHAPES}
+    out = []
+    for spec in specs.values():
+        layout = (spec.n_heads, spec.n_kv_heads, spec.d_head)
+        if layout not in seen:
+            seen.add(layout)
+            out.append(WIDTHS_STEP_BS + layout)
+    return out
+
+
+def int4_leaves(spec, names=None):
+    """(K, N) of a layer's int4 projections (those of ``names``, default all
+    seven), in a layer's order."""
+    leaves = {"wq": (spec.d_model, spec.q_dim), "wk": (spec.d_model, spec.kv_dim),
+              "wv": (spec.d_model, spec.kv_dim), "wo": (spec.q_dim, spec.d_model),
+              "w_gate": (spec.d_model, spec.d_ff), "w_up": (spec.d_model, spec.d_ff),
+              "w_down": (spec.d_ff, spec.d_model)}
+    return {key: kn for key, kn in leaves.items() if names is None or key in names}
+
+
+def int4_bound(shapes, m):
+    """K3's bound over the (K, N) products of ``shapes`` at M rows: 2·M·K·N
+    operations each; bytes of y (bf16), the packed nibbles, the f32 g128
+    scales and the f32 output."""
+    flops = sum(2 * m * k * n for k, n in shapes)
+    nbytes = sum(m * k * 2 + k * n // 2 + (k // INT4_GROUP_SIZE) * n * 4 + m * n * 4
+                 for k, n in shapes)
+    return _bound(flops, nbytes)
+
+
+def split_batches(batches, rows):
+    """[steps, k, B] fold batches → [steps · B / rows, k, rows]: each step's
+    fold rows cut into consecutive groups of ``rows`` (the step gates' rows
+    a fold, from a run's own batches)."""
+    b = batches.shape[2]
+    if b % rows:
+        raise ValueError(f"{b} rows a fold do not cut into groups of {rows}")
+    return np.concatenate([batches[:, :, i: i + rows][:, None] for i in range(0, b, rows)],
+                          1).reshape(-1, batches.shape[1], rows)
+
+
+def pair_launches_want(chunks, rounds, gamma, target_layers, draft_layers):
+    """Speculative ``generate``'s launches with an int8 target and an int4
+    draft: the prefills' forwards (a layer each, both models, each chunk);
+    in each round gamma + 1 draft steps, each with K3 on a draft layer's 7
+    projections and the decode attention a draft layer, and the target's
+    verify chunk, the decode attention a target layer (its int8 products
+    are the library's)."""
+    return {"fwd": (target_layers + draft_layers) * chunks, "dkv": 0, "dq": 0, "fwd_seg": 0,
+            "dkv_seg": 0, "dq_seg": 0, "int4": INT4_PROJ * draft_layers * (gamma + 1) * rounds,
+            "mlp": 0, "dattn": (draft_layers * (gamma + 1) + target_layers) * rounds}
+
+
+def k1_case(device, shape, seed, starts=None, samples=10, reps=5, plain=False, tag="widths"):
+    """K1's forward, dK/dV and dQ at ``shape`` (plain rows, or packed with
+    ``starts``) against their plain versions (O_TOL and LSE_TOL; GRAD_TOL
+    against the f32 plain backward on the same o and lse), each bit-equal on
+    a second call; then each kernel's median time beside the library's, the
+    bound and, with ``plain``, the plain version's → {"fwd", "dkv", "dq"}
+    and the library's backend; the line printed under ``tag``."""
+    import tst_torch.kernels.flash_attention as tfa
+
+    b, s, h, kvh, d = shape
+    rng = np.random.default_rng(seed)
+    q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
+    k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
+    seg = None if starts is None else torch.from_numpy(starts).to(device)
+    kw = {} if seg is None else {"seg_starts": seg}
+    o, lse = tfa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _check_bitwise(lambda: tfa.flash_attention(q, k, v, **kw), (o, lse), "the forward kernel")
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, **kw)
+    o_err = (o.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    del o_ref, lse_ref
+    got = tfa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do, **kw), got)
+    want = tfa.flash_attention_backward_reference(q.float(), k.float(), v.float(), o.float(),
+                                                  lse, do.float(), **kw)
+    rel = [_rel_err(g, w) for g, w in zip(got, want)]
+    abs_err = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
+    finite = bool(torch.isfinite(o).all()) and all(
+        bool(torch.isfinite(g).all()) and g.abs().max().item() > 0 for g in got)
+    del got, want
+    what = f"B={b} S={s} H={h} KVH={kvh} D={d}" + (
+        "" if seg is None else f", {int((starts < SEG_PAD).sum())} segment starts")
+    line = (f"{what}: max|o-ref| {o_err:.3e} (<= {O_TOL}), max|lse-ref| {lse_err:.3e} "
+            f"(<= {LSE_TOL}); max|d-ref|/max|ref| dq {rel[0]:.3e} dk {rel[1]:.3e} dv "
+            f"{rel[2]:.3e} (<= {GRAD_TOL}); bit-equal on a second call")
+    if not finite or o_err > O_TOL or lse_err > LSE_TOL or max(rel) > GRAD_TOL:
+        raise AssertionError(f"K1 disagrees with its plain version at {shape}: {line}")
+    extra = () if seg is None else (tfa.kernel_seg_starts(seg, q),)
+    di = tfa.backward_row_stat(o, do)
+    lib = _sdpa_yardstick(q, k, v, do, o, None if seg is None else tfa.segment_mask(seg, s),
+                          samples, reps)
+    bounds = _attention_bounds(q, k, seg)
+    out = {"fwd": {"max_abs_err": o_err,
+                   "ms": median_ms(lambda: tfa._launch_fwd(q, k, v, *extra), samples, reps),
+                   "library_ms": lib["fwd_ms"], **bounds["fwd"]},
+           "dkv": {"max_abs_err": max(abs_err[1:]),
+                   "ms": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di, *extra),
+                                   samples, reps),
+                   "library_ms": lib["bwd_ms"], **bounds["dkv"]},
+           "dq": {"max_abs_err": abs_err[0],
+                  "ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di, *extra),
+                                  samples, reps),
+                  "library_ms": lib["bwd_ms"], **bounds["dq"]}}
+    out["dkv"]["max_rel_err"], out["dq"]["max_rel_err"] = max(rel[1:]), rel[0]
+    if plain:
+        out["fwd"]["plain_ms"] = median_ms(lambda: tfa.flash_attention_reference(q, k, v, **kw),
+                                           samples=5, reps=2)
+        out["dkv"]["plain_ms"] = out["dq"]["plain_ms"] = median_ms(
+            lambda: tfa.flash_attention_backward_reference(q, k, v, o, lse, do, **kw),
+            samples=5, reps=2)
+    print(f"[{tag}] K1 {line}; ms " + ", ".join(
+        f"{key} {r['ms']:.4f} (bound {r['bound_ms']:.4f}, library {r['library_ms']:.4f}"
+        + (f", plain {r['plain_ms']:.4f})" if plain else ")") for key, r in out.items())
+        + f" (library {lib['backend']}, {lib['gqa']})")
+    out["library"] = f"{lib['backend']}, {lib['gqa']}"
+    del q, k, v, do, o, lse, di
+    torch.cuda.empty_cache()
+    return out
+
+
+def _widths_kernels(device, specs):
+    """Phase 25's kernel checks: K1 at the new head layouts, S=576 at group 7
+    and packed at Qwen2.5-7B's heads; K3 at the new leaves (rows of the
+    verify chunk's M bit-equal to a greedy step's, F1), timed over a
+    Qwen2.5-7B and a Llama-3.2-1B layer beside tinygemm and the bound; K4 at
+    Qwen2.5-7B's MLP; the decode attention at the four new layouts."""
+    import tst_torch.kernels.quant_matmul as tqm
+    from tst_torch.models.quant import quantize_leaf
+
+    marks = [time.perf_counter()]
+    k1 = {}
+    for i, shape in enumerate(widths_k1_shapes(specs) + [WIDTHS_ODD]):
+        k1[str(list(shape))] = k1_case(device, shape, seed=100 + i, samples=5)
+    starts = _packed_step_starts()[: WIDTHS_PACKED[0]]
+    k1[str(list(WIDTHS_PACKED)) + " packed"] = k1_case(device, WIDTHS_PACKED, 99, starts,
+                                                       samples=5)
+    marks.append(time.perf_counter())
+
+    g = torch.Generator(device=device).manual_seed(12)
+    int4, layer = {}, {}
+    for name, names in WIDTHS_INT4.items():
+        leaves = int4_leaves(specs[name], names)
+        counts = {kn: list(leaves.values()).count(kn) for kn in leaves.values()}
+        lay = {"k3_ms": 0.0, "library_ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+               "leaves": {key: list(kn) for key, kn in leaves.items()}}
+        for (k, n), per_layer in counts.items():
+            w = (torch.randn(2, k, n, device=device, generator=g) / math.sqrt(k)).to(
+                torch.bfloat16)
+            leaf = quantize_leaf(w, bits=4)
+            q, sc = leaf["q"], leaf["scale"]
+            del w, leaf
+            y = torch.randn(max(WIDTHS_INT4_M), k, device=device, generator=g).to(torch.bfloat16)
+            rows = {}
+            for m in WIDTHS_INT4_M:
+                ym = y[:m].contiguous()
+                before = tqm.LAUNCHES
+                got = tqm.int4_matmul_stacked(ym, q, sc, 1)
+                torch.cuda.synchronize()
+                want = tqm.int4_matmul_reference(ym, q, sc, 1)
+                err = (got - want).abs().max().item()
+                rel = err / want.abs().max().item()
+                if (tqm.LAUNCHES != before + 1 or rel > INT4_TOL
+                        or not bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"int4_matmul disagrees with its plain version at "
+                                         f"M={m} K={k} N={n}: max|d|/max|ref| {rel:.3e}")
+                _check_bitwise(lambda: (tqm.int4_matmul_stacked(ym, q, sc, 1),), (got,), "K3")
+                rows[m] = (got, rel)
+                lay["max_abs_err"] = max(lay["max_abs_err"], err)
+            m0, m1 = WIDTHS_INT4_M
+            if not torch.equal(rows[m1][0][:m0], rows[m0][0]):
+                raise AssertionError(f"K3's first {m0} rows at M={m1} differ from an M={m0} "
+                                     f"call (K={k} N={n})")
+            ym = y[:m0].contiguous()
+            k3_ms = graph_us(lambda: tqm._launch(ym, q, sc, 1)) / 1e3
+            plain_ms = median_ms(lambda: tqm.int4_matmul_reference(ym, q, sc, 1), samples=10,
+                                 reps=3, warmup=1)
+            try:
+                w4, sz = tinygemm_operands(q, sc, 1)
+                got_lib = torch.ops.aten._weight_int4pack_mm(ym, w4, INT4_GROUP_SIZE, sz)
+                torch.cuda.synchronize()
+            except (RuntimeError, NotImplementedError, AttributeError) as e:
+                lib = f"tinygemm refused: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+                lay["library_ms"] = None
+            else:
+                rel_lib = _rel_err(got_lib, tqm.int4_matmul_reference(ym, q, sc, 1))
+                if rel_lib > LIB_INT4_TOL:
+                    raise AssertionError(f"the tinygemm yardstick disagrees with K3's plain "
+                                         f"version at K={k} N={n}: {rel_lib:.3e}")
+                lib_ms = graph_us(lambda: torch.ops.aten._weight_int4pack_mm(
+                    ym, w4, INT4_GROUP_SIZE, sz)) / 1e3
+                lib = f"tinygemm {lib_ms:.5f} (vs plain {rel_lib:.3e})"
+                if lay["library_ms"] is not None:
+                    lay["library_ms"] += per_layer * lib_ms
+                del w4, sz, got_lib
+            lay["k3_ms"] += per_layer * k3_ms
+            lay["plain_ms"] += per_layer * plain_ms
+            print(f"[widths] K3 {name} K={k} N={n} (x{per_layer} a layer): max|out-ref|/max|ref| "
+                  + ", ".join(f"M={m} {r:.3e}" for m, (_, r) in rows.items())
+                  + f" (<= {INT4_TOL}); split plan {tqm.split_plan(k, n // 2)}; bit-equal on a "
+                  f"second call, rows 0-{m0 - 1} of M={m1} bit-equal to M={m0}; device ms at "
+                  f"M={m0}: K3 {k3_ms:.5f}, {lib}, plain {plain_ms:.4f}")
+            del q, sc, y, rows
+        lay.update(int4_bound(list(leaves.values()), WIDTHS_INT4_M[0]))
+        layer[name] = lay
+    int4 = {name: {"ms": r["k3_ms"], "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                   "max_abs_err": r["max_abs_err"], "leaves": r["leaves"],
+                   "timed": f"the listed leaves of one layer at M={WIDTHS_INT4_M[0]}, device "
+                            f"time (CUDA graph), summed"} for name, r in layer.items()}
+    torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
+    mlp = {str(list(WIDTHS_MLP)): mlp_case(device, *WIDTHS_MLP, timed=True, tag="widths")}
+    marks.append(time.perf_counter())
+    dattn = {}
+    for case in WIDTHS_DATTN:
+        err, q, k, v, mask, line = dattn_check(device, case)
+        rec, text = dattn_times(q, k, v, mask, back_to_back=False)
+        dattn[str(list(case))] = {"max_abs_err": err, **rec}
+        print(f"[widths] decode attention {line}; {text}")
+    marks.append(time.perf_counter())
+    print(f"[widths] kernel checks' seconds: " + ", ".join(
+        f"{name} {b - a:.1f}" for name, a, b in zip(("K1", "K3", "K4", "decode attention"),
+                                                     marks, marks[1:])))
+    return {"k1": k1, "int4": int4, "mlp": mlp, "dattn": dattn}
+
+
+class _CutDepth:
+    """``spec_by_name(name)`` gives ``n_layers`` layers while in the block
+    (the depth cut of a width's run through the CLI)."""
+
+    def __init__(self, name, n_layers):
+        self.name, self.n_layers = name, n_layers
+
+    def __enter__(self):
+        from tst_torch.models import spec as tspec
+
+        self.saved = tspec._SPECS[self.name]
+        tspec._SPECS[self.name] = dataclasses.replace(self.saved, n_layers=self.n_layers)
+
+    def __exit__(self, *exc):
+        from tst_torch.models import spec as tspec
+
+        tspec._SPECS[self.name] = self.saved
+
+
+def widths_argv(name):
+    """The width's diagnose-sft run through the CLI (remat for the 28-layer
+    Qwen2.5-7B)."""
+    argv = ["diagnose-sft", "--preset", "sft-cvbench-qwen", "--bench", "synthetic:0.5",
+            "--set", f"model.name={name}", "--set", "model.tokenizer=byte",
+            "--set", f"data.n={WIDTHS_ROWS}", "--set", "optim.epochs=1",
+            "--set", "rf.cross_check=false"]
+    return argv + (["--set", "model.remat=true"] if name == WIDTHS_FULL else [])
+
+
+def _width_step(name, root, keep=False):
+    """One width's diagnose-sft through the CLI (launches as implied, finite
+    losses, s(x) in [0, 1]), its steps timed (synchronized) with their
+    TFLOP/s and peak memory, then the step gates on its own weights and
+    batches (PLAIN_ROWS a fold, GATE_BATCHES["widths"]) → (record, the
+    run's state if ``keep``)."""
+    import tst_torch.train.pipeline as tpipe
+    import tst_torch.train.sft as tsft
+    from tst_torch.aux.flops import train_step_flops
+
+    step_ms, seen = [], {}
+    real_step, real_build = tsft.FoldTrainer.step, tpipe._build_sft_state
+
+    def timed_step(self, *args, **kw):
+        torch.cuda.synchronize()
+        if not step_ms:
+            seen["setup_peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = real_step(self, *args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        seen.update(rows=int(np.prod(np.shape(args[6]))), seq=args[3].shape[1],
+                    step_peak=torch.cuda.max_memory_allocated(),
+                    finite=seen.get("finite", True) and bool(torch.isfinite(result[2]).all()))
+        return result
+
+    def build(*args, **kw):
+        seen["state"] = real_build(*args, **kw)
+        return seen["state"]
+
+    full = name == WIDTHS_FULL
+    depth = widths_specs()[name].n_layers if full else WIDTHS_LAYERS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tsft.FoldTrainer.step, tpipe._build_sft_state = timed_step, build
+    try:
+        with _CutDepth(name, depth):
+            rc, counts, report, wall = _cli_run(widths_argv(name), os.path.join(root, name),
+                                                "report.json")
+    finally:
+        tsft.FoldTrainer.step, tpipe._build_sft_state = real_step, real_build
+    st = seen.pop("state")
+    spec, tr = st.spec, st.trainer
+    rows = _read_jsonl(os.path.join(root, name, "sx.jsonl"))
+    folds = np.array([r["fold"] for r in rows])
+    k, steps = report["k"], report["train_steps"]
+    chunks = k * math.ceil(max(int((folds == f).sum()) for f in range(k)) / SCORER_BATCH)
+    want = sft_launches_want(steps, chunks, depth, remat=tr.remat)
+    sx = np.array([r["s_x"] for r in rows], np.float64)
+    if (rc != 0 or spec.n_layers != depth or counts != want or len(rows) != WIDTHS_ROWS
+            or not seen.get("finite") or not ((sx >= 0) & (sx <= 1)).all()):
+        raise AssertionError(f"{name} diagnose-sft rc={rc}, layers {spec.n_layers}, launches "
+                             f"{counts} (want {want}), rows {len(rows)}, finite losses "
+                             f"{seen.get('finite')}")
+    median = statistics.median(step_ms[1:])
+    flops = train_step_flops(spec, tr.lora_spec, seen["rows"], seen["seq"], tr.t_max,
+                             remat=tr.remat)
+    tflops = flops["hardware_flops"] / median * 1e3 / 1e12
+    peak = max(seen["setup_peak"], torch.cuda.max_memory_allocated()) / 1e9
+    rec = {"layers": depth, "of_layers": widths_specs()[name].n_layers, "remat": tr.remat,
+           "heads": [spec.n_heads, spec.n_kv_heads, spec.d_head], "launches": counts,
+           "step_ms": median, "first_step_ms": step_ms[0],
+           "tokens_per_s": seen["rows"] * seen["seq"] / median * 1e3,
+           "samples_per_s": seen["rows"] / median * 1e3, "tflops": tflops,
+           "share_of_peak": tflops / PEAK_TFLOPS, "peak_gb": peak,
+           "step_peak_gb": seen["step_peak"] / 1e9, "cli_wall_s": wall}
+    print(f"[widths] {name} at {depth} of {rec['of_layers']} layers (d_model {spec.d_model}, "
+          f"{spec.n_heads}/{spec.n_kv_heads} heads, d_head {spec.d_head}, d_ff {spec.d_ff}, "
+          f"vocab {spec.vocab_size}, qkv_bias {spec.qkv_bias}, tied {spec.tie_embeddings}, "
+          f"rope_scaling {spec.rope_scaling}; remat={tr.remat}) diagnose-sft rc=0: {steps} "
+          f"steps of {seen['rows']} rows x {seen['seq']} tokens, {chunks} scorer chunks; "
+          f"launches fwd {counts['fwd']} dkv {counts['dkv']} dq {counts['dq']} (as implied); "
+          f"final_loss {report['final_loss']:.4f}; step median {median:.1f} ms over "
+          f"{len(step_ms) - 1} steps after the first ({step_ms[0]:.1f} ms): "
+          f"{rec['tokens_per_s']:.0f} tokens/s, {tflops:.1f} TFLOP/s ({rec['share_of_peak']:.1%} "
+          f"of {PEAK_TFLOPS:g}); peak device memory {peak:.2f} GB (steps "
+          f"{rec['step_peak_gb']:.2f} GB); CLI wall {wall:.2f} s")
+    t0 = time.perf_counter()
+    case = state_gate_case("widths", f"{name} k=2 x {PLAIN_ROWS} rows", st)
+    case["batches"] = split_batches(st.batches, PLAIN_ROWS)
+    line, ok = step_gate(case)
+    del case
+    print(f"[widths] {name} at {depth} layers, {PLAIN_ROWS} rows a fold, kernels vs "
+          f"model.use_pallas=false: {line} ({time.perf_counter() - t0:.2f} s)")
+    if not ok:
+        raise AssertionError(f"the {name} step through the kernels disagrees with the plain "
+                             f"path")
+    rec["gate"] = line
+    if not keep:
+        del st
+        st = None
+        torch.cuda.empty_cache()
+    return rec, st
+
+
+def _width_int4_blind(st, root):
+    """Qwen2.5-7B's int4 eval-blind through the CLI at all 28 layers, its
+    base the step's bf16 weights under HF's names converted as a checkpoint
+    is (hf_load.convert_state_dict, each tensor quantized on arrival by
+    quantizing_put): launches as implied (K3 at its widths in every decode
+    step), the letter probabilities within PROB_TOL of the plain attention on
+    the same int4 base, and the first decode step through K3 against the
+    plain path (phase 13's rule); samples/s."""
+    import tst_torch.train.pipeline as tpipe
+    from tst_torch import cli
+    from tst_torch.data.tokenize import ByteTokenizer, tokenize_dataset
+    from tst_torch.models.hf_load import convert_state_dict
+    from tst_torch.models.quant import quantized_bytes, quantizing_put
+    from tst_torch.train.infer import score_all_mcq
+
+    built = {}
+    real_build = tpipe.build_model
+
+    def from_state(cfg, tokenizer, device, mesh=None):
+        t0 = time.perf_counter()
+        params = convert_state_dict(hf_state_dict(st.params), st.spec, torch.bfloat16,
+                                    quantizing_put(torch.bfloat16, bits=4), device=device)
+        torch.cuda.synchronize()
+        built.update(seconds=time.perf_counter() - t0, params=params)
+        return st.spec, params
+
+    tpipe.build_model = from_state
+    try:
+        rc, counts, report, wall = _cli_run(WIDTHS_BLIND, os.path.join(root, "int4"),
+                                            "blind_eval.json")
+    finally:
+        tpipe.build_model = real_build
+    params, spec = built.pop("params"), st.spec
+    cfg, device = cli._resolve(cli.build_parser().parse_args(WIDTHS_BLIND))
+    ds = cli._load_dataset(cfg)
+    tb = tokenize_dataset(ds, ByteTokenizer(), max_len=cfg.data.max_len,
+                          include_context=cfg.data.include_context)
+    tokens = torch.from_numpy(tb.tokens).to(device)
+    pos = torch.from_numpy(tb.answer_pos).to(device)
+    nrows = _numeric_rows(ds)
+    mcq = np.flatnonzero(tb.gold >= 0)
+    mc, dchunks = _decode_chunks(spec, params, tokens.shape[1], np.zeros(len(nrows)), 1)
+    want = blind_int4_launches_want(math.ceil(len(ds) / SCORER_BATCH), dchunks, spec.n_layers)
+    if (rc != 0 or counts != want or report["n_mcq"] != len(mcq)
+            or report.get("n_numeric") != len(nrows)):
+        raise AssertionError(f"{WIDTHS_FULL} eval-blind int4 rc={rc}, launches {counts} (want "
+                             f"{want}), report {report}")
+    sel = torch.as_tensor(mcq, device=device)
+    probs = {up: score_all_mcq(params, spec, tokens[sel], pos[sel], tb.option_token_ids,
+                               tb.n_options[mcq], use_pallas=up) for up in (True, False)}
+    diff = float(np.abs(probs[True] - probs[False]).max())
+    line, ok, _ = first_decode_step_gate(params, spec, tokens, pos, nrows)
+    rec = {"launches": counts, "samples_per_s": len(ds) / report["wall_seconds"],
+           "wall_s": report["wall_seconds"], "cli_wall_s": wall,
+           "convert_s": built["seconds"], "base_gb": quantized_bytes(params) / 1e9,
+           "max_dprob": diff}
+    print(f"[widths] {WIDTHS_FULL} int4 eval-blind at {spec.n_layers} layers (the step's weights "
+          f"through convert_state_dict + quantizing_put, {built['seconds']:.2f} s to a "
+          f"{rec['base_gb']:.2f} GB base) rc=0: n_mcq {report['n_mcq']}, n_numeric "
+          f"{report['n_numeric']} in {dchunks} decode chunk(s) of {mc} rows; launches fwd "
+          f"{counts['fwd']} int4 {counts['int4']} dattn {counts['dattn']} (as implied: K3 at "
+          f"{spec.d_model} -> {spec.q_dim}, {spec.kv_dim}, {spec.d_ff} and {spec.d_ff} -> "
+          f"{spec.d_model}); {rec['samples_per_s']:.2f} samples/s ({report['wall_seconds']} s); "
+          f"letter probabilities, kernels vs plain attention on the int4 base: max|dprob| "
+          f"{diff:.3e} (<= {PROB_TOL}); {line}")
+    if diff > PROB_TOL or not ok:
+        raise AssertionError(f"{WIDTHS_FULL}'s int4 eval-blind disagrees with the plain path")
+    del params, probs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _widths_pair(root):
+    """The reference's serving pair through ``generate``: an int8 Llama-3-8B
+    at 32 layers with a Llama-3.2-1B draft at 16 layers stored int4, gamma
+    4, PAIR_ROWS rows: launches as implied, and every row's speculative
+    tokens equal to greedy decode's on the same target weights (through the
+    kernels, in process, a decode chunk at a time); rounds, acceptance and
+    tokens/s."""
+    import tst_torch.train.pipeline as tpipe
+    from tst_torch import cli
+    from tst_torch.data.tokenize import ByteTokenizer, tokenize_dataset
+    from tst_torch.models.decode import greedy_decode
+
+    models, ids = [], []
+    real_build = tpipe.build_model
+
+    def keep(cfg, tokenizer, device, mesh=None):
+        out = real_build(cfg, tokenizer, device, mesh=mesh)
+        models.append(out)
+        return out
+
+    tpipe.build_model = keep
+    original = _recording(tpipe, "speculative_greedy_decode", ids)
+    try:
+        rc, counts, rep, wall = _cli_run(PAIR_GEN, os.path.join(root, "pair"),
+                                         "generate_report.json")
+    finally:
+        tpipe.build_model = real_build
+        setattr(tpipe, "speculative_greedy_decode", original)
+    (tspec, tparams), (dspec, dparams) = models
+    chunk = rep["chunk_rows"]
+    chunks = math.ceil(PAIR_ROWS / chunk)
+    want = pair_launches_want(chunks, rep["spec_rounds"], PAIR_GAMMA, tspec.n_layers,
+                              dspec.n_layers)
+    spec_ids = np.concatenate(ids)[:PAIR_ROWS]
+    if (rc != 0 or counts != want or tspec.n_layers != 32 or dspec.n_layers != 16
+            or spec_ids.shape != (PAIR_ROWS, PAIR_MAX_NEW)):
+        raise AssertionError(f"generate (the pair) rc={rc}, launches {counts} (want {want}), "
+                             f"layers {tspec.n_layers}/{dspec.n_layers}, tokens "
+                             f"{spec_ids.shape}")
+    cfg, device = cli._resolve(cli.build_parser().parse_args(PAIR_GEN))
+    tb = tokenize_dataset(cli._load_dataset(cfg), ByteTokenizer(), max_len=cfg.data.max_len,
+                          include_context=cfg.data.include_context)
+    tokens = torch.from_numpy(tb.tokens).to(device)
+    plen = torch.from_numpy(tb.answer_pos).to(device).long() + 1
+    greedy = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for lo in range(0, PAIR_ROWS, chunk):  # the run's chunks, the tail padded as it pads
+            rows = np.arange(lo, min(lo + chunk, PAIR_ROWS))
+            sel = torch.from_numpy(np.pad(rows, (0, chunk - rows.size), mode="edge")).to(device)
+            out = greedy_decode(tparams, tokens[sel], plen[sel], PAIR_MAX_NEW, tspec,
+                                use_pallas=True)
+            greedy.append(out[: rows.size].cpu().numpy())
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    greedy = np.concatenate(greedy)
+    col = first_divergence(greedy, spec_ids)
+    differ = np.flatnonzero(col >= 0)
+    tps = rep["tokens_generated"] / rep["decode_seconds"]
+    rec = {"launches": counts, "rounds": rep["spec_rounds"],
+           "acceptance": rep["draft_acceptance"],
+           "committed_per_round": rep["committed_per_round"], "tokens_per_s": tps,
+           "greedy_tokens_per_s": PAIR_ROWS * PAIR_MAX_NEW / greedy_s, "chunk_rows": chunk,
+           "rows_differing": int(len(differ))}
+    print(f"[widths] the pair: generate {PAIR_TARGET} int8 ({tspec.n_layers} layers, D="
+          f"{tspec.d_head}) with --draft-model {PAIR_DRAFT} --draft-quantize int4 "
+          f"({dspec.n_layers} layers, D={dspec.d_head}, tied {dspec.tie_embeddings}, "
+          f"rope_scaling {dspec.rope_scaling}) --gamma {PAIR_GAMMA}, {PAIR_ROWS} rows x "
+          f"{PAIR_MAX_NEW} tokens in {chunks} chunk(s) of {chunk} rc=0: launches fwd "
+          f"{counts['fwd']} int4 {counts['int4']} dattn {counts['dattn']} (as implied); "
+          f"spec_rounds {rep['spec_rounds']}, committed_per_round {rep['committed_per_round']}, "
+          f"draft_acceptance {rep['draft_acceptance']}; {tps:.1f} tokens/s speculative vs "
+          f"{rec['greedy_tokens_per_s']:.1f} greedy (in process); speculative vs greedy tokens: "
+          f"rows differing {len(differ)} of {PAIR_ROWS} (must be 0; first divergent columns "
+          f"{col[differ].tolist()}); CLI wall {wall:.2f} s")
+    if len(differ):
+        raise AssertionError("the pair's speculative tokens differ from greedy decode's")
+    del models, tparams, dparams
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_widths(device):
+    """Phase 25: the JAX package's six other geometries and its serving pair
+    on the card, through every kernel their paths reach (_widths_kernels,
+    _width_step for each of WIDTHS, Qwen2.5-7B's int4 eval-blind,
+    _widths_pair)."""
+    specs = widths_specs()
+    walls = {}
+
+    def timed(key, fn, *a):
+        t0 = time.perf_counter()
+        result = fn(*a)
+        walls[key] = round(time.perf_counter() - t0, 1)
+        return result
+
+    out = {"kernels": timed("kernels", _widths_kernels, device, specs), "steps": {}}
+    root = tempfile.mkdtemp(prefix="tst_torch_widths_")
+    try:
+        for name in WIDTHS:
+            rec, st = timed(name, _width_step, name, root, name == WIDTHS_FULL)
+            out["steps"][name] = rec
+            if st is not None:
+                out["int4_blind"] = timed("int4-blind", _width_int4_blind, st, root)
+                del st
+                torch.cuda.empty_cache()
+        out["pair"] = timed("pair", _widths_pair, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[widths] seconds a part: {json.dumps(walls)}")
+    table = {name: {key: r[key] for key in ("layers", "step_ms", "tokens_per_s",
+                                            "share_of_peak", "peak_gb")}
+             for name, r in out["steps"].items()}
+    print(f"[widths] steps: {json.dumps(table, default=float)}")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["rank", "mlp-int4", "serve", "long", "llama8b",
-                                           "entry", "bench"],
+                                           "entry", "bench", "widths"],
                         default=None,
                         help="rank: the attention kernels against the library at the train "
                              "shape; mlp-int4: K3 and K4 against their plain versions, timed "
                              "(either runs on any build of tst_torch, so also a parent "
                              "commit's); serve: phase 20 alone; long: phase 21 alone; "
                              "llama8b: the native packer and phase 22 alone; entry: phase 23 "
-                             "alone; bench: phase 24 alone, at the bench's default steps")
+                             "alone; bench: phase 24 alone, at the bench's default steps; "
+                             "widths: phase 25 alone")
     args = parser.parse_args(argv)
     device = phase_device()
     phase_build(sass=args.only is None)
@@ -4402,6 +5073,13 @@ def main(argv=None):
     if args.only == "bench":
         print(json.dumps({"bench": phase_bench(full=False)}, default=float))
         return
+    if args.only == "widths":
+        _PHASE[0] = "widths"
+        out = phase_widths(device)
+        print(f"[cosines] lowest LoRA gradient cosine of each phase's step gates (>= "
+              f"{GRAD_COSINE}): {json.dumps(LOWEST_COSINE)}")
+        print(json.dumps({"widths": out}, default=float))
+        return
     if args.only == "llama8b":
         print(json.dumps({"native_pack": phase_native_pack(), "llama8b": phase_llama8b()},
                          default=float))
@@ -4413,6 +5091,7 @@ def main(argv=None):
     walls = {}
 
     def run(name, fn, *a):
+        _PHASE[0] = name
         t0 = time.perf_counter()
         try:
             return fn(*a)
@@ -4444,7 +5123,14 @@ def main(argv=None):
     l8 = run("llama8b", phase_llama8b)
     ent = run("entry", phase_entry)
     bench = run("bench", phase_bench)["launches"]
+    wid = run("widths", phase_widths, device)
     print(f"[walls] seconds a phase: {json.dumps(walls)}")
+    print(f"[cosines] lowest LoRA gradient cosine of each phase's step gates (>= "
+          f"{GRAD_COSINE}): {json.dumps(LOWEST_COSINE)}")
+    wk, ws = wid["kernels"], wid["steps"]
+    launches_widths = {key: sum(r["launches"][key] for r in ws.values())
+                       + wid["int4_blind"]["launches"][key] + wid["pair"]["launches"][key]
+                       for key in ("fwd", "dkv", "dq", "int4", "dattn")}
     sft, times = llama["sft"], llama["times"]
     long_shape = {key: {"shape": long["shape"], **long[key]} for key in ("fwd", "dkv", "dq")}
     records = [
@@ -4460,8 +5146,10 @@ def main(argv=None):
          "launches_llama8b_int4": l8["int4"]["launches"]["fwd"],
          "launches_entry": ent["launches"]["fwd"],
          "launches_dryrun": ent["dryrun"]["launches"]["fwd"], "launches_bench": bench["fwd"],
+         "launches_widths": launches_widths["fwd"],
          "llama_shape": {"shape": times["shape"], **times["fwd"]},
-         "long_shape": long_shape["fwd"], **kern, **bwd["fwd"]},
+         "long_shape": long_shape["fwd"],
+         "widths_shapes": {key: r["fwd"] for key, r in wk["k1"].items()}, **kern, **bwd["fwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:553",
@@ -4471,8 +5159,9 @@ def main(argv=None):
          "launches_llama8b_sft": l8["sft"]["launches"]["dkv"],
          "launches_llama8b_ibp": l8["ibp"]["launches"]["dkv"],
          "launches_dryrun": ent["dryrun"]["launches"]["dkv"], "launches_bench": bench["dkv"],
-         "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
-                         **times["dkv"]}, "long_shape": long_shape["dkv"], **bwd["dkv"]},
+         "launches_widths": launches_widths["dkv"],
+         "llama_shape": times["dkv"], "long_shape": long_shape["dkv"],
+         "widths_shapes": {key: r["dkv"] for key, r in wk["k1"].items()}, **bwd["dkv"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_bwd.cu",
          "replaces": "tst/kernels/flash_attention.py:518",
@@ -4482,8 +5171,9 @@ def main(argv=None):
          "launches_llama8b_sft": l8["sft"]["launches"]["dq"],
          "launches_llama8b_ibp": l8["ibp"]["launches"]["dq"],
          "launches_dryrun": ent["dryrun"]["launches"]["dq"], "launches_bench": bench["dq"],
-         "llama_shape": {"plain_ms": times["plain_bwd_ms"], "library_ms": times["library_bwd_ms"],
-                         **times["dq"]}, "long_shape": long_shape["dq"], **bwd["dq"]},
+         "launches_widths": launches_widths["dq"],
+         "llama_shape": times["dq"], "long_shape": long_shape["dq"],
+         "widths_shapes": {key: r["dq"] for key, r in wk["k1"].items()}, **bwd["dq"]},
         {"name": "flash_attention_fwd_seg", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
          "replaces": "tst/kernels/flash_attention.py:464",
@@ -4507,9 +5197,10 @@ def main(argv=None):
          "launches_diagnose_sft": fused["int4"], "launches_llama_int4": llama["int4"]["int4"],
          "launches_serve": serve["int4"],
          "launches_llama8b_int4": l8["int4"]["launches"]["int4"], "launches_bench": bench["int4"],
-         **int4},
+         "launches_widths": launches_widths["int4"], "widths_shapes": wk["int4"], **int4},
         {"name": "fused_swiglu_mlp", "route": "cuda", "source": "tst_torch/csrc/fused_mlp.cu",
-         "replaces": "tst/kernels/fused_mlp.py:44", "launches": fused["mlp"], **mlp},
+         "replaces": "tst/kernels/fused_mlp.py:44", "launches": fused["mlp"],
+         "widths_shapes": wk["mlp"], **mlp},
         {"name": "decode_attention", "route": "cuda",
          "source": "tst_torch/csrc/decode_attention.cu",
          "replaces": "tst/models/decode.py:196 (jnp, no pallas_call)",
@@ -4519,7 +5210,7 @@ def main(argv=None):
          "launches_llama8b_ibp": l8["ibp"]["launches"]["dattn"],
          "launches_llama8b_int4": l8["int4"]["launches"]["dattn"],
          "launches_dryrun": ent["dryrun"]["launches"]["dattn"], "launches_bench": bench["dattn"],
-         **dattn},
+         "launches_widths": launches_widths["dattn"], "widths_shapes": wk["dattn"], **dattn},
     ]
     print("[k1] ratio_to_library (kernel ms / library ms) and share_of_bound (bound ms / "
           "kernel ms) of each K1 kernel: " + json.dumps({
@@ -4528,7 +5219,9 @@ def main(argv=None):
               "llama_shape": k1_summary({key: r["llama_shape"]
                                          for key, r in zip(("fwd", "dkv", "dq"), records[:3])}),
               "long_shape": k1_summary(long_shape),
-              "llama8b_packed_shape": k1_summary(seg["llama8b_packed"])}))
+              "llama8b_packed_shape": k1_summary(seg["llama8b_packed"]),
+              "widths": {key: k1_summary({n: r[n] for n in ("fwd", "dkv", "dq")})
+                         for key, r in wk["k1"].items()}}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

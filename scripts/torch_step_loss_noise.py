@@ -9,7 +9,8 @@ chip_smoke.py's GATE_BATCHES.
 
 On the card, for each gate case (``bench``: chip_smoke.bench_gate_cases,
 phase 24's Qwen2.5-0.5B k=5 x 4 rows "dots", int8 Llama-3-8B k=2 x 2 rows
-"dots" at 32 layers, packed int8 8B k=5 x 1 row of 1024 "attn"; ``train``:
+"dots" and packed int8 8B k=5 x 1 row of 1024 "attn", both at
+chip_smoke.LLAMA8B_GATE_LAYERS of the 32 layers; ``train``:
 chip_smoke.train_gate_cases, the diagnose-sft states of phases 7, 10, 14 and
 22a), each adapter seed (chip_smoke.gate_adapters) and each of the path's
 first ``--batches`` batches from one state: the fold losses and LoRA

@@ -267,11 +267,19 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax():
+    """The port and chip_smoke.py import nothing of FORBIDDEN; the port's
+    scripts (scripts/torch_*.py, the spec-decode probe among them) nothing
+    of jax or tst (one times the port's forest fit beside scikit-learn's)."""
     files = sorted((REPO / "tst_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    assert REPO / "scripts" / "torch_probe_spec_decode.py" in scripts
+    for path in scripts:
+        for name in _imports(path):
+            assert name.split(".")[0] not in FORBIDDEN[:6], (path, name)
 
 
 def test_port_runs_with_jax_blocked(tmp_path):

@@ -96,9 +96,14 @@ def test_nvcc_command_targets_sm90a(tmp_path):
 
 #: shapes of chip_smoke.py's kernel phase: the slice's own (Qwen2.5-0.5B
 #: heads, 32-row scorer chunk, S=512), Llama-3-8B heads, a 128-token case and
-#: one tile (S=64) at both head dims; S=576, where a 128-row tile ends past S
+#: one tile (S=64) at both head dims; S=576, where a 128-row tile ends past S;
+#: the other model widths' head layouts (Qwen2.5-1.5B 12/2, -3B 16/2, -7B
+#: 28/4, Llama-3.2-3B 24/8 at D=128, Llama-3.2-1B 32/8 at D=64), and S=576
+#: at Qwen2.5-7B's group of 7
 CARD_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64),
-               (3, 64, 14, 2, 64), (2, 64, 8, 2, 128), (2, 576, 8, 2, 128)]
+               (3, 64, 14, 2, 64), (2, 64, 8, 2, 128), (2, 576, 8, 2, 128),
+               (4, 512, 12, 2, 128), (4, 512, 16, 2, 128), (4, 512, 28, 4, 128),
+               (4, 512, 24, 8, 128), (4, 512, 32, 8, 64), (2, 576, 28, 4, 128)]
 
 
 @pytest.mark.cuda

@@ -123,9 +123,12 @@ def test_backward_argument_checks(change, msg):
 
 #: the train step's attention call (2 folds x 16 rows, Qwen2.5-0.5B heads),
 #: Llama-3-8B heads at D=128, a 128-token case; S=576, where a 128-key tile
-#: ends past S
+#: ends past S; the other model widths' head layouts (12/2, 16/2, 28/4 and
+#: 24/8 at D=128, 32/8 at D=64) and S=576 at Qwen2.5-7B's group of 7
 CARD_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64),
-               (2, 576, 14, 2, 64)]
+               (2, 576, 14, 2, 64), (4, 512, 12, 2, 128), (4, 512, 16, 2, 128),
+               (4, 512, 28, 4, 128), (4, 512, 24, 8, 128), (4, 512, 32, 8, 64),
+               (2, 576, 28, 4, 128)]
 
 
 @pytest.mark.cuda

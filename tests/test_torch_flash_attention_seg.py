@@ -172,9 +172,10 @@ def test_bad_seg_starts_raise(seg, causal, msg):
 
 #: the train step's attention call (2 folds x 16 packed rows of 1024,
 #: Qwen2.5-0.5B heads), Llama-3-8B heads at S=2048 (where the TPU dispatches
-#: its K2 bodies), a 128-token case and one tile (S=64) at both head dims
+#: its K2 bodies), a 128-token case and one tile (S=64) at both head dims,
+#: and packed rows at Qwen2.5-7B's heads (28/4, D=128)
 CARD_SHAPES = [(32, 1024, 14, 2, 64), (2, 2048, 32, 8, 128), (5, 128, 14, 2, 64),
-               (5, 64, 14, 2, 64), (3, 64, 8, 2, 128)]
+               (5, 64, 14, 2, 64), (3, 64, 8, 2, 128), (4, 1024, 28, 4, 128)]
 
 
 @pytest.mark.cuda

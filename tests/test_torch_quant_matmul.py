@@ -116,9 +116,13 @@ def test_unsupported_device_raises():
         tqm.int4_matmul_stacked(y, q, s, 0)
 
 
-#: chip_smoke.py's shapes (K, N): Qwen2.5-0.5B's int4 leaves and Llama-3-8B's
+#: chip_smoke.py's shapes (K, N): Qwen2.5-0.5B's int4 leaves and Llama-3-8B's,
+#: then phase 25's: Qwen2.5-7B's, Qwen2.5-1.5B's k/v and down, Llama-3.2-1B's
 CARD_SHAPES = [(896, 896), (896, 128), (896, 4864), (4864, 896),
-               (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+               (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+               (3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
+               (1536, 256), (8960, 1536), (2048, 2048), (2048, 512), (2048, 8192),
+               (8192, 2048)]
 
 
 @pytest.mark.parametrize("k,n", CARD_SHAPES + [(128, 128), (256, 256), (1024, 128)])
