@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only entry     # phases 1-2 and 23
     python3 chip_smoke.py --only bench     # phases 1-2 and 24 (the bench's default steps)
     python3 chip_smoke.py --only widths    # phases 1-2 and 25
+    python3 chip_smoke.py --only ring      # phases 1-2, 5b and 21 (the ring through K1)
 
 Every step compared with the plain path (phases 7, 10, 14, 22, 24, 25)
 holds its per-fold losses within 1e-3 of the plain loss, relative, and its
@@ -27,10 +28,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
                (at its bucket and head-truncated to 512); each path's seconds;
   2. build   — nvcc builds every kernel from tst_torch/csrc (sm_90a); each
                kernel's registers and spill bytes; the count of wgmma (HGMMA)
-               instructions in the SASS (cuobjdump) of each of the 12
-               attention kernels (forward, dK/dV, dQ at D=64 and 128, plain
-               and segmented) and of the two K4 kernels (gate-up, down),
-               which must not be 0;
+               instructions in the SASS (cuobjdump) of each of the 18
+               attention kernels (forward, dK/dV, dQ at D=64 and 128, plain,
+               segmented and non-causal) and of the two K4 kernels (gate-up,
+               down), which must not be 0; nvcc's seconds in ``[walls]``;
   3. kernel  — the flash-attention forward kernel against its plain PyTorch
                version on the card at the slice's shape, Llama-3-8B heads, a
                128-token case, one tile (S=64) at both head dims, the dry
@@ -50,6 +51,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
                raise; median times at the train step's shape, beside
                torch's scaled_dot_product_attention (forward, and its
                backward alone) as the library yardstick;
+  5b. kernel-full — the non-causal (causal=False) forward, dK/dV and dQ
+               kernels against their plain versions (k1_case, as phases 19
+               and 25 hold the causal and packed ones; o also within 2e-2 of
+               max|ref|, as a long row's o is ~0.01) at a 128-token case, one
+               tile (S=64) at both head dims, S=576 at both, the ring's block
+               at the long preset [10, 4096, 14, 64] and Llama-3-8B's heads
+               [1, 4096, 32, 128]; each launched once and bit-equal on a
+               second call; the autograd Function's gradients the kernels';
+               S=100 and
+               seg_starts with causal=False raise; at the last two shapes
+               each kernel timed beside scaled_dot_product_attention
+               (is_causal=False, enable_gqa; forward, and its backward alone)
+               and the bound (every (query, key) pair);
   6. train   — ``python -m tst_torch diagnose-sft`` (Qwen2.5-0.5B at full
                width, k=2 folds x 16 rows, 1 epoch, LoRA r16 on q/k/v/o,
                bf16, synthetic:0.5, n=512) through the CLI entry point; the
@@ -194,10 +208,17 @@ Phases, each printing one line; any failure raises and exits non-zero:
  21. long — the flash kernels' forward, dK/dV and dQ at S=16384 (one KV
                head and its GQA group of 7) and S=32768 (one query head)
                against their plain versions, at the S=512 gates' tolerances;
-               the ring's arithmetic at S=16384 (4 blocks, the ranks' step in
-               one process, tst_torch.kernels.ring_attention) against the
-               kernels, output within the forward gate and gradients at cosine
-               >= 0.999; the forward and the backward pair bit-equal on a
+               the ring at S=16384 (4 blocks, the ranks' step in one process,
+               tst_torch.kernels.ring_attention) through K1 (the diagonal
+               blocks causal, the past blocks non-causal, the future ones
+               skipped: 4 causal and 6 non-causal launches of each kernel,
+               and no call of the plain partials) and through the plain
+               partials, each against unsplit K1 and against each other,
+               output within the forward gate, output and gradients at
+               cosine >= 0.999; the ring through K1 at the preset's full call
+               against unsplit K1; both rings' walls (forward and backward,
+               the median of 3 warmed calls); the forward and the backward
+               pair bit-equal on a
                second call at S=16384 (the check and the preset's call); the
                kernels timed at the preset's call q [10, 16384, 14, 64] beside
                scaled_dot_product_attention and the bound;
@@ -329,10 +350,13 @@ Llama-3-8B, the library held to K3's plain version within 2e-2.
 Before it, a ``[k1]`` line gives each K1 kernel's ``ratio_to_library``
 (kernel ms / library ms) and ``share_of_bound`` (bound ms / kernel ms) at
 the main shapes (plain and segmented), Llama-3-8B's step, the long preset's
-call and the packed 8B leg.
+call and the packed 8B leg, and of the non-causal kernels at the ring's
+block and at Llama-3-8B's heads.
 
 The second-to-last line is the per-kernel JSON record (launches on the
 main path, error, kernel, plain and library times, and the bound: the
+non-causal kernels' launches are phase 21's ring through K1 in one process,
+their times phase 5b's at the ring's block; the
 larger of the function's bytes over 3.35 TB/s and its operations over
 989 TFLOP/s bf16, counted from this run's shapes and masks), the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of jax or of the JAX
@@ -370,11 +394,27 @@ ODD_TILES = [(2, 576, 14, 2, 64), (2, 576, 8, 2, 128)]
 #: and at the dry run's calls (phase 23; tiny with d_head 64): one rank's
 #: train step (4/2 heads), a tensor=2 rank's scorer and prefill (2/1 heads)
 DRYRUN_SHAPES = [(4, 512, 4, 2, 64), (8, 512, 2, 1, 64)]
+#: the non-causal kernels (the ring's past blocks): a 128-token case, one
+#: tile (S=64) at both head dims, S=576 at both (a last 128-key tile ends
+#: past S, where the forward masks), the ring's block at the long preset (4
+#: blocks of 4096 positions: q [10, 4096, 14, 64]) and a block of 4096 at
+#: Llama-3-8B's heads
+FULL_SHAPES = [(4, 128, 14, 2, 64), (3, 64, 14, 2, 64), (2, 64, 8, 2, 128),
+               (2, 576, 14, 2, 64), (2, 576, 8, 2, 128), (10, 4096, 14, 2, 64),
+               (1, 4096, 32, 8, 128)]
+FULL_RING_SHAPE, FULL_LLAMA_SHAPE = FULL_SHAPES[-2], FULL_SHAPES[-1]
+#: the plain versions at those shapes run this many batch rows a call (their
+#: [S, S] f32 tensors), their times summed over the calls
+FULL_PLAIN_ROWS = 2
 #: the card's peaks for the bounds (NVIDIA H100 SXM data sheet: dense bf16,
 #: HBM3)
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 #: bf16 output: one rounding of P and of o (|o| < 2) -> 2e-2; f32 lse -> 1e-3
 O_TOL, LSE_TOL = 2e-2, 1e-3
+#: and K1's o within this of max|ref| (forward_gate): a non-causal row
+#: averages thousands of keys, so its |o| is ~0.01 and O_TOL alone cannot see
+#: an error of tens of percent
+O_REL_TOL = 2e-2
 #: letter probabilities of the kernel path vs the plain path, bf16 model
 PROB_TOL, ARGMAX_AGREE = 0.05, 0.95
 #: the train step's attention call: 2 folds x 16 rows, Qwen2.5-0.5B heads
@@ -587,8 +627,11 @@ SERVE_SPEC = SERVE_GEN + ["--draft-model", "qwen2.5-0.5b", "--draft-quantize", "
 LONG_CHECKS = ((16384, 7), (32768, 1))
 LONG_SHAPE = (10, 16384, 14, 2, 64)
 #: the ring's arithmetic at S=16384: 4 blocks of 4096, the ranks' step in one
-#: process; its gradients against K1's at this cosine
+#: process; its output and gradients against K1's at this cosine
 LONG_RING_BLOCKS, LONG_RING_COSINE = 4, 0.999
+#: each ring's wall: the median of this many warmed calls (forward and
+#: backward; CUDA events), after the call that is checked and counted
+RING_WALL_SAMPLES = 3
 #: the preset through the CLI (BASELINE config 4): synthetic rows with
 #: ~16,000-byte transcripts, the byte tokenizer (the preset's HF tokenizer
 #: needs a download) and remat (one layer's saves at 163,840 tokens would be
@@ -763,17 +806,21 @@ def median_ms(fn, samples=30, reps=10, warmup=3):
 
 
 #: a flash-attention kernel's mangled name: which kernel (``_tiled``: the
-#: 64-row forward and dK/dV, kept where they are faster), D, kSeg (the
-#: persistent dK/dV kernel has none: it serves D=64 unsegmented only)
+#: 64-row forward and dK/dV, kept where they are faster), D, and its bool
+#: template arguments (kSeg, kCausal; the persistent dK/dV kernel has no
+#: kSeg: it serves unsegmented rows only; an absent kCausal is causal)
 _FLASH_KERNEL = re.compile(
-    r"flash_(?:bwd_)?(fwd|dkv|dq)(_tiled)?_kernelILi(\d+)E(?:Lb([01])E)?")
+    r"flash_(?:bwd_)?(fwd|dkv|dq)(_tiled)?_kernelILi(\d+)E((?:Lb[01]E)*)")
 #: the attention kernels the C entries launch, one for each of {fwd, dkv, dq}
-#: x D {64, 128} x {plain, seg}: the 64-row forward for packed rows at D=64,
-#: the 64-key dK/dV for packed rows and at D=128, the persistent ones elsewhere
+#: x D {64, 128} x {causal, seg, full (non-causal)}: the 64-row forward for
+#: packed rows at D=64, the 64-key dK/dV for packed rows and at D=128, the
+#: persistent ones elsewhere
 ATTENTION_KERNELS = frozenset({
     "fwd<D=64>", "fwd<D=128>", "fwd_tiled<D=64, seg>", "fwd<D=128, seg>",
     "dkv<D=64>", "dkv_tiled<D=128>", "dkv_tiled<D=64, seg>", "dkv_tiled<D=128, seg>",
-    "dq<D=64>", "dq<D=128>", "dq<D=64, seg>", "dq<D=128, seg>"})
+    "dq<D=64>", "dq<D=128>", "dq<D=64, seg>", "dq<D=128, seg>",
+    "fwd<D=64, full>", "fwd<D=128, full>", "dkv<D=64, full>", "dkv_tiled<D=128, full>",
+    "dq<D=64, full>", "dq<D=128, full>"})
 N_ATTENTION_KERNELS = len(ATTENTION_KERNELS)
 #: K4's two kernels, which must run their products on wgmma too
 K4_KERNELS = ("swiglu_gate_up_kernel", "swiglu_down_kernel")
@@ -781,12 +828,17 @@ _K4_KERNEL = re.compile(r"\d+(" + "|".join(K4_KERNELS) + r")(?=E|I)")
 
 
 def kernel_name(mangled):
-    """A short name for a kernel's mangled name: ``fwd<D=64, seg>`` for the
-    attention kernels, else the last name of the nested name with its int
-    template arguments (``fused_mlp_kernel<8>``, ``int4_matmul_kernel<2, 4>``)."""
+    """A short name for a kernel's mangled name: ``fwd<D=64, seg>`` (or
+    ``, full`` when non-causal) for the attention kernels, else the last name
+    of the nested name with its int template arguments
+    (``fused_mlp_kernel<8>``, ``int4_matmul_kernel<2, 4>``)."""
     m = _FLASH_KERNEL.search(mangled)
     if m:
-        return f"{m[1]}{m[2] or ''}<D={m[3]}{', seg' if m[4] == '1' else ''}>"
+        kernel = m[1] + (m[2] or "")
+        names = ("causal",) if kernel == "dkv" else ("seg", "causal")
+        flags = dict(zip(names, re.findall(r"Lb([01])E", m[4])))
+        return (f"{kernel}<D={m[3]}{', seg' if flags.get('seg') == '1' else ''}"
+                f"{', full' if flags.get('causal') == '0' else ''}>")
     if not mangled.startswith("_ZN"):
         return mangled
     i, name = 3, mangled
@@ -965,6 +1017,8 @@ def phase_device():
 
 
 def phase_build(sass=True):
+    """Build the kernels; print each one's registers and spills, and (with
+    ``sass``) hold the attention and K4 kernels to wgmma → nvcc's seconds."""
     from tst_torch.kernels import _build
 
     res = _build.build()
@@ -975,13 +1029,14 @@ def phase_build(sass=True):
         if "warning" in ln:
             print(f"[build] ptxas: {ln.strip()}")
     if not sass:
-        return
+        return res.seconds
     # wgmma in the attention kernels: HGMMA instructions in each one's SASS
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     counts = hgmma_counts(subprocess.run([cuobjdump, "-sass", str(res.path)], check=True,
                                          capture_output=True, text=True).stdout)
     print(f"[build] HGMMA instructions in the attention and K4 kernels' SASS: {counts}")
     check_hgmma(counts)
+    return res.seconds
 
 
 def phase_kernel(device):
@@ -1043,15 +1098,18 @@ def _bound(flops, nbytes):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def _attention_bounds(q, k, seg=None):
+def _attention_bounds(q, k, seg=None, causal=True):
     """Bounds of the forward, the dK/dV and the dQ functions at these
     shapes: products over the (query, key) pairs the mask keeps (causal,
-    and packed within each segment: this run's starts), 2·D operations a
-    pair each: forward Q·Kᵀ, P·V; dK/dV Sᵀ, dPᵀ, dV, dK; dQ S, dP, dQ."""
+    and packed within each segment: this run's starts; every pair when not
+    ``causal``), 2·D operations a pair each: forward Q·Kᵀ, P·V; dK/dV Sᵀ,
+    dPᵀ, dV, dK; dQ S, dP, dQ."""
     import tst_torch.kernels.flash_attention as tfa
 
     b, s, h, d = q.shape
-    if seg is None:
+    if not causal:
+        pairs = b * h * s * s
+    elif seg is None:
         pairs = b * h * s * (s + 1) // 2
     else:
         start = tfa.segment_starts_per_pos(seg, s).long()
@@ -1063,10 +1121,11 @@ def _attention_bounds(q, k, seg=None):
             "dq": _bound(6 * d * pairs, 3 * qb + kvb + 2 * stat + segb)}
 
 
-def _sdpa_yardstick(q, k, v, do, o, mask=None, samples=30, reps=10):
+def _sdpa_yardstick(q, k, v, do, o, mask=None, samples=30, reps=10, causal=True):
     """library_ms of the attention function: one call of torch's
     scaled_dot_product_attention on [B, H, S, D] views of the same q, k, v
-    (causal, or the boolean [B, 1, S, S] segment mask), and its backward
+    (causal, every key when not ``causal``, or the boolean [B, 1, S, S]
+    segment mask), and its backward
     (``torch.autograd.grad`` of o on its graph) timed alone. The backend is
     pinned, the first of flash, cuDNN and memory-efficient that runs (flash
     takes no mask); GQA through ``enable_gqa``, else k and v expanded to H
@@ -1085,7 +1144,7 @@ def _sdpa_yardstick(q, k, v, do, o, mask=None, samples=30, reps=10):
                       for t in (k, v))
             kh, vh = kh.detach().requires_grad_(), vh.detach().requires_grad_()
             doh = do.transpose(1, 2)
-            kw = ({"is_causal": True} if mask is None else {"attn_mask": mask[:, None]})
+            kw = ({"is_causal": causal} if mask is None else {"attn_mask": mask[:, None]})
             if gqa:
                 kw["enable_gqa"] = True
             try:
@@ -1140,9 +1199,10 @@ def phase_kernel_bwd(device):
         q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
         k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
         o, lse = tfa.flash_attention(q, k, v)
-        got = tfa.flash_attention_backward(q, k, v, o, lse, do)
+        di = tfa.backward_row_stat(o, do)
+        got = tfa.flash_attention_backward(q, k, v, lse, di, do)
         torch.cuda.synchronize()
-        _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do), got)
+        _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, lse, di, do), got)
         want = tfa.flash_attention_backward_reference(
             q.float(), k.float(), v.float(), o.float(), lse, do.float())
         errs = [_rel_err(g, w) for g, w in zip(got, want)]
@@ -1166,7 +1226,6 @@ def phase_kernel_bwd(device):
             raise AssertionError(f"flash-attention backward disagrees with its plain "
                                  f"version at {(b, s, h, kvh, d)}")
         if (b, s, h, kvh, d) == TRAIN_SHAPE:
-            di = tfa.backward_row_stat(o, do)
             plain_ms = median_ms(lambda: tfa.flash_attention_backward_reference(
                 q, k, v, o, lse, do), samples=10, reps=3, warmup=1)
             lib = _sdpa_yardstick(q, k, v, do, o)
@@ -1178,11 +1237,12 @@ def phase_kernel_bwd(device):
                          "ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di)),
                          "plain_ms": plain_ms, "library_ms": lib["bwd_ms"], **bounds["dq"]}
             out["fwd"] = {"library_ms": lib["fwd_ms"], **bounds["fwd"]}
-            both_ms = median_ms(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do))
+            both_ms = median_ms(lambda: tfa.flash_attention_backward(
+                q, k, v, lse, tfa.backward_row_stat(o, do), do))
     bad = torch.zeros(1, 100, 2, 64, device=device, dtype=torch.bfloat16)
     lse_bad = torch.zeros(1, 2, 100, device=device)
     try:
-        tfa.flash_attention_backward(bad, bad, bad, bad, lse_bad, bad)
+        tfa.flash_attention_backward(bad, bad, bad, lse_bad, lse_bad, bad)
     except ValueError:
         pass
     else:
@@ -1197,6 +1257,63 @@ def phase_kernel_bwd(device):
           f"{lib['bwd_ms']:.4f} ms, forward {lib['fwd_ms']:.4f} ms (forward kernel bound "
           f"{out['fwd']['bound_ms']:.4f}, {out['fwd']['bound_by']}) (median of 30 x 10 calls)")
     return out
+
+
+def phase_kernel_full(device):
+    """Phase 5b: the non-causal (causal=False) forward, dK/dV and dQ kernels
+    at FULL_SHAPES through k1_case (their plain versions over
+    FULL_PLAIN_ROWS rows a call); at the ring's block [10, 4096, 14, 64] and
+    at Llama-3-8B's heads each timed beside scaled_dot_product_attention
+    (is_causal=False, enable_gqa), the bound and the plain version; S=100
+    and seg_starts with causal=False raise. → the records' numbers at the
+    ring's block (and ``llama_shape``)."""
+    import tst_torch.kernels.flash_attention as tfa
+
+    out = {}
+    for shape in FULL_SHAPES:
+        b, s, h, kvh, d = shape
+        timed = shape in (FULL_RING_SHAPE, FULL_LLAMA_SHAPE)
+        rows = k1_case(device, shape, s + d + 3, causal=False, timed=timed, plain=timed,
+                       plain_rows=FULL_PLAIN_ROWS, tag="kernel-full")
+        if timed:
+            key = "ring" if shape == FULL_RING_SHAPE else "llama_shape"
+            out[key] = {n: {"shape": [b, s, h, d], **rows[n]} for n in ("fwd", "dkv", "dq")}
+    bad = torch.zeros(1, 100, 2, 64, device=device, dtype=torch.bfloat16)
+    stat = torch.zeros(1, 2, 100, device=device)
+    seg = torch.zeros(1, 1, dtype=torch.int32, device=device)
+    good = torch.zeros(1, 128, 2, 64, device=device, dtype=torch.bfloat16)
+    for what, call in (("S=100", lambda: tfa.flash_attention(bad, bad, bad, causal=False)),
+                       ("S=100 backward", lambda: tfa.flash_attention_backward(
+                           bad, bad, bad, stat, stat, bad, causal=False)),
+                       ("seg_starts", lambda: tfa.flash_attention(good, good, good, causal=False,
+                                                                  seg_starts=seg))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"the non-causal kernels accepted {what}")
+    print("[kernel-full] S=100 (forward, backward) and seg_starts with causal=False rejected")
+    return out
+
+
+def _full_launch_counts():
+    import tst_torch.kernels.flash_attention as tfa
+
+    return {"fwd": tfa.LAUNCHES_FULL, "dkv": tfa.LAUNCHES_FULL_BWD_DKV,
+            "dq": tfa.LAUNCHES_FULL_BWD_DQ}
+
+
+def ring_launches_want(n, idxs=None, causal=True):
+    """K1's launches in one pass of the ring's kernel route over ``n``
+    blocks (the forward, or the backward: one dK/dV and one dQ a pair) for
+    the Q blocks of ranks ``idxs`` (all n, in one process, by default):
+    under ``causal`` one causal launch a Q block (its diagonal) and one
+    non-causal launch for each past block (rank idx has idx of them), none
+    for a future block; without ``causal`` n non-causal launches a Q block."""
+    idxs = list(range(n)) if idxs is None else list(idxs)
+    if not causal:
+        return {"causal": 0, "full": n * len(idxs)}
+    return {"causal": len(idxs), "full": sum(idxs)}
 
 
 def phase_rank(device, rounds=5):
@@ -1330,6 +1447,7 @@ def _zero_launch_counts():
 
     tfa.LAUNCHES = tfa.LAUNCHES_BWD_DKV = tfa.LAUNCHES_BWD_DQ = 0
     tfa.LAUNCHES_SEG = tfa.LAUNCHES_SEG_BWD_DKV = tfa.LAUNCHES_SEG_BWD_DQ = 0
+    tfa.LAUNCHES_FULL = tfa.LAUNCHES_FULL_BWD_DKV = tfa.LAUNCHES_FULL_BWD_DQ = 0
     tqm.LAUNCHES = tfm.LAUNCHES = tda.LAUNCHES = 0
 
 
@@ -1596,9 +1714,10 @@ def phase_kernel_seg(device):
         o_err = (o.float() - o_ref.float()).abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
         del o_ref, lse_ref
-        got = tfa.flash_attention_backward(q, k, v, o, lse, do, seg_starts=seg)
+        di = tfa.backward_row_stat(o, do)
+        got = tfa.flash_attention_backward(q, k, v, lse, di, do, seg_starts=seg)
         torch.cuda.synchronize()
-        _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do, seg_starts=seg),
+        _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, lse, di, do, seg_starts=seg),
                        got)
         want = tfa.flash_attention_backward_reference(
             q.float(), k.float(), v.float(), o.float(), lse, do.float(), seg_starts=seg)
@@ -3663,19 +3782,97 @@ def _cosine(a, b):
     return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-30))
 
 
+def _ring_in_one_process(q, k, v, do, n, use_pallas):
+    """The ring over ``n`` blocks of (q, k, v) in one process (the ranks'
+    step, ``local_rotate``), forward and backward, through K1 (``use_pallas``)
+    or the plain partials → (o, [dq, dk, dv] whole, K1's launches {"causal":
+    {fwd, dkv, dq}, "full": {...}} and calls of the plain partial and pair
+    backward in that first call, then the median ms of RING_WALL_SAMPLES
+    warmed calls)."""
+    import tst_torch.kernels.ring_attention as tring
+
+    blk = q.shape[1] // n
+    blocks = [[t[:, i * blk: (i + 1) * blk].detach().clone().requires_grad_(True)
+               for i in range(n)] for t in (q, k, v)]
+    plain_calls = []
+    real = {name: getattr(tring, name) for name in ("_online_partial", "_pair_backward")}
+
+    def counted(name):
+        def call(*a, **kw):
+            plain_calls.append(name)
+            return real[name](*a, **kw)
+        return call
+
+    def run():
+        o = torch.cat(tring.ring_blocks(*blocks, list(range(n)), n, tring.local_rotate,
+                                        use_pallas=use_pallas), 1)
+        return o, torch.autograd.grad(o, [t for group in blocks for t in group], do)
+
+    for name in real:
+        setattr(tring, name, counted(name))
+    try:
+        _zero_launch_counts()
+        ring_o, ring_g = run()
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        launches = {"causal": {key: counts[key] for key in ("fwd", "dkv", "dq")},
+                    "full": _full_launch_counts()}
+    finally:
+        for name, fn in real.items():
+            setattr(tring, name, fn)
+    grads = [torch.cat(ring_g[j * n: (j + 1) * n], 1) for j in range(3)]
+    wall_ms = median_ms(run, samples=RING_WALL_SAMPLES, reps=1, warmup=1)
+    return ring_o.detach(), grads, wall_ms, launches, len(plain_calls)
+
+
+def ring_gate(o, grads, o_ref, grads_ref, what):
+    """A ring's output within O_TOL of ``o_ref`` and at cosine >=
+    LONG_RING_COSINE to it (the late rows' small o average thousands of
+    keys: an error there hides under O_TOL, not under the cosine), and its
+    gradients at cosine >= LONG_RING_COSINE and max|d - ref| <=
+    GRAD_TOL·max|ref| → the readings."""
+    err = (o.float() - o_ref.float()).abs().max().item()
+    o_cos = _cosine(o, o_ref)
+    cos = [_cosine(a, b) for a, b in zip(grads, grads_ref)]
+    rel = [_rel_err(a, b) for a, b in zip(grads, grads_ref)]
+    print(f"[long] {what}: max|o - o_ref| {err:.3e} (<= {O_TOL}), o cosine {o_cos:.6f}; "
+          f"gradient cosine dq {cos[0]:.6f} dk {cos[1]:.6f} dv {cos[2]:.6f} (each >= "
+          f"{LONG_RING_COSINE}), max|d - ref|/max|ref| {rel[0]:.3e} {rel[1]:.3e} {rel[2]:.3e} "
+          f"(<= {GRAD_TOL})")
+    if (err > O_TOL or min(cos + [o_cos]) < LONG_RING_COSINE or max(rel) > GRAD_TOL):
+        raise AssertionError(f"{what}: the ring disagrees")
+    return {"max_abs_o_err": err, "o_cosine": o_cos, "grad_cosine": cos, "grad_rel_err": rel}
+
+
+def check_ring_launches(launches, n, use_pallas, plain_calls):
+    """K1's launches of one ring run in one process as ring_launches_want
+    implies (none on the plain route), and the kernel route without a call
+    of the plain partial or pair backward."""
+    want = ring_launches_want(n) if use_pallas else {"causal": 0, "full": 0}
+    want = {kind: {key: count for key in ("fwd", "dkv", "dq")} for kind, count in want.items()}
+    route = "K1" if use_pallas else "plain"
+    check_launches(launches, want, f"the ring over {n} blocks in one process ({route})")
+    if use_pallas and plain_calls:
+        raise AssertionError(f"the ring's kernel route called the plain partials "
+                             f"{plain_calls} times")
+
+
 def phase_long(device):
     """Phase 21: long context on one card. (a) K1's forward, dK/dV and dQ at
     S=16384 and S=32768 against their plain versions; (b) their times at the
     preset's full call beside scaled_dot_product_attention and the bound;
-    (c) the ring's arithmetic at S=16384 (4 blocks, the ranks' step in one
-    process) against K1, forward and backward; (d) ``diagnose-sft --preset
+    (c) the ring at S=16384 (4 blocks, the ranks' step in one process)
+    through K1 (causal diagonal blocks, non-causal past blocks, future blocks
+    skipped: launches as ring_launches_want implies) and through the plain
+    partials, each against unsplit K1 and against each other, forward and
+    backward, and the ring through K1 at the preset's full call against
+    unsplit K1; (d) ``diagnose-sft --preset
     sft-videomme-long`` at max_len 16384 (k=5, batch 2, remat) through the
     CLI with --profile-dir: launches as implied, finite fold losses, s(x)
     of every row, the step time, samples/s and peak memory, and the trace's
     top ops. Returns the K1 rows' long-S timings and this run's launches."""
     import tst_torch.kernels.flash_attention as tfa
     import tst_torch.train.sft as tsft
-    from tst_torch.kernels.ring_attention import local_rotate, ring_blocks
 
     out = {"checks": {}}
     ring_in = None
@@ -3684,10 +3881,11 @@ def phase_long(device):
         q, do = (_randn(rng, (1, s, h, 64), device) for _ in range(2))
         k, v = (_randn(rng, (1, s, 1, 64), device) for _ in range(2))
         o, lse = tfa.flash_attention(q, k, v)
-        got = tfa.flash_attention_backward(q, k, v, o, lse, do)
+        di = tfa.backward_row_stat(o, do)
+        got = tfa.flash_attention_backward(q, k, v, lse, di, do)
         torch.cuda.synchronize()
         _check_bitwise(lambda: tfa.flash_attention(q, k, v), (o, lse), "the forward kernel")
-        _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do), got)
+        _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, lse, di, do), got)
         o_ref, lse_ref = tfa.flash_attention_reference(q, k, v)
         o_err = (o.float() - o_ref.float()).abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
@@ -3720,32 +3918,31 @@ def phase_long(device):
             del q, k, v, do, o, lse, got
         torch.cuda.empty_cache()
 
-    # (c) the ring's arithmetic: the ranks' step over 4 blocks in one process
+    # (c) the ring over 4 blocks in one process, through K1 and through the
+    # plain partials, each against unsplit K1, and against each other
     q, k, v, do, o, got = ring_in
     n, s = LONG_RING_BLOCKS, q.shape[1]
-    blk = s // n
-    blocks = [[t[:, i * blk: (i + 1) * blk].detach().clone().requires_grad_(True)
-               for i in range(n)] for t in (q, k, v)]
-    t0 = time.perf_counter()
-    ring_o = torch.cat(ring_blocks(*blocks, list(range(n)), n, local_rotate), 1)
-    leaves = [t for group in blocks for t in group]
-    ring_g = torch.autograd.grad(ring_o, leaves, do)
-    torch.cuda.synchronize()
-    ring_s = time.perf_counter() - t0
-    ring_g = [torch.cat(ring_g[j * n: (j + 1) * n], 1) for j in range(3)]
-    ring_err = (ring_o.float() - o.float()).abs().max().item()
-    cos = [_cosine(a, b) for a, b in zip(ring_g, got)]
-    rel = [_rel_err(a, b) for a, b in zip(ring_g, got)]
-    print(f"[long] the ring's arithmetic at S={s}: {n} blocks of {blk}, the ranks' step "
-          f"(partial, combine, rotate) in one process: max|o_ring - o_K1| {ring_err:.3e} "
-          f"(<= {O_TOL}); gradients against K1's backward: cosine dq {cos[0]:.6f} dk "
-          f"{cos[1]:.6f} dv {cos[2]:.6f} (>= {LONG_RING_COSINE}), max|d|/max|K1| "
-          f"{rel[0]:.3e} {rel[1]:.3e} {rel[2]:.3e} (<= {GRAD_TOL}); forward and backward "
-          f"{ring_s:.2f} s")
-    if ring_err > O_TOL or min(cos) < LONG_RING_COSINE or max(rel) > GRAD_TOL:
-        raise AssertionError("the ring's blockwise arithmetic disagrees with K1")
-    out["ring"] = {"max_abs_o_err": ring_err, "grad_cosine": cos, "grad_rel_err": rel}
-    del ring_in, q, k, v, do, o, got, blocks, leaves, ring_o, ring_g
+    rings = {}
+    for use_pallas in (True, False):
+        route = "K1" if use_pallas else "plain"
+        ring_o, ring_g, wall, launches, plain_calls = _ring_in_one_process(q, k, v, do, n,
+                                                                           use_pallas)
+        check_ring_launches(launches, n, use_pallas, plain_calls)
+        rings[route] = {"wall_ms": wall, "launches": launches,
+                        **ring_gate(ring_o, ring_g, o, got,
+                                    f"the ring through {route} at S={s}, {n} blocks of "
+                                    f"{s // n} in one process, against unsplit K1"),
+                        "o": ring_o, "grads": ring_g}
+    rings["K1_vs_plain"] = ring_gate(rings["K1"].pop("o"), rings["K1"].pop("grads"),
+                                     rings["plain"].pop("o"), rings["plain"].pop("grads"),
+                                     f"the ring through K1 against the plain ring at S={s}")
+    print(f"[long] the rings' walls (forward and backward, q [1, {s}, {q.shape[2]}, 64], "
+          f"{n} blocks in one process; median of {RING_WALL_SAMPLES} warmed calls): K1 "
+          f"{rings['K1']['wall_ms']:.3f} ms, plain {rings['plain']['wall_ms']:.3f} ms; K1's "
+          f"launches {json.dumps(rings['K1']['launches'])}"
+          f" (as implied: {json.dumps(ring_launches_want(n))} a pass), none on the plain route")
+    out["ring"] = rings
+    del ring_in, q, k, v, do, o, got
     torch.cuda.empty_cache()
 
     # (b) times at the preset's full call
@@ -3760,7 +3957,19 @@ def phase_long(device):
     _check_bitwise(lambda: tfa.flash_attention(q, k, v), (o, lse), "the forward kernel")
     _check_bitwise(lambda: (*tfa._launch_bwd_dkv(q, k, v, do, lse, di),
                             tfa._launch_bwd_dq(q, k, v, do, lse, di)), pair)
-    del pair
+    # the ring through K1 at the preset's call, against unsplit K1 (dq, dk, dv)
+    ring_o, ring_g, wall, launches, plain_calls = _ring_in_one_process(q, k, v, do, n, True)
+    check_ring_launches(launches, n, True, plain_calls)
+    out["ring"]["K1_preset_call"] = {"shape": [b, s, h, d], "wall_ms": wall,
+                                     "launches": launches,
+                                     **ring_gate(ring_o, ring_g, o, (pair[2], *pair[:2]),
+                                                 f"the ring through K1 at the preset's call "
+                                                 f"q {[b, s, h, d]}, {n} blocks in one "
+                                                 f"process, against unsplit K1")}
+    print(f"[long] the ring through K1 at the preset's call: forward and backward "
+          f"{wall:.3f} ms (median of {RING_WALL_SAMPLES} warmed calls; unsplit K1's kernels "
+          f"below); launches {json.dumps(launches)}")
+    del pair, ring_o, ring_g
     times = {"fwd": median_ms(lambda: tfa.flash_attention(q, k, v), 5, 3),
              "dkv": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di), 5, 3),
              "dq": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di), 5, 3)}
@@ -4549,13 +4758,63 @@ def pair_launches_want(chunks, rounds, gamma, target_layers, draft_layers):
             "mlp": 0, "dattn": (draft_layers * (gamma + 1) + target_layers) * rounds}
 
 
-def k1_case(device, shape, seed, starts=None, samples=10, reps=5, plain=False, tag="widths"):
+def forward_gate(o, lse, o_ref, lse_ref):
+    """K1's forward against its plain version: o finite, max|o - ref| <=
+    O_TOL and <= O_REL_TOL·max|ref|, max|lse - ref| <= LSE_TOL → (readings
+    {"o_err", "o_rel", "lse_err"}, ok)."""
+    o_err = (o.float() - o_ref.float()).abs().max().item()
+    got = {"o_err": o_err, "o_rel": o_err / o_ref.float().abs().max().item(),
+           "lse_err": (lse - lse_ref).abs().max().item()}
+    ok = (bool(torch.isfinite(o).all()) and o_err <= O_TOL and got["o_rel"] <= O_REL_TOL
+          and got["lse_err"] <= LSE_TOL)
+    return got, ok
+
+
+def _k1_counts(seg, causal):
+    """K1's (forward, dK/dV, dQ) launch counts on the route these take."""
+    import tst_torch.kernels.flash_attention as tfa
+
+    if seg is not None:
+        return tfa.LAUNCHES_SEG, tfa.LAUNCHES_SEG_BWD_DKV, tfa.LAUNCHES_SEG_BWD_DQ
+    if causal:
+        return tfa.LAUNCHES, tfa.LAUNCHES_BWD_DKV, tfa.LAUNCHES_BWD_DQ
+    return tfa.LAUNCHES_FULL, tfa.LAUNCHES_FULL_BWD_DKV, tfa.LAUNCHES_FULL_BWD_DQ
+
+
+def _plain_k1(q, k, v, do, o, lse, causal, seg, rows):
+    """K1's plain versions over the batch in calls of ``rows`` rows (their
+    [S, S] f32 tensors) → (forward → (o, lse), backward on the kernels' o
+    and lse in f32 → (dq, dk, dv)), each concatenated over the calls."""
+    import tst_torch.kernels.flash_attention as tfa
+
+    calls = [slice(i, i + rows) for i in range(0, q.shape[0], rows)]
+
+    def kw(sl):
+        return {"causal": causal, **({} if seg is None else {"seg_starts": seg[sl]})}
+
+    def fwd():
+        return [torch.cat(t) for t in zip(*(tfa.flash_attention_reference(
+            q[sl], k[sl], v[sl], **kw(sl)) for sl in calls))]
+
+    def bwd():
+        return [torch.cat(t) for t in zip(*(tfa.flash_attention_backward_reference(
+            q[sl].float(), k[sl].float(), v[sl].float(), o[sl].float(), lse[sl],
+            do[sl].float(), **kw(sl)) for sl in calls))]
+
+    return fwd, bwd
+
+
+def k1_case(device, shape, seed, starts=None, causal=True, samples=10, reps=5, plain=False,
+            timed=True, plain_rows=None, tag="widths"):
     """K1's forward, dK/dV and dQ at ``shape`` (plain rows, or packed with
-    ``starts``) against their plain versions (O_TOL and LSE_TOL; GRAD_TOL
-    against the f32 plain backward on the same o and lse), each bit-equal on
-    a second call; then each kernel's median time beside the library's, the
-    bound and, with ``plain``, the plain version's → {"fwd", "dkv", "dq"}
-    and the library's backend; the line printed under ``tag``."""
+    ``starts``; non-causal without ``causal``) against their plain versions
+    (forward_gate; GRAD_TOL against the f32 plain backward on the same o
+    and lse; those over ``plain_rows`` batch rows a call, all by default),
+    each launched once and bit-equal on a second call, the autograd
+    Function's gradients the kernels'; then, with ``timed``, each kernel's
+    median time beside the library's, the bound and, with ``plain``, the
+    plain version's → {"fwd", "dkv", "dq"} and the library's backend; the
+    line printed under ``tag``."""
     import tst_torch.kernels.flash_attention as tfa
 
     b, s, h, kvh, d = shape
@@ -4563,37 +4822,46 @@ def k1_case(device, shape, seed, starts=None, samples=10, reps=5, plain=False, t
     q, do = (_randn(rng, (b, s, h, d), device) for _ in range(2))
     k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
     seg = None if starts is None else torch.from_numpy(starts).to(device)
-    kw = {} if seg is None else {"seg_starts": seg}
+    kw = {"causal": causal, **({} if seg is None else {"seg_starts": seg})}
+    before = _k1_counts(seg, causal)
     o, lse = tfa.flash_attention(q, k, v, **kw)
+    di = tfa.backward_row_stat(o, do)
+    got = tfa.flash_attention_backward(q, k, v, lse, di, do, **kw)
     torch.cuda.synchronize()
+    if _k1_counts(seg, causal) != tuple(n + 1 for n in before):
+        raise AssertionError(f"K1 at {shape} did not launch each kernel of its route once")
     _check_bitwise(lambda: tfa.flash_attention(q, k, v, **kw), (o, lse), "the forward kernel")
-    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, **kw)
-    o_err = (o.float() - o_ref.float()).abs().max().item()
-    lse_err = (lse - lse_ref).abs().max().item()
-    del o_ref, lse_ref
-    got = tfa.flash_attention_backward(q, k, v, o, lse, do, **kw)
-    torch.cuda.synchronize()
-    _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, o, lse, do, **kw), got)
-    want = tfa.flash_attention_backward_reference(q.float(), k.float(), v.float(), o.float(),
-                                                  lse, do.float(), **kw)
+    _check_bitwise(lambda: tfa.flash_attention_backward(q, k, v, lse, di, do, **kw), got)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    tfa.flash_attention(*leaves, **kw)[0].backward(do)
+    if not all(torch.equal(a.grad, g) for a, g in zip(leaves, got)):
+        raise AssertionError(f"K1 at {shape}: the autograd Function's gradients are not the "
+                             f"kernels'")
+    del leaves
+    plain_fwd, plain_bwd = _plain_k1(q, k, v, do, o, lse, causal, seg, plain_rows or b)
+    fwd, fwd_ok = forward_gate(o, lse, *plain_fwd())
+    want = plain_bwd()
     rel = [_rel_err(g, w) for g, w in zip(got, want)]
     abs_err = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
-    finite = bool(torch.isfinite(o).all()) and all(
-        bool(torch.isfinite(g).all()) and g.abs().max().item() > 0 for g in got)
-    del got, want
-    what = f"B={b} S={s} H={h} KVH={kvh} D={d}" + (
-        "" if seg is None else f", {int((starts < SEG_PAD).sum())} segment starts")
-    line = (f"{what}: max|o-ref| {o_err:.3e} (<= {O_TOL}), max|lse-ref| {lse_err:.3e} "
+    finite = all(bool(torch.isfinite(g).all()) and g.abs().max().item() > 0 for g in got)
+    del want
+    what = (f"B={b} S={s} H={h} KVH={kvh} D={d}" + ("" if causal else ", causal=False")
+            + ("" if seg is None else f", {int((starts < SEG_PAD).sum())} segment starts"))
+    line = (f"{what}: max|o-ref| {fwd['o_err']:.3e} (<= {O_TOL}; /max|ref| "
+            f"{fwd['o_rel']:.3e} <= {O_REL_TOL}), max|lse-ref| {fwd['lse_err']:.3e} "
             f"(<= {LSE_TOL}); max|d-ref|/max|ref| dq {rel[0]:.3e} dk {rel[1]:.3e} dv "
-            f"{rel[2]:.3e} (<= {GRAD_TOL}); bit-equal on a second call")
-    if not finite or o_err > O_TOL or lse_err > LSE_TOL or max(rel) > GRAD_TOL:
+            f"{rel[2]:.3e} (<= {GRAD_TOL}); bit-equal on a second call, launched once, the "
+            f"autograd Function's gradients the kernels'")
+    if not (finite and fwd_ok) or max(rel) > GRAD_TOL:
         raise AssertionError(f"K1 disagrees with its plain version at {shape}: {line}")
-    extra = () if seg is None else (tfa.kernel_seg_starts(seg, q),)
-    di = tfa.backward_row_stat(o, do)
+    if not timed:
+        print(f"[{tag}] K1 {line}")
+        return None
+    extra = [None if seg is None else tfa.kernel_seg_starts(seg, q), causal]
     lib = _sdpa_yardstick(q, k, v, do, o, None if seg is None else tfa.segment_mask(seg, s),
-                          samples, reps)
-    bounds = _attention_bounds(q, k, seg)
-    out = {"fwd": {"max_abs_err": o_err,
+                          samples, reps, causal)
+    bounds = _attention_bounds(q, k, seg, causal)
+    out = {"fwd": {"max_abs_err": fwd["o_err"],
                    "ms": median_ms(lambda: tfa._launch_fwd(q, k, v, *extra), samples, reps),
                    "library_ms": lib["fwd_ms"], **bounds["fwd"]},
            "dkv": {"max_abs_err": max(abs_err[1:]),
@@ -4604,17 +4872,16 @@ def k1_case(device, shape, seed, starts=None, samples=10, reps=5, plain=False, t
                   "ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di, *extra),
                                   samples, reps),
                   "library_ms": lib["bwd_ms"], **bounds["dq"]}}
+    out["fwd"]["max_rel_err"] = fwd["o_rel"]
     out["dkv"]["max_rel_err"], out["dq"]["max_rel_err"] = max(rel[1:]), rel[0]
     if plain:
-        out["fwd"]["plain_ms"] = median_ms(lambda: tfa.flash_attention_reference(q, k, v, **kw),
-                                           samples=5, reps=2)
-        out["dkv"]["plain_ms"] = out["dq"]["plain_ms"] = median_ms(
-            lambda: tfa.flash_attention_backward_reference(q, k, v, o, lse, do, **kw),
-            samples=5, reps=2)
+        out["fwd"]["plain_ms"] = median_ms(plain_fwd, samples=5, reps=2)
+        out["dkv"]["plain_ms"] = out["dq"]["plain_ms"] = median_ms(plain_bwd, samples=5, reps=2)
     print(f"[{tag}] K1 {line}; ms " + ", ".join(
         f"{key} {r['ms']:.4f} (bound {r['bound_ms']:.4f}, library {r['library_ms']:.4f}"
         + (f", plain {r['plain_ms']:.4f})" if plain else ")") for key, r in out.items())
-        + f" (library {lib['backend']}, {lib['gqa']})")
+        + f" (library {lib['backend']}, {lib['gqa']}; median of {samples} x {reps} calls"
+        + (f"; plain over {plain_rows} rows a call" if plain and plain_rows else "") + ")")
     out["library"] = f"{lib['backend']}, {lib['gqa']}"
     del q, k, v, do, o, lse, di
     torch.cuda.empty_cache()
@@ -5045,7 +5312,7 @@ def phase_widths(device):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["rank", "mlp-int4", "serve", "long", "llama8b",
-                                           "entry", "bench", "widths"],
+                                           "entry", "bench", "widths", "ring"],
                         default=None,
                         help="rank: the attention kernels against the library at the train "
                              "shape; mlp-int4: K3 and K4 against their plain versions, timed "
@@ -5053,12 +5320,17 @@ def main(argv=None):
                              "commit's); serve: phase 20 alone; long: phase 21 alone; "
                              "llama8b: the native packer and phase 22 alone; entry: phase 23 "
                              "alone; bench: phase 24 alone, at the bench's default steps; "
-                             "widths: phase 25 alone")
+                             "widths: phase 25 alone; ring: the SASS gate, phase 5b (the "
+                             "non-causal kernels) and phase 21 (the ring through K1)")
     args = parser.parse_args(argv)
     device = phase_device()
-    phase_build(sass=args.only is None)
+    nvcc_s = phase_build(sass=args.only in (None, "ring"))
     if args.only == "rank":
         phase_rank(device)
+        return
+    if args.only == "ring":
+        print(json.dumps({"full": phase_kernel_full(device), "long": phase_long(device)},
+                         default=float))
         return
     if args.only == "serve":
         phase_kernel_decode_attention(device)
@@ -5088,7 +5360,7 @@ def main(argv=None):
         print(json.dumps({"int4": phase_kernel_int4(device, strict=False),
                           "mlp": phase_kernel_mlp(device), "steps": phase_steps()}))
         return
-    walls = {}
+    walls = {"nvcc": round(nvcc_s, 1)}
 
     def run(name, fn, *a):
         _PHASE[0] = name
@@ -5103,6 +5375,7 @@ def main(argv=None):
     kern = run("kernel", phase_kernel, device)
     blind_launches, slice_probs, slice_report = run("slice", phase_slice)
     bwd = run("kernel-bwd", phase_kernel_bwd, device)
+    full = run("kernel-full", phase_kernel_full, device)
     counts = run("train", phase_train)
     run("train-vs-plain", phase_train_vs_plain)
     seg = run("kernel-seg", phase_kernel_seg, device)
@@ -5133,6 +5406,8 @@ def main(argv=None):
                        for key in ("fwd", "dkv", "dq", "int4", "dattn")}
     sft, times = llama["sft"], llama["times"]
     long_shape = {key: {"shape": long["shape"], **long[key]} for key in ("fwd", "dkv", "dq")}
+    ring_k1 = long["ring"]["K1"]["launches"]["full"]
+    ring_preset = long["ring"]["K1_preset_call"]["launches"]["full"]
     records = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "tst_torch/csrc/flash_attention_fwd.cu",
@@ -5212,10 +5487,23 @@ def main(argv=None):
          "launches_dryrun": ent["dryrun"]["launches"]["dattn"], "launches_bench": bench["dattn"],
          "launches_widths": launches_widths["dattn"], "widths_shapes": wk["dattn"], **dattn},
     ]
+    # the non-causal kernels: launches in phase 21's ring through K1 (the
+    # S=16384 check, and at the preset's call)
+    for key, name, line in (("fwd", "flash_attention_fwd_full", 121),
+                            ("dkv", "flash_attention_bwd_dkv_full", 570),
+                            ("dq", "flash_attention_bwd_dq_full", 536)):
+        records.append({"name": name, "route": "cuda",
+                        "source": ("tst_torch/csrc/flash_attention_fwd.cu" if key == "fwd" else
+                                   "tst_torch/csrc/flash_attention_bwd.cu"),
+                        "replaces": f"tst/kernels/flash_attention.py:{line} (causal=False)",
+                        "launches": ring_k1[key], "launches_ring_preset_call": ring_preset[key],
+                        "llama_shape": full["llama_shape"][key], **full["ring"][key]})
     print("[k1] ratio_to_library (kernel ms / library ms) and share_of_bound (bound ms / "
           "kernel ms) of each K1 kernel: " + json.dumps({
               "main": k1_summary(dict(zip(("fwd", "dkv", "dq"), records[:3]))),
               "segmented": k1_summary(dict(zip(("fwd", "dkv", "dq"), records[3:6]))),
+              "non_causal_ring_block": k1_summary(full["ring"]),
+              "non_causal_llama_shape": k1_summary(full["llama_shape"]),
               "llama_shape": k1_summary({key: r["llama_shape"]
                                          for key, r in zip(("fwd", "dkv", "dq"), records[:3])}),
               "long_shape": k1_summary(long_shape),

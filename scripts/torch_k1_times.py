@@ -72,9 +72,10 @@ def checks(cs, tfa, device, emit):
                 row["ok"] = bool(row["o_err"] <= cs.O_TOL and row["lse_err"] <= cs.LSE_TOL
                                  and row["bitwise"] and bool(torch.isfinite(o).all()))
             else:
-                got = tfa.flash_attention_backward(q, k, v, o, lse, do, seg_starts=seg)
+                di = tfa.backward_row_stat(o, do)
+                got = tfa.flash_attention_backward(q, k, v, lse, di, do, seg_starts=seg)
                 torch.cuda.synchronize()
-                again = tfa.flash_attention_backward(q, k, v, o, lse, do, seg_starts=seg)
+                again = tfa.flash_attention_backward(q, k, v, lse, di, do, seg_starts=seg)
                 want = tfa.flash_attention_backward_reference(
                     q.float(), k.float(), v.float(), o.float(), lse, do.float(), seg_starts=seg)
                 row.update(kernel="bwd", grad_rel_errs=[cs._rel_err(g, w) for g, w in zip(got, want)],

@@ -4,6 +4,7 @@ multi-card entry (``torchrun --nproc-per-node N -m tst_torch``).
 
     python3 scripts/torch_mesh_cards.py [--ranks 4] [--platform gpu|cpu] [--out DIR]
         [--precision f32|bf16|both] [--quantize none|int4]
+    python3 scripts/torch_mesh_cards.py --long [--ranks 4] [--platform gpu|cpu] [--out DIR]
 
 Runs ``synthetic-vsi:0.4`` (MCQ rows and numeric rows decoded with each
 fold's adapter) at Qwen2.5-0.5B's width (``--platform cpu``: the tiny spec,
@@ -19,6 +20,21 @@ widths, tensor=2 gives each rank 448 of o's 896 input rows, 3.5 int4 groups:
 padded shards, and numeric rows decoded through the int4 kernel under
 NCCL). Prints one JSON line a run and one for all; exits non-zero when a
 run fails or disagrees.
+
+``--long``: the long preset (``sft-videomme-long``: k=5, batch 2 a fold,
+16,384 tokens, remat) with the sequence on the ring over ``--ranks`` cards,
+``mesh.seq`` = ranks, on chip_smoke.py phase 21's synthetic long rows (6
+rows of ~16,000 bytes; ``--platform cpu``: the tiny spec at 512 tokens,
+gloo). First the multi-card entry, ``torchrun --nproc-per-node N -m
+tst_torch diagnose-sft --preset sft-videomme-long --set mesh.seq=N ...``
+(rc, wall, report); then, under torchrun too, this script's ring ranks on the
+same state: K1's launches in one kernel-route step on each rank (causal and
+non-causal, against what the rank's position on the ring implies,
+chip_smoke.ring_launches_want, twice for the forward under remat), the step
+gates of the kernel route against ``model.use_pallas=false`` (chip_smoke's
+rule: per-fold losses within 1e-3, LoRA gradient cosine >= 0.999, over the
+run's batches), and the step's ms (every step of one epoch, the median after
+the first).
 """
 
 import argparse
@@ -84,6 +100,141 @@ def meshes(ranks: int, spec) -> list:
                                       or spec.d_ff % m[3])]
 
 
+def _long_argv(rows, platform, seq):
+    """The long preset on ``rows`` with the sequence over ``seq`` ranks."""
+    argv = ["diagnose-sft", "--preset", "sft-videomme-long", "--bench", rows,
+            "--platform", platform, "--set", "model.tokenizer=byte",
+            "--set", "model.remat=true", "--set", "optim.epochs=1",
+            "--set", "rf.cross_check=false", "--set", f"mesh.seq={seq}",
+            "--set", "mesh.data=1", "--set", "mesh.tensor=1"]
+    if platform == "cpu":  # a rehearsal: the tiny spec in f32 at 512 tokens
+        argv += ["--set", "model.name=tiny", "--set", "model.dtype=float32",
+                 "--set", "data.max_len=512"]
+    return argv
+
+
+def long_rank(rows, platform, out):
+    """One rank of the ring's checks (under torchrun): the state of the
+    long preset's run, then K1's launches in one kernel-route step, the step
+    gates against the plain route, and the timed steps; rank 0 writes the
+    ranks' readings to ``out`` as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from tst_torch import cli
+    from tst_torch.runtime import mesh as mesh_mod
+    from tst_torch.train.pipeline import _build_sft_state
+    from tst_torch.train.sft import FoldTrainer
+
+    mesh_mod.init_distributed()
+    world = dist.get_world_size()
+    cfg, device = cli._resolve(cli.build_parser().parse_args(_long_argv(rows, platform, world)))
+    st = _build_sft_state(cli._load_dataset(cfg), cfg, device)
+    idx = st.mesh.index("seq")
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def make(use_pallas):
+        return FoldTrainer(st.spec, st.lspec, st.trainer.k, lr=cfg.optim.lr,
+                           total_steps=st.batches.shape[0], use_pallas=use_pallas,
+                           remat=st.trainer.remat, mesh=st.mesh, t_max=st.t_max, ring=True)
+
+    arrays = (st.tokens, st.loss_mask, st.answer_pos)
+    lora = cs.gate_adapters(make(True), device)
+    cs._zero_launch_counts()
+    make(True).batch_loss_and_grads(st.params, lora, *arrays, st.batches[0])
+    sync()
+    counts = cs._launch_counts()
+    launches = {"causal": {key: counts[key] for key in ("fwd", "dkv", "dq")},
+                "full": cs._full_launch_counts()}
+    per = cs.ring_launches_want(world, [idx])
+    layers = st.spec.n_layers
+    on_card = device.type == "cuda"  # the CPU runs K1's plain versions: no launch
+    want = {kind: {"fwd": 2 * layers * n * on_card, "dkv": layers * n * on_card,
+                   "dq": layers * n * on_card}
+            for kind, n in per.items()}  # remat: the forward again in the backward
+    got = [cs.mean_loss_and_grads(make(up), st.params, lora, arrays, st.batches)
+           for up in (True, False)]
+    sync()
+    line, ok = cs._step_gates(*got)
+    trainer = make(True)
+    lora_t, opt = st.lora, st.opt_state
+    step_ms = []
+    for idx_kb in st.batches:
+        sync()
+        t0 = time.perf_counter()
+        lora_t, opt, _ = trainer.step(st.params, lora_t, opt, *arrays, idx_kb)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    row = {"rank": dist.get_rank(), "seq_index": idx, "launches": launches,
+           "launches_want": want, "launches_ok": launches == want, "gate": line,
+           "gate_ok": bool(ok), "step_ms": step_ms}
+    rows_all = [None] * world
+    dist.all_gather_object(rows_all, row)
+    if dist.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump({"ranks": rows_all, "n_batches": int(st.batches.shape[0]),
+                       "batch_rows": int(st.batches.shape[1] * st.batches.shape[2])
+                       if st.batches.ndim == 3 else None}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_long(args):
+    """``--long``: the multi-card entry on the long preset, then the ring
+    ranks' checks (long_rank) → exit code."""
+    import chip_smoke as cs
+    from tst_torch.runtime.mesh import free_port
+
+    os.makedirs(args.out, exist_ok=True)
+    rows = os.path.join(args.out, "long.jsonl")
+    if args.platform == "gpu":
+        cs.long_rows(rows)
+        from tst_torch.kernels import _build
+
+        _build.build()  # once, before the ranks load it
+    else:
+        cs.long_rows(rows, nbytes=400)
+    rc, wall, report, sx, log = _run(_long_argv(rows, args.platform, args.ranks),
+                                     os.path.join(args.out, "long_cli"), args.ranks,
+                                     args.timeout)
+    cli_row = {"run": f"long seq={args.ranks} (torchrun -m tst_torch)", "rc": rc,
+               "wall_s": round(wall, 2)}
+    if rc == 0:
+        cli_row.update(final_loss=report["final_loss"], train_steps=report["train_steps"],
+                       train_samples_per_sec=report["train_samples_per_sec"],
+                       train_wall_s=report["train_wall_seconds"],
+                       sx_finite=all(math.isfinite(x) for x in sx))
+    else:
+        cli_row["log"] = log
+    print(json.dumps(cli_row), flush=True)
+    gate_out = os.path.join(args.out, "long_ring_ranks.json")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(args.ranks),
+           "--master-addr", "127.0.0.1", "--master-port", str(free_port()),
+           os.path.abspath(__file__), "--long-rank", "--rows", rows, "--platform",
+           args.platform, "--out", gate_out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=args.timeout,
+                          env=env)
+    ranks_row = {"run": f"long seq={args.ranks} ring ranks (gates, launches, step ms)",
+                 "rc": proc.returncode, "wall_s": round(time.perf_counter() - t0, 2)}
+    if proc.returncode == 0:
+        with open(gate_out) as f:
+            ranks_row.update(json.load(f))
+        medians = [float(np.median(r["step_ms"][1:] or r["step_ms"]))
+                   for r in ranks_row["ranks"]]
+        ranks_row["step_ms_median"] = max(medians)
+    else:
+        ranks_row["log"] = (proc.stdout + proc.stderr)[-4000:]
+    print(json.dumps(ranks_row), flush=True)
+    ok = (rc == 0 and cli_row["sx_finite"] and proc.returncode == 0
+          and all(r["launches_ok"] and r["gate_ok"] for r in ranks_row["ranks"]))
+    print(json.dumps({"long_ring": [cli_row, ranks_row], "ok": ok}))
+    return 0 if ok else 1
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ranks", type=int, default=4)
@@ -92,7 +243,16 @@ def main(argv=None):
     parser.add_argument("--timeout", type=float, default=600)
     parser.add_argument("--precision", choices=["f32", "bf16", "both"], default="both")
     parser.add_argument("--quantize", choices=["none", "int4"], default="none")
+    parser.add_argument("--long", action="store_true",
+                        help="the long preset with the sequence on the ring over --ranks")
+    parser.add_argument("--long-rank", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--rows", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.long_rank:
+        long_rank(args.rows, args.platform, args.out)
+        return
+    if args.long:
+        sys.exit(run_long(args))
     from tst_torch.models.spec import spec_by_name
 
     name = "qwen2.5-0.5b" if args.platform == "gpu" else "tiny"

@@ -30,21 +30,23 @@ def run_ranks(fn, world: int, *args, deadline_s: float = 240.0):
 # rank functions
 
 
-def ring_rank(rank, world, cases):
+def ring_rank(rank, world, cases, use_pallas=False):
     """Ring attention of this rank's sequence block over a seq mesh of
-    ``world``, for each case (q, k, v, do): [o block, dq block, dk block, dv
-    block] a case."""
+    ``world``, for each case (q, k, v, do[, causal]; causal by default),
+    through K1 with ``use_pallas`` (its plain versions here): [o block, dq
+    block, dk block, dv block] a case."""
     from tst_torch.kernels.ring_attention import ring_attention
     from tst_torch.runtime import mesh as tmesh
 
     mesh = tmesh.make_mesh(seq=world)
     out = []
-    for q, k, v, do in cases:
+    for q, k, v, do, *causal in cases:
         s = q.shape[1] // world
         blk = slice(rank * s, (rank + 1) * s)
         qb, kb, vb = (torch.from_numpy(np.ascontiguousarray(a[:, blk])).requires_grad_(True)
                       for a in (q, k, v))
-        o = ring_attention(qb, kb, vb, mesh, seq_axis="seq", chunk=16)
+        o = ring_attention(qb, kb, vb, mesh, seq_axis="seq", chunk=16,
+                           causal=causal[0] if causal else True, use_pallas=use_pallas)
         grads = torch.autograd.grad(o, (qb, kb, vb),
                                     torch.from_numpy(np.ascontiguousarray(do[:, blk])))
         out.append([o.detach().numpy()] + [g.numpy() for g in grads])

@@ -27,23 +27,32 @@ _NS = "_ZN12_GLOBAL__N_1"
 _ARGS = "EEvPK13__nv_bfloat16S3_S3_PKiPS1_Pfiiif"
 
 
-def _mangled(kind, d, seg, tiled=False):
-    """A kernel's mangled name; seg None: a kernel templated on D alone."""
+def _mangled(kind, d, seg, tiled=False, causal=True):
+    """A kernel's mangled name as the build names it: kSeg's flag unless seg
+    is None (the persistent dK/dV kernel has none), then kCausal's (the
+    64-row forward, causal only, has none); causal None: a name without it,
+    as the kernels were named before they took kCausal."""
     name = {"fwd": "flash_fwd_kernel", "dkv": "flash_bwd_dkv_kernel",
             "dq": "flash_bwd_dq_kernel"}[kind]
     if tiled:
         name = name.replace("_kernel", "_tiled_kernel")
     flag = "" if seg is None else f"Lb{int(seg)}E"
+    if causal is not None and not (kind == "fwd" and tiled):
+        flag += f"Lb{int(causal)}E"
     return f"{_NS}{len(name)}{name}ILi{d}E{flag}{_ARGS}"
 
 
-#: (kind, D, seg, tiled) of each attention kernel the C entries launch: the
-#: 64-row forward for packed rows at D=64, the 64-key dK/dV for packed rows
-#: and at D=128, the persistent kernels (dK/dV at D=64 alone) and dQ elsewhere
+#: (kind, D, seg, tiled[, causal]) of each attention kernel the C entries
+#: launch: the 64-row forward for packed rows at D=64, the 64-key dK/dV for
+#: packed rows and at D=128, the persistent kernels (dK/dV at D=64 alone) and
+#: dQ elsewhere; and the non-causal instantiations of the unsegmented ones
 ATTENTION = [("fwd", 64, False, False), ("fwd", 128, False, False), ("fwd", 64, True, True),
              ("fwd", 128, True, False), ("dkv", 64, None, False), ("dkv", 128, False, True),
              ("dkv", 64, True, True), ("dkv", 128, True, True)]
 ATTENTION += [("dq", d, seg, False) for d in (64, 128) for seg in (False, True)]
+ATTENTION += [("fwd", 64, False, False, False), ("fwd", 128, False, False, False),
+              ("dkv", 64, None, False, False), ("dkv", 128, False, True, False),
+              ("dq", 64, False, False, False), ("dq", 128, False, False, False)]
 #: K4's kernels as the SASS listing names them
 K4 = {"swiglu_gate_up_kernel": f"{_NS}21swiglu_gate_up_kernelEPK13__nv_bfloat16S2_S2_PS0_iii",
       "swiglu_down_kernel": f"{_NS}18swiglu_down_kernelEPK13__nv_bfloat16S2_PS0_iii"}
@@ -73,9 +82,12 @@ def _sass(kernels, hgmma=3, k4=tuple(K4), k4_hgmma=2):
 
 
 def test_hgmma_counts_name_all_twelve_attention_kernels():
+    """The twelve causal attention kernels and, since the non-causal branch,
+    their six non-causal instantiations: eighteen, and the two K4 kernels."""
     counts = chip_smoke.hgmma_counts(_sass(ATTENTION))
-    assert len(counts) == chip_smoke.N_ATTENTION_KERNELS + len(chip_smoke.K4_KERNELS) == 14
+    assert len(counts) == chip_smoke.N_ATTENTION_KERNELS + len(chip_smoke.K4_KERNELS) == 20
     assert counts["fwd<D=64>"] == counts["fwd<D=128, seg>"] == counts["dq<D=64, seg>"] == 3
+    assert counts["fwd<D=64, full>"] == counts["dkv_tiled<D=128, full>"] == 3
     assert counts["swiglu_gate_up_kernel"] == counts["swiglu_down_kernel"] == 2
     assert set(counts) == ({chip_smoke.kernel_name(_mangled(*k)) for k in ATTENTION}
                            | set(chip_smoke.K4_KERNELS))
@@ -85,6 +97,21 @@ def test_hgmma_counts_name_all_twelve_attention_kernels():
 def test_the_listing_names_the_kernels_the_gate_wants():
     assert ({chip_smoke.kernel_name(_mangled(*k)) for k in ATTENTION}
             == chip_smoke.ATTENTION_KERNELS)
+
+
+@pytest.mark.parametrize("kernel,name", [
+    (("fwd", 64, False, False, None), "fwd<D=64>"),
+    (("fwd", 128, True, False, None), "fwd<D=128, seg>"),
+    (("dkv", 64, None, False, None), "dkv<D=64>"),
+    (("dkv", 64, None, False, True), "dkv<D=64>"),
+    (("dkv", 64, None, False, False), "dkv<D=64, full>"),
+    (("dkv", 128, False, True, False), "dkv_tiled<D=128, full>"),
+    (("fwd", 64, True, True, None), "fwd_tiled<D=64, seg>"),
+])
+def test_kernel_names_read_the_causal_flag(kernel, name):
+    """kCausal false reads ``full``; the persistent dK/dV kernel's one flag
+    is kCausal (it has no kSeg); a name without the flag is causal."""
+    assert chip_smoke.kernel_name(_mangled(*kernel)) == name
 
 
 @pytest.mark.parametrize("case", ["tiled without wgmma", "an unlaunched persistent kernel",
@@ -998,3 +1025,108 @@ def test_recorded_ibp_round_is_scored_again_as_it_was(tmp_path):
         assert spearman(s32, s) > 0.9
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ring_launch_arithmetic(n):
+    """One pass of the ring's K1 route: in one process over n blocks, n
+    causal (the diagonals) and n(n-1)/2 non-causal (the past blocks)
+    launches; on a mesh rank idx one causal and idx non-causal; without
+    causal n non-causal a Q block."""
+    assert chip_smoke.ring_launches_want(n) == {"causal": n, "full": n * (n - 1) // 2}
+    for idx in range(n):
+        assert chip_smoke.ring_launches_want(n, [idx]) == {"causal": 1, "full": idx}
+    assert sum(chip_smoke.ring_launches_want(n, [i])["full"] for i in range(n)) == (
+        chip_smoke.ring_launches_want(n)["full"])
+    assert chip_smoke.ring_launches_want(n, causal=False) == {"causal": 0, "full": n * n}
+    assert chip_smoke.ring_launches_want(n, [1], causal=False) == {"causal": 0, "full": n}
+
+
+def test_ring_launch_gate_counts_each_kernel():
+    want = chip_smoke.ring_launches_want(4)
+    good = {"causal": {"fwd": 4, "dkv": 4, "dq": 4}, "full": {"fwd": 6, "dkv": 6, "dq": 6}}
+    chip_smoke.check_ring_launches(good, 4, True, 0)
+    assert want == {"causal": 4, "full": 6}
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke.check_ring_launches({**good, "full": {"fwd": 10, "dkv": 6, "dq": 6}}, 4,
+                                       True, 0)
+    with pytest.raises(AssertionError, match="plain partials"):
+        chip_smoke.check_ring_launches(good, 4, True, 3)
+    none = {kind: {"fwd": 0, "dkv": 0, "dq": 0} for kind in ("causal", "full")}
+    chip_smoke.check_ring_launches(none, 4, False, 24)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_ring_launches(good, 4, False, 24)
+
+
+@pytest.mark.parametrize("shape,ms", [((10, 4096, 14, 2, 64), (0.608, 1.216, 0.912)),
+                                      ((1, 4096, 32, 8, 128), (0.278, 0.556, 0.417))])
+def test_non_causal_bounds_count_every_pair(shape, ms):
+    """Without the causal mask every (query, key) pair is counted: 4·B·H·S²·D
+    operations forward (twice the causal count at large S), 8 and 6 times
+    for dK/dV and dQ, over 989 TFLOP/s: operations bind."""
+    b, s, h, kvh, d = shape
+    q = torch.empty(b, s, h, d, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(b, s, kvh, d, dtype=torch.bfloat16, device="meta")
+    full = chip_smoke._attention_bounds(q, k, causal=False)
+    causal = chip_smoke._attention_bounds(q, k)
+    for key, want in zip(("fwd", "dkv", "dq"), ms):
+        assert full[key]["bound_by"] == "operations"
+        assert full[key]["bound_ms"] == pytest.approx(want, rel=2e-3)
+        assert full[key]["bound_ms"] == pytest.approx(
+            2 * causal[key]["bound_ms"] * s / (s + 1), rel=1e-9)
+    assert full["fwd"]["bound_ms"] == pytest.approx(4 * b * h * s * s * d / 989e12 * 1e3)
+
+
+def test_forward_gate_sees_a_scaled_o_at_the_ring_block():
+    """Phase 5b's forward gate at the ring's block (q [10, 4096, 14, 64],
+    inputs as _randn draws them; here one batch row and its first 512
+    queries, which see the same 4096 keys): a non-causal row averages 4096
+    values, so max|o| is ~0.03 and O_TOL alone passes o·0.8; the gate's
+    relative part refuses it, and passes o rounded to bf16 as the kernel
+    writes it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rng = np.random.default_rng(0)
+        q = chip_smoke._randn(rng, (1, 512, 14, 64), "cpu")
+        k, v = (chip_smoke._randn(rng, (1, 4096, 2, 64), "cpu") for _ in range(2))
+        s = torch.einsum("bqkgd,bskd->bkgqs", q.float().reshape(1, 512, 2, 7, 64),
+                         k.float()) / math.sqrt(64)
+        lse = torch.logsumexp(s, -1).reshape(1, 14, 512)
+        o = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, -1), v.float()).reshape(
+            1, 512, 14, 64)
+    finally:
+        torch.set_num_threads(threads)
+    got, ok = chip_smoke.forward_gate(o.bfloat16(), lse, o, lse)
+    assert ok and got["o_rel"] < chip_smoke.O_REL_TOL / 4
+    got, ok = chip_smoke.forward_gate(o * 0.8, lse, o, lse)
+    assert got["o_err"] < chip_smoke.O_TOL and got["lse_err"] == 0.0
+    assert not ok and got["o_rel"] == pytest.approx(0.2, rel=1e-4)
+    _, ok = chip_smoke.forward_gate(o.masked_fill(o > 0.02, float("nan")), lse, o, lse)
+    assert not ok
+
+
+def test_ring_gate_sees_late_rows_scaled():
+    """The ring's gate (phase 21c): a causal output whose rows past the
+    first block are 0.8 of the reference differs from it by less than
+    O_TOL there (those rows average thousands of keys), and is refused by
+    the output's cosine; the reference itself passes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rng = np.random.default_rng(1)
+        n = 4096
+        q, k, v = (chip_smoke._randn(rng, (1, n, 1, 64), "cpu") for _ in range(3))
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(64)
+        s = s.masked_fill(~torch.ones(n, n, dtype=torch.bool).tril(), float("-inf"))
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.float())
+    finally:
+        torch.set_num_threads(threads)
+    grads = [q.float(), k.float(), v.float()]
+    read = chip_smoke.ring_gate(o, grads, o, grads, "the reference")
+    assert read["o_cosine"] == pytest.approx(1.0, abs=1e-4)  # f32 sums
+    bad = o.clone()
+    bad[:, n // 4:] *= 0.8
+    assert (bad - o).abs().max().item() < chip_smoke.O_TOL
+    with pytest.raises(AssertionError, match="the ring disagrees"):
+        chip_smoke.ring_gate(bad, grads, o, grads, "late rows scaled")

@@ -56,6 +56,43 @@ def test_reference_matches_jax(jax_fa, s, d):
     np.testing.assert_allclose(lse.numpy(), lse_ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("d", [64, 128])
+def test_non_causal_reference_matches_jax(jax_fa, s, d):
+    """causal=False, f32, GQA 8:2 at both kernel head dims: o against the
+    JAX package's Pallas kernel (interpret mode) and ``mha_reference`` at
+    atol 2e-5, lse against jax.nn.logsumexp of the unmasked logits at atol
+    1e-5, as the causal case."""
+    import jax
+    import jax.numpy as jnp
+
+    q, k, v = _qkv(2, s, 8, 2, d, seed=s + d)
+    o, lse = tfa.flash_attention_reference(*map(torch.from_numpy, (q, k, v)), causal=False)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    o_pallas = np.asarray(jax_fa.flash_attention(jq, jk, jv, causal=False))
+    o_dense = np.asarray(jax_fa.mha_reference(jq, jk, jv, causal=False))
+    np.testing.assert_allclose(o.numpy(), o_pallas, atol=2e-5)
+    np.testing.assert_allclose(o.numpy(), o_dense, atol=2e-5)
+    logits = jnp.einsum("bqkgd,bskd->bkgqs", jq.reshape(2, s, 2, 4, d), jk) / np.sqrt(d)
+    lse_ref = np.asarray(jax.nn.logsumexp(logits, axis=-1)).reshape(2, 8, s)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=1e-5)
+
+
+def test_non_causal_cpu_wrapper_takes_plain_version_without_launch():
+    """causal=False on CPU tensors: the plain version through the operator,
+    no launch of any kernel; every key visible (the last query's o differs
+    from the causal one only through the keys after it)."""
+    q, k, v = map(torch.from_numpy, _qkv(1, 128, 4, 2, 64, seed=5))
+    before = (tfa.LAUNCHES, tfa.LAUNCHES_FULL)
+    o, lse = tfa.flash_attention(q, k, v, causal=False)
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal=False)
+    assert (tfa.LAUNCHES, tfa.LAUNCHES_FULL) == before
+    assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+    o_causal, _ = tfa.flash_attention(q, k, v)
+    assert torch.allclose(o[:, -1], o_causal[:, -1], atol=1e-6)
+    assert not torch.allclose(o[:, 0], o_causal[:, 0], atol=1e-3)
+
+
 def test_cpu_wrapper_takes_plain_version_without_launch():
     q, k, v = map(torch.from_numpy, _qkv(1, 128, 4, 2, 64))
     before = tfa.LAUNCHES
@@ -70,14 +107,26 @@ def test_cpu_wrapper_takes_plain_version_without_launch():
     ((1, 128, 4, 2, 32), torch.bfloat16, True, "head dim"),
     ((1, 128, 6, 4, 64), torch.bfloat16, True, "not a multiple"),
     ((1, 128, 4, 2, 64), torch.float32, True, "bfloat16"),
-    ((1, 128, 4, 2, 64), torch.bfloat16, False, "causal"),
+    ((1, 128, 4, 2, 64), torch.bfloat16, False, "needs causal=True"),
 ])
 def test_kernel_argument_checks(shape, dtype, causal, msg):
+    """What the CUDA wrapper checks before a launch, in its order: the
+    operands, then packed rows' starts, which need causal=True (the
+    reference's rule, tst/kernels/flash_attention.py:1257)."""
     b, s, h, kvh, d = shape
     q = torch.zeros(b, s, h, d, dtype=dtype)
     kv = torch.zeros(b, s, kvh, d, dtype=dtype)
     with pytest.raises(ValueError, match=msg):
         tfa.check_kernel_args(q, kv, kv, causal=causal)
+        tfa.kernel_seg_starts(torch.zeros(b, 1, dtype=torch.int32), q, causal)
+
+
+def test_kernel_args_take_causal_false():
+    """The non-causal kernels take what the causal ones take."""
+    q = torch.zeros(1, 128, 4, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)
+    tfa.check_kernel_args(q, kv, kv, causal=False)
+    assert tfa.kernel_seg_starts(None, q, causal=False) is None
 
 
 def test_nvcc_command_targets_sm90a(tmp_path):
@@ -128,3 +177,35 @@ def test_kernel_matches_reference_on_card():
     bad = torch.zeros(1, 100, 2, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         tfa.flash_attention(bad, bad, bad)
+
+
+#: the non-causal kernels' shapes: a 128-token case, one tile (S=64) at both
+#: head dims, S=576 at both (a last 128-key tile past S), the ring's block at
+#: the long preset's heads (4 blocks of 4096) and at Llama-3-8B's
+FULL_CARD_SHAPES = [(4, 128, 14, 2, 64), (3, 64, 14, 2, 64), (2, 64, 8, 2, 128),
+                    (2, 576, 14, 2, 64), (2, 576, 8, 2, 128), (2, 4096, 14, 2, 64),
+                    (1, 4096, 32, 8, 128)]
+
+
+@pytest.mark.cuda
+def test_non_causal_kernel_matches_reference_on_card():
+    """causal=False in bf16 on the card, at the causal kernel's tolerances
+    (o 2e-2, lse 1e-3), one launch of the non-causal forward a call and a
+    bit-equal second call; seg_starts with causal=False raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for b, s, h, kvh, d in FULL_CARD_SHAPES:
+        q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                   for a in _qkv(b, s, h, kvh, d, seed=s + 1, scale=0.5))
+        before = (tfa.LAUNCHES, tfa.LAUNCHES_FULL)
+        o, lse = tfa.flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        assert (tfa.LAUNCHES, tfa.LAUNCHES_FULL) == (before[0], before[1] + 1)
+        o2, lse2 = tfa.flash_attention(q, k, v, causal=False)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal=False)
+        assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+        assert (lse - lse_ref).abs().max().item() <= 1e-3
+    seg = torch.zeros(b, 1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="causal=True"):
+        tfa.flash_attention(q, k, v, causal=False, seg_starts=seg)

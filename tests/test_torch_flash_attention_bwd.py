@@ -81,6 +81,53 @@ def test_backward_reference_matches_jax(monkeypatch, s):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
 
 
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("d", [64, 128])
+def test_non_causal_backward_reference_matches_jax(monkeypatch, s, d):
+    """causal=False, f32, GQA 4:2 at both kernel head dims: the plain
+    backward against jax.grad of the JAX package's flash attention with
+    causal=False (its Pallas kernels in interpret mode), atol 1e-4; and
+    through the autograd Function on CPU tensors, the same gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    import tst.kernels.flash_attention as fa
+
+    monkeypatch.setattr(fa, "_INTERPRET", True)
+    q, k, v, do = _inputs(1, s, 4, 2, d, seed=s + d + 2)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(fa.flash_attention(q_, k_, v_, causal=False) * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = tfa.flash_attention_reference(tq, tk, tv, causal=False)
+    got = tfa.flash_attention_backward_reference(tq, tk, tv, o, lse, tdo, causal=False)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    tfa.flash_attention(*leaves, causal=False)[0].backward(tdo)
+    for leaf, g in zip(leaves, got):
+        assert torch.equal(leaf.grad, g)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_from_row_stats_is_the_reference(causal):
+    """The plain backward from explicit lse and di (what the kernels and the
+    ring take) is the plain backward of o, bit for bit, when di = Σ o·do of
+    that o."""
+    q, k, v, do = map(torch.from_numpy, _inputs(2, 128, 4, 2, 64, seed=7))
+    o, lse = tfa.flash_attention_reference(q, k, v, causal=causal)
+    di = tfa.backward_row_stat(o, do)
+    want = tfa.flash_attention_backward_reference(q, k, v, o, lse, do, causal)
+    got = tfa.attention_backward_reference(q, k, v, lse, di, do, causal)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the statistics are used as given: another di moves dq and dk, not dv
+    other = tfa.attention_backward_reference(q, k, v, lse, di + 0.5, do, causal)
+    assert not torch.allclose(other[0], want[0]) and torch.equal(other[2], want[2])
+
+
 def test_cpu_function_backward_is_the_plain_backward():
     """On CPU tensors the Function's backward is the plain backward, and no
     kernel is launched."""
@@ -100,21 +147,24 @@ def test_backward_wrapper_takes_no_cpu_tensors():
     q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _inputs(1, 128, 4, 2, 64))
     lse = torch.zeros(1, 4, 128)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tfa.flash_attention_backward(q, k, v, q, lse, do)
+        tfa.flash_attention_backward(q, k, v, lse, lse, do)
 
 
 @pytest.mark.parametrize("change,msg", [
     ({"lse": torch.zeros(1, 4, 64)}, "lse"),
     ({"lse": torch.zeros(1, 4, 128, dtype=torch.float64)}, "float32"),
     ({"do": torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)}, "do"),
-    ({"o": torch.zeros(1, 128, 4, 64)}, "bfloat16"),
+    ({"do": torch.zeros(1, 128, 4, 64)}, "bfloat16"),
+    ({"di": torch.zeros(1, 4, 64)}, "di"),
+    ({"di": torch.zeros(1, 4, 128, dtype=torch.bfloat16)}, "float32"),
+    ({"causal": False, "lse": torch.zeros(1, 4, 64)}, "lse"),
 ])
 def test_backward_argument_checks(change, msg):
     args = {"q": torch.zeros(1, 128, 4, 64, dtype=torch.bfloat16),
             "k": torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16),
             "v": torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16),
-            "o": torch.zeros(1, 128, 4, 64, dtype=torch.bfloat16),
             "lse": torch.zeros(1, 4, 128),
+            "di": torch.zeros(1, 4, 128),
             "do": torch.zeros(1, 128, 4, 64, dtype=torch.bfloat16)}
     args.update(change)
     with pytest.raises(ValueError, match=msg):
@@ -145,7 +195,7 @@ def test_backward_kernels_match_reference_on_card():
         q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
                        for a in _inputs(b, s, h, kvh, d, seed=s))
         o, lse = tfa.flash_attention(q, k, v)
-        got = tfa.flash_attention_backward(q, k, v, o, lse, do)
+        got = tfa.flash_attention_backward(q, k, v, lse, tfa.backward_row_stat(o, do), do)
         want = tfa.flash_attention_backward_reference(
             q.float(), k.float(), v.float(), o.float(), lse, do.float())
         for g, w in zip(got, want):
@@ -165,5 +215,42 @@ def test_backward_kernels_match_reference_on_card():
                 2e-2 * p.grad.float().abs().max().item())
     bad = torch.zeros(1, 100, 2, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        tfa.flash_attention_backward(bad, bad, bad, bad, torch.zeros(1, 2, 100, device="cuda"),
-                                     bad)
+        stat = torch.zeros(1, 2, 100, device="cuda")
+        tfa.flash_attention_backward(bad, bad, bad, stat, stat, bad)
+
+
+#: the non-causal kernels at the train step's call, Llama-3-8B heads, a
+#: 128-token case, S=576 at both head dims, the ring's block at the long
+#: preset's heads (4 blocks of 4096)
+FULL_CARD_SHAPES = [(32, 512, 14, 2, 64), (2, 2048, 32, 8, 128), (4, 128, 14, 2, 64),
+                    (2, 576, 14, 2, 64), (2, 576, 28, 4, 128), (2, 4096, 14, 2, 64)]
+
+
+@pytest.mark.cuda
+def test_non_causal_backward_kernels_match_reference_on_card():
+    """causal=False in bf16 on the card, at the causal kernels' rule (each
+    of dq, dk, dv within 2e-2·max|ref| of the f32 plain backward); the
+    Function's backward launches each non-causal kernel once and gives the
+    kernels' gradients; a second call bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for b, s, h, kvh, d in FULL_CARD_SHAPES:
+        q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                       for a in _inputs(b, s, h, kvh, d, seed=s + 3))
+        o, lse = tfa.flash_attention(q, k, v, causal=False)
+        di = tfa.backward_row_stat(o, do)
+        got = tfa.flash_attention_backward(q, k, v, lse, di, do, causal=False)
+        again = tfa.flash_attention_backward(q, k, v, lse, di, do, causal=False)
+        want = tfa.flash_attention_backward_reference(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(), False)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a) and g.abs().max().item() > 0
+            assert (g.float() - w).abs().max().item() <= 2e-2 * w.abs().max().item()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = (tfa.LAUNCHES_FULL_BWD_DKV, tfa.LAUNCHES_FULL_BWD_DQ)
+        tfa.flash_attention(*leaves, causal=False)[0].backward(do)
+        torch.cuda.synchronize()
+        assert (tfa.LAUNCHES_FULL_BWD_DKV, tfa.LAUNCHES_FULL_BWD_DQ) == (before[0] + 1,
+                                                                       before[1] + 1)
+        for leaf, g in zip(leaves, got):
+            assert torch.equal(leaf.grad, g)

@@ -30,7 +30,7 @@ def _args(s, h=4, kvh=2, d=64):
 def test_forward_and_backward_checks_take_any_multiple_of_64(s, d):
     q, kv = _args(s, d=d)
     tfa.check_kernel_args(q, kv, kv, causal=True)
-    tfa.check_backward_args(q, kv, kv, q, torch.zeros(2, 4, s), q)
+    tfa.check_backward_args(q, kv, kv, torch.zeros(2, 4, s), torch.zeros(2, 4, s), q)
 
 
 @pytest.mark.parametrize("s", [100, 96, 600])
@@ -39,7 +39,7 @@ def test_forward_and_backward_checks_refuse_other_lengths(s):
     with pytest.raises(ValueError, match="multiple of 64"):
         tfa.check_kernel_args(q, kv, kv, causal=True)
     with pytest.raises(ValueError, match="multiple of 64"):
-        tfa.check_backward_args(q, kv, kv, q, torch.zeros(2, 4, s), q)
+        tfa.check_backward_args(q, kv, kv, torch.zeros(2, 4, s), torch.zeros(2, 4, s), q)
 
 
 @pytest.mark.parametrize("shape,want", [

@@ -1,6 +1,7 @@
-// Causal GQA flash-attention backward for Hopper (sm_90a): two kernels, one
-// for dK/dV and one for dQ, bf16 in and out, f32 accumulation; plain, or
-// segment-masked for packed rows. Every product is a warpgroup wgmma.
+// GQA flash-attention backward for Hopper (sm_90a): two kernels, one for
+// dK/dV and one for dQ, bf16 in and out, f32 accumulation; causal, causal
+// and segment-masked for packed rows, or non-causal (every key visible: the
+// ring's past blocks). Every product is a warpgroup wgmma.
 //
 // Replaces the TPU backward kernels of tst/kernels/flash_attention.py:
 //   _bwd_fused_nolse_kernel (:590, via _flash_bwd_fused :836), the fused
@@ -9,7 +10,8 @@
 //     _flash_bwd :934, the one-shot forms from the saved lse;
 //   _bwd_dq_kernel (:732, via _flash_bwd) and _bwd_dkv_kernel (:778, via
 //     _dkv_tiled :1041), the tiled forms.
-// and, for packed rows, the `has_seg` branches of all five (:521, :556, :603,
+// and their `causal=False` branches (:536, :570, :622, :747, :795), and, for
+// packed rows, the `has_seg` branches of all five (:521, :556, :603,
 // :734, :780) and the segment-sparse `_bwd_fused_chunked_kernel` (:650, via
 // `_flash_bwd_fused` :854) that the TPU dispatches at S >= 2048. Their
 // one-shot / tiled / fused / chunked split is a TPU VMEM schedule.
@@ -17,7 +19,8 @@
 // Semantics (the reference's): with the forward's f32 lse [B,H,S] and
 // di[b,h,i] = sum_d o·do (f32, computed by the caller from the bf16 o),
 //   P[i,j]  = exp(scale·q_i·k_j - lse_i) for j <= i (and, packed,
-//             j >= seg_start(i): seg_starts.cuh), else exactly 0
+//             j >= seg_start(i): seg_starts.cuh), else exactly 0; for
+//             every j when non-causal
 //   dv_j    = sum over the G = H/KVH query heads of a KV head, sum_i P[i,j] do_i
 //   dS[i,j] = P[i,j] · (do_i·v_j - di_i)
 //   dq_i    = scale · sum_j dS[i,j] k_j
@@ -67,7 +70,9 @@
 //     1/8 once after its sum rather than dS before its rounding: a power of
 //     two, so the same bits for one multiply fewer an element;
 //   * masks per element only where a query tile reaches a key tile (the
-//     diagonal); a masked entry is set to 0.
+//     diagonal); a masked entry is set to 0. Non-causal (kCausal false), a
+//     key tile's pairs start at query tile 0 and nothing is masked: keys
+//     past S (S = 64 mod 128) get values that are never stored.
 // Packed rows (both head dims) and D=128 take the 64-key kernel
 // (flash_bwd_dkv_tiled_kernel, below). Packed, a 128-key tile walks the
 // query tiles up to the segment end of its last key, so at ~300-token
@@ -130,13 +135,14 @@ struct DkvTile {
   int kvt, kvh, b, q_first, nq, n_pairs;
 };
 
+template <bool kCausal>
 __device__ __forceinline__ DkvTile dkv_tile(int tile, int KVH, int B, int S, int groups) {
   DkvTile f;
   f.kvt = tile / (KVH * B);
   const int rem = tile % (KVH * B);
   f.kvh = rem % KVH;
   f.b = rem / KVH;
-  f.q_first = f.kvt * kRows / kTile;
+  f.q_first = kCausal ? f.kvt * kRows / kTile : 0;  // non-causal: every query tile
   f.nq = S / kTile - f.q_first;
   f.n_pairs = groups * f.nq;
   return f;
@@ -149,7 +155,7 @@ __device__ __forceinline__ DkvTile dkv_tile(int tile, int KVH, int B, int S, int
 // over all of the tile's pairs: no sum across warpgroups. D=64 only: at
 // D=128 the two accumulators alone take 128 registers a thread, and the
 // kernel spilled and ran slower than the 64-key one (PERF.md §6).
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kWarpSpecThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -191,7 +197,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       for (int r = 0;; ++r, ++ti) {
         const int tile = sched_tile(r, blockIdx.x, gridDim.x);
         if (tile >= n_tiles) break;
-        const DkvTile f = dkv_tile(tile, KVH, B, S, groups);
+        const DkvTile f = dkv_tile<kCausal>(tile, KVH, B, S, groups);
         const int kvs = ti % 2;
         if (ti >= 2) mbar_wait(kv_empty(kvs), (ti / 2 - 1) & 1);
         const uint32_t k_t = base + kvs * 2 * T::kKVBytes;
@@ -241,7 +247,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   for (int r = 0;; ++r, ++ti) {
     const int tile = sched_tile(r, blockIdx.x, gridDim.x);
     if (tile >= n_tiles) break;
-    const DkvTile f = dkv_tile(tile, KVH, B, S, groups);
+    const DkvTile f = dkv_tile<kCausal>(tile, KVH, B, S, groups);
     const int kvs = ti % 2;
     const uint32_t k_t = base + kvs * 2 * T::kKVBytes + c * kHalfBlock;  // K[key][d], sw128
     const uint32_t v_t = k_t + T::kKVBytes;
@@ -294,8 +300,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       const int q_tile = f.q_first + p % f.nq;
       const int q0 = q_tile * kTile;
       // masked per element where a query precedes a key: the diagonal, and
-      // for consumer 1 the query tile below it
-      const bool masked = q_tile <= key_tile;
+      // for consumer 1 the query tile below it; never when non-causal
+      const bool masked = kCausal && q_tile <= key_tile;
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
         float pv[2], ds[2];
@@ -389,14 +395,16 @@ struct DkvTiled {
 // dK, dV: one block per (KV tile, KV head, batch), W warpgroups. Warpgroup
 // w takes pairs w, w + W, ... of the (query head, query tile) pairs that see
 // the tile; warp i of a warpgroup owns KV rows 16i .. 16i+16. `seg` (int32
-// [B, kMaxSegs]) is read only when kSeg.
-template <int D, bool kSeg>
+// [B, kMaxSegs]) is read only when kSeg; packed rows are causal.
+// Non-causal, a KV tile visits every query tile and masks nothing.
+template <int D, bool kSeg, bool kCausal>
 __global__ void __launch_bounds__(DkvTiled<D>::kDkvGroups * 128, 1)
 flash_bwd_dkv_tiled_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ di,
                      const int* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int S, int H, int KVH, float scale) {
+  static_assert(kCausal || !kSeg, "packed rows are causal");
   using T = DkvTiled<D>;
   constexpr int W = T::kDkvGroups;
   extern __shared__ unsigned char smem_raw[];
@@ -424,7 +432,8 @@ flash_bwd_dkv_tiled_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
     sb = seg + (long)b * kMaxSegs;
     q_end = (seg_end(sb, kv0 + kTile - 1, S) + kTile - 1) / kTile;
   }
-  const int nq = q_end - kv_tile;
+  const int q_first = kCausal ? kv_tile : 0;  // the first query tile that sees the tile
+  const int nq = q_end - q_first;
   const int n_pairs = groups * nq;
   const int n_mine = wg < n_pairs ? (n_pairs - wg + W - 1) / W : 0;
 
@@ -439,7 +448,7 @@ flash_bwd_dkv_tiled_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
   auto load_pair = [&](int j) {
     const int p = wg + j * W;
     const int h = kvh * groups + p / nq;
-    const int q0 = (kv_tile + p % nq) * kTile;
+    const int q0 = (q_first + p % nq) * kTile;
     unsigned char* st = ring + (j % kStages) * T::kDkvStage;
     const long q_off = ((long)b * S + q0) * q_stride + (long)h * D;
     load_tile<D, 128>(smem_u32(st), q + q_off, q_stride, tid);
@@ -476,7 +485,7 @@ flash_bwd_dkv_tiled_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
     cp_async_commit();
 
     const int p = wg + j * W;
-    const int q_tile = kv_tile + p % nq;
+    const int q_tile = q_first + p % nq;
     const int q0 = q_tile * kTile;
     unsigned char* st = ring + (j % kStages) * T::kDkvStage;
     const uint32_t q_t = smem_u32(st);  // Q[query][d], sw128
@@ -501,7 +510,7 @@ flash_bwd_dkv_tiled_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
     fence_acc(s);
     fence_acc(dp);
 
-    const bool diag = q_tile == kv_tile;
+    const bool diag = kCausal && q_tile == kv_tile;
     // packed: masked per element when a query's segment starts after kv0
     const bool masked = kSeg ? diag || st_s[kTile - 1] > kv0 : diag;
 #pragma unroll
@@ -576,14 +585,16 @@ flash_bwd_dkv_tiled_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
 
 // dQ: one warpgroup per (query tile, head, batch); warp i owns query rows
 // 16i .. 16i+16 of the tile. `seg` (int32 [B, kMaxSegs]) is read only when
-// kSeg.
-template <int D, bool kSeg>
+// kSeg; packed rows are causal. Non-causal, a query tile visits every KV tile
+// and masks nothing.
+template <int D, bool kSeg, bool kCausal>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ di,
                     const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq, int S, int H,
                     int KVH, float scale) {
+  static_assert(kCausal || !kSeg, "packed rows are causal");
   using T = Bwd<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -618,7 +629,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     kv_first = seg_start(sb, q_tile * kTile) / kTile;
     st_max = seg_start(sb, q_tile * kTile + kTile - 1);
   }
-  const int n_kv = q_tile - kv_first + 1;
+  const int n_kv = kCausal ? q_tile - kv_first + 1 : (int)gridDim.x;  // non-causal: every KV tile
 
   auto load_kv = [&](int j) {
     const long kv_off = ((long)b * S + (long)(kv_first + j) * kTile) * kv_stride + (long)kvh * D;
@@ -665,7 +676,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     fence_acc(s);
     fence_acc(dp);
 
-    const bool diag = kv_tile == q_tile;
+    const bool diag = kCausal && kv_tile == q_tile;
     const bool masked = kSeg ? diag || kv_tile * kTile < st_max : diag;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -701,7 +712,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   store_tile<D>(acc, dq + q_off, q_stride, warp, g, t);
 }
 
-template <int D>
+template <int D, bool kCausal>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* di, void* dk, void* dv, int B, int S, int H,
                        int KVH, float scale, int device, cudaStream_t st) {
@@ -709,7 +720,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   constexpr int smem = Dkv<D>::kSmem;
   cudaError_t err = cudaSuccess;
   if (!(smem_set & (1u << device))) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, kCausal>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set |= 1u << device;
@@ -723,21 +734,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   const int tiles = (S + kRows - 1) / kRows * KVH * B;
   const int sms = sm_count(device);
   if (sms == 0) return cudaErrorInvalidValue;
-  flash_bwd_dkv_kernel<D><<<tiles < sms ? tiles : sms, kWarpSpecThreads, smem, st>>>(
+  flash_bwd_dkv_kernel<D, kCausal><<<tiles < sms ? tiles : sms, kWarpSpecThreads, smem, st>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(di),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, S, H, KVH, scale);
   return cudaGetLastError();
 }
 
-template <int D, bool kSeg>
+template <int D, bool kSeg, bool kCausal>
 cudaError_t launch_dkv_tiled(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* di, const void* seg, void* dk, void* dv,
                              int B, int S, int H, int KVH, float scale, cudaStream_t st) {
   constexpr int smem = DkvTiled<D>::kDkvSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tiled_kernel<D, kSeg>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tiled_kernel<D, kSeg, kCausal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_tiled_kernel<D, kSeg>
+  flash_bwd_dkv_tiled_kernel<D, kSeg, kCausal>
       <<<dim3(S / kTile, KVH, B), DkvTiled<D>::kDkvGroups * 128, smem, st>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
@@ -747,15 +758,15 @@ cudaError_t launch_dkv_tiled(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
-template <int D, bool kSeg>
+template <int D, bool kSeg, bool kCausal>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* di, const void* seg, void* dq, int B, int S,
                       int H, int KVH, float scale, cudaStream_t st) {
   constexpr int smem = Bwd<D>::kDqSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kSeg>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kSeg, kCausal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D, kSeg><<<dim3(S / kTile, H, B), 128, smem, st>>>(
+  flash_bwd_dq_kernel<D, kSeg, kCausal><<<dim3(S / kTile, H, B), 128, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di),
@@ -767,7 +778,7 @@ bool bad_shape(int B, int S, int H, int KVH) {
   return B <= 0 || S <= 0 || S % kTile != 0 || KVH <= 0 || H % KVH != 0;
 }
 
-template <bool kSeg>
+template <bool kSeg, bool kCausal>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
             const void* di, const void* seg, void* dk, void* dv, int B, int S, int H, int KVH,
             int D, float scale, int device, void* stream) {
@@ -779,20 +790,21 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   // rows and at D=128 (PERF.md §6)
   if (D == 64) {
     if constexpr (kSeg) {
-      return (int)launch_dkv_tiled<64, true>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH,
-                                             scale, st);
+      return (int)launch_dkv_tiled<64, true, true>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H,
+                                                   KVH, scale, st);
     } else {
-      return (int)launch_dkv<64>(q, k, v, dout, lse, di, dk, dv, B, S, H, KVH, scale, device, st);
+      return (int)launch_dkv<64, kCausal>(q, k, v, dout, lse, di, dk, dv, B, S, H, KVH, scale,
+                                          device, st);
     }
   }
   if (D == 128) {
-    return (int)launch_dkv_tiled<128, kSeg>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH,
-                                            scale, st);
+    return (int)launch_dkv_tiled<128, kSeg, kCausal>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H,
+                                                     KVH, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool kSeg>
+template <bool kSeg, bool kCausal>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* di, const void* seg, void* dq, int B, int S, int H, int KVH, int D,
            float scale, int device, void* stream) {
@@ -801,10 +813,12 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const 
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) {
-    return (int)launch_dq<64, kSeg>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, scale, st);
+    return (int)launch_dq<64, kSeg, kCausal>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, scale,
+                                             st);
   }
   if (D == 128) {
-    return (int)launch_dq<128, kSeg>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, scale, st);
+    return (int)launch_dq<128, kSeg, kCausal>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH,
+                                              scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -813,21 +827,38 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const 
 
 // Plain C entries for ctypes. Pointers are device pointers of contiguous
 // tensors (lse, di: f32 [B,H,S]; seg: int32 [B, kMaxSegs]); `stream` is a
-// cudaStream_t. Each returns the launch's cudaError_t.
+// cudaStream_t. Each returns the launch's cudaError_t. `_full`: non-causal,
+// every key visible.
 extern "C" int tst_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse, const void* di,
                                            void* dk, void* dv, int B, int S, int H, int KVH,
                                            int D, float scale, int device, void* stream) {
-  return bwd_dkv<false>(q, k, v, dout, lse, di, nullptr, dk, dv, B, S, H, KVH, D, scale, device,
-                        stream);
+  return bwd_dkv<false, true>(q, k, v, dout, lse, di, nullptr, dk, dv, B, S, H, KVH, D, scale,
+                              device, stream);
 }
 
 extern "C" int tst_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, const void* di,
                                           void* dq, int B, int S, int H, int KVH, int D,
                                           float scale, int device, void* stream) {
-  return bwd_dq<false>(q, k, v, dout, lse, di, nullptr, dq, B, S, H, KVH, D, scale, device,
-                       stream);
+  return bwd_dq<false, true>(q, k, v, dout, lse, di, nullptr, dq, B, S, H, KVH, D, scale, device,
+                             stream);
+}
+
+extern "C" int tst_flash_attention_bwd_dkv_full(const void* q, const void* k, const void* v,
+                                                const void* dout, const void* lse, const void* di,
+                                                void* dk, void* dv, int B, int S, int H, int KVH,
+                                                int D, float scale, int device, void* stream) {
+  return bwd_dkv<false, false>(q, k, v, dout, lse, di, nullptr, dk, dv, B, S, H, KVH, D, scale,
+                               device, stream);
+}
+
+extern "C" int tst_flash_attention_bwd_dq_full(const void* q, const void* k, const void* v,
+                                               const void* dout, const void* lse, const void* di,
+                                               void* dq, int B, int S, int H, int KVH, int D,
+                                               float scale, int device, void* stream) {
+  return bwd_dq<false, false>(q, k, v, dout, lse, di, nullptr, dq, B, S, H, KVH, D, scale,
+                              device, stream);
 }
 
 extern "C" int tst_flash_attention_bwd_dkv_seg(const void* q, const void* k, const void* v,
@@ -836,8 +867,8 @@ extern "C" int tst_flash_attention_bwd_dkv_seg(const void* q, const void* k, con
                                                int H, int KVH, int D, float scale, int device,
                                                void* stream) {
   if (seg == nullptr) return (int)cudaErrorInvalidValue;
-  return bwd_dkv<true>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH, D, scale, device,
-                       stream);
+  return bwd_dkv<true, true>(q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH, D, scale, device,
+                             stream);
 }
 
 extern "C" int tst_flash_attention_bwd_dq_seg(const void* q, const void* k, const void* v,
@@ -846,5 +877,6 @@ extern "C" int tst_flash_attention_bwd_dq_seg(const void* q, const void* k, cons
                                               int KVH, int D, float scale, int device,
                                               void* stream) {
   if (seg == nullptr) return (int)cudaErrorInvalidValue;
-  return bwd_dq<true>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, D, scale, device, stream);
+  return bwd_dq<true, true>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, D, scale, device,
+                            stream);
 }

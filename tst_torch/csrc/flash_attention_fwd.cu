@@ -1,11 +1,13 @@
-// Causal GQA flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out
-// plus an f32 logsumexp; plain, or segment-masked for packed rows. Both
-// products are warpgroup wgmma.
+// GQA flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out plus an
+// f32 logsumexp; causal, causal and segment-masked for packed rows, or
+// non-causal (every key visible: the ring's past blocks). Both products are
+// warpgroup wgmma.
 //
 // Replaces the TPU kernels `_fwd_kernel_oneshot` (tst/kernels/flash_attention.py:99,
 // whole KV in one tile) and `_fwd_kernel` (tst/kernels/flash_attention.py:274,
 // tiled online softmax with above-diagonal tiles skipped), both with and
-// without their `has_seg` branch (:108, :276), and the segment-sparse
+// without their `has_seg` branch (:108, :276) and their `causal=False`
+// branch (:121, :291, :305), and the segment-sparse
 // `_fwd_kernel_oneshot_chunked` (:464, via :346) that the TPU dispatches for
 // packed rows at S >= 2048. The TPU's one-shot/tiled/chunked split and its
 // folded `pos_mod` view are VMEM schedules, not semantics.
@@ -14,7 +16,7 @@
 //   o[b, i, h, :] = sum_j softmax_j(q[b,i,h]·k[b,j,h/G] / sqrt(D), j <= i) v[b,j,h/G]
 //   lse[b, h, i]  = logsumexp_j of the same scaled, masked logits (f32)
 // with packed rows (kSeg) the softmax runs over seg_start(i) <= j <= i only
-// (seg_starts.cuh). q [B,S,H,D], k/v [B,S,KVH,D] contiguous in the model
+// (seg_starts.cuh), and without the causal mask (kCausal false) over all j < S. q [B,S,H,D], k/v [B,S,KVH,D] contiguous in the model
 // layout; query head h reads KV head h / (H/KVH). Logits accumulate in f32
 // and are scaled by 1/sqrt(D) in f32 in log2 units; the running max starts
 // at the finite kMaxInit, so exp(-inf - -inf) never appears; probabilities
@@ -62,7 +64,11 @@
 //     every tile below a consumer's largest start. A row whose first visited
 //     tiles lie before its segment keeps the finite start max, its weights
 //     are exp2(-inf) = 0, and the first tile with its own columns rescales
-//     that zero state by exp2(kMaxInit - m) = 0.
+//     that zero state by exp2(kMaxInit - m) = 0;
+//   * non-causal (kCausal false), every query tile visits all KV tiles, each
+//     the same work, so the snake order stays balanced; only a last tile that
+//     ends past S (S = 64 mod 128) is masked per element, at the keys past S.
+//     A simple branch of the same design, not yet tuned for its shapes.
 // Packed rows at D=64 (the packed Qwen step, [k·B, 1024, 14, 64]) keep the
 // 64-row kernel below (flash_fwd_tiled_kernel): there, at ~300-token samples,
 // 128-row tiles compute more of the masked area than they save (PERF.md §6).
@@ -112,7 +118,7 @@ struct FwdTile {
   int qt, h, b, kv_first, n_kv;
 };
 
-template <bool kSeg>
+template <bool kSeg, bool kCausal>
 __device__ __forceinline__ FwdTile fwd_tile(int tile, int n_qt, int H, int B,
                                             const int* __restrict__ seg) {
   FwdTile f;
@@ -122,19 +128,21 @@ __device__ __forceinline__ FwdTile fwd_tile(int tile, int n_qt, int H, int B,
   f.b = rem / H;
   f.kv_first = 0;
   if constexpr (kSeg) f.kv_first = seg_start(seg + (long)f.b * kMaxSegs, f.qt * kRows) / kRows;
-  f.n_kv = f.qt - f.kv_first + 1;
+  f.n_kv = kCausal ? f.qt - f.kv_first + 1 : n_qt;  // non-causal: every KV tile
   return f;
 }
 
 // one persistent block an SM: warpgroup 0 the producer (one thread issues
 // every copy), warpgroups 1 and 2 the consumers of query rows 0-63 and
-// 64-127 of each tile. `seg` (int32 [B, kMaxSegs]) is read only when kSeg.
-template <int D, bool kSeg>
+// 64-127 of each tile. `seg` (int32 [B, kMaxSegs]) is read only when kSeg;
+// packed rows are causal.
+template <int D, bool kSeg, bool kCausal>
 __global__ void __launch_bounds__(kWarpSpecThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const int* __restrict__ seg,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B, int S, int H,
                  int KVH, float scale_log2) {
+  static_assert(kCausal || !kSeg, "packed rows are causal");
   using F = Fwd<D>;
   constexpr int kQS = F::kQStages, kKV = F::kKVStages, kTB = F::kTileBytes;
   extern __shared__ unsigned char smem_raw[];
@@ -174,7 +182,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       for (int r = 0;; ++r) {
         const int tile = sched_tile(r, blockIdx.x, gridDim.x);
         if (tile >= n_tiles) break;
-        const FwdTile f = fwd_tile<kSeg>(tile, n_qt, H, B, seg);
+        const FwdTile f = fwd_tile<kSeg, kCausal>(tile, n_qt, H, B, seg);
         const int kvh = f.h / groups;
         const int qs = qi % kQS;
         if (qi >= kQS) mbar_wait(q_empty(qs), (qi / kQS - 1) & 1);
@@ -225,7 +233,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   for (int r = 0;; ++r) {
     const int tile = sched_tile(r, blockIdx.x, gridDim.x);
     if (tile >= n_tiles) break;
-    const FwdTile f = fwd_tile<kSeg>(tile, n_qt, H, B, seg);
+    const FwdTile f = fwd_tile<kSeg, kCausal>(tile, n_qt, H, B, seg);
     const int q0 = f.qt * kRows + 64 * c;             // this consumer's first row
     const int row_lo = q0 + 16 * warp + g;            // rows of this thread: row_lo, row_lo + 8
     // packed rows: the segment starts of this thread's rows and the largest
@@ -272,10 +280,16 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     };
     // the online softmax of KV tile j: mask, row max (raw logits; the scale
     // is positive, so the max of the scaled logits is the scaled max), P =
-    // exp2(s·scale - m) into pa, the sums; returns the O rescale factors
+    // exp2(s·scale - m) into pa, the sums; returns the O rescale factors.
+    // Non-causal, only keys past S are masked (a last tile at S = 64 mod 128)
     auto softmax = [&](int j, float& corr_lo, float& corr_hi) {
       const int kv0 = (f.kv_first + j) * kRows;
-      const bool masked = kSeg ? (f.kv_first + j == f.qt || kv0 < st_max) : f.kv_first + j == f.qt;
+      bool masked;
+      if constexpr (kCausal) {
+        masked = kSeg ? (f.kv_first + j == f.qt || kv0 < st_max) : f.kv_first + j == f.qt;
+      } else {
+        masked = kv0 + kRows > S;
+      }
       float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
@@ -283,8 +297,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         float x = s[i];
         if (masked) {
           const int key = kv0 + 8 * (i / 4) + 2 * t + (i & 1);
-          const int row = row_lo + (hi ? 8 : 0);
-          if (key > row || (kSeg && key < (hi ? st_hi : st_lo))) x = -INFINITY;
+          if constexpr (kCausal) {
+            const int row = row_lo + (hi ? 8 : 0);
+            if (key > row || (kSeg && key < (hi ? st_hi : st_lo))) x = -INFINITY;
+          } else {
+            if (key >= S) x = -INFINITY;
+          }
         }
         s[i] = x;
         if (hi) {
@@ -590,7 +608,7 @@ cudaError_t launch_fwd_tiled(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
-template <int D, bool kSeg>
+template <int D, bool kSeg, bool kCausal>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* o,
                        void* lse, int B, int S, int H, int KVH, float scale_log2, int device,
                        cudaStream_t st) {
@@ -598,7 +616,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   constexpr int smem = Fwd<D>::kSmem;
   cudaError_t err = cudaSuccess;
   if (!(smem_set & (1u << device))) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D, kSeg>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D, kSeg, kCausal>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set |= 1u << device;
@@ -611,13 +629,13 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   const int tiles = (S + kRows - 1) / kRows * H * B;
   const int sms = sm_count(device);
   if (sms == 0) return cudaErrorInvalidValue;
-  flash_fwd_kernel<D, kSeg><<<tiles < sms ? tiles : sms, kWarpSpecThreads, smem, st>>>(
+  flash_fwd_kernel<D, kSeg, kCausal><<<tiles < sms ? tiles : sms, kWarpSpecThreads, smem, st>>>(
       tq, tk, tv, static_cast<const int*>(seg), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), B, S, H, KVH, scale_log2);
   return cudaGetLastError();
 }
 
-template <bool kSeg>
+template <bool kSeg, bool kCausal>
 int fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse, int B,
         int S, int H, int KVH, int D, float scale, int device, void* stream) {
   if (B <= 0 || S <= 0 || S % kTile != 0 || KVH <= 0 || H % KVH != 0) {
@@ -631,12 +649,13 @@ int fwd(const void* q, const void* k, const void* v, const void* seg, void* o, v
     if constexpr (kSeg) {  // packed rows at D=64: the 64-row kernel (PERF.md §6)
       return (int)launch_fwd_tiled<64, true>(q, k, v, seg, o, lse, B, S, H, KVH, scale_log2, st);
     } else {
-      return (int)launch_fwd<64, false>(q, k, v, seg, o, lse, B, S, H, KVH, scale_log2, device,
-                                        st);
+      return (int)launch_fwd<64, false, kCausal>(q, k, v, seg, o, lse, B, S, H, KVH, scale_log2,
+                                                 device, st);
     }
   }
   if (D == 128) {
-    return (int)launch_fwd<128, kSeg>(q, k, v, seg, o, lse, B, S, H, KVH, scale_log2, device, st);
+    return (int)launch_fwd<128, kSeg, kCausal>(q, k, v, seg, o, lse, B, S, H, KVH, scale_log2,
+                                               device, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -645,11 +664,17 @@ int fwd(const void* q, const void* k, const void* v, const void* seg, void* o, v
 
 // Plain C entries for ctypes. Pointers are device pointers of contiguous
 // tensors (seg: int32 [B, kMaxSegs]); `stream` is a cudaStream_t. Each
-// returns the launch's cudaError_t.
+// returns the launch's cudaError_t. `_full`: non-causal, every key visible.
 extern "C" int tst_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                        void* lse, int B, int S, int H, int KVH, int D,
                                        float scale, int device, void* stream) {
-  return fwd<false>(q, k, v, nullptr, o, lse, B, S, H, KVH, D, scale, device, stream);
+  return fwd<false, true>(q, k, v, nullptr, o, lse, B, S, H, KVH, D, scale, device, stream);
+}
+
+extern "C" int tst_flash_attention_fwd_full(const void* q, const void* k, const void* v, void* o,
+                                            void* lse, int B, int S, int H, int KVH, int D,
+                                            float scale, int device, void* stream) {
+  return fwd<false, false>(q, k, v, nullptr, o, lse, B, S, H, KVH, D, scale, device, stream);
 }
 
 extern "C" int tst_flash_attention_fwd_seg(const void* q, const void* k, const void* v,
@@ -657,5 +682,5 @@ extern "C" int tst_flash_attention_fwd_seg(const void* q, const void* k, const v
                                            int H, int KVH, int D, float scale, int device,
                                            void* stream) {
   if (seg == nullptr) return (int)cudaErrorInvalidValue;
-  return fwd<true>(q, k, v, seg, o, lse, B, S, H, KVH, D, scale, device, stream);
+  return fwd<true, true>(q, k, v, seg, o, lse, B, S, H, KVH, D, scale, device, stream);
 }

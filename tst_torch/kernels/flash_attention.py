@@ -1,12 +1,13 @@
-"""Causal GQA flash attention, forward and backward, plain or segment-masked
-for packed rows: hand-written CUDA kernels for Hopper, inside a
-``torch.autograd.Function``.
+"""GQA flash attention, forward and backward, causal (plain or
+segment-masked for packed rows) or non-causal: hand-written CUDA kernels for
+Hopper, inside a ``torch.autograd.Function``.
 
 Counterpart of ``tst/kernels/flash_attention.py``: the forward of the Pallas
 TPU kernels ``_fwd_kernel_oneshot`` / ``_fwd_kernel`` and their backward
 (``_bwd_fused_nolse_kernel``, ``_bwd_dq_kernel(_oneshot)``,
-``_bwd_dkv_kernel(_oneshot)``), each with its ``has_seg`` branch, and the
-segment-sparse ``_fwd_kernel_oneshot_chunked`` / ``_bwd_fused_chunked_kernel``.
+``_bwd_dkv_kernel(_oneshot)``), each with its ``has_seg`` and its
+``causal=False`` branch, and the segment-sparse
+``_fwd_kernel_oneshot_chunked`` / ``_bwd_fused_chunked_kernel``.
 The CUDA sources are ``tst_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu``; every product in both is a Hopper warpgroup
 ``wgmma`` on 128-byte-swizzled shared-memory tiles (``wgmma_sm90.cuh``,
@@ -29,6 +30,12 @@ offsets, unused slots ``>= SEG_PAD``, not differentiable): query i attends
 to key j iff ``j <= i`` and ``j >= segment start of i`` (``segment_mask``).
 They go to separate segmented kernels with their own launch counts; without
 ``seg_starts`` the plain kernels run as before.
+
+``causal=False`` (every key visible; no ``seg_starts``, as in the reference)
+goes to the non-causal instantiations of the same kernels, through the C
+entries ``..._full``, with launch counts of their own. The ring's past
+blocks take them (tst_torch.kernels.ring_attention), with the ring's own
+row statistics: :func:`flash_attention_backward` takes lse and di as given.
 """
 
 from __future__ import annotations
@@ -50,6 +57,10 @@ LAUNCHES_BWD_DQ = 0
 LAUNCHES_SEG = 0
 LAUNCHES_SEG_BWD_DKV = 0
 LAUNCHES_SEG_BWD_DQ = 0
+#: launches of the non-causal (causal=False) forward, dK/dV and dQ kernels
+LAUNCHES_FULL = 0
+LAUNCHES_FULL_BWD_DKV = 0
+LAUNCHES_FULL_BWD_DQ = 0
 
 #: segment starts a packed row may carry, and the value of an unused slot
 #: (the reference's, tst/kernels/flash_attention.py:159,166)
@@ -127,17 +138,20 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return masked_attention(q, k, v, _mask(q, causal, seg_starts))
 
 
-def flash_attention_backward_reference(
-        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-        lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+def attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+        di: torch.Tensor, do: torch.Tensor, causal: bool = True,
         seg_starts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward kernels, in f32 → (dq, dk, dv)
-    in the dtypes of q, k, v.
+    """Plain PyTorch version of the backward kernels from the row statistics
+    they take, in f32 → (dq, dk, dv) in the dtypes of q, k, v.
 
-    P = exp(q·kᵀ/sqrt(D) − lse) (0 where masked), di = Σ_d o·do per row,
-    dv = Pᵀ·do and dk = dSᵀ·q/sqrt(D) summed over each GQA group,
-    dS = P ⊙ (do·vᵀ − di), dq = dS·k/sqrt(D)."""
+    ``lse`` and ``di`` are f32 [B, H, S]: the softmax's logsumexp and Σ_d
+    o·do of each row, given rather than computed here, so that a caller
+    whose rows span several blocks (the ring) passes those of the whole row.
+    P = exp(q·kᵀ/sqrt(D) − lse) (0 where masked), dv = Pᵀ·do and dk =
+    dSᵀ·q/sqrt(D) summed over each GQA group, dS = P ⊙ (do·vᵀ − di), dq =
+    dS·k/sqrt(D)."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -149,7 +163,7 @@ def flash_attention_backward_reference(
     if mask is not None:
         logits = logits.masked_fill(~_on_logits(mask), float("-inf"))
     p = torch.exp(logits - lse.reshape(b, kvh, g, s, 1))  # [B, KVH, G, S, S]
-    di = (o.float() * do.float()).sum(-1).reshape(b, s, kvh, g).permute(0, 2, 3, 1)
+    di = di.reshape(b, kvh, g, s)
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
     ds = p * (torch.einsum("bqkgd,bskd->bkgqs", dog, vf) - di[..., None]) / math.sqrt(d)
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(b, s, h, d)
@@ -157,11 +171,22 @@ def flash_attention_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+        lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+        seg_starts: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels, in f32 → (dq, dk, dv)
+    in the dtypes of q, k, v: :func:`attention_backward_reference` with di =
+    Σ_d o·do of this call's own o."""
+    return attention_backward_reference(q, k, v, lse, backward_row_stat(o, do), do, causal,
+                                        seg_starts)
+
+
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool) -> None:
-    """Raise ValueError on anything the CUDA kernels do not take."""
-    if not causal:
-        raise ValueError("the flash-attention kernel is causal only")
+    """Raise ValueError on anything the CUDA kernels do not take (``causal``
+    either way: the causal and the non-causal kernels take the same shapes)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"want q [B,S,H,D], k/v [B,S,KVH,D]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -219,17 +244,20 @@ def kernel_seg_starts(seg_starts: Optional[torch.Tensor], q: torch.Tensor,
 
 
 def check_backward_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor) -> None:
-    """Raise ValueError on anything the backward kernels do not take."""
-    check_kernel_args(q, k, v, True)
+                        lse: torch.Tensor, di: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True) -> None:
+    """Raise ValueError on anything the backward kernels do not take: q, k,
+    v as the forward's, do like q, and the row statistics lse and di (f32
+    [B, H, S])."""
+    check_kernel_args(q, k, v, causal)
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} does not match q {tuple(q.shape)}")
+    _check_operand("do", do, q, torch.bfloat16)
     b, s, h, _ = q.shape
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape:
-            raise ValueError(f"{name} {tuple(t.shape)} does not match q {tuple(q.shape)}")
-        _check_operand(name, t, q, torch.bfloat16)
-    if lse.shape != (b, h, s):
-        raise ValueError(f"lse {tuple(lse.shape)} is not [B, H, S] = {(b, h, s)}")
-    _check_operand("lse", lse, q, torch.float32)
+    for name, t in (("lse", lse), ("di", di)):
+        if t.shape != (b, h, s):
+            raise ValueError(f"{name} {tuple(t.shape)} is not [B, H, S] = {(b, h, s)}")
+        _check_operand(name, t, q, torch.float32)
 
 
 def _bind(name: str, n_ptrs: int):
@@ -252,18 +280,23 @@ def _geometry(q, k):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _launch_fwd(q, k, v, seg=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch_fwd(q, k, v, seg=None, causal=True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on checked CUDA tensors → (o, lse); the segmented
-    one when ``seg`` (``kernel_seg_starts``) is given."""
-    global LAUNCHES, LAUNCHES_SEG
+    one when ``seg`` (``kernel_seg_starts``) is given, the non-causal one
+    when ``causal`` is False."""
+    global LAUNCHES, LAUNCHES_SEG, LAUNCHES_FULL
     b, s, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if seg is None:
-        err = _bind(_ENTRY, 5)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                               lse.data_ptr(), *_geometry(q, k))
-        _raise_on(err, _ENTRY, q, k)
-        LAUNCHES += 1
+        entry = _ENTRY if causal else _ENTRY + "_full"
+        err = _bind(entry, 5)(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                              lse.data_ptr(), *_geometry(q, k))
+        _raise_on(err, entry, q, k)
+        if causal:
+            LAUNCHES += 1
+        else:
+            LAUNCHES_FULL += 1
     else:
         entry = _ENTRY + "_seg"
         err = _bind(entry, 6)(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
@@ -279,55 +312,68 @@ def backward_row_stat(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _launch_bwd_dkv(q, k, v, do, lse, di, seg=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _entry(base: str, seg, causal: bool) -> str:
+    """A C entry's name: ``_seg`` for packed rows, ``_full`` when non-causal."""
+    return base + ("_seg" if seg is not None else "" if causal else "_full")
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, di, seg=None, causal=True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel on checked CUDA tensors → (dk, dv); the segmented one
-    when ``seg`` is given."""
-    global LAUNCHES_BWD_DKV, LAUNCHES_SEG_BWD_DKV
+    when ``seg`` is given, the non-causal one when ``causal`` is False."""
+    global LAUNCHES_BWD_DKV, LAUNCHES_SEG_BWD_DKV, LAUNCHES_FULL_BWD_DKV
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     ins = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            di.data_ptr()]
-    entry = _ENTRY_DKV if seg is None else _ENTRY_DKV + "_seg"
+    entry = _entry(_ENTRY_DKV, seg, causal)
     ptrs = ins + ([] if seg is None else [seg.data_ptr()]) + [dk.data_ptr(), dv.data_ptr()]
     _raise_on(_bind(entry, len(ptrs))(*ptrs, *_geometry(q, k)), entry, q, k)
-    if seg is None:
+    if seg is not None:
+        LAUNCHES_SEG_BWD_DKV += 1
+    elif causal:
         LAUNCHES_BWD_DKV += 1
     else:
-        LAUNCHES_SEG_BWD_DKV += 1
+        LAUNCHES_FULL_BWD_DKV += 1
     return dk, dv
 
 
-def _launch_bwd_dq(q, k, v, do, lse, di, seg=None) -> torch.Tensor:
+def _launch_bwd_dq(q, k, v, do, lse, di, seg=None, causal=True) -> torch.Tensor:
     """The dQ kernel on checked CUDA tensors → dq; the segmented one when
-    ``seg`` is given."""
-    global LAUNCHES_BWD_DQ, LAUNCHES_SEG_BWD_DQ
+    ``seg`` is given, the non-causal one when ``causal`` is False."""
+    global LAUNCHES_BWD_DQ, LAUNCHES_SEG_BWD_DQ, LAUNCHES_FULL_BWD_DQ
     dq = torch.empty_like(q)
     ins = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            di.data_ptr()]
-    entry = _ENTRY_DQ if seg is None else _ENTRY_DQ + "_seg"
+    entry = _entry(_ENTRY_DQ, seg, causal)
     ptrs = ins + ([] if seg is None else [seg.data_ptr()]) + [dq.data_ptr()]
     _raise_on(_bind(entry, len(ptrs))(*ptrs, *_geometry(q, k)), entry, q, k)
-    if seg is None:
+    if seg is not None:
+        LAUNCHES_SEG_BWD_DQ += 1
+    elif causal:
         LAUNCHES_BWD_DQ += 1
     else:
-        LAUNCHES_SEG_BWD_DQ += 1
+        LAUNCHES_FULL_BWD_DQ += 1
     return dq
 
 
 def flash_attention_backward(
-        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-        lse: torch.Tensor, do: torch.Tensor, seg_starts: Optional[torch.Tensor] = None,
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+        di: torch.Tensor, do: torch.Tensor, causal: bool = True,
+        seg_starts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) through the two CUDA backward kernels, segmented ones for
-    packed rows (``seg_starts``); CUDA tensors only."""
+    """(dq, dk, dv) through the two CUDA backward kernels from the row
+    statistics ``lse`` and ``di`` (f32 [B, H, S]; see
+    :func:`attention_backward_reference`; di = ``backward_row_stat(o, do)``
+    of the forward's o, or of the ring's combined rows): segmented kernels
+    for packed rows (``seg_starts``), non-causal ones for ``causal=False``.
+    CUDA tensors only: there is no fallback."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward: the kernels take CUDA tensors, "
                          f"got {q.device}")
-    do = do.contiguous()
-    check_backward_args(q, k, v, o, lse, do)
-    seg = kernel_seg_starts(seg_starts, q)
-    di = backward_row_stat(o, do)
-    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, di, seg)
-    return _launch_bwd_dq(q, k, v, do, lse, di, seg), dk, dv
+    check_backward_args(q, k, v, lse, di, do, causal)
+    seg = kernel_seg_starts(seg_starts, q, causal)
+    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, di, seg, causal)
+    return _launch_bwd_dq(q, k, v, do, lse, di, seg, causal), dk, dv
 
 
 def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -336,7 +382,7 @@ def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, caus
         return flash_attention_reference(q, k, v, causal, seg_starts)
     if q.device.type == "cuda":
         check_kernel_args(q, k, v, causal)
-        return _launch_fwd(q, k, v, kernel_seg_starts(seg_starts, q, causal))
+        return _launch_fwd(q, k, v, kernel_seg_starts(seg_starts, q, causal), causal)
     raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
@@ -372,7 +418,9 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = flash_attention_backward_reference(q, k, v, o, lse, do, ctx.causal,
                                                             seg_starts)
         else:
-            dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, seg_starts)
+            do = do.contiguous()
+            dq, dk, dv = flash_attention_backward(q, k, v, lse, backward_row_stat(o, do), do,
+                                                  ctx.causal, seg_starts)
         return dq, dk, dv, None, None
 
 
@@ -382,5 +430,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     """(o [B,S,H,D], lse [B,H,S] f32), differentiable in q, k and v: the CUDA
     kernels for CUDA tensors, the plain versions for CPU tensors. With
     ``seg_starts`` (int32 [B, n <= MAX_SEGS]) each query attends only within
-    its own packed segment, through the segmented kernels."""
+    its own packed segment, through the segmented kernels; ``causal=False``
+    attends to every key, through the non-causal kernels."""
     return _FlashAttention.apply(q, k, v, causal, seg_starts)

@@ -2,11 +2,11 @@
 a mesh axis (counterpart of ``tst/kernels/ring_attention.py``).
 
 The reference is plain ``jnp`` under ``shard_map`` (no ``pallas_call``); the
-port is plain torch with point-to-point transfers:
+port is torch with point-to-point transfers:
 
   * each rank keeps its Q block and computes partial attention against the
-    K/V block it holds (:func:`_online_partial`, chunked online softmax:
-    (o, lse), lse = -inf where a query sees no key of the block);
+    K/V block it holds: (o, lse), lse = -inf where a query sees no key of
+    the block;
   * the partials merge by their logsumexps (:func:`_combine`), as flash
     attention merges its tiles;
   * K/V blocks rotate one rank around the ring between steps (the
@@ -24,15 +24,35 @@ ranks' blocks in one process (chip_smoke.py holds that against the flash
 kernel at S=16384). Queries and keys carry their global positions, so
 causal masking is offset-aware: a block wholly in the future contributes
 nothing.
+
+Two routes for a pair's partial and its gradients, chosen by ``use_pallas``
+(the decoder's own flag), never by dtype or shape:
+
+  * plain (``use_pallas=False``): the reference's arithmetic in f32 torch,
+    :func:`_online_partial` (chunked online softmax) and
+    :func:`_pair_backward`, held to the JAX package;
+  * kernels (``use_pallas=True``): K1 (tst_torch.kernels.flash_attention),
+    the CUDA kernels for CUDA tensors (bf16, S_local a multiple of 64, D 64
+    or 128, the default scale; anything else raises) and their plain
+    versions for CPU tensors. Under ``causal`` the diagonal block (the
+    rank's own) is K1 causal, a past block K1 non-causal, and a future
+    block is skipped: its partial has lse = -inf, which :func:`_combine`
+    leaves out exactly, and its probabilities are all 0. Without
+    ``causal`` every block is K1 non-causal. The backward passes K1 the
+    combined rows' lse and di = Σ o·do, as :func:`_pair_backward` uses them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from tst_torch.kernels.flash_attention import (attention_backward_reference, flash_attention,
+                                              flash_attention_backward, flash_attention_fwd)
 
 NEG_INF = -1e30
 
@@ -124,15 +144,55 @@ def _pair_backward(q, k, v, do, lse, di, q_off: int, kv_off: int, causal: bool,
     return dq.reshape(b, sq, h, d), torch.cat(dks, 1), torch.cat(dvs, 1)
 
 
+def k1_causal(idx: int, src: int, causal: bool) -> Optional[bool]:
+    """K1's ``causal`` for the Q block of rank ``idx`` against the K/V block
+    of rank ``src`` (equal blocks): True on the diagonal, False for a past
+    block or without ``causal``, None for a block wholly in the future (it
+    adds nothing: skipped)."""
+    if not causal or src < idx:
+        return False
+    return True if src == idx else None
+
+
+def _k1_partial(q, k, v, idx: int, src: int, causal: bool):
+    """One pair's partial through K1's forward → (o f32 [B, Sq, H, D], lse
+    [B, Sq, H] f32), or None for a future block."""
+    mode = k1_causal(idx, src, causal)
+    if mode is None:
+        return None
+    o, lse = flash_attention_fwd(q, k.contiguous(), v.contiguous(), mode, None)
+    return o.float(), lse.transpose(1, 2)
+
+
+def _k1_pair_backward(q, k, v, do, lse, di, idx: int, src: int, causal: bool):
+    """One pair's (dq, dk, dv) through K1's backward from the combined rows'
+    ``lse`` and ``di`` (f32 [B, H, Sq]), or None for a future block."""
+    mode = k1_causal(idx, src, causal)
+    if mode is None:
+        return None
+    backward = (attention_backward_reference if q.device.type == "cpu"
+                else flash_attention_backward)
+    return backward(q, k.contiguous(), v.contiguous(), lse, di, do, mode)
+
+
+def _check_k1_scale(q: torch.Tensor, sm_scale: float) -> None:
+    if sm_scale != 1.0 / math.sqrt(q.shape[-1]):
+        raise ValueError(f"the ring's kernel route takes the default scale 1/sqrt(D), got "
+                         f"sm_scale={sm_scale}")
+
+
 def ring_forward(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
                  vs: Sequence[torch.Tensor], idxs: Sequence[int], n: int,
                  rotate: Callable[[Blocks], Blocks], causal: bool, sm_scale: float,
-                 chunk: int):
+                 chunk: int, use_pallas: bool = False):
     """The ranks' forward steps: for each held Q block (rank ``idxs[j]`` of
     ``n``, ``s_local`` positions), partial attention against the K/V block
-    in hand, combined, then the K/V blocks rotated; n steps. → ([o f32],
-    [lse])."""
+    in hand (K1 with ``use_pallas``, else the plain partial), combined, then
+    the K/V blocks rotated; n steps. → ([o f32], [lse])."""
     s_local = qs[0].shape[1]
+    if use_pallas:
+        _check_k1_scale(qs[0], sm_scale)
+        qs = [q.contiguous() for q in qs]
     held: Blocks = [(k, v) for k, v in zip(ks, vs)]
     os_ = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
     lses = [torch.full(q.shape[:3], NEG_INF, dtype=torch.float32, device=q.device) for q in qs]
@@ -140,9 +200,13 @@ def ring_forward(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
         for j, (q, idx) in enumerate(zip(qs, idxs)):
             src = (idx - i) % n  # the rank this K/V block belongs to
             kb, vb = held[j]
-            o_i, lse_i = _online_partial(q, kb, vb, idx * s_local, src * s_local, causal,
-                                         sm_scale, chunk)
-            os_[j], lses[j] = _combine(os_[j], lses[j], o_i, lse_i)
+            if use_pallas:
+                part = _k1_partial(q, kb, vb, idx, src, causal)
+            else:
+                part = _online_partial(q, kb, vb, idx * s_local, src * s_local, causal,
+                                       sm_scale, chunk)
+            if part is not None:
+                os_[j], lses[j] = _combine(os_[j], lses[j], *part)
         if i < n - 1:
             held = rotate(held)
     return os_, lses
@@ -150,12 +214,18 @@ def ring_forward(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
 
 def ring_backward(qs, ks, vs, os_, lses, dos, idxs: Sequence[int], n: int,
                   rotate: Callable[[Blocks], Blocks], causal: bool, sm_scale: float,
-                  chunk: int):
+                  chunk: int, use_pallas: bool = False):
     """The reverse ring: each K/V block travels with its dK and dV, each rank
-    adds its pair's share, and the block's n-th rotation brings the sums
-    home. → ([dq], [dk], [dv]) in f32, each on its owner."""
+    adds its pair's share (K1's backward with ``use_pallas``, else the plain
+    pair backward), and the block's n-th rotation brings the sums home. →
+    ([dq], [dk], [dv]) in f32, each on its owner."""
     s_local = qs[0].shape[1]
     dis = [(do.float() * o).sum(-1) for do, o in zip(dos, os_)]
+    if use_pallas:  # K1 takes the row statistics as [B, H, S]
+        qs = [q.contiguous() for q in qs]
+        dos = [do.contiguous() for do in dos]
+        stats = [(lse.transpose(1, 2).contiguous(), di.transpose(1, 2).contiguous())
+                 for lse, di in zip(lses, dis)]
     dqs = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
     held: Blocks = [(k, v, torch.zeros(k.shape, dtype=torch.float32, device=k.device),
                      torch.zeros(v.shape, dtype=torch.float32, device=v.device))
@@ -164,8 +234,14 @@ def ring_backward(qs, ks, vs, os_, lses, dos, idxs: Sequence[int], n: int,
         for j, (q, idx) in enumerate(zip(qs, idxs)):
             src = (idx - i) % n
             kb, vb, dkb, dvb = held[j]
-            dq, dk, dv = _pair_backward(q, kb, vb, dos[j], lses[j], dis[j], idx * s_local,
-                                        src * s_local, causal, sm_scale, chunk)
+            if use_pallas:
+                grads = _k1_pair_backward(q, kb, vb, dos[j], *stats[j], idx, src, causal)
+            else:
+                grads = _pair_backward(q, kb, vb, dos[j], lses[j], dis[j], idx * s_local,
+                                       src * s_local, causal, sm_scale, chunk)
+            if grads is None:
+                continue
+            dq, dk, dv = grads
             dqs[j] += dq
             held[j] = (kb, vb, dkb + dk, dvb + dv)
         # the last rotation takes each block and its sums back to the owner
@@ -203,16 +279,17 @@ def p2p_rotate(group) -> Callable[[Blocks], Blocks]:
 
 class _Ring(torch.autograd.Function):
     """Ring attention over the blocks ``qkv`` (m Q blocks, then m K, m V):
-    its backward is :func:`ring_backward` on the same rotation."""
+    its backward is :func:`ring_backward` on the same rotation and route."""
 
     @staticmethod
-    def forward(ctx, rotate, idxs, n, causal, sm_scale, chunk, *qkv):
+    def forward(ctx, rotate, idxs, n, causal, sm_scale, chunk, use_pallas, *qkv):
         m = len(idxs)
         qs, ks, vs = qkv[:m], qkv[m: 2 * m], qkv[2 * m:]
         with torch.no_grad():
-            os_, lses = ring_forward(qs, ks, vs, idxs, n, rotate, causal, sm_scale, chunk)
-        ctx.rotate, ctx.idxs, ctx.n, ctx.causal, ctx.scale, ctx.chunk = (
-            rotate, idxs, n, causal, sm_scale, chunk)
+            os_, lses = ring_forward(qs, ks, vs, idxs, n, rotate, causal, sm_scale, chunk,
+                                     use_pallas)
+        ctx.rotate, ctx.idxs, ctx.n, ctx.causal, ctx.scale, ctx.chunk, ctx.use_pallas = (
+            rotate, idxs, n, causal, sm_scale, chunk, use_pallas)
         ctx.save_for_backward(*qkv, *os_, *lses)
         return tuple(o.to(q.dtype) for o, q in zip(os_, qs))
 
@@ -224,38 +301,46 @@ class _Ring(torch.autograd.Function):
         os_, lses = saved[3 * m: 4 * m], saved[4 * m:]
         with torch.no_grad():
             dqs, dks, dvs = ring_backward(qs, ks, vs, os_, lses, dos, ctx.idxs, ctx.n,
-                                          ctx.rotate, ctx.causal, ctx.scale, ctx.chunk)
+                                          ctx.rotate, ctx.causal, ctx.scale, ctx.chunk,
+                                          ctx.use_pallas)
         grads = ([dq.to(q.dtype) for dq, q in zip(dqs, qs)]
                  + [dk.to(k.dtype) for dk, k in zip(dks, ks)]
                  + [dv.to(v.dtype) for dv, v in zip(dvs, vs)])
-        return (None,) * 6 + tuple(grads)
+        return (None,) * 7 + tuple(grads)
 
 
 def ring_blocks(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
                 vs: Sequence[torch.Tensor], idxs: Sequence[int], n: int,
                 rotate: Callable[[Blocks], Blocks], causal: bool = True,
-                sm_scale: Optional[float] = None, chunk: int = 512) -> Tuple[torch.Tensor, ...]:
+                sm_scale: Optional[float] = None, chunk: int = 512,
+                use_pallas: bool = False) -> Tuple[torch.Tensor, ...]:
     """Ring attention of the Q blocks ``qs`` (ranks ``idxs`` of ``n``)
     against every rank's K/V, differentiable: ``rotate`` moves the blocks
     (``p2p_rotate`` on a mesh, ``local_rotate`` for all ranks in one
-    process). → the output blocks in q's dtype."""
+    process); ``use_pallas`` takes each pair through K1. → the output
+    blocks in q's dtype."""
     scale = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(qs[0].shape[-1]))
-    return _Ring.apply(rotate, tuple(idxs), n, causal, scale, chunk, *qs, *ks, *vs)
+    return _Ring.apply(rotate, tuple(idxs), n, causal, scale, chunk, use_pallas, *qs, *ks, *vs)
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
                    seq_axis: str = "seq", causal: bool = True,
-                   sm_scale: Optional[float] = None, chunk: int = 512) -> torch.Tensor:
+                   sm_scale: Optional[float] = None, chunk: int = 512,
+                   use_pallas: bool = False) -> torch.Tensor:
     """Sequence-parallel attention over ``mesh``'s ``seq_axis``: q [B,
     S_local, H, D] is this rank's block (rank i holds positions [i·S_local,
     (i+1)·S_local)), k and v [B, S_local, KVH, D] likewise; the result
-    matches unsplit attention. One rank on the axis: one partial."""
+    matches unsplit attention. One rank on the axis: one partial (K1 with
+    ``use_pallas``)."""
     d = q.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / float(np.sqrt(d))
     n = 1 if mesh is None else mesh.size(seq_axis)
     if n == 1:
+        if use_pallas:
+            _check_k1_scale(q, scale)
+            return flash_attention(q, k, v, causal)[0]
         o, _ = _online_partial(q, k, v, 0, 0, causal, scale, chunk)
         return o.to(q.dtype)
     rotate = p2p_rotate(mesh.group(seq_axis))
     return ring_blocks([q], [k], [v], [mesh.index(seq_axis)], n, rotate, causal, scale,
-                       chunk)[0]
+                       chunk, use_pallas)[0]

@@ -343,8 +343,9 @@ def apply_model(
     ``tensor``, and the result is whole (every rank gets the same logits).
     ``ring_mesh`` with ``ring_axis`` of size n > 1: the sequence is split
     into n blocks, this rank runs its block through every layer, attention
-    goes around the ring (tst_torch.kernels.ring_attention), and the final
-    hidden states are gathered; packed rows and the ring exclude each
+    goes around the ring (tst_torch.kernels.ring_attention; each block
+    through K1 when ``use_pallas``), and the final hidden states are
+    gathered; packed rows and the ring exclude each
     other, as in the reference."""
     drop = (lora_rng if lora_rng is not None and lora_spec is not None
             and lora_spec.dropout > 0.0 else None)
@@ -410,7 +411,8 @@ def apply_model(
             if ring:
                 from tst_torch.kernels.ring_attention import ring_attention
 
-                attn = ring_attention(q, k, v, ring_mesh, seq_axis=ring_axis, causal=True)
+                attn = ring_attention(q, k, v, ring_mesh, seq_axis=ring_axis, causal=True,
+                                      use_pallas=bool(use_pallas))
             elif use_pallas:
                 attn = _flash_attention(q, k, v, seg_starts)
             else:
