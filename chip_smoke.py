@@ -112,6 +112,14 @@ Phases, each printing one line; any failure raises and exits non-zero:
                calls, replayed: no host in it) and the host time a call (the
                public entry, back to back), summed over a decode layer's
                seven projections at M=32 and M=64;
+ 11b. kernel-dattn — the decode step's attention kernel against its plain
+               version at every DATTN_CASES case, one launch, bit-equal on a
+               second call, each query of a verify chunk equal to itself
+               alone and in a longer cache with masked slots (F1); the same
+               invariances across its rank chunks and its one- and two-kernel
+               paths at both head dims (dattn_boundary); each case's device
+               time beside scaled_dot_product_attention with the mask and the
+               bound (the plain version's at the greedy step);
  12. kernel-mlp — the fused SwiGLU MLP (K4) against its plain version at the
                int4 train step's shape, at Llama-3-8B widths and at an M that
                is no tile multiple, bit-equal on a second call; gradients
@@ -806,21 +814,23 @@ def median_ms(fn, samples=30, reps=10, warmup=3):
 
 
 #: a flash-attention kernel's mangled name: which kernel (``_tiled``: the
-#: 64-row forward and dK/dV, kept where they are faster), D, and its bool
-#: template arguments (kSeg, kCausal; the persistent dK/dV kernel has no
-#: kSeg: it serves unsegmented rows only; an absent kCausal is causal)
+#: 64-row forward, dK/dV and dQ, kept where they are faster), D, and its bool
+#: template arguments (kSeg, kCausal; the persistent dK/dV and dQ kernels
+#: have no kSeg: they serve unsegmented rows only; an absent kCausal is
+#: causal)
 _FLASH_KERNEL = re.compile(
     r"flash_(?:bwd_)?(fwd|dkv|dq)(_tiled)?_kernelILi(\d+)E((?:Lb[01]E)*)")
 #: the attention kernels the C entries launch, one for each of {fwd, dkv, dq}
 #: x D {64, 128} x {causal, seg, full (non-causal)}: the 64-row forward for
 #: packed rows at D=64, the 64-key dK/dV for packed rows and at D=128, the
-#: persistent ones elsewhere
+#: 64-row dQ for packed rows and non-causal at D=128, the persistent ones
+#: elsewhere
 ATTENTION_KERNELS = frozenset({
     "fwd<D=64>", "fwd<D=128>", "fwd_tiled<D=64, seg>", "fwd<D=128, seg>",
     "dkv<D=64>", "dkv_tiled<D=128>", "dkv_tiled<D=64, seg>", "dkv_tiled<D=128, seg>",
-    "dq<D=64>", "dq<D=128>", "dq<D=64, seg>", "dq<D=128, seg>",
+    "dq<D=64>", "dq<D=128>", "dq_tiled<D=64, seg>", "dq_tiled<D=128, seg>",
     "fwd<D=64, full>", "fwd<D=128, full>", "dkv<D=64, full>", "dkv_tiled<D=128, full>",
-    "dq<D=64, full>", "dq<D=128, full>"})
+    "dq<D=64, full>", "dq_tiled<D=128, full>"})
 N_ATTENTION_KERNELS = len(ATTENTION_KERNELS)
 #: K4's two kernels, which must run their products on wgmma too
 K4_KERNELS = ("swiglu_gate_up_kernel", "swiglu_down_kernel")
@@ -835,7 +845,7 @@ def kernel_name(mangled):
     m = _FLASH_KERNEL.search(mangled)
     if m:
         kernel = m[1] + (m[2] or "")
-        names = ("causal",) if kernel == "dkv" else ("seg", "causal")
+        names = ("causal",) if kernel in ("dkv", "dq") else ("seg", "causal")
         flags = dict(zip(names, re.findall(r"Lb([01])E", m[4])))
         return (f"{kernel}<D={m[3]}{', seg' if flags.get('seg') == '1' else ''}"
                 f"{', full' if flags.get('causal') == '0' else ''}>")
@@ -1080,8 +1090,12 @@ def phase_kernel(device):
 
 
 def _randn(rng, shape, device):
-    return (torch.from_numpy(rng.normal(0.0, 0.5, shape).astype(np.float32))
-            .to(device, torch.bfloat16))
+    """Normal(0, 0.5) of ``shape`` in bf16, drawn on ``device`` by a torch
+    generator seeded from ``rng`` (one draw of it a call): the inputs follow
+    the phase's seed, with no host pass over them (numpy's f64 draws of
+    the long and 8B shapes' inputs were the run's largest host cost)."""
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(2 ** 62)))
+    return (torch.randn(shape, generator=gen, device=device) * 0.5).to(torch.bfloat16)
 
 
 def _rel_err(got, want):
@@ -1178,13 +1192,24 @@ def _check_bitwise(fn, got, what="the backward kernels"):
         raise AssertionError(f"{what}: not bit-reproducible")
 
 
+def clocks_now():
+    """The card's SM clock and power draw as nvidia-smi reads them (reading
+    only: the spread of a kernel's times between calls, beside its clock)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0] if out.strip() else None
+
+
 def k1_summary(rows):
     """Each K1 row's ``ratio_to_library`` (kernel ms / library ms; None where
     no library call was timed) and ``share_of_bound`` (bound ms / kernel
-    ms), by the row's key."""
+    ms), and the card's SM clock and power draw read just after the row's
+    timing where the row holds them (dQ's), by the row's key."""
     return {key: {"ratio_to_library": (None if r.get("library_ms") is None
                                        else r["ms"] / r["library_ms"]),
-                  "share_of_bound": r["bound_ms"] / r["ms"]} for key, r in rows.items()}
+                  "share_of_bound": r["bound_ms"] / r["ms"],
+                  **({"clocks_sm_power": r["clocks_sm_power"]} if "clocks_sm_power" in r
+                     else {})} for key, r in rows.items()}
 
 
 def phase_kernel_bwd(device):
@@ -1235,7 +1260,8 @@ def phase_kernel_bwd(device):
                           "plain_ms": plain_ms, "library_ms": lib["bwd_ms"], **bounds["dkv"]}
             out["dq"] = {"max_abs_err": (got[0].float() - want[0]).abs().max().item(),
                          "ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di)),
-                         "plain_ms": plain_ms, "library_ms": lib["bwd_ms"], **bounds["dq"]}
+                         "plain_ms": plain_ms, "library_ms": lib["bwd_ms"], **bounds["dq"],
+                         "clocks_sm_power": clocks_now()}
             out["fwd"] = {"library_ms": lib["fwd_ms"], **bounds["fwd"]}
             both_ms = median_ms(lambda: tfa.flash_attention_backward(
                 q, k, v, lse, tfa.backward_row_stat(o, do), do))
@@ -1816,6 +1842,7 @@ def _time_seg_kernels(q, k, v, do, seg, o, lse):
                 "unsegmented_ms": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse_u, di_u)),
                 "plain_ms": plain_bwd, "library_ms": lib["bwd_ms"], **bounds["dkv"]},
         "dq": {"ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di, kseg)),
+               "clocks_sm_power": clocks_now(),
                "unsegmented_ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse_u, di_u)),
                "plain_ms": plain_bwd, "library_ms": lib["bwd_ms"], **bounds["dq"]},
         "library": lib,
@@ -2309,19 +2336,12 @@ def dattn_check(device, case):
     return err, q, k, v, mask, line
 
 
-def dattn_times(q, k, v, mask, back_to_back=True):
-    """The decode attention's device time a call (a CUDA graph), its plain
-    version's, scaled_dot_product_attention's with the boolean mask (the
-    first backend that runs) and the bound; with ``back_to_back`` the same
-    back to back with the host → a record's numbers and a line's text."""
-    import tst_torch.kernels.decode_attention as tda
+def dattn_library_ms(q, k, v, mask, back_to_back=False):
+    """scaled_dot_product_attention with the boolean mask on the same q, k,
+    v (the first backend that runs: cuDNN, memory-efficient, math) → (device
+    ms a call from a CUDA graph, back-to-back ms or None, the backend's
+    name); the port never calls it."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    def kernel():
-        return tda.cache_attention(q, k, v, mask)
-
-    def plain():
-        return tda.cache_attention_reference(q, k, v, mask)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh, mh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
@@ -2329,23 +2349,40 @@ def dattn_times(q, k, v, mask, back_to_back=True):
     def library():
         return sdpa(qh, kh, vh, attn_mask=mh, enable_gqa=True)
 
-    ms = graph_us(kernel) / 1e3
-    plain_ms = graph_us(plain, calls=2, replays=10) / 1e3
-    library_ms = backend = lib_b2b = None
     for choice in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel(choice):
                 library()
                 torch.cuda.synchronize()
-                library_ms = graph_us(library) / 1e3
-                lib_b2b = median_ms(library) if back_to_back else None
-            backend = choice.name
-            break
+                ms = graph_us(library) / 1e3
+                b2b = median_ms(library) if back_to_back else None
+            return ms, b2b, choice.name
         except RuntimeError:
             continue
+    return None, None, None
+
+
+def dattn_times(q, k, v, mask, back_to_back=True, plain_time=True):
+    """The decode attention's device time a call (a CUDA graph), its plain
+    version's (unless not ``plain_time``: None), scaled_dot_product_
+    attention's with the boolean mask (dattn_library_ms) and the bound; with
+    ``back_to_back`` the same back to back with the host → a record's
+    numbers and a line's text."""
+    import tst_torch.kernels.decode_attention as tda
+
+    def kernel():
+        return tda.cache_attention(q, k, v, mask)
+
+    def plain():
+        return tda.cache_attention_reference(q, k, v, mask)
+
+    ms = graph_us(kernel) / 1e3
+    plain_ms = graph_us(plain, calls=2, replays=10) / 1e3 if plain_time else None
+    library_ms, lib_b2b, backend = dattn_library_ms(q, k, v, mask, back_to_back)
     rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **dattn_bound(q, k, mask),
            "library": backend}
-    text = (f"device ms: kernel {ms:.5f}, plain {plain_ms:.5f}, library "
+    text = (f"device ms: kernel {ms:.5f}, plain "
+            f"{plain_ms if plain_ms is None else round(plain_ms, 5)}, library "
             f"{library_ms if library_ms is None else round(library_ms, 5)} ({backend}), bound "
             f"{rec['bound_ms']:.5f} ({rec['bound_by']})")
     if back_to_back:
@@ -2356,28 +2393,97 @@ def dattn_times(q, k, v, mask, back_to_back=True):
     return rec, text
 
 
+def dattn_boundary(device, d, b=2, t=3):
+    """F1 across the decode attention's rank chunks and its two paths, at
+    head dim ``d`` (Qwen2.5-0.5B's 14/2 heads at 64, Llama-3-8B's 32/8 at
+    128): query j of a T=3 call sees the first n + j of a row's visible keys,
+    for n just below a chunk (so the three span 64 ranks), just below a
+    superchunk (the one-kernel path, the cache exactly that long) and just
+    below two. Each query must give the same bits alone (T=1), in a cache
+    with masked slots between its keys, and in a cache three superchunks
+    longer (the two-kernel path), and be within O_TOL·max|ref| of the plain
+    version in the first cache → (worst error, a line)."""
+    import tst_torch.kernels.decode_attention as tda
+
+    chunk, sup = tda.rank_plan(d)
+    h, kvh = (14, 2) if d == 64 else (32, 8)
+    rng = np.random.default_rng(d)
+    worst, seen = 0.0, []
+    for n in (chunk - 1, sup - t + 1, 2 * sup - 1):
+        vis = n + t - 1
+        q = _randn(rng, (b, t, h, d), device)
+        keys, values = (_randn(rng, (b, vis, kvh, d), device) for _ in range(2))
+        outs = []
+        for s in (vis if vis == sup else vis + 7, vis + 3 * sup):
+            k, v = (_randn(rng, (b, s, kvh, d), device) for _ in range(2))
+            mask = torch.zeros((b, t, s), dtype=torch.bool, device=device)
+            for row in range(b):
+                pos = torch.from_numpy(np.sort(rng.choice(s, vis, replace=False))).to(device)
+                k[row, pos], v[row, pos] = keys[row], values[row]
+                for j in range(t):
+                    mask[row, j, pos[:n + j]] = True
+            got = tda.cache_attention(q, k, v, mask)
+            for j in range(t):
+                alone = tda.cache_attention(q[:, j: j + 1].contiguous(), k, v,
+                                            mask[:, j: j + 1].contiguous())
+                if not torch.equal(alone, got[:, j: j + 1]):
+                    raise AssertionError(f"decode attention at D={d}, n={n + j}, S={s}: query "
+                                         f"{j} of a T={t} call differs from the same query alone")
+            if not outs:  # the longer cache must give these bits: checked below
+                want = tda.cache_attention_reference(q, k, v, mask).float()
+                err = (got.float() - want).abs().max().item()
+                if err > O_TOL * want.abs().max().item():
+                    raise AssertionError(f"decode attention at D={d}, n={n}, S={s} disagrees "
+                                         f"with its plain version: {err:.3e}")
+                worst = max(worst, err)
+            outs.append(got)
+            seen.append((s, tda.scratch_bytes(b, t, s, h, kvh, d) > 0))
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"decode attention at D={d}, n={n}..{n + t - 1}: a cache of "
+                                 f"{seen[-1][0]} slots gives other bits than one of "
+                                 f"{seen[-2][0]}")
+    line = (f"D={d} rank chunks of {chunk}, superchunks of {sup}: visible counts "
+            f"{chunk - 1}..{chunk + 1}, {sup - t + 1}..{sup}, {2 * sup - 1}..{2 * sup + 1} bit-equal "
+            f"T=1 vs T={t} and across caches of " + ", ".join(
+                f"{s} ({'two kernels' if two else 'one kernel'})" for s, two in seen)
+            + f"; max|out-ref| {worst:.3e}")
+    return worst, line
+
+
 def phase_kernel_decode_attention(device):
-    """The decode step's attention kernel against its plain version at the
-    greedy step's shape (Qwen2.5-0.5B heads, 32 rows, T=1), the verify
-    chunk's (T = gamma + 1), Llama-3-8B heads and a cache of the long
-    preset's length (dattn_check); device times at the greedy step's shape
-    from a CUDA graph beside scaled_dot_product_attention with the boolean
-    mask and the bound, and the same back to back with the host."""
-    worst, rec = 0.0, None
+    """The decode step's attention kernel against its plain version at every
+    DATTN_CASES case (dattn_check: the greedy step's shape, Qwen2.5-0.5B
+    heads, 32 rows, T=1; the verify chunk's, T = gamma + 1; Llama-3-8B heads;
+    a cache of the long preset's length; the dry run's two) and across its
+    rank chunks and paths (dattn_boundary at both head dims); each case's
+    device time from a CUDA graph beside scaled_dot_product_attention with the
+    boolean mask and the bound, and at the greedy step's shape the plain
+    version's and the same back to back with the host. The record is the
+    greedy step's, every case's under ``cases``."""
+    import tst_torch.kernels.decode_attention as tda
+
+    worst, rec, cases = 0.0, None, {}
     for case in DATTN_CASES:
         err, q, k, v, mask, line = dattn_check(device, case)
         worst = max(worst, err)
-        if rec is None:  # the greedy step's shape: timed
-            b, t, h, kvh, d, s = case
-            rec, text = dattn_times(q, k, v, mask)
+        b, t, h, kvh, d, s = case
+        crec, text = dattn_times(q, k, v, mask, back_to_back=rec is None, plain_time=rec is None)
+        cases[str(list(case))] = {"max_abs_err": err, **crec}
+        if rec is None:  # the greedy step's shape
+            rec = dict(crec)
             rec["timed"] = (f"q [{b}, {t}, {h}, {d}] over a cache of {s} slots (a greedy step's "
                             f"layer), device time a call from a CUDA graph; library: "
                             f"scaled_dot_product_attention with the mask ({rec.pop('library')}); "
                             f"back_to_back: CUDA events around 10 calls, the host's launch "
-                            f"overhead included")
-            line += "; " + text
+                            f"overhead included; every DATTN_CASES case under cases")
+        print(f"[kernel-dattn] {line}; {text}")
+        del q, k, v, mask
+    for d in tda.HEAD_DIMS:
+        err, line = dattn_boundary(device, d)
+        worst = max(worst, err)
         print(f"[kernel-dattn] {line}")
     rec["max_abs_err"] = worst
+    rec["cases"] = cases
     return rec
 
 
@@ -3973,6 +4079,7 @@ def phase_long(device):
     times = {"fwd": median_ms(lambda: tfa.flash_attention(q, k, v), 5, 3),
              "dkv": median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di), 5, 3),
              "dq": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di), 5, 3)}
+    dq_clocks = clocks_now()
     lib = _sdpa_yardstick(q, k, v, do, o, samples=5, reps=3)
     bounds = _attention_bounds(q, k)
     plain = out["checks"][str(LONG_CHECKS[0][0])]
@@ -3985,6 +4092,7 @@ def phase_long(device):
                     "library_ms": lib["fwd_ms"] if key == "fwd" else lib["bwd_ms"],
                     "plain_ms": plain["plain_ms"] if key == "fwd" else plain["plain_bwd_ms"],
                     "timed": timed}
+    out["dq"]["clocks_sm_power"] = dq_clocks
     print(f"[long] K1 at the preset's call q {list(q.shape)}: forward {times['fwd']:.3f} ms "
           f"(bound {bounds['fwd']['bound_ms']:.3f}, {bounds['fwd']['bound_by']}; library "
           f"{lib['fwd_ms']:.3f}), dK/dV {times['dkv']:.3f} ms (bound "
@@ -4871,7 +4979,8 @@ def k1_case(device, shape, seed, starts=None, causal=True, samples=10, reps=5, p
            "dq": {"max_abs_err": abs_err[0],
                   "ms": median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di, *extra),
                                   samples, reps),
-                  "library_ms": lib["bwd_ms"], **bounds["dq"]}}
+                  "clocks_sm_power": clocks_now(), "library_ms": lib["bwd_ms"],
+                  **bounds["dq"]}}
     out["fwd"]["max_rel_err"] = fwd["o_rel"]
     out["dkv"]["max_rel_err"], out["dq"]["max_rel_err"] = max(rel[1:]), rel[0]
     if plain:
@@ -5499,7 +5608,8 @@ def main(argv=None):
                         "launches": ring_k1[key], "launches_ring_preset_call": ring_preset[key],
                         "llama_shape": full["llama_shape"][key], **full["ring"][key]})
     print("[k1] ratio_to_library (kernel ms / library ms) and share_of_bound (bound ms / "
-          "kernel ms) of each K1 kernel: " + json.dumps({
+          "kernel ms) of each K1 kernel, and at each dQ the card's SM clock and power draw "
+          "read just after its timing: " + json.dumps({
               "main": k1_summary(dict(zip(("fwd", "dkv", "dq"), records[:3]))),
               "segmented": k1_summary(dict(zip(("fwd", "dkv", "dq"), records[3:6]))),
               "non_causal_ring_block": k1_summary(full["ring"]),

@@ -17,12 +17,14 @@ the decode-attention kernel's times (PERF.md §6, ROADMAP §3).
     products over the whole chunk in one call) or left repaired: "none" has
     all three put back, "all" is the code as it is, and must give 0.
   * With ``--compare-source``, the decode-attention kernel of the package
-    and another build of the same C entry (``tst_decode_attention``, e.g.
-    an earlier version of ``tst_torch/csrc/decode_attention.cu``), each held
-    to the plain version and timed in turn (package, other, package, other)
-    at the greedy step's, the verify chunk's and the long cache's shapes of
-    chip_smoke.py's DATTN_CASES: device µs a call from a CUDA graph, and ms
-    back to back with the host.
+    and another build of its C entry (``tst_decode_attention``, e.g. the
+    parent commit's ``tst_torch/csrc/decode_attention.cu``; an entry of the
+    earlier signature, without scratch, is called as such),
+    each held to the plain version and timed in turn (other, package,
+    package, other) at every case of chip_smoke.py's DATTN_CASES and
+    WIDTHS_DATTN: device µs a call from a CUDA graph, beside
+    scaled_dot_product_attention with the mask (the same graph timing) and
+    the bound.
 
 Prints the card's name and power limit first, then one line per
 measurement.
@@ -162,46 +164,67 @@ def f1_sources(base, rows_list, gammas):
 
 
 def other_entry(source):
-    """``tst_decode_attention`` of another source, built into its own library."""
+    """``tst_decode_attention`` of another source, built into its own library
+    → (the entry, its scratch query, or None for a source of the one-kernel
+    signature, before scratch)."""
     out = _build.BUILD_DIR / "compare" / f"libdattn_{Path(source).stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run(_build.nvcc_command(_build.find_nvcc(), [Path(source)], out), check=True,
                    capture_output=True)
-    fn = ctypes.CDLL(str(out)).tst_decode_attention
-    fn.restype, fn.argtypes = ctypes.c_int, tda._entry().argtypes
-    return fn
+    lib = ctypes.CDLL(str(out))
+    fn = lib.tst_decode_attention
+    scratch = getattr(lib, "tst_decode_attention_scratch", None)
+    fn.restype = ctypes.c_int
+    fn.argtypes = (tda._entry().argtypes if scratch is not None else
+                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                                                 ctypes.c_void_p])
+    if scratch is not None:
+        scratch.restype = ctypes.c_long
+        scratch.argtypes = [ctypes.c_int] * 6
+    return fn, scratch
 
 
 def compare_kernels(source, device):
-    other = other_entry(source)
+    other, other_scratch = other_entry(source)
 
     def call_other(q, k, v, mask):
         b, t, h, d = q.shape
+        s, kvh = k.shape[1], k.shape[2]
         out = torch.empty_like(q)
-        err = other(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                    b, t, k.shape[1], h, k.shape[2], d, 1.0 / float(np.sqrt(d)),
-                    q.device.index, _build.current_stream(q.device))
+        tail = (1.0 / float(np.sqrt(d)), q.device.index, _build.current_stream(q.device))
+        if other_scratch is not None:
+            nbytes = other_scratch(b, t, s, h, kvh, d)
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
+            err = other(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                        out.data_ptr(), None if scratch is None else scratch.data_ptr(), nbytes,
+                        b, t, s, h, kvh, d, *tail)
+        else:
+            err = other(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                        out.data_ptr(), b, t, s, h, kvh, d, *tail)
         if err != 0:
             raise RuntimeError(f"{source}: cudaError_t {err}")
         return out
 
-    for b, t, h, kvh, d, s in chip_smoke.DATTN_CASES:
-        if d != 64:
-            continue
+    for b, t, h, kvh, d, s in chip_smoke.DATTN_CASES + chip_smoke.WIDTHS_DATTN:
         q, k, v, mask = chip_smoke._dattn_case(device, b, t, h, kvh, d, s, seed=b * t + d)
         want = tda.cache_attention_reference(q, k, v, mask).float()
         errs = {name: (fn(q, k, v, mask).float() - want).abs().max().item()
                 for name, fn in (("package", tda.cache_attention), ("other", call_other))}
-        times = []
-        for name, fn in (("package", tda.cache_attention), ("other", call_other)) * 2:
-            times.append(f"{name} {chip_smoke.graph_us(lambda: fn(q, k, v, mask)):.2f} us "
-                         f"({chip_smoke.median_ms(lambda: fn(q, k, v, mask)) * 1e3:.2f} us back "
-                         f"to back)")
+        times = {"other": [], "package": []}
+        for name, fn in (("other", call_other), ("package", tda.cache_attention),
+                         ("package", tda.cache_attention), ("other", call_other)):
+            times[name].append(chip_smoke.graph_us(lambda: fn(q, k, v, mask)))
+        lib_ms, _, backend = chip_smoke.dattn_library_ms(q, k, v, mask)
         bound = chip_smoke.dattn_bound(q, k, mask)
-        print(f"[dattn] q [{b}, {t}, {h}, {d}], cache {s} slots: max|out-ref| package "
-              f"{errs['package']:.3e}, other {errs['other']:.3e}; device a call: "
-              + ", ".join(times) + f"; bound {bound['bound_ms'] * 1e3:.3f} us "
+        print(f"[dattn] q [{b}, {t}, {h}/{kvh}, {d}], cache {s} slots: max|out-ref| package "
+              f"{errs['package']:.3e}, other {errs['other']:.3e}; device us a call (other, "
+              f"package, package, other): other "
+              + ", ".join(f"{x:.2f}" for x in times["other"]) + "; package "
+              + ", ".join(f"{x:.2f}" for x in times["package"])
+              + f"; library ({backend}) {lib_ms * 1e3:.2f}; bound {bound['bound_ms'] * 1e3:.3f} "
               f"({bound['bound_by']})", flush=True)
+        del q, k, v, mask, want
+        torch.cuda.empty_cache()
 
 
 def main(argv=None):

@@ -14,15 +14,18 @@ step's [32, 512, 14, 64]; the packed step's [32, 1024, 14, 64] with starts
 from ``chip_smoke._seg_starts``; Llama-3-8B's [40, 512, 32, 128]; the 8B
 packed leg's [5, 1024, 32, 128] (segmented), with those starts and with the
 bench's own (``chip_smoke._bench_seg_cases``, the k=5 leg's first batch);
-the long preset's [10, 16384, 14, 64]. Each kernel's time is the median over CUDA-event
-samples of back-to-back calls (``chip_smoke.median_ms``), in ``--rounds``
-rounds; the library is timed in the same round. Prints JSON lines as it
-goes: the build (ptxas registers, spills and its ``Performance Loss``
-lines), then one a check (each kernel against its plain version at small
-shapes, S = 576 and 64 among them, plain and segmented, and a second call
-bit-equal; the forwards first), then one a shape and round (``ms``,
-``library_ms``, ``bound_ms``, ``ratio_to_library``, ``share_of_bound``).
-Exits 1 if a check fails. Needs a CUDA device."""
+the long preset's [10, 16384, 14, 64]; non-causal, the ring's block at the
+long preset [10, 4096, 14, 64] and at Llama-3-8B's heads [1, 4096, 32, 128].
+Each kernel's time is the median over CUDA-event samples of back-to-back
+calls (``chip_smoke.median_ms``), in ``--rounds`` rounds; the library is
+timed in the same round. Prints JSON lines as it goes: the build (ptxas
+registers, spills and its ``Performance Loss`` lines), then one a check (each kernel against its plain version at small
+shapes, S = 576, 64 and 1088 among them, plain, segmented and non-causal,
+and a second call bit-equal; the forwards first), then one a shape and round
+(``ms``, ``library_ms``, ``bound_ms``, ``ratio_to_library``,
+``share_of_bound``, and the card's SM clock and power draw read by
+``nvidia-smi`` just after the shape's dQ timing). Exits 1 if a check fails. Needs a
+CUDA device."""
 
 import argparse
 import json
@@ -34,15 +37,20 @@ import numpy as np
 import torch
 
 #: (name, (B, S, H, KVH, D), starts): None unsegmented, "random" from
-#: chip_smoke._seg_starts, "bench" the bench's packed 8B leg's own
+#: chip_smoke._seg_starts, "bench" the bench's packed 8B leg's own, "full"
+#: non-causal
 SHAPES = [("train", (32, 512, 14, 2, 64), None), ("packed", (32, 1024, 14, 2, 64), "random"),
           ("llama8b", (40, 512, 32, 8, 128), None),
           ("llama8b_packed", (5, 1024, 32, 8, 128), "random"),
           ("llama8b_packed_bench", (5, 1024, 32, 8, 128), "bench"),
-          ("long", (10, 16384, 14, 2, 64), None)]
-CHECKS = [(2, 576, 4, 2, 64, False), (2, 576, 8, 2, 128, False), (3, 64, 14, 2, 64, False),
-          (2, 64, 8, 2, 128, False), (4, 576, 14, 2, 64, True), (4, 1024, 8, 2, 128, True),
-          (2, 4096, 14, 2, 64, False)]
+          ("long", (10, 16384, 14, 2, 64), None),
+          ("ring_block", (10, 4096, 14, 2, 64), "full"),
+          ("ring_block_llama", (1, 4096, 32, 8, 128), "full")]
+#: (B, S, H, KVH, D, starts), starts as in SHAPES
+CHECKS = [(2, 576, 4, 2, 64, None), (2, 576, 8, 2, 128, None), (3, 64, 14, 2, 64, None),
+          (2, 64, 8, 2, 128, None), (4, 576, 14, 2, 64, "random"),
+          (4, 1024, 8, 2, 128, "random"), (2, 4096, 14, 2, 64, None),
+          (2, 576, 14, 2, 64, "full"), (2, 64, 8, 2, 128, "full"), (2, 1088, 28, 4, 128, "full")]
 
 
 def _inputs(cs, b, s, h, kvh, d, seed, device):
@@ -57,31 +65,37 @@ def checks(cs, tfa, device, emit):
     the forwards first; ``emit`` each row as it is made."""
     out = []
     for bwd in (False, True):
-        for b, s, h, kvh, d, segmented in CHECKS:
+        for b, s, h, kvh, d, starts in CHECKS:
             q, k, v, do = _inputs(cs, b, s, h, kvh, d, s + d, device)
-            seg = torch.from_numpy(cs._seg_starts(b, s, s)).to(device) if segmented else None
-            o, lse = tfa.flash_attention(q, k, v, seg_starts=seg)
+            seg = (torch.from_numpy(cs._seg_starts(b, s, s)).to(device) if starts == "random"
+                   else None)
+            causal = starts != "full"
+            o, lse = tfa.flash_attention(q, k, v, causal=causal, seg_starts=seg)
             torch.cuda.synchronize()
-            row = {"shape": [b, s, h, kvh, d], "segmented": segmented}
+            row = {"shape": [b, s, h, kvh, d], "starts": starts}
             if not bwd:
-                again = tfa.flash_attention(q, k, v, seg_starts=seg)
-                o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, seg_starts=seg)
+                again = tfa.flash_attention(q, k, v, causal=causal, seg_starts=seg)
+                o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                                               seg_starts=seg)
                 row.update(kernel="fwd", o_err=(o.float() - o_ref.float()).abs().max().item(),
                            lse_err=(lse - lse_ref).abs().max().item(),
                            bitwise=torch.equal(o, again[0]) and torch.equal(lse, again[1]))
                 row["ok"] = bool(row["o_err"] <= cs.O_TOL and row["lse_err"] <= cs.LSE_TOL
                                  and row["bitwise"] and bool(torch.isfinite(o).all()))
-            else:
-                di = tfa.backward_row_stat(o, do)
-                got = tfa.flash_attention_backward(q, k, v, lse, di, do, seg_starts=seg)
-                torch.cuda.synchronize()
-                again = tfa.flash_attention_backward(q, k, v, lse, di, do, seg_starts=seg)
-                want = tfa.flash_attention_backward_reference(
-                    q.float(), k.float(), v.float(), o.float(), lse, do.float(), seg_starts=seg)
-                row.update(kernel="bwd", grad_rel_errs=[cs._rel_err(g, w) for g, w in zip(got, want)],
-                           bitwise=all(torch.equal(x, y) for x, y in zip(got, again)))
-                row["ok"] = bool(max(row["grad_rel_errs"]) <= cs.GRAD_TOL and row["bitwise"]
-                                 and all(bool(torch.isfinite(t).all()) for t in got))
+                out.append(row)
+                emit(row)
+                continue
+            di = tfa.backward_row_stat(o, do)
+            got = tfa.flash_attention_backward(q, k, v, lse, di, do, causal, seg_starts=seg)
+            torch.cuda.synchronize()
+            again = tfa.flash_attention_backward(q, k, v, lse, di, do, causal, seg_starts=seg)
+            want = tfa.flash_attention_backward_reference(
+                q.float(), k.float(), v.float(), o.float(), lse, do.float(), causal,
+                seg_starts=seg)
+            row.update(kernel="bwd", grad_rel_errs=[cs._rel_err(g, w) for g, w in zip(got, want)],
+                       bitwise=all(torch.equal(x, y) for x, y in zip(got, again)))
+            row["ok"] = bool(max(row["grad_rel_errs"]) <= cs.GRAD_TOL and row["bitwise"]
+                             and all(bool(torch.isfinite(t).all()) for t in got))
             out.append(row)
             emit(row)
     return out
@@ -94,22 +108,33 @@ def _starts(cs, shape, starts):
     return next(seg for case, seg in cs._bench_seg_cases() if tuple(case) == tuple(shape))
 
 
+def clocks():
+    """The card's SM clock and power draw now, as nvidia-smi reads them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+
+
 def times(cs, tfa, device, name, shape, starts):
     b, s, h, kvh, d = shape
+    causal = starts != "full"
     q, k, v, do = _inputs(cs, b, s, h, kvh, d, 1, device)
-    seg = None if starts is None else torch.from_numpy(_starts(cs, shape, starts)).to(device)
-    kseg = tfa.kernel_seg_starts(seg, q)
-    o, lse = tfa.flash_attention(q, k, v, seg_starts=seg)
+    seg = (None if starts in (None, "full")
+           else torch.from_numpy(_starts(cs, shape, starts)).to(device))
+    kseg = tfa.kernel_seg_starts(seg, q, causal)
+    o, lse = tfa.flash_attention(q, k, v, causal=causal, seg_starts=seg)
     di = tfa.backward_row_stat(o, do)
     n = (5, 3) if s > 4096 else (30, 10)
-    ms = {"fwd": cs.median_ms(lambda: tfa._launch_fwd(q, k, v, kseg), *n),
-          "dkv": cs.median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di, kseg), *n),
-          "dq": cs.median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di, kseg), *n)}
+    ms = {"fwd": cs.median_ms(lambda: tfa._launch_fwd(q, k, v, kseg, causal), *n),
+          "dkv": cs.median_ms(lambda: tfa._launch_bwd_dkv(q, k, v, do, lse, di, kseg, causal),
+                              *n),
+          "dq": cs.median_ms(lambda: tfa._launch_bwd_dq(q, k, v, do, lse, di, kseg, causal), *n)}
+    clock = clocks()
     mask = None if seg is None else tfa.segment_mask(seg, s)
-    lib = cs._sdpa_yardstick(q, k, v, do, o, mask, *n)
-    bounds = cs._attention_bounds(q, k, seg)
+    lib = cs._sdpa_yardstick(q, k, v, do, o, mask, *n, causal=causal)
+    bounds = cs._attention_bounds(q, k, seg, causal)
     row = {"name": name, "shape": list(shape), "starts": starts,
-           "library": f"{lib['backend']}, {lib['gqa']}"}
+           "library": f"{lib['backend']}, {lib['gqa']}", "clocks_sm_power": clock}
     for key in ("fwd", "dkv", "dq"):
         library_ms = lib["fwd_ms"] if key == "fwd" else lib["bwd_ms"]
         row[key] = {"ms": ms[key], "library_ms": library_ms, **bounds[key],

@@ -44,15 +44,17 @@ def _mangled(kind, d, seg, tiled=False, causal=True):
 
 #: (kind, D, seg, tiled[, causal]) of each attention kernel the C entries
 #: launch: the 64-row forward for packed rows at D=64, the 64-key dK/dV for
-#: packed rows and at D=128, the persistent kernels (dK/dV at D=64 alone) and
-#: dQ elsewhere; and the non-causal instantiations of the unsegmented ones
+#: packed rows and at D=128, the 64-row dQ for packed rows (and non-causal at
+#: D=128), the persistent kernels elsewhere; and the non-causal
+#: instantiations of the unsegmented ones
 ATTENTION = [("fwd", 64, False, False), ("fwd", 128, False, False), ("fwd", 64, True, True),
              ("fwd", 128, True, False), ("dkv", 64, None, False), ("dkv", 128, False, True),
              ("dkv", 64, True, True), ("dkv", 128, True, True)]
-ATTENTION += [("dq", d, seg, False) for d in (64, 128) for seg in (False, True)]
+ATTENTION += [("dq", 64, None, False), ("dq", 128, None, False), ("dq", 64, True, True),
+              ("dq", 128, True, True)]
 ATTENTION += [("fwd", 64, False, False, False), ("fwd", 128, False, False, False),
               ("dkv", 64, None, False, False), ("dkv", 128, False, True, False),
-              ("dq", 64, False, False, False), ("dq", 128, False, False, False)]
+              ("dq", 64, None, False, False), ("dq", 128, False, True, False)]
 #: K4's kernels as the SASS listing names them
 K4 = {"swiglu_gate_up_kernel": f"{_NS}21swiglu_gate_up_kernelEPK13__nv_bfloat16S2_S2_PS0_iii",
       "swiglu_down_kernel": f"{_NS}18swiglu_down_kernelEPK13__nv_bfloat16S2_PS0_iii"}
@@ -86,7 +88,7 @@ def test_hgmma_counts_name_all_twelve_attention_kernels():
     their six non-causal instantiations: eighteen, and the two K4 kernels."""
     counts = chip_smoke.hgmma_counts(_sass(ATTENTION))
     assert len(counts) == chip_smoke.N_ATTENTION_KERNELS + len(chip_smoke.K4_KERNELS) == 20
-    assert counts["fwd<D=64>"] == counts["fwd<D=128, seg>"] == counts["dq<D=64, seg>"] == 3
+    assert counts["fwd<D=64>"] == counts["fwd<D=128, seg>"] == counts["dq_tiled<D=64, seg>"] == 3
     assert counts["fwd<D=64, full>"] == counts["dkv_tiled<D=128, full>"] == 3
     assert counts["swiglu_gate_up_kernel"] == counts["swiglu_down_kernel"] == 2
     assert set(counts) == ({chip_smoke.kernel_name(_mangled(*k)) for k in ATTENTION}
@@ -107,10 +109,14 @@ def test_the_listing_names_the_kernels_the_gate_wants():
     (("dkv", 64, None, False, False), "dkv<D=64, full>"),
     (("dkv", 128, False, True, False), "dkv_tiled<D=128, full>"),
     (("fwd", 64, True, True, None), "fwd_tiled<D=64, seg>"),
+    (("dq", 64, None, False, True), "dq<D=64>"),
+    (("dq", 64, None, False, False), "dq<D=64, full>"),
+    (("dq", 128, True, True, True), "dq_tiled<D=128, seg>"),
+    (("dq", 128, False, True, False), "dq_tiled<D=128, full>"),
 ])
 def test_kernel_names_read_the_causal_flag(kernel, name):
-    """kCausal false reads ``full``; the persistent dK/dV kernel's one flag
-    is kCausal (it has no kSeg); a name without the flag is causal."""
+    """kCausal false reads ``full``; the persistent dK/dV and dQ kernels' one
+    flag is kCausal (they have no kSeg); a name without the flag is causal."""
     assert chip_smoke.kernel_name(_mangled(*kernel)) == name
 
 

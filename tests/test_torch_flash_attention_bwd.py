@@ -254,3 +254,40 @@ def test_non_causal_backward_kernels_match_reference_on_card():
                                                                        before[1] + 1)
         for leaf, g in zip(leaves, got):
             assert torch.equal(leaf.grad, g)
+
+
+#: dQ on the card: (B, S, H, KVH, D) at S = 64, 576 and 1088 (one 128-row
+#: tile past S, odd tile counts), GQA groups of 7 and 4, both head dims
+DQ_CARD_SHAPES = [(3, 64, 14, 2, 64), (2, 576, 14, 2, 64), (2, 1088, 28, 4, 128),
+                  (2, 64, 32, 8, 128), (2, 576, 32, 8, 128), (2, 1088, 14, 2, 64)]
+
+
+@pytest.mark.cuda
+def test_dq_kernels_match_reference_on_card():
+    """dQ causal, non-causal and segmented (the persistent kernel where the C
+    entries take it, the 64-row one for packed rows and non-causal at D=128)
+    within 2e-2·max|ref| of the f32 plain backward on the same o and lse,
+    bit-equal on a second call, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for b, s, h, kvh, d in DQ_CARD_SHAPES:
+        q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                       for a in _inputs(b, s, h, kvh, d, seed=s + d))
+        starts = torch.tensor([[0, s // 3, s // 3 + 37] + [tfa.SEG_PAD] * 5] * b,
+                              dtype=torch.int32, device="cuda")
+        for causal, seg in ((True, None), (False, None), (True, starts)):
+            o, lse = tfa.flash_attention(q, k, v, causal=causal, seg_starts=seg)
+            di = tfa.backward_row_stat(o, do)
+            want = tfa.flash_attention_backward_reference(
+                q.float(), k.float(), v.float(), o.float(), lse, do.float(), causal,
+                seg_starts=seg)[0]
+            kseg = tfa.kernel_seg_starts(seg, q, causal)
+            counts = (tfa.LAUNCHES_BWD_DQ, tfa.LAUNCHES_SEG_BWD_DQ, tfa.LAUNCHES_FULL_BWD_DQ)
+            got = tfa._launch_bwd_dq(q, k, v, do, lse, di, kseg, causal)
+            again = tfa._launch_bwd_dq(q, k, v, do, lse, di, kseg, causal)
+            torch.cuda.synchronize()
+            after = (tfa.LAUNCHES_BWD_DQ, tfa.LAUNCHES_SEG_BWD_DQ, tfa.LAUNCHES_FULL_BWD_DQ)
+            assert sum(after) - sum(counts) == 2
+            assert torch.equal(got, again), (b, s, h, d, causal, seg is not None)
+            assert got.abs().max().item() > 0
+            assert (got.float() - want).abs().max().item() <= 2e-2 * want.abs().max().item()

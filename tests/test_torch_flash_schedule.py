@@ -62,3 +62,15 @@ def test_k1_summary_ratios():
     assert rows == {"fwd": {"ratio_to_library": 0.5, "share_of_bound": 0.5}}
     assert chip_smoke.k1_summary({"dkv": {"ms": 2.0, "library_ms": None, "bound_ms": 1.0}}) == {
         "dkv": {"ratio_to_library": None, "share_of_bound": 0.5}}
+
+
+def test_k1_summary_keeps_each_rows_clock_reading():
+    """A dQ row timed with the card's SM clock and power draw beside it
+    keeps that reading in the summary; a row without one gets none."""
+    rows = chip_smoke.k1_summary({
+        "dkv": {"ms": 2.0, "library_ms": 4.0, "bound_ms": 1.0},
+        "dq": {"ms": 1.0, "library_ms": 4.0, "bound_ms": 0.5,
+               "clocks_sm_power": "1980 MHz, 612.40 W"}})
+    assert rows == {"dkv": {"ratio_to_library": 0.5, "share_of_bound": 0.5},
+                    "dq": {"ratio_to_library": 0.25, "share_of_bound": 0.5,
+                           "clocks_sm_power": "1980 MHz, 612.40 W"}}

@@ -43,9 +43,35 @@
 //     query tiles; the 64-key design's grid started the longest blocks of
 //     later (head, batch) late, and each of its warpgroups staged its own
 //     Q, dO, lse, di, so no staged byte served two of them.
-// dQ (S, dP, dQ: three products a pair) is bound by its bytes at S=512 and
-// by its operations at S=16384 (7.30 ms); its kernel is the 64-row design
-// below, unchanged.
+// dQ (S, dP, dQ: three products a pair) is bound by its bytes at S=512
+// (0.0293 ms at D=64, 0.1768 at D=128) and by its operations at S=16384
+// (7.30 ms). Its 64-row design (one warpgroup a query tile, cp.async, each
+// copy and product waited for) left the tensor cores idle through every copy
+// and every dS. What the persistent dQ kernel does about it:
+//   * the forward's schedule: one block an SM over (128-row query tile,
+//     head, batch) tiles, longest causal rows first, in snake rounds, the
+//     heads of one KV head side by side;
+//   * a producer warp (setmaxnreg down to 24) loads Q, dO (TMA) and the
+//     rows' lse and di (bulk copies; only rows below S) once a tile into
+//     Q stages, and K and V of each 128-key tile into rings (2 Q and 3 K/V
+//     stages at D=64, 1 and 2 at D=128);
+//   * two consumer warpgroups (up to 240 registers) own rows 0-63 and 64-127
+//     and read the same K/V stages; at point j a consumer issues S and dP of
+//     tile j (m64n128, Q and dO K-major) with dQ += scale·dS·K of tile j - 1
+//     (dS from registers, K MN-major) and passes the turn, so its dS runs
+//     under the other's products; V(j) is given back after point j, K(j)
+//     after point j + 1;
+//   * rows past S (S = 64 mod 128) are masked like keys past S: their lse
+//     and di were never loaded.
+// The C entries take it unsegmented: causal at both head dims, non-causal
+// at D=64. Packed rows (both head dims) and non-causal D=128 keep the 64-row
+// kernel (flash_bwd_dq_tiled_kernel), which was faster there in one
+// interleaved call: a 128-row tile walks both halves' segment ranges, as
+// the forward's did; non-causal at [1, 4096, 32, 128] the persistent kernel
+// read 1.187-1.205 ms against 1.148-1.157 (PERF.md §6). At D=128 ptxas
+// serializes the persistent kernel's wgmma for registers (C7512: S, dP and
+// two dQ accumulators, 224 a thread), and it still won at [40, 512, 32, 128]
+// (PERF.md §6).
 //
 // dK/dV at D=64 unsegmented (the train step, the long preset), what the
 // design does about it:
@@ -145,6 +171,25 @@ __device__ __forceinline__ DkvTile dkv_tile(int tile, int KVH, int B, int S, int
   f.q_first = kCausal ? f.kvt * kRows / kTile : 0;  // non-causal: every query tile
   f.nq = S / kTile - f.q_first;
   f.n_pairs = groups * f.nq;
+  return f;
+}
+
+// which tile of the persistent dQ kernel: query tile (128 rows; the longest
+// causal rows first), head, batch; and the KV tiles it visits (the forward's
+// fwd_tile, without packed rows)
+struct DqTile {
+  int qt, h, b, kv_first, n_kv;
+};
+
+template <bool kCausal>
+__device__ __forceinline__ DqTile dq_tile(int tile, int n_qt, int H, int B) {
+  DqTile f;
+  f.qt = n_qt - 1 - tile / (H * B);
+  const int rem = tile % (H * B);
+  f.h = rem % H;  // the heads of one KV head's group side by side: K and V shared in L2
+  f.b = rem / H;
+  f.kv_first = 0;
+  f.n_kv = kCausal ? f.qt + 1 : n_qt;  // non-causal: every KV tile
   return f;
 }
 
@@ -583,13 +628,18 @@ flash_bwd_dkv_tiled_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloa
   }
 }
 
-// dQ: one warpgroup per (query tile, head, batch); warp i owns query rows
-// 16i .. 16i+16 of the tile. `seg` (int32 [B, kMaxSegs]) is read only when
-// kSeg; packed rows are causal. Non-causal, a query tile visits every KV tile
-// and masks nothing.
+// The 64-row dQ design this file had before the persistent kernel below,
+// kept for packed rows and non-causal at D=128, where it is faster (bwd_dq
+// below; PERF.md §6): one
+// warpgroup per (64-row query tile, head, batch), longest causal rows
+// launched first; Q, dO and a 2-stage K/V ring by cp.async, each copy and
+// each product waited for: the tensor cores idle through every copy and
+// every dS. Warp i owns query rows 16i .. 16i+16 of the tile. `seg` (int32
+// [B, kMaxSegs]) is read only when kSeg; packed rows are causal.
+// Non-causal, a query tile visits every KV tile and masks nothing.
 template <int D, bool kSeg, bool kCausal>
 __global__ void __launch_bounds__(128)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+flash_bwd_dq_tiled_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ di,
                     const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq, int S, int H,
@@ -712,6 +762,251 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   store_tile<D>(acc, dq + q_off, q_stride, warp, g, t);
 }
 
+// the persistent dQ kernel's shared memory: Q and dO of a 128-row query tile
+// in kQStages stages, each with 1 KB of its rows' lse and di; K and V rings
+// of 128-key tiles; the mbarriers. 163 KB at D=64 (2 Q stages, 3 K/V
+// stages), 194 KB at D=128 (1 and 2)
+template <int D>
+struct Dq {
+  static constexpr int kBlocks = D / 64;
+  static constexpr int kTB = FlashTile<D>::kTile128Bytes;  // one [128][D] tile
+  static constexpr int kQStages = D == 64 ? 2 : 1;
+  static constexpr int kKVStages = D == 64 ? 3 : 2;
+  static constexpr int kStatBytes = 1024;
+  static constexpr int kDoOff = kQStages * kTB;
+  static constexpr int kKOff = 2 * kQStages * kTB;
+  static constexpr int kVOff = kKOff + kKVStages * kTB;
+  static constexpr int kStatOff = kVOff + kKVStages * kTB;
+  static constexpr int kBarOff = kStatOff + kQStages * kStatBytes;
+  static constexpr int kBars = 2 * kQStages + 4 * kKVStages;
+  static constexpr int kSmem = kBarOff + 8 * kBars + 1024;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+};
+
+// dQ, persistent: one block an SM over (128-row query tile, head, batch)
+// tiles, the longest causal rows first, in snake rounds, the heads of one KV
+// head side by side (their K and V tiles come from L2 once); the forward's
+// schedule (flash_attention_fwd.cu fwd_tile). Warpgroup 0 is the producer
+// (one thread: Q, dO, lse, di once a tile, K and V of every visited 128-key
+// tile, by TMA and bulk copies into full / empty mbarrier rings); warpgroups
+// 1 and 2 own query rows 0-63 and 64-127 of the tile, read the same K/V
+// stages, and take turns (named barriers 1 and 2): at point j a consumer
+// issues S = Q·K^T and dP = dO·V^T of KV tile j and dQ += scale·dS·K of tile
+// j - 1 together, passes the turn, and computes dS of tile j while the other
+// consumer's products run. V(j) is released after point j, K(j) after j + 1.
+// Unsegmented rows only: packed rows take the 64-row kernel (PERF.md §6).
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWarpSpecThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse, const float* __restrict__ di,
+                    __nv_bfloat16* __restrict__ dq, int B, int S, int H, int KVH, float scale) {
+  using F = Dq<D>;
+  constexpr int kQS = F::kQStages, kKV = F::kKVStages, kTB = F::kTB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bars = base + F::kBarOff;
+  auto q_full = [&](int i) { return bars + 8 * i; };
+  auto q_empty = [&](int i) { return bars + 8 * (kQS + i); };
+  auto k_full = [&](int i) { return bars + 8 * (2 * kQS + i); };
+  auto k_empty = [&](int i) { return bars + 8 * (2 * kQS + kKV + i); };
+  auto v_full = [&](int i) { return bars + 8 * (2 * kQS + 2 * kKV + i); };
+  auto v_empty = [&](int i) { return bars + 8 * (2 * kQS + 3 * kKV + i); };
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int n_tiles = n_qt * H * B;
+  const int groups = H / KVH;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kQS; ++i) {
+      mbar_init(q_full(i), 1);
+      mbar_init(q_empty(i), kConsumerWarps);
+    }
+    for (int i = 0; i < kKV; ++i) {
+      mbar_init(k_full(i), 1);
+      mbar_init(k_empty(i), kConsumerWarps);
+      mbar_init(v_full(i), 1);
+      mbar_init(v_empty(i), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer
+    regs_dealloc<F::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int qi = 0, kvi = 0;
+      for (int r = 0;; ++r) {
+        const int tile = sched_tile(r, blockIdx.x, gridDim.x);
+        if (tile >= n_tiles) break;
+        const DqTile f = dq_tile<kCausal>(tile, n_qt, H, B);
+        const int kvh = f.h / groups;
+        const int qs = qi % kQS;
+        const int q0 = f.qt * kRows;
+        const int rows = min(kRows, S - q0);  // lse and di rows past S are never read
+        if (qi >= kQS) mbar_wait(q_empty(qs), (qi / kQS - 1) & 1);
+        mbar_expect_tx(q_full(qs), 2 * kTB + 8 * rows);
+#pragma unroll
+        for (int cb = 0; cb < F::kBlocks; ++cb) {  // rows past S arrive as zeros
+          tma_load_3d(base + qs * kTB + cb * kRowBlock, &tq, q_full(qs), f.h * D + cb * 64, q0,
+                      f.b);
+          tma_load_3d(base + F::kDoOff + qs * kTB + cb * kRowBlock, &tdo, q_full(qs),
+                      f.h * D + cb * 64, q0, f.b);
+        }
+        const long r0 = ((long)f.b * H + f.h) * S + q0;
+        const uint32_t stat = base + F::kStatOff + qs * F::kStatBytes;
+        bulk_load(stat, lse + r0, 4 * rows, q_full(qs));
+        bulk_load(stat + 512, di + r0, 4 * rows, q_full(qs));
+        ++qi;
+        for (int j = 0; j < f.n_kv; ++j, ++kvi) {
+          const int st = kvi % kKV;
+          const int kv0 = (f.kv_first + j) * kRows;
+          if (kvi >= kKV) mbar_wait(k_empty(st), (kvi / kKV - 1) & 1);
+          mbar_expect_tx(k_full(st), kTB);
+#pragma unroll
+          for (int cb = 0; cb < F::kBlocks; ++cb) {  // keys past S arrive as zeros
+            tma_load_3d(base + F::kKOff + st * kTB + cb * kRowBlock, &tk, k_full(st),
+                        kvh * D + cb * 64, kv0, f.b);
+          }
+          if (kvi >= kKV) mbar_wait(v_empty(st), (kvi / kKV - 1) & 1);
+          mbar_expect_tx(v_full(st), kTB);
+#pragma unroll
+          for (int cb = 0; cb < F::kBlocks; ++cb) {
+            tma_load_3d(base + F::kVOff + st * kTB + cb * kRowBlock, &tv, v_full(st),
+                        kvh * D + cb * 64, kv0, f.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  regs_alloc<F::kConsumerRegs>();
+  const int c = threadIdx.x / 128 - 1;  // this consumer's rows: 64c .. 64c + 63 of a tile
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const bool lead = tid % 32 == 0;  // gives ring stages back for its warp
+  const float scale_log2 = scale * kLog2e;
+  const int my_turn = 1 + c, their_turn = 2 - c;
+  if (c == 1) named_arrive(1, 256);
+
+  int qi = 0, kvi = 0;
+  for (int r = 0;; ++r) {
+    const int tile = sched_tile(r, blockIdx.x, gridDim.x);
+    if (tile >= n_tiles) break;
+    const DqTile f = dq_tile<kCausal>(tile, n_qt, H, B);
+    const int q0 = f.qt * kRows + 64 * c;   // this consumer's first row
+    const int row_lo = q0 + 16 * warp + g;  // rows of this thread: row_lo, row_lo + 8
+    const int qs = qi % kQS;
+    const uint32_t q_t = base + qs * kTB + c * kHalfBlock;
+    const uint32_t do_t = base + F::kDoOff + qs * kTB + c * kHalfBlock;
+    mbar_wait(q_full(qs), (qi / kQS) & 1);
+    // this thread's rows' statistics (rows past S: never used), read before
+    // the stage is given back
+    const float* stat = reinterpret_cast<const float*>(smem + F::kStatOff + qs * F::kStatBytes);
+    const int sr = 64 * c + 16 * warp + g;
+    const float lse_lo = stat[sr] * kLog2e, lse_hi = stat[sr + 8] * kLog2e;
+    const float di_lo = stat[128 + sr], di_hi = stat[128 + sr + 8];
+    const bool past_lo = row_lo >= S, past_hi = row_lo + 8 >= S;
+
+    float acc[F::kBlocks][32];
+#pragma unroll
+    for (int cb = 0; cb < F::kBlocks; ++cb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+    }
+    float s[64], dp[64];
+    uint32_t dsa[8][4];
+
+    // S = Q K^T and dP = dO V^T of KV tile stage st: queries x 128 keys
+    auto issue_sdp = [&](int st) {
+      const uint32_t k_t = base + F::kKOff + st * kTB;
+      const uint32_t v_t = base + F::kVOff + st * kTB;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_kk(s, desc_k(q_t, kRowBlock, kk), desc_k(k_t, kRowBlock, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_kk(dp, desc_k(do_t, kRowBlock, kk), desc_k(v_t, kRowBlock, kk), kk > 0);
+      }
+    };
+    // dQ += scale·dS K: dS as bf16 A fragments, K read MN-major
+    auto issue_dq = [&](int st) {
+      const uint32_t k_t = base + F::kKOff + st * kTB;
+#pragma unroll
+      for (int cb = 0; cb < F::kBlocks; ++cb) {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) wgmma_rs(acc[cb], dsa[kk], desc_mn(k_t, kRowBlock, cb, kk));
+      }
+    };
+    // scale·dS of KV tile j into dsa, two elements at a time: P recomputed
+    // from the lse, masked to 0 where a key is not seen (the diagonal tile;
+    // non-causal, keys past S) and on rows past S
+    auto elementwise = [&](int j) {
+      const int kv0 = (f.kv_first + j) * kRows;
+      const bool masked = kCausal ? f.kv_first + j == f.qt : kv0 + kRows > S;
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const bool hi = (i & 2) != 0;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kv0 + 8 * (i / 4) + 2 * t + e;
+          bool off = hi ? past_hi : past_lo;
+          if (masked) off = off || (kCausal ? key > row_lo + (hi ? 8 : 0) : key >= S);
+          const float pv = fast_exp2(s[i + e] * scale_log2 - (hi ? lse_hi : lse_lo));
+          ds[e] = off ? 0.f : pv * (dp[i + e] - (hi ? di_hi : di_lo)) * scale;
+        }
+        dsa[i / 8][(i % 8) / 2] = pack_bf16(ds[0], ds[1]);
+      }
+    };
+    auto release = [&](uint32_t bar) {
+      if (lead) mbar_arrive(bar);
+    };
+
+    for (int j = 0; j <= f.n_kv; ++j) {
+      const bool last = j == f.n_kv;
+      const int st = (kvi + j) % kKV;
+      const int prev = (kvi + j + kKV - 1) % kKV;
+      named_barrier(my_turn, 256);
+      wgmma_fence();
+      if (!last) {
+        mbar_wait(k_full(st), ((kvi + j) / kKV) & 1);
+        mbar_wait(v_full(st), ((kvi + j) / kKV) & 1);
+        issue_sdp(st);
+        wgmma_commit();
+      }
+      if (j > 0) {
+        issue_dq(prev);
+        wgmma_commit();
+      }
+      named_arrive(their_turn, 256);
+      wgmma_wait<0>();
+      fence_acc_n(s);
+      fence_acc_n(dp);
+#pragma unroll
+      for (int cb = 0; cb < F::kBlocks; ++cb) fence_acc(acc[cb]);
+      if (!last) {
+        release(v_empty(st));
+        if (j == f.n_kv - 1) release(q_empty(qs));
+      }
+      if (j > 0) release(k_empty(prev));
+      if (!last) elementwise(j);
+    }
+    kvi += f.n_kv;
+    ++qi;
+
+    const long q_stride = (long)H * D;
+    store_rows<D>(acc, dq + ((long)f.b * S + q0) * q_stride + (long)f.h * D, q_stride, warp, g, t,
+                  S - q0);
+  }
+  if (c == 0) named_barrier(my_turn, 256);  // consumer 1's last turn handed over
+}
+
 template <int D, bool kCausal>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* di, void* dk, void* dv, int B, int S, int H,
@@ -758,15 +1053,43 @@ cudaError_t launch_dkv_tiled(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
-template <int D, bool kSeg, bool kCausal>
+template <int D, bool kCausal>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* di, const void* seg, void* dq, int B, int S,
-                      int H, int KVH, float scale, cudaStream_t st) {
+                      const void* lse, const void* di, void* dq, int B, int S, int H, int KVH,
+                      float scale, int device, cudaStream_t st) {
+  static unsigned smem_set = 0;
+  constexpr int smem = Dq<D>::kSmem;
+  cudaError_t err = cudaSuccess;
+  if (!(smem_set & (1u << device))) {
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kCausal>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set |= 1u << device;
+  }
+  CUtensorMap tq, tk, tv, tdo;
+  err = heads_map(&tq, q, B, S, H, D, kRows);
+  if (err == cudaSuccess) err = heads_map(&tdo, dout, B, S, H, D, kRows);
+  if (err == cudaSuccess) err = heads_map(&tk, k, B, S, KVH, D, kRows);
+  if (err == cudaSuccess) err = heads_map(&tv, v, B, S, KVH, D, kRows);
+  if (err != cudaSuccess) return err;
+  const int tiles = (S + kRows - 1) / kRows * H * B;
+  const int sms = sm_count(device);
+  if (sms == 0) return cudaErrorInvalidValue;
+  flash_bwd_dq_kernel<D, kCausal><<<tiles < sms ? tiles : sms, kWarpSpecThreads, smem, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<__nv_bfloat16*>(dq), B, S, H, KVH, scale);
+  return cudaGetLastError();
+}
+
+template <int D, bool kSeg, bool kCausal>
+cudaError_t launch_dq_tiled(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* di, const void* seg, void* dq, int B,
+                            int S, int H, int KVH, float scale, cudaStream_t st) {
   constexpr int smem = Bwd<D>::kDqSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kSeg, kCausal>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tiled_kernel<D, kSeg, kCausal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D, kSeg, kCausal><<<dim3(S / kTile, H, B), 128, smem, st>>>(
+  flash_bwd_dq_tiled_kernel<D, kSeg, kCausal><<<dim3(S / kTile, H, B), 128, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(di),
@@ -809,16 +1132,29 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const 
            const void* di, const void* seg, void* dq, int B, int S, int H, int KVH, int D,
            float scale, int device, void* stream) {
   if (bad_shape(B, S, H, KVH)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the persistent kernel unsegmented, causal at both head dims and
+  // non-causal at D=64; the 64-row kernel for packed rows and non-causal at
+  // D=128, where it was faster in one interleaved call (PERF.md §6)
   if (D == 64) {
-    return (int)launch_dq<64, kSeg, kCausal>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, scale,
-                                             st);
+    if constexpr (kSeg) {
+      return (int)launch_dq_tiled<64, true, true>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH,
+                                                  scale, st);
+    } else {
+      return (int)launch_dq<64, kCausal>(q, k, v, dout, lse, di, dq, B, S, H, KVH, scale, device,
+                                         st);
+    }
   }
   if (D == 128) {
-    return (int)launch_dq<128, kSeg, kCausal>(q, k, v, dout, lse, di, seg, dq, B, S, H, KVH,
-                                              scale, st);
+    if constexpr (kSeg || !kCausal) {
+      return (int)launch_dq_tiled<128, kSeg, kCausal>(q, k, v, dout, lse, di, seg, dq, B, S, H,
+                                                      KVH, scale, st);
+    } else {
+      return (int)launch_dq<128, true>(q, k, v, dout, lse, di, dq, B, S, H, KVH, scale, device,
+                                       st);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -10,13 +10,15 @@
 // Two tile shapes, both in the 128-byte-swizzled layout that wgmma reads
 // (wgmma_sm90.cuh):
 //   * 64-row tiles: a [64][D] bf16 tile is D/64 blocks of [64][64], 8 KB
-//     apart. The dQ kernel and the 64-row kernels kept for packed rows (the
-//     forward at D=64, dK/dV at both) and for dK/dV at D=128 stage their
-//     tiles so, by 16-byte cp.async (load_tile); the persistent dK/dV
-//     kernel's ring holds its Q and dO so (TMA boxes of [64][64]).
+//     apart. The 64-row kernels kept for packed rows (the forward at D=64,
+//     dK/dV and dQ at both), for dK/dV at D=128 and for non-causal dQ at
+//     D=128 stage their tiles so, by 16-byte cp.async (load_tile); the
+//     persistent dK/dV kernel's ring holds its Q and dO so (TMA boxes of
+//     [64][64]).
 //   * 128-row tiles: a [128][D] bf16 tile is D/64 blocks of [128][64], 16 KB
 //     apart (kRowBlock), as TMA writes a box of 64 columns by 128 rows. The
-//     forward's Q, K and V and the dK/dV kernel's K and V are such tiles; a
+//     forward's Q, K and V, the dK/dV kernel's K and V and the dQ kernel's
+//     Q, dO, K and V are such tiles; a
 //     consumer warpgroup reads the 64 rows it owns 8 KB into each block (the
 //     swizzle repeats every 8 rows, 1024 bytes, so any 8-row offset keeps it).
 //
@@ -27,7 +29,8 @@
 // warpgroup a block, staging its own tiles by cp.async and waiting for each
 // product, left the tensor cores idle through every copy and softmax. The
 // redesigns (the forward at every shape but packed rows at D=64; dK/dV at
-// D=64 unsegmented, the 64-key kernel being faster elsewhere) share:
+// D=64 unsegmented, the 64-key kernel being faster elsewhere; dQ unsegmented
+// but non-causal at D=128) share:
 //   * The persistent schedule (sched_tile): one block an SM walks the tiles
 //     of the whole call, longest first across the grid (the tile order puts
 //     the longest causal rows first), taking them in rounds of gridDim.x in
@@ -58,8 +61,8 @@
 
 namespace {
 
-constexpr int kTile = 64;   // rows of a query tile and of a KV tile (dQ; the dK/dV query tile)
-constexpr int kStages = 2;  // depth of the dQ kernel's tile ring
+constexpr int kTile = 64;   // rows of a query tile and of a KV tile (the 64-row kernels)
+constexpr int kStages = 2;  // depth of the 64-row kernels' tile rings
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // finite start of the running max (the reference's DEFAULT_MASK_VALUE)

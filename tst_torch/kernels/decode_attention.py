@@ -6,25 +6,27 @@ The reference computes this attention in ``jnp`` inside its decode step
 the plain version, :func:`cache_attention_reference`, for CPU tensors, and
 launches ``tst_torch/csrc/decode_attention.cu`` for CUDA tensors (or raises:
 there is no fallback). The kernel sums over the visible slots by their rank
-in slot order, in a structure fixed by the ranks and their count, a query at
-a time, so a query's output is the same bits at any number of queries a call
-(a greedy step's T = 1, speculative decode's verify chunk's gamma + 1), any
-cache length, and wherever the masked slots sit: what makes speculative
-decode equal to greedy decode, token for token (ROADMAP §3, F1). Its header
-says how.
+in slot order, in a structure fixed by the ranks and their count
+(:func:`rank_plan`), so a query's output is the same bits at any number of
+queries a call (a greedy step's T = 1, speculative decode's verify chunk's
+gamma + 1), any cache length, and wherever the masked slots sit: what makes
+speculative decode equal to greedy decode, token for token (ROADMAP §3, F1).
+Its header says how.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from tst_torch.kernels import _build
 
-#: kernel launches made in this process
+#: calls of the kernel's C entry made in this process (one kernel, or two
+#: for a cache longer than a superchunk)
 LAUNCHES = 0
 #: the kernel's head dims, and the most cache slots its shared memory takes
 HEAD_DIMS = (64, 128)
@@ -97,12 +99,42 @@ def check_kernel_args(q, k, v, mask) -> None:
 
 
 @functools.lru_cache(maxsize=None)
+def rank_plan(d: int) -> Tuple[int, int]:
+    """(ranks a chunk, ranks a superchunk) of the kernel's sums at head dim
+    ``d``, as its C entry states them (needs the built kernel): the
+    structure every score, max, sum and p·v of a query follows. The plan
+    takes no S and no T, so a query's bits are the same in a greedy step, in
+    a verify chunk and in a longer cache; a cache longer than a superchunk
+    only takes the two-kernel path (:func:`scratch_bytes` > 0)."""
+    fn = getattr(_build.library(), _ENTRY + "_rank_plan")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    chunk, sup = ctypes.c_int(), ctypes.c_int()
+    if fn(d, ctypes.byref(chunk), ctypes.byref(sup)) != 0:
+        raise ValueError(f"the decode attention kernel takes D in {HEAD_DIMS}, not {d}")
+    return chunk.value, sup.value
+
+
+@functools.lru_cache(maxsize=None)
 def _entry():
     fn = getattr(_build.library(), _ENTRY)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                                                  ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_long] + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_bytes(b: int, t: int, s: int, h: int, kvh: int, d: int) -> int:
+    """The scratch bytes the C entry needs at this shape: 0 where it takes
+    one kernel (S at most a superchunk), else the two-kernel path's."""
+    fn = getattr(_build.library(), _ENTRY + "_scratch")
+    fn.restype = ctypes.c_long
+    fn.argtypes = [ctypes.c_int] * 6
+    nbytes = fn(b, t, s, h, kvh, d)
+    if nbytes < 0:
+        raise RuntimeError(f"{_ENTRY}_scratch refused ({b}, {t}, {s}, {h}, {kvh}, {d})")
+    return nbytes
 
 
 def _launch(q, k, v, mask) -> torch.Tensor:
@@ -110,9 +142,12 @@ def _launch(q, k, v, mask) -> torch.Tensor:
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    nbytes = scratch_bytes(b, t, s, h, kvh, d)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                   b, t, s, h, kvh, d, 1.0 / float(np.sqrt(d)), q.device.index,
-                   _build.current_stream(q.device))
+                   None if scratch is None else scratch.data_ptr(), nbytes,
+                   b, t, s, h, kvh, d, 1.0 / float(np.sqrt(d)),
+                   q.device.index, _build.current_stream(q.device))
     if err != 0:
         raise RuntimeError(f"{_ENTRY} failed with cudaError_t {err} (q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)})")

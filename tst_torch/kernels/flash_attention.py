@@ -12,10 +12,11 @@ The CUDA sources are ``tst_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu``; every product in both is a Hopper warpgroup
 ``wgmma`` on 128-byte-swizzled shared-memory tiles (``wgmma_sm90.cuh``,
 ``flash_sm90.cuh``; segments: ``seg_starts.cuh``). Their headers say what
-bounds them on the card and how the design answers. The forward and dK/dV
-kernels are persistent, warp-specialized and fed by TMA; the C entries take
-the 64-row forward for packed rows at D=64, and the 64-key dK/dV for packed
-rows and at D=128, where those are faster.
+bounds them on the card and how the design answers. The forward, dK/dV and
+dQ kernels are persistent, warp-specialized and fed by TMA; the C entries take
+the 64-row forward for packed rows at D=64, the 64-key dK/dV for packed rows
+and at D=128, and the 64-row dQ for packed rows and non-causal at D=128,
+where those are faster.
 
 ``flash_attention`` is differentiable on every device. For CUDA tensors its
 forward launches the forward kernel and its backward the dK/dV and dQ
