@@ -1,4 +1,4 @@
-"""Tracing and step timing (counterpart of ``tst/aux/profile.py``).
+"""Tracing and stage spans (counterpart of ``tst/aux/profile.py``).
 
 ``trace`` records a block with ``torch.profiler`` (CPU and, where there is a
 card, CUDA activities) and writes a Chrome trace and ``op_summary.json``,
@@ -8,21 +8,34 @@ of an XProf trace through ``tst/aux/xplane.py``, which has no counterpart
 here: the profiler writes the trace itself. The summary is read from the
 exported trace and not from ``key_averages()``, which rebuilds every event
 in Python: 13 s for 60,000 CPU ops against 0.6 s for the export, on one
-core of an x86 host. ``StepTimer`` synchronizes the
-card before it reads the clock. The reference's ``cost_analysis`` reads
-XLA's compiled cost, which eager torch does not have; the step's FLOPs
-come from ``tst_torch.aux.flops``.
+core of an x86 host. The reference's ``cost_analysis`` reads XLA's
+compiled cost, which eager torch does not have.
+
+``span`` marks a stage of the program (the train step's rows, forward,
+backward and optimizer; the scorer's rows, chunks, copy to the host and
+probabilities). Spans are kept only inside ``recording()``, in memory, and
+``take()`` hands them over: outside it, and outside ``trace``, a span
+tests two flags and returns a shared object that does nothing (no clock
+read, no allocation, no CUDA event, no ``record_function``). A recorded span has an ``id``, its
+``parent`` (the innermost span open when it opened), a ``name``, a
+``unit`` (the step or call it belongs to, inherited from the parent), a
+``kind`` (``work``, or ``wait`` where the host waits for the card), its
+start and end on the wall clock in ns (``time.time_ns``'s clock, which is
+the clock of a profiler trace's ``baseTimeNanoseconds``) and ``attrs``
+(rows, bytes). Under ``trace`` a span opens
+``torch.profiler.record_function``, kept or not, so the stages show as bars
+in the trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import time
 from typing import Any, Dict, List, Optional
 
-import numpy as np
 import torch
 
 TRACE_FILE = "trace.json"
@@ -33,6 +46,7 @@ SUMMARY_FILE = "op_summary.json"
 def trace(profile_dir: Optional[str]):
     """``with trace("/tmp/prof"):`` profiles the block into ``profile_dir``
     (``trace.json``, ``op_summary.json``); a no-op for None."""
+    global _HOST_PROFILE
     if not profile_dir:
         yield None
         return
@@ -44,9 +58,11 @@ def trace(profile_dir: Optional[str]):
     os.makedirs(profile_dir, exist_ok=True)
     prof = profile(activities=activities)
     prof.start()
+    _HOST_PROFILE = True
     try:
         yield prof
     finally:
+        _HOST_PROFILE = False
         if ProfilerActivity.CUDA in activities:
             torch.cuda.synchronize()
         prof.stop()
@@ -86,39 +102,97 @@ def write_op_summary(profile_dir: str, device: bool, top: int = 60) -> str:
     return out
 
 
-class StepTimer:
-    """Per-step wall timing with warmup discard; a hard sync on demand (a
-    CUDA tensor synchronizes its card, anything else is read to the host)."""
+# -- stage spans --------------------------------------------------------------
 
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self._times: List[float] = []
-        self._t0: Optional[float] = None
-        self._n = 0
+#: spans are kept (``recording()`` is open)
+_ON = False
+#: ``trace`` is profiling the host: a span opens ``record_function``
+_HOST_PROFILE = False
+_SPANS: List[Dict[str, Any]] = []
+#: the open spans' records, innermost last
+_OPEN: List[Dict[str, Any]] = []
+_IDS = itertools.count()
+#: wall-clock ns less ``perf_counter`` ns, taken when ``recording()`` opened
+_OFFSET_NS = 0
 
-    def start(self):
-        self._t0 = time.perf_counter()
 
-    def stop(self, sync_value=None):
-        if isinstance(sync_value, torch.Tensor) and sync_value.device.type == "cuda":
-            torch.cuda.synchronize(sync_value.device)
-        elif sync_value is not None:
-            np.asarray(sync_value)  # force host materialization
-        dt = time.perf_counter() - self._t0
-        self._n += 1
-        if self._n > self.warmup:
-            self._times.append(dt)
-        return dt
+class _Off:
+    """The span of a stage while nothing is kept."""
 
-    @property
-    def mean(self) -> float:
-        return sum(self._times) / len(self._times) if self._times else float("nan")
+    __slots__ = ()
 
-    def summary(self) -> Dict[str, float]:
-        t = np.asarray(self._times) if self._times else np.asarray([float("nan")])
-        return {
-            "steps_timed": len(self._times),
-            "mean_s": float(t.mean()),
-            "p50_s": float(np.percentile(t, 50)),
-            "p95_s": float(np.percentile(t, 95)),
-        }
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("rec", "fn")
+
+    def __init__(self, name: str, unit, kind: str, attrs: Dict[str, Any]):
+        parent = _OPEN[-1] if _OPEN else None
+        if unit is None and parent is not None:
+            unit = parent["unit"]
+        self.rec = {"id": next(_IDS), "parent": None if parent is None else parent["id"],
+                    "name": name, "unit": unit, "kind": kind, "start_ns": 0, "end_ns": 0,
+                    "attrs": attrs}
+        self.fn = None
+
+    def __enter__(self):
+        rec = self.rec
+        _SPANS.append(rec)
+        _OPEN.append(rec)
+        rec["start_ns"] = time.perf_counter_ns()
+        if _HOST_PROFILE:
+            self.fn = torch.profiler.record_function(rec["name"])
+            self.fn.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.fn is not None:
+            self.fn.__exit__(*exc)
+        self.rec["end_ns"] = time.perf_counter_ns()
+        _OPEN.pop()
+        return False
+
+
+def span(name: str, unit=None, kind: str = "work", **attrs):
+    """``with span("train.forward"):`` marks a stage; kept only inside
+    :func:`recording`, a bar of the trace inside :func:`trace`. ``unit``: the step or call (children inherit their
+    parent's); ``kind``: ``"work"``, or ``"wait"`` where the host waits for
+    the card (a copy from pageable memory, a copy to the host)."""
+    if _ON:
+        return _Span(name, unit, kind, attrs)
+    if _HOST_PROFILE:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+@contextlib.contextmanager
+def recording():
+    """Keeps the spans of the block (those kept before and not taken are
+    dropped); :func:`take` hands them over."""
+    global _ON, _OFFSET_NS, _IDS
+    _SPANS.clear()
+    _OPEN.clear()
+    _IDS = itertools.count()
+    _OFFSET_NS = time.time_ns() - time.perf_counter_ns()
+    _ON = True
+    try:
+        yield
+    finally:
+        _ON = False
+
+
+def take() -> List[Dict[str, Any]]:
+    """The spans kept so far (in the order they opened, times on the wall
+    clock in ns; a span still open has no end yet), and none kept after."""
+    out = [dict(rec, start_ns=rec["start_ns"] + _OFFSET_NS,
+                end_ns=rec["end_ns"] + _OFFSET_NS if rec["end_ns"] else None) for rec in _SPANS]
+    _SPANS.clear()
+    return out

@@ -28,11 +28,13 @@ same tokens, the draft base-weighted and shared by every fold.
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tst_torch.aux.profile import span
 from tst_torch.data.packing import pack_rows, padding_seg_row
 from tst_torch.eval.metrics import MRA_THRESHOLDS, open_exact_match
 from tst_torch.models.decode import decode_numeric, decode_text, greedy_decode
@@ -87,6 +89,14 @@ def _data_share(rows: torch.Tensor, mesh) -> torch.Tensor:
     return rows[mesh.index("data") * per: (mesh.index("data") + 1) * per]
 
 
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    """``a`` as a long tensor on ``device``; from host memory that is a
+    pageable copy, which waits for the card's queue."""
+    t = torch.as_tensor(a, dtype=torch.long)
+    with span("score.rows.to_device", kind="wait", bytes=t.numel() * t.element_size()):
+        return t.to(device)
+
+
 def _chunked_fold_scorer(per_batch, batch: int, mesh=None):
     """The fold and chunk loop the MCQ scorers share: ``score(base,
     lora_k|None, tokens, answer_pos, opt, idx_kM)`` → f32 [k, M, C], each
@@ -100,8 +110,8 @@ def _chunked_fold_scorer(per_batch, batch: int, mesh=None):
 
     def score(base, lora_k, tokens, answer_pos, opt, idx_kM):
         device = tokens.device
-        opt = torch.as_tensor(opt, dtype=torch.long, device=device)
-        idx = torch.as_tensor(idx_kM, dtype=torch.long, device=device)
+        with span("score.rows"):
+            opt, idx = (_to_device(a, device) for a in (opt, idx_kM))
         k, m = idx.shape
         per = batch * (mesh.size("data") if mesh is not None else 1)
         idx = torch.nn.functional.pad(idx, (0, (-m) % per))
@@ -113,9 +123,10 @@ def _chunked_fold_scorer(per_batch, batch: int, mesh=None):
                 chunks = []
                 for idx_c in idx[f].split(per):
                     idx_b = _data_share(idx_c, mesh)
-                    chunks.append(mesh_mod.gather_leaf(
-                        per_batch(base, lora, tokens[idx_b], answer_pos[idx_b].long(), opt),
-                        ("data",), mesh))
+                    with span("score.chunk", fold=f, rows=idx_b.shape[0]):
+                        chunks.append(mesh_mod.gather_leaf(
+                            per_batch(base, lora, tokens[idx_b], answer_pos[idx_b].long(), opt),
+                            ("data",), mesh))
                 out.append(torch.cat(chunks)[:m])
         got = torch.stack(out)  # [folds, M, C]
         return mesh_mod.gather_folds(got, mesh) if len(folds) < k else got
@@ -204,6 +215,16 @@ def make_mcq_scorer_multitoken(
     return _chunked_fold_scorer(option_logprobs, batch, mesh)
 
 
+def _to_host(ll: torch.Tensor) -> np.ndarray:
+    """The letter logits on the host: the copy waits for the card."""
+    with span("score.to_host", kind="wait", bytes=ll.numel() * ll.element_size()):
+        return ll.cpu().numpy()
+
+
+#: the scoring calls of this process, each a unit of the scorer's spans
+_CALLS = itertools.count()
+
+
 def letter_probs(
     letter_logits: np.ndarray,  # [k, M, C]
     n_options: np.ndarray,  # [N]
@@ -254,16 +275,19 @@ def score_heldout_mcq(
     at most 8 rows. ``batch``: rows a chunk, by default
     :func:`scorer_batch` of the row length. ``mesh``: this rank's shards;
     every rank gets the whole result."""
-    batch = batch or scorer_batch(tokens.shape[1])
-    idx, valid = heldout_index_grid(fold_id, k, pad_to=pad_to)
-    if option_seqs is not None and option_seqs.shape[-1] > 1:
-        scorer = make_mcq_scorer_multitoken(spec, lora_spec, use_pallas, batch=min(batch, 8),
-                                            mesh=mesh)
-        ll = scorer(base, lora_k, tokens, answer_pos, option_seqs, idx)
-    else:
-        scorer = make_mcq_scorer(spec, lora_spec, use_pallas, batch, mesh=mesh)
-        ll = scorer(base, lora_k, tokens, answer_pos, option_ids, idx)
-    return letter_probs(ll.cpu().numpy(), n_options, idx, valid, tokens.shape[0])
+    with span("score.call", unit=next(_CALLS)):
+        batch = batch or scorer_batch(tokens.shape[1])
+        idx, valid = heldout_index_grid(fold_id, k, pad_to=pad_to)
+        if option_seqs is not None and option_seqs.shape[-1] > 1:
+            scorer = make_mcq_scorer_multitoken(spec, lora_spec, use_pallas,
+                                                batch=min(batch, 8), mesh=mesh)
+            ll = scorer(base, lora_k, tokens, answer_pos, option_seqs, idx)
+        else:
+            scorer = make_mcq_scorer(spec, lora_spec, use_pallas, batch, mesh=mesh)
+            ll = scorer(base, lora_k, tokens, answer_pos, option_ids, idx)
+        ll = _to_host(ll)
+        with span("score.probs"):
+            return letter_probs(ll, n_options, idx, valid, tokens.shape[0])
 
 
 def pack_heldout_mcq(tb, fold_id: np.ndarray, k: int, pack_len: int, batch: int,
@@ -328,7 +352,8 @@ def make_mcq_scorer_packed(
 
     def score(base, lora_k, ptokens, ppos, psegs, option_ids):
         k, r, s = ptokens.shape
-        opt = torch.as_tensor(option_ids, dtype=torch.long, device=ptokens.device)
+        with span("score.rows"):
+            opt = _to_device(option_ids, ptokens.device)
         per = batch * (mesh.size("data") if mesh is not None else 1)
         folds = _scored_folds(lora_k, k, mesh)
         out = []
@@ -339,13 +364,15 @@ def make_mcq_scorer_packed(
                 for c0 in range(0, r, per):
                     rows = _data_share(torch.arange(c0, min(c0 + per, r),
                                                     device=ptokens.device), mesh)
-                    h = apply_model(base, ptokens[f, rows], spec, lora=lora,
-                                    lora_spec=lora_spec, use_pallas=use_pallas,
-                                    return_hidden=True, seg_starts=psegs[f, rows], mesh=mesh)
-                    pos = ppos[f, rows].long().clamp(0, s - 1)  # [b, G]
-                    h_at = h.gather(1, pos[..., None].expand(-1, -1, h.shape[-1]))
-                    chunks.append(mesh_mod.gather_leaf(
-                        _letter_logits(h_at, base, spec, opt, mesh), ("data",), mesh))
+                    with span("score.chunk", fold=f, rows=rows.shape[0]):
+                        h = apply_model(base, ptokens[f, rows], spec, lora=lora,
+                                        lora_spec=lora_spec, use_pallas=use_pallas,
+                                        return_hidden=True, seg_starts=psegs[f, rows],
+                                        mesh=mesh)
+                        pos = ppos[f, rows].long().clamp(0, s - 1)  # [b, G]
+                        h_at = h.gather(1, pos[..., None].expand(-1, -1, h.shape[-1]))
+                        chunks.append(mesh_mod.gather_leaf(
+                            _letter_logits(h_at, base, spec, opt, mesh), ("data",), mesh))
                 out.append(torch.cat(chunks))
         got = torch.stack(out)  # [folds, R, G, C]
         return mesh_mod.gather_folds(got, mesh) if len(folds) < k else got
@@ -370,18 +397,22 @@ def score_heldout_mcq_packed(
     probabilities [N, C]; non-MCQ rows and rows whose fold id is outside
     [0, k) keep prob 0. Single-token options only. The packed rows are
     built on the host and moved to the weights' device."""
-    b = batch or packed_scorer_batch(pack_len)
-    data = mesh.size("data") if mesh is not None else 1
-    ptokens, ppos, psegs, srows = pack_heldout_mcq(tb, fold_id, k, pack_len, b * data)
-    device = _device_of(base)
-    scorer = make_mcq_scorer_packed(spec, lora_spec, use_pallas, batch=b, mesh=mesh)
-    ll = scorer(base, lora_k, *(torch.from_numpy(a).to(device) for a in (ptokens, ppos, psegs)),
-                tb.option_token_ids)
-    kk, r, g, c = ll.shape
-    flat = ll.cpu().numpy().reshape(kk, r * g, c)
-    idx = srows.reshape(kk, r * g)
-    valid = idx >= 0
-    return letter_probs(flat, tb.n_options, np.where(valid, idx, 0), valid, tb.n)
+    with span("score.call", unit=next(_CALLS)):
+        b = batch or packed_scorer_batch(pack_len)
+        data = mesh.size("data") if mesh is not None else 1
+        ptokens, ppos, psegs, srows = pack_heldout_mcq(tb, fold_id, k, pack_len, b * data)
+        device = _device_of(base)
+        scorer = make_mcq_scorer_packed(spec, lora_spec, use_pallas, batch=b, mesh=mesh)
+        with span("score.rows"), span("score.rows.to_device", kind="wait",
+                                      bytes=ptokens.nbytes + ppos.nbytes + psegs.nbytes):
+            packed = [torch.from_numpy(a).to(device) for a in (ptokens, ppos, psegs)]
+        ll = scorer(base, lora_k, *packed, tb.option_token_ids)
+        kk, r, g, c = ll.shape
+        flat = _to_host(ll).reshape(kk, r * g, c)
+        with span("score.probs"):
+            idx = srows.reshape(kk, r * g)
+            valid = idx >= 0
+            return letter_probs(flat, tb.n_options, np.where(valid, idx, 0), valid, tb.n)
 
 
 def score_all_mcq(

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from tst_torch.aux import ckpt as ckpt_mod
+from tst_torch.aux.profile import span
 from tst_torch.models.decoder import apply_model, check_remat, check_tensor_widths, head_logits
 from tst_torch.runtime import mesh as mesh_mod
 from tst_torch.models.lora import DropoutKey, LoraSpec, MaskFn, dropout_mask, fold_count, init_lora
@@ -417,24 +418,26 @@ class FoldTrainer:
             rows = ((self.mesh.index("data"), self.mesh.size("data"))
                     if self.mesh is not None else None)
             lora_rng = DropoutKey(tuple(self.folds), int(step), self.dropout_masks, rows=rows)
-        params = tree_map(lambda t: t.detach().requires_grad_(True), lora)
-        tokens, mask = tokens.reshape(k * b, s), mask.reshape(k * b, s)
-        pos = pos.reshape(k * b, *pos.shape[2:])
-        if segs is not None:
-            segs = segs.reshape(k * b, -1)
-        kw = dict(remat=self.remat, ring_mesh=self.ring_mesh, fused_mlp=self.fused_mlp,
-                  lora_rng=lora_rng, seg_starts=segs, mesh=self.mesh)
-        if self.t_max is None:
-            losses = sft_loss(base, params, tokens, mask, self.spec, self.lora_spec,
-                              self.use_pallas, **kw)
-        else:
-            losses = sft_loss_window(base, params, tokens, mask, pos, self.t_max, self.spec,
-                                     self.lora_spec, self.use_pallas, **kw)
-        leaves = tree_leaves(params)
-        grads = torch.autograd.grad(losses.sum(), leaves)
-        by_id = {id(leaf): g for leaf, g in zip(leaves, grads)}
-        grads = mesh_mod.reduce_grads(tree_map(lambda t: by_id[id(t)], params), self.mesh,
-                                      ring=self.ring_mesh is not None)
+        with span("train.forward"):
+            params = tree_map(lambda t: t.detach().requires_grad_(True), lora)
+            tokens, mask = tokens.reshape(k * b, s), mask.reshape(k * b, s)
+            pos = pos.reshape(k * b, *pos.shape[2:])
+            if segs is not None:
+                segs = segs.reshape(k * b, -1)
+            kw = dict(remat=self.remat, ring_mesh=self.ring_mesh, fused_mlp=self.fused_mlp,
+                      lora_rng=lora_rng, seg_starts=segs, mesh=self.mesh)
+            if self.t_max is None:
+                losses = sft_loss(base, params, tokens, mask, self.spec, self.lora_spec,
+                                  self.use_pallas, **kw)
+            else:
+                losses = sft_loss_window(base, params, tokens, mask, pos, self.t_max, self.spec,
+                                         self.lora_spec, self.use_pallas, **kw)
+        with span("train.backward"):
+            leaves = tree_leaves(params)
+            grads = torch.autograd.grad(losses.sum(), leaves)
+            by_id = {id(leaf): g for leaf, g in zip(leaves, grads)}
+            grads = mesh_mod.reduce_grads(tree_map(lambda t: by_id[id(t)], params), self.mesh,
+                                          ring=self.ring_mesh is not None)
         return mesh_mod.sum_over(losses.detach(), self.mesh, ["data"]), grads
 
     def batch_loss_and_grads(self, base: Params, lora: Params, all_tokens: torch.Tensor,
@@ -444,13 +447,17 @@ class FoldTrainer:
         """:meth:`loss_and_grads` on rows ``idx_kb`` [k, B] of the whole
         arrays (:meth:`step`'s layout), gathered on the device: this rank's
         folds and share of the rows."""
-        idx = torch.as_tensor(self._rows(idx_kb), dtype=torch.long).to(all_tokens.device)
-        if self.packed:
-            ka = torch.arange(self.folds.start, self.folds.stop, device=idx.device)[:, None]
-            idx = (ka, idx)
-        segs = None if all_segs is None else all_segs[idx]
-        return self.loss_and_grads(base, lora, all_tokens[idx], all_mask[idx], all_pos[idx],
-                                   segs, step=step)
+        with span("train.rows"):
+            rows = self._rows(idx_kb)
+            # a copy from pageable memory: the host waits for the card's queue
+            with span("train.rows.to_device", kind="wait", bytes=8 * rows.size):
+                idx = torch.as_tensor(rows, dtype=torch.long).to(all_tokens.device)
+            if self.packed:
+                ka = torch.arange(self.folds.start, self.folds.stop, device=idx.device)[:, None]
+                idx = (ka, idx)
+            segs = None if all_segs is None else all_segs[idx]
+            tokens, mask, pos = all_tokens[idx], all_mask[idx], all_pos[idx]
+        return self.loss_and_grads(base, lora, tokens, mask, pos, segs, step=step)
 
     def step(self, base: Params, lora: Params, opt_state: AdamWState,
              all_tokens: torch.Tensor, all_mask: torch.Tensor, all_pos: torch.Tensor,
@@ -463,12 +470,15 @@ class FoldTrainer:
         ``lora_spec.dropout > 0``) follow the optimizer's count, which the
         checkpoint restores. Under a mesh the step runs this rank's folds and
         rows, and the losses are this rank's folds'."""
-        losses, grads = self.batch_loss_and_grads(base, lora, all_tokens, all_mask, all_pos,
-                                                  idx_kb, all_segs, step=opt_state.count)
-        if DEBUG_NANS:
-            check_finite(losses, grads, step=opt_state.count, fold0=self.folds.start)
-        updates, opt_state = self.tx.update(grads, opt_state, lora)
-        return apply_updates(lora, updates), opt_state, losses
+        with span("train.step", unit=opt_state.count):
+            losses, grads = self.batch_loss_and_grads(base, lora, all_tokens, all_mask, all_pos,
+                                                      idx_kb, all_segs, step=opt_state.count)
+            if DEBUG_NANS:
+                check_finite(losses, grads, step=opt_state.count, fold0=self.folds.start)
+            with span("train.optimizer"):
+                updates, opt_state = self.tx.update(grads, opt_state, lora)
+                lora = apply_updates(lora, updates)
+        return lora, opt_state, losses
 
     def save(self, checkpoint_dir: str, lora: Params, opt_state: AdamWState,
              step: int) -> None:
